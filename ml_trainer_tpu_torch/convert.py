@@ -1,0 +1,88 @@
+"""Weights for the port's GPT-2: converted from the JAX package's flax
+params, or drawn from a seed.
+
+``params_from_jax`` takes the flax param tree of the JAX package's
+``GPT2`` as a nested dict of numpy arrays (no JAX needed to call it)
+and returns a ``state_dict`` for the port's ``GPT2``:
+
+* Dense ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in];
+* LayerNorm ``scale`` -> ``weight``;
+* ``tok_embed.embedding`` -> ``tok_embed.weight`` (the tied head reads
+  it too), ``pos_embed`` as it is;
+* ``block{i}`` -> ``blocks.{i}``.
+
+``init_gpt2`` builds a registered GPT-2 with weights drawn from a seeded
+CPU ``torch.Generator`` (the same numbers on every device): normal(0.02)
+for the projections and the token embedding, normal(0.01) for the
+positions (the reference's initializer), zero biases, unit LayerNorm
+scales.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ml_trainer_tpu_torch.models.registry import get_model
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def _linear(prefix: str, tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _f32(tree["kernel"]).T.contiguous()
+    out[f"{prefix}.bias"] = _f32(tree["bias"])
+
+
+def _layernorm(prefix: str, tree: Mapping,
+               out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _f32(tree["scale"])
+    out[f"{prefix}.bias"] = _f32(tree["bias"])
+
+
+def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax GPT2 params (nested dict of numpy arrays; a ``{"params": ...}``
+    wrapper is accepted) -> the port's GPT2 ``state_dict`` (CPU tensors)."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    out["tok_embed.weight"] = _f32(params["tok_embed"]["embedding"])
+    out["pos_embed"] = _f32(params["pos_embed"])
+    depth = sum(1 for k in params if k.startswith("block"))
+    for i in range(depth):
+        blk = params[f"block{i}"]
+        pre = f"blocks.{i}"
+        _layernorm(f"{pre}.ln1", blk["ln1"], out)
+        _layernorm(f"{pre}.ln2", blk["ln2"], out)
+        _linear(f"{pre}.attn.qkv", blk["attn"]["qkv"], out)
+        _linear(f"{pre}.attn.proj", blk["attn"]["proj"], out)
+        _linear(f"{pre}.mlp.fc_in", blk["mlp"]["fc_in"], out)
+        _linear(f"{pre}.mlp.fc_out", blk["mlp"]["fc_out"], out)
+    _layernorm("ln_final", params["ln_final"], out)
+    return out
+
+
+@torch.no_grad()
+def init_gpt2(config="gpt2", seed: int = 0, device=None, **kwargs):
+    """A registered GPT-2 (``config``: registry name, or a dict with
+    ``name`` plus constructor kwargs) with weights drawn from
+    ``torch.Generator().manual_seed(seed)``."""
+    if isinstance(config, Mapping):
+        kwargs = {**{k: v for k, v in config.items() if k != "name"},
+                  **kwargs}
+        config = config.get("name", "gpt2")
+    model = get_model(config, device=device, **kwargs)
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if name.endswith("bias"):
+            vals = torch.zeros(p.shape)
+        elif ".ln" in name or name.startswith("ln_"):
+            vals = torch.ones(p.shape)
+        else:
+            std = 0.01 if name == "pos_embed" else 0.02
+            vals = torch.randn(p.shape, generator=gen) * std
+        p.copy_(vals)
+    return model

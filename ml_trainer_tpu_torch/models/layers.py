@@ -1,0 +1,289 @@
+"""Transformer building blocks in PyTorch, with the JAX package's two
+decode caches.
+
+All attention goes through ``ops.attention``, so the flash kernel and
+the plain path sit behind one module.  Numerics follow flax's defaults,
+which differ from PyTorch's: LayerNorm epsilon is 1e-6 (PyTorch: 1e-5)
+and GELU is the tanh approximation (PyTorch: exact erf).  Weights are
+``nn.Linear``'s [out, in]; ``convert.params_from_jax`` transposes the
+flax [in, out] kernels.
+
+Decode caches.  The JAX package keeps K/V in a flax ``cache``
+collection that every call returns anew; here the cache is an explicit
+object of tensors that the forward UPDATES IN PLACE (writes at each
+row's position, then ``advance``).  Two layouts, as in the reference:
+
+* ``ContiguousKVCache``: per layer [B, H, L, D] and a per-row position
+  vector.  A call with S > 1 is the PREFILL of an empty cache (plain
+  causal attention over the prompt itself, the flash kernel's route);
+  S == 1 is the decode step over the valid prefix ``arange(L) <= idx``.
+* ``PagedKVCache``: per layer one pool [N, H, page, D] shared by every
+  row, a per-row page table [B, P] and positions.  Writes scatter the
+  length-S window at each row's own offset (positions at or past L go
+  to the trash page 0); reads either gather the pages back into logical
+  order for the plain path, or, when the cache's ``paged_kernel`` is
+  set and S == 1, run the paged-attention kernel on the pool directly.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ml_trainer_tpu_torch.ops.attention import attention
+from ml_trainer_tpu_torch.ops.kernels.paged_attention import paged_attention
+
+# flax.linen.LayerNorm's default epsilon.
+LN_EPS = 1e-6
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu`` (approximate=True): the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+class ContiguousKVCache:
+    """Per-row contiguous K/V ([B, H, L, D] per layer) plus each row's
+    position; the model's forward writes and advances it in place."""
+
+    paged = False
+
+    def __init__(self, depth: int, batch: int, heads: int, max_len: int,
+                 head_dim: int, dtype=torch.float32, device=None):
+        shape = (batch, heads, max_len, head_dim)
+        self.k: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=dtype, device=device) for _ in range(depth)
+        ]
+        self.v: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=dtype, device=device) for _ in range(depth)
+        ]
+        self.max_len = max_len
+        self.index = torch.zeros(batch, dtype=torch.long, device=device)
+
+    def advance(self, s: int) -> None:
+        self.index += s
+
+
+class PagedKVCache:
+    """One K/V page pool per layer ([N, H, page, D], page 0 the trash
+    page), a per-row page table and per-row positions; updated in place."""
+
+    paged = True
+
+    def __init__(self, depth: int, num_pages: int, heads: int,
+                 page_size: int, head_dim: int, batch: int, max_len: int,
+                 paged_kernel: bool = False, dtype=torch.float32,
+                 device=None):
+        if max_len % page_size:
+            raise ValueError(
+                f"max_len ({max_len}) must be a multiple of page_size "
+                f"({page_size})"
+            )
+        if num_pages < 2:
+            raise ValueError(
+                f"num_pages must be >= 2 (page 0 is the trash page), got "
+                f"{num_pages}"
+            )
+        shape = (num_pages, heads, page_size, head_dim)
+        self.k = [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(depth)]
+        self.v = [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(depth)]
+        self.page_size = page_size
+        self.max_len = max_len
+        # S == 1 reads go through the paged-attention kernel.
+        self.paged_kernel = paged_kernel
+        self.table = torch.zeros((batch, max_len // page_size),
+                                 dtype=torch.int32, device=device)
+        self.index = torch.zeros(batch, dtype=torch.long, device=device)
+
+    def view(self, table: torch.Tensor, index: torch.Tensor) -> "PagedKVCache":
+        """A cache over the SAME pools with other rows' table and
+        positions (the engine's batch-1 continuation prefill): writes
+        through the view land in the shared pools."""
+        out = PagedKVCache.__new__(PagedKVCache)
+        out.k, out.v = self.k, self.v
+        out.page_size, out.max_len = self.page_size, self.max_len
+        out.paged_kernel = self.paged_kernel
+        out.table, out.index = table, index
+        return out
+
+    def advance(self, s: int) -> None:
+        self.index += s
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention over [B, S, E] with a fused QKV projection."""
+
+    def __init__(self, embed_dim: int, num_heads: int, causal: bool = False,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.causal = causal
+        self.qkv = nn.Linear(embed_dim, 3 * embed_dim, device=device,
+                             dtype=dtype)
+        self.proj = nn.Linear(embed_dim, embed_dim, device=device, dtype=dtype)
+
+    def forward(self, x, cache=None, layer: int = 0, mask=None,
+                kv_lens=None, attention_impl: str = "auto"):
+        b, s, e = x.shape
+        q, k, v = self.qkv(x).split(e, dim=-1)
+
+        def heads(t):  # [B, S, E] -> [B, H, S, D]
+            return t.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        if cache is None:
+            out = attention(q, k, v, causal=self.causal, mask=mask,
+                            kv_lens=kv_lens, implementation=attention_impl)
+        else:
+            if mask is not None or kv_lens is not None:
+                raise ValueError(
+                    "decode mode attends the cached prefix; mask/kv_lens "
+                    "are not supported"
+                )
+            if cache.paged:
+                out = self._paged_step(q, k, v, cache, layer)
+            else:
+                out = self._contiguous_step(q, k, v, cache, layer,
+                                            attention_impl)
+        out = out.transpose(1, 2).reshape(b, s, e)
+        return self.proj(out)
+
+    def _contiguous_step(self, q, k, v, cache, layer, attention_impl):
+        b, h, s, d = q.shape
+        idx = cache.index
+        L = cache.max_len
+        ck, cv = cache.k[layer], cache.v[layer]
+        if s > 1:
+            # Prefill of an EMPTY cache: causal attention over the prompt
+            # itself, K/V landing at positions [0, s).  A warm-cache
+            # multi-token call would ignore the cached prefix, so its
+            # output is poisoned to NaN, as in the JAX package.
+            if s > L:
+                raise ValueError(f"prefill of {s} tokens exceeds the cache "
+                                 f"length {L}")
+            ck[:, :, :s] = k.to(ck.dtype)
+            cv[:, :, :s] = v.to(cv.dtype)
+            q = torch.where((idx == 0)[:, None, None, None], q,
+                            torch.full_like(q, float("nan")))
+            return attention(q, k, v, causal=True,
+                             implementation=attention_impl)
+        rows = torch.arange(b, device=q.device)
+        # Clamped like lax.dynamic_update_slice: rows that ran past the
+        # end (inactive slots) rewrite the last position nobody reads.
+        pos = torch.clamp(idx, max=L - 1)
+        ck[rows, :, pos] = k[:, :, 0].to(ck.dtype)
+        cv[rows, :, pos] = v[:, :, 0].to(cv.dtype)
+        valid = (torch.arange(L, device=q.device)[None, :]
+                 <= idx[:, None])[:, None, None, :]
+        return attention(q, ck, cv, causal=False, mask=valid,
+                         implementation="xla")
+
+    def _paged_step(self, q, k, v, cache, layer):
+        b, h, s, d = q.shape
+        ps, L = cache.page_size, cache.max_len
+        P = L // ps
+        idx, table = cache.index, cache.table
+        pool_k, pool_v = cache.k[layer], cache.v[layer]
+
+        # -- write: scatter the window at each row's own offset ----------
+        positions = idx[:, None] + torch.arange(s, device=q.device)[None, :]
+        page_slot = torch.clamp(positions // ps, 0, P - 1)
+        page_ids = torch.where(
+            positions < L,
+            torch.gather(table.long(), 1, page_slot),
+            torch.zeros_like(positions),
+        ).reshape(-1)
+        offs = (positions % ps).reshape(-1)
+        pool_k[page_ids, :, offs] = (
+            k.transpose(1, 2).reshape(b * s, h, d).to(pool_k.dtype))
+        pool_v[page_ids, :, offs] = (
+            v.transpose(1, 2).reshape(b * s, h, d).to(pool_v.dtype))
+
+        # -- read ---------------------------------------------------------
+        if cache.paged_kernel and s == 1:
+            # This step's token is included: lengths = idx + 1.
+            out = paged_attention(q[:, :, 0, :], pool_k, pool_v, table,
+                                  (idx + 1).to(torch.int32))
+            return out[:, :, None, :]
+        tl = table.long()
+
+        def gather(pool):  # [B, P, H, page, D] -> [B, H, L, D]
+            return pool[tl].permute(0, 2, 1, 3, 4).reshape(b, h, L, d)
+
+        valid = (
+            torch.arange(L, device=q.device)[None, None, :]
+            <= positions[:, :, None]
+        )[:, None, :, :]
+        return attention(q, gather(pool_k), gather(pool_v), causal=False,
+                         mask=valid, implementation="xla")
+
+
+class MLP(nn.Module):
+    """Transformer feed-forward block (tanh GELU, as flax's nn.gelu)."""
+
+    def __init__(self, embed_dim: int, hidden_dim: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.fc_in = nn.Linear(embed_dim, hidden_dim, device=device,
+                               dtype=dtype)
+        self.fc_out = nn.Linear(hidden_dim, embed_dim, device=device,
+                                dtype=dtype)
+
+    def forward(self, x):
+        return self.fc_out(gelu(self.fc_in(x)))
+
+
+def _refuse_unported(dropout_rate=0.0, moe_experts=0, lora_rank=0,
+                     quant_int8=False) -> None:
+    for knob, value in (("dropout_rate", dropout_rate),
+                        ("moe_experts", moe_experts),
+                        ("lora_rank", lora_rank),
+                        ("quant_int8", quant_int8)):
+        if value:
+            raise NotImplementedError(
+                f"{knob}={value!r} is not ported yet; see ROADMAP.md "
+                "Queue A"
+            )
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN transformer block (GPT-2); ``post_norm`` is the BERT
+    arrangement.  Dropout, MoE, LoRA and int8 are not ported yet and are
+    refused."""
+
+    def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
+                 causal: bool = False, post_norm: bool = False, device=None,
+                 dtype=torch.float32, dropout_rate: float = 0.0,
+                 moe_experts: int = 0, lora_rank: int = 0,
+                 quant_int8: bool = False):
+        super().__init__()
+        _refuse_unported(dropout_rate, moe_experts, lora_rank, quant_int8)
+        self.post_norm = post_norm
+        self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device,
+                                dtype=dtype)
+        self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device,
+                                dtype=dtype)
+        self.attn = MultiHeadAttention(embed_dim, num_heads, causal=causal,
+                                       device=device, dtype=dtype)
+        self.mlp = MLP(embed_dim, mlp_dim, device=device, dtype=dtype)
+
+    def forward(self, x, cache=None, layer: int = 0, mask=None, kv_lens=None,
+                attention_impl: str = "auto"):
+        def attn(y):
+            return self.attn(y, cache, layer, mask=mask, kv_lens=kv_lens,
+                             attention_impl=attention_impl)
+
+        if self.post_norm:
+            x = self.ln1(x + attn(x))
+            return self.ln2(x + self.mlp(x))
+        x = x + attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels (sources in ``ml_trainer_tpu_torch/csrc/``).
+
+Each kernel's wrapper takes its plain PyTorch version for a CPU tensor and
+launches the kernel for a CUDA tensor (or raises); ``_build`` compiles the
+sources with ``nvcc`` at first use.
+"""
+
+from ml_trainer_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention,
+    paged_attention_reference,
+)
+
+__all__ = ["paged_attention", "paged_attention_reference"]

@@ -1,0 +1,91 @@
+"""Paged-attention decode: the page-table gather fused into attention.
+
+The serving engine's paged decode step attends each row's single query
+against K/V scattered across a shared page pool.  The plain path
+(``paged_attention_reference``) materializes ``pool[table]`` in logical
+order and runs ``dot_product_attention`` under the validity mask; the
+CUDA kernel (``csrc/paged_attention.cu``) streams the pages straight
+from the pool instead.
+
+Layout contract (owned by serving/kv_pool.py and models/layers.py, the
+same as the JAX package's): ``k_pool``/``v_pool`` are [N, H, page, D]
+with page 0 the trash page; ``table`` is [B, P] int32; ``lengths`` is
+[B] int32 with ``lengths[b] >= 1`` (the engine passes
+``cache_index + 1``).  Positions at or past ``lengths[b]`` are masked.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ml_trainer_tpu_torch.device import count_launch
+from ml_trainer_tpu_torch.ops.attention import dot_product_attention
+
+
+def paged_attention_reference(q, k_pool, v_pool, table, lengths, *,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Gather + masked dot-product attention.  q: [B, H, D]; pools:
+    [N, H, page, D]; table: [B, P]; lengths: [B].  Returns [B, H, D]."""
+    b, h, d = q.shape
+    ps = k_pool.shape[2]
+    L = table.shape[-1] * ps
+    table = table.long()
+
+    def gather(pool):  # [B, P, H, page, D] -> [B, H, L, D]
+        return pool[table].permute(0, 2, 1, 3, 4).reshape(b, h, L, d)
+
+    pos = torch.arange(L, device=q.device)
+    valid = (pos[None, :] < lengths.to(q.device)[:, None])[:, None, None, :]
+    out = dot_product_attention(q[:, :, None, :], gather(k_pool),
+                                gather(v_pool), mask=valid, scale=scale)
+    return out[:, :, 0, :]
+
+
+def _paged_kernel(q, k_pool, v_pool, table, lengths, scale):
+    from ml_trainer_tpu_torch.ops.kernels._build import check, load
+
+    b, h, d = q.shape
+    n, h_pool, ps, d_pool = k_pool.shape
+    if (h_pool, d_pool) != (h, d):
+        raise ValueError(f"pool shape {k_pool.shape} does not match q {q.shape}")
+    if any(t.dtype != torch.float32 for t in (q, k_pool, v_pool)):
+        raise TypeError("paged attention kernel takes float32 q and pools")
+    if d not in (32, 64, 128):
+        raise ValueError(f"paged attention kernel takes head_dim 32, 64 or "
+                         f"128, got {d}")
+    if table.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"table {tuple(table.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {b}")
+    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
+    table = table.to(device=q.device, dtype=torch.int32).contiguous()
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = load("paged_attention")
+    count_launch("paged_attention")
+    check(lib.paged_attention_f32(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, h, table.shape[1], ps, d,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    ), "paged_attention_f32")
+    return out
+
+
+def paged_attention(q, k_pool, v_pool, table, lengths, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Fused paged-attention decode step (see module docstring).  A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain gather."""
+    if q.ndim != 3:
+        raise ValueError(f"q must be [B, H, D], got {tuple(q.shape)}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"k_pool/v_pool shapes differ: {tuple(k_pool.shape)}"
+                         f" vs {tuple(v_pool.shape)}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _paged_kernel(q, k_pool, v_pool, table, lengths, scale)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, table, lengths,
+                                         scale=scale)
+    raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
