@@ -2,23 +2,28 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py               # every phase
+    python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --only kernels  # build + kernel checks only
+    python3 chip_smoke.py --only train    # kernel checks + training only
 
 Phases, one line of output each (or a few):
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
-2. build: both CUDA kernels from ``ml_trainer_tpu_torch/csrc/`` with
-   ``nvcc`` for sm_90a (one process per source, started together),
+2. build: every CUDA kernel source in ``ml_trainer_tpu_torch/csrc/``
+   with ``nvcc`` for sm_90a (one process per source, started together),
    with the build seconds and the ``-Xptxas -v`` lines;
-3. kernels vs plain at the serving path's shapes: the flash-attention
-   forward on [1, 12, S, 64] float32 (causal, S in 128/512/1024, plus a
-   kv_lens case) and the paged-attention decode on B=8, H=12, D=64,
-   page 16, 64 pages per row, 513 pool pages, ragged lengths and an
-   all-trash row.  Each is held to its plain PyTorch version within
-   1e-4 absolute (float32, different summation order) and timed with
-   CUDA events beside its plain version, one PyTorch library call where
-   one exists, and its bound;
+3. kernels vs plain, each timed with CUDA events beside its plain
+   version, one PyTorch library call where one exists, and its bound:
+   the flash-attention forward (K1) on [1, 12, S, 64] float32 (causal,
+   S in 128/512/1024, plus a kv_lens case) and the paged-attention decode
+   (K6) on B=8, H=12, D=64, page 16, 64 pages per row, 513 pool pages,
+   ragged lengths and an all-trash row, each within 1e-4 absolute of its
+   plain version; the flash backward, K2 (dQ) and K3 (dK/dV), on
+   [8, 12, 1024, 64] causal (the main row), the same non-causal with
+   kv_lens, and [2, 8, 1024, 128] causal, within atol 2e-4 / rtol 1e-4
+   of the plain backward, with exact-zero dK/dV past kv_lens, plus the
+   padded path's gradients (S 1000, head_dim 48) through
+   ``attention(implementation="flash")`` against the plain attention;
 4. serving: GPT-2 124M at full width (12 layers, 768 wide, 12 heads,
    vocab 50257, max_len 1024) with seeded random weights behind
    ``Server(max_batch=8, kv_page_size=16, paged_kernel=True)``; 8 greedy
@@ -26,11 +31,23 @@ Phases, one line of output each (or a few):
    256-token prefix.  Checks that all complete, that both kernels'
    launch counters advanced as the path requires, and that every served
    token is within 1e-3 of the best logit when the sequence is run
-   again through the plain attention path.
+   again through the plain attention path;
+5. training: the same model, fp32, through ``Trainer(...).fit()`` with
+   the real config of examples/04_gpt2_pretrain.py (seq 1024, batch 8 in
+   4 microbatches, adamw, cosine restarts, clip 1.0), 6 optimizer steps
+   and 2 validation batches.  First the kernel path's loss and every
+   parameter gradient on one microbatch against the plain attention
+   path; then the run, which must give finite losses, skip no step and
+   launch K1 12 x (24 microbatches + 2 validation batches) times and K2
+   and K3 12 x 24 times; then the optimizer-step time (CUDA events),
+   tokens/s, peak memory and a profiler split of one step.
 
-The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero and
-prints no ok line.  Exits non-zero at once without a CUDA card.
+The counters are set to 0 just before the serving run and the training
+run and read just after each; a kernel's ``launches`` in the JSON record
+is the sum over the two runs.  The second-to-last line is the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero and prints no ok line.  Exits non-zero at once
+without a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +62,7 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TOL = 1e-4
+BWD_ATOL, BWD_RTOL = 2e-4, 1e-4  # K2/K3 vs the plain backward (float32)
 LOGIT_SLACK = 1e-3
 SEED = 0
 
@@ -129,6 +147,125 @@ def check_flash(dev):
         log("kernel flash_fwd " + json.dumps(row))
         rows.append(row)
     return rows
+
+
+def bwd_case(dev, b, h, s, d, lens, seed):
+    """q, k, v, kv_lens (or None) and the output cotangent, seeded."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, h, s, d, generator=gen).to(dev)
+                     for _ in range(4))
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    return q, k, v, kv, dout
+
+
+def kept_pairs(b: int, s: int, causal: bool, lens) -> int:
+    """Kept (query, key) pairs summed over the batch, per head."""
+    total = 0
+    for n in (lens or [s] * b):
+        live = min(s, n)
+        total += (sum(min(i + 1, live) for i in range(s)) if causal
+                  else s * live)
+    return total
+
+
+BWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
+    ("main", 8, 12, 1024, 64, True, None),
+    ("kv_lens", 8, 12, 1024, 64, False,
+     [1024, 700, 1, 513, 64, 1000, 257, 900]),
+    ("d128", 2, 8, 1024, 128, True, None),
+]
+PADDED_CASE = (2, 4, 1000, 48)  # off-tile S and head_dim
+
+
+def check_flash_bwd(dev):
+    """K2 (dQ) and K3 (dK/dV) against the plain backward on the same
+    inputs (out and lse from the plain forward), then the padded path's
+    gradients through ``attention(implementation="flash")`` against
+    autograd of the plain attention path."""
+    import torch
+    import torch.nn.functional as F
+
+    from ml_trainer_tpu_torch.ops.attention import (
+        attention, flash_attention_backward_reference,
+        flash_attention_reference, flash_bwd_dkv, flash_bwd_dq)
+
+    rows = []
+    for i, (name, b, h, s, d, causal, lens) in enumerate(BWD_CASES):
+        q, k, v, kv, dout = bwd_case(dev, b, h, s, d, lens, SEED + 10 + i)
+        scale = d ** -0.5
+        out, lse = flash_attention_reference(q, k, v, kv, causal, scale)
+        delta = (dout * out).sum(-1).contiguous()
+        dq = flash_bwd_dq(q, k, v, kv, lse, delta, dout, causal, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, kv, lse, delta, dout, causal, scale)
+        want = flash_attention_backward_reference(q, k, v, kv, out, lse,
+                                                  dout, causal, scale)
+        torch.cuda.synchronize()
+        errs = {}
+        for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            errs[nm] = (got - ref).abs().max().item()
+            torch.testing.assert_close(got, ref, atol=BWD_ATOL, rtol=BWD_RTOL,
+                                       msg=lambda m: f"{name} {nm}: {m}")
+        if lens is not None:
+            pad = (torch.arange(s, device=dev)[None, None, :, None]
+                   >= kv.long()[:, None, None, None]).expand_as(dk)
+            if not (bool((dk[pad] == 0).all()) and bool((dv[pad] == 0).all())):
+                raise AssertionError(f"{name}: dK/dV past kv_lens not zero")
+        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, kv, lse, delta, dout,
+                                             causal, scale))
+        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, kv, lse, delta, dout,
+                                               causal, scale))
+        plain = time_ms(lambda: flash_attention_backward_reference(
+            q, k, v, kv, out, lse, dout, causal, scale), iters=10)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        if kv is None:
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg,
+                                                   is_causal=causal)
+        else:
+            keep = (torch.arange(s, device=dev)[None, :]
+                    < kv.long()[:, None])[:, None, None, :]
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+        lib = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), dout, retain_graph=True), iters=10)
+        pairs = kept_pairs(b, s, causal, lens) * h
+        arr = b * h * s * d * 4
+        rows_b = b * h * s * 4
+        b_dq = bound_ms(4 * arr + 2 * rows_b + arr, 3.0 * 2 * d * pairs)
+        b_dkv = bound_ms(4 * arr + 2 * rows_b + 2 * arr,
+                         4.0 * 2 * d * pairs)
+        for kname, ms, bnd, err in (
+                ("flash_bwd_dq", ms_dq, b_dq, errs["dq"]),
+                ("flash_bwd_dkv", ms_dkv, b_dkv, max(errs["dk"],
+                                                     errs["dv"]))):
+            row = dict(case=name, shape=[b, h, s, d], causal=causal,
+                       kv_lens=lens, max_abs_err=err, ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=bnd[0], bound_by=bnd[1])
+            log(f"kernel {kname} " + json.dumps(row))
+            rows.append((kname, row))
+        del qg, kg, vg, o_lib, want, out, lse
+        torch.cuda.empty_cache()
+
+    # Off-tile S and head_dim through the padding wrapper, gradients
+    # end to end (K1 forward, K2/K3 backward on the padded shapes).
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 20)
+    q, k, v, dout = (torch.randn(*PADDED_CASE, generator=gen).to(dev)
+                     for _ in range(4))
+    grads = {}
+    for impl in ("flash", "xla"):
+        leaves = [t.requires_grad_(True) for t in (q.clone(), k.clone(),
+                                                   v.clone())]
+        o = attention(*leaves, causal=True, implementation=impl)
+        grads[impl] = torch.autograd.grad(o, leaves, dout)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item()
+              for a, b in zip(grads["flash"], grads["xla"]))
+    for a, b in zip(grads["flash"], grads["xla"]):
+        torch.testing.assert_close(a, b, atol=BWD_ATOL, rtol=BWD_RTOL)
+    log("kernel flash_bwd padded " + json.dumps(
+        dict(shape=list(PADDED_CASE), causal=True, max_abs_err=err)))
+    return rows, err
 
 
 def paged_case(dev):
@@ -266,25 +403,17 @@ def serve(dev):
     return result
 
 
-def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
-    """Serve the same prompts again under ``torch.profiler`` and split
-    the wall time into device-busy time (the sum of kernel times; the
-    serving path runs one stream) and idle time, with the kernels that
-    took the most device time.  Reports "not measured" when the
-    profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def device_split(prof, wall: float) -> dict:
+    """Device-busy time of a profiled window (the sum of the device's own
+    events: kernels, copies, sets; the host ops' device totals would count
+    the same kernels again) against its wall time, with the kernels that
+    took the most.  "not measured" when the profiler saw no device time."""
+    from torch.autograd import DeviceType
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        streams = [server.submit(p, new_tokens) for p in prompts]
-        for st in streams:
-            st.result(timeout=900)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     rows = []
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
         if dev_us > 0:
@@ -301,9 +430,174 @@ def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
     }
 
 
+def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
+    """Serve the same prompts again under ``torch.profiler`` and split
+    the wall time into device-busy time (the serving path runs one
+    stream) and idle time (``device_split``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        streams = [server.submit(p, new_tokens) for p in prompts]
+        for st in streams:
+            st.result(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_split(prof, wall)
+
+
+# ------------------------------------------------------------- phase 5
+TRAIN = dict(model="gpt2", seq_len=1024, vocab_size=50257, batch_size=8,
+             accum=4, steps=6, val_batches=2)
+# Kernel path vs plain path (model.attention_impl="xla") on the first
+# microbatch, float32: the loss within LOSS_RTOL, and each parameter's
+# gradient within GRAD_RTOL of that parameter's largest plain gradient
+# (the two paths sum over keys in another order, through 12 layers).
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+TRAIN_DIR = "build/chip_smoke_train"  # model.pth of the run; removed after
+
+
+def grad_check(trainer, x, y) -> dict:
+    """Loss and every parameter gradient of one microbatch through the
+    kernels and through the plain attention path."""
+    import torch
+
+    model = trainer.model
+    out = {}
+    for impl in ("auto", "xla"):
+        model.attention_impl = impl
+        model.zero_grad(set_to_none=True)
+        loss = trainer.criterion(model(x), y)
+        loss.backward()
+        out[impl] = (loss.item(), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters()})
+    model.attention_impl = "auto"
+    model.zero_grad(set_to_none=True)
+    (l_k, g_k), (l_p, g_p) = out["auto"], out["xla"]
+    if not abs(l_k - l_p) <= LOSS_RTOL * abs(l_p):
+        raise AssertionError(f"kernel-path loss {l_k} vs plain {l_p}")
+    worst, worst_name = 0.0, None
+    for name, gp in g_p.items():
+        ratio = ((g_k[name] - gp).abs().max() / gp.abs().max()).item()
+        if not ratio <= GRAD_RTOL:
+            raise AssertionError(
+                f"gradient of {name}: max diff {ratio} of its largest "
+                f"plain entry > {GRAD_RTOL}")
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    for i in range(model.depth):
+        if not bool((g_k[f"blocks.{i}.attn.qkv.weight"] != 0).any()):
+            raise AssertionError(f"layer {i}: zero qkv gradient")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    return dict(loss_kernel=l_k, loss_plain=l_p, worst_grad_ratio=worst,
+                worst_grad_param=worst_name)
+
+
+def profile_step(trainer, x, y) -> dict:
+    """One optimizer step under ``torch.profiler``, split into
+    device-busy and idle time (``device_split``; the step's kernels run
+    on one stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._train_step(x, y, 1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_split(prof, wall)
+
+
+def train(dev):
+    """GPT-2 124M, fp32, through ``Trainer(...).fit()``: the real config
+    of examples/04_gpt2_pretrain.py (seq 1024, global batch 8 in 4
+    microbatches, adamw 3e-4 / wd 0.01, cosine restarts, clip 1.0,
+    accuracy), one epoch of 6 optimizer steps and 2 validation batches."""
+    import math
+    import shutil
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    c = TRAIN
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    sets = (
+        mt.SyntheticTokens(size=c["batch_size"] * c["steps"],
+                           seq_len=c["seq_len"], vocab_size=c["vocab_size"],
+                           seed=SEED),
+        mt.SyntheticTokens(size=c["batch_size"] * c["val_batches"],
+                           seq_len=c["seq_len"], vocab_size=c["vocab_size"],
+                           seed=SEED + 1),
+    )
+    t0 = time.perf_counter()
+    trainer = mt.Trainer(
+        c["model"], datasets=sets, epochs=1, batch_size=c["batch_size"],
+        grad_accum_steps=c["accum"], optimizer="adamw", lr=3e-4,
+        weight_decay=0.01, scheduler="CosineAnnealingWarmRestarts",
+        grad_clip_norm=1.0, metric="accuracy", model_dir=TRAIN_DIR,
+        seed=SEED, device=dev)
+    model = trainer.model
+    log(f"train: Trainer({c['model']}) built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
+    micro = c["batch_size"] // c["accum"]
+    check = grad_check(trainer, x[:micro], y[:micro])
+    log("train: first microbatch, kernels vs plain " + json.dumps(check))
+
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    if not all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"]):
+        raise AssertionError(f"non-finite losses: {hist}")
+    if hist["skipped_steps"] != [0]:
+        raise AssertionError(f"skipped steps: {hist['skipped_steps']}")
+    n_micro = c["steps"] * c["accum"]
+    want = {"flash_fwd": model.depth * (n_micro + c["val_batches"]),
+            "flash_bwd_dq": model.depth * n_micro,
+            "flash_bwd_dkv": model.depth * n_micro, "paged_attention": 0}
+    if counts != want:
+        raise AssertionError(f"training launches {counts}, expected {want}")
+
+    # Optimizer-step time: CUDA events around steps on one batch (the
+    # run above includes loading, validation and the weights' export).
+    n_time = 3
+    trainer._train_step(x, y, 1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_time):
+        trainer._train_step(x, y, 1.0)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n_time
+    profile = profile_step(trainer, x, y)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return dict(
+        history={k: hist[k] for k in ("train_loss", "val_loss",
+                                      "train_metric", "val_metric",
+                                      "skipped_steps")},
+        fit_s=fit_s, launches=counts, step_ms=step_ms,
+        tokens_per_s=c["batch_size"] * c["seq_len"] / (step_ms / 1e3),
+        max_memory_allocated_bytes=peak, grad_check=check, profile=profile)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["kernels"], default=None)
+    parser.add_argument("--only", choices=["kernels", "train"],
+                        default=None)
     args = parser.parse_args(argv)
 
     import torch
@@ -331,12 +625,25 @@ def main(argv=None) -> int:
 
     flash_rows = check_flash(dev)
     paged_row = check_paged(dev)
-    launches = {"flash_fwd": None, "paged_attention": None}
-    if args.only != "kernels":
+    bwd_rows, padded_err = check_flash_bwd(dev)
+    launches = {"flash_fwd": None, "paged_attention": None,
+                "flash_bwd_dq": None, "flash_bwd_dkv": None}
+    if args.only is None:
         serving = serve(dev)
-        launches = serving["launches"]
+        launches.update(serving["launches"])
         log(f"serving on {smi}: " + json.dumps(serving))
+    if args.only in (None, "train"):
+        training = train(dev)
+        log(f"training on {smi}: " + json.dumps(training))
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            launches[kname] = ((launches[kname] or 0)
+                               + training["launches"][kname])
     main_flash = flash_rows[2]  # S=1024 causal: the longest prefill bucket
+    bwd = {}
+    for kname, row in bwd_rows:  # the main row is each kernel's first
+        bwd.setdefault(kname, dict(row, max_abs_err=max(
+            [padded_err] + [r["max_abs_err"] for n, r in bwd_rows
+                            if n == kname])))
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/flash_fwd.cu",
@@ -351,6 +658,14 @@ def main(argv=None) -> int:
          "launches": launches["paged_attention"],
          **{k: paged_row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}},
+    ] + [
+        {"name": kname, "route": "cuda",
+         "source": "ml_trainer_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"ml_trainer_tpu/ops/attention.py:{line}",
+         "launches": launches[kname],
+         **{k: bwd[kname][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}}
+        for kname, line in (("flash_bwd_dq", 385), ("flash_bwd_dkv", 403))
     ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

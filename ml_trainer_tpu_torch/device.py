@@ -1,10 +1,10 @@
 """Device resolution and the kernels' launch counters.
 
 Every entry point of the port (``Server``, ``SlotDecodeEngine``,
-``generate``, the model constructors) resolves its device here: the
-default is the CUDA card, and with no card the call raises instead of
-quietly running on the CPU.  The CPU is used only when the caller asks
-for it with ``device="cpu"`` (the parity tests do).
+``generate``, ``Trainer``, the model constructors) resolves its device
+here: the default is the CUDA card, and with no card the call raises
+instead of quietly running on the CPU.  The CPU is used only when the
+caller asks for it with ``device="cpu"`` (the parity tests do).
 
 The launch counters are plain integers, one per hand-written kernel.
 A kernel's wrapper adds one exactly where it launches the kernel, so a
@@ -19,7 +19,10 @@ from typing import Dict, Optional, Union
 import torch
 
 # Kernel name -> launches since the last reset.
-_LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "paged_attention": 0}
+_LAUNCHES: Dict[str, int] = {
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "paged_attention": 0,
+}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

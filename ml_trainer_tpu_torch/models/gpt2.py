@@ -33,9 +33,14 @@ class GPT2(nn.Module):
                  attention_impl: str = "auto",
                  dropout_rate: float = 0.0, moe_experts: int = 0,
                  lora_rank: int = 0, quant_int8: bool = False,
-                 device=None, dtype=torch.float32):
+                 loss_chunk: int = 0, device=None, dtype=torch.float32):
         super().__init__()
         _refuse_unported(dropout_rate, moe_experts, lora_rank, quant_int8)
+        if loss_chunk:
+            # The chunked LM head (ops.losses.chunked_lm_cross_entropy).
+            raise NotImplementedError(
+                f"loss_chunk={loss_chunk!r} is not ported yet; see "
+                "ROADMAP.md Queue A")
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.max_len = max_len

@@ -41,6 +41,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "flash_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _F, _P],
     },
+    "flash_bwd": {
+        # q, k, v, kv_lens|NULL, dout, lse, delta, dq, bh, heads, s_q, s_k,
+        # d, causal, scale, stream
+        "flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _P],
+        # q, k, v, kv_lens|NULL, dout, lse, delta, dk, dv, bh, heads, s_q,
+        # s_k, d, causal, scale, stream
+        "flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _F, _P],
+    },
     "paged_attention": {
         # q, k_pool, v_pool, table, lengths, out, batch, heads, pages,
         # page_size, d, scale, stream

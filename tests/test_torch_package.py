@@ -1,7 +1,8 @@
 """Guards of the PyTorch/CUDA port (``ml_trainer_tpu_torch``).
 
-* No file of the port, nor ``chip_smoke.py``, imports JAX, flax or the
-  JAX package (an AST scan).
+* No file of the port, nor ``chip_smoke.py``, imports JAX, flax, optax,
+  tqdm, msgpack or the JAX package (an AST scan): the card's machine has
+  none of them.
 * With no card visible, every entry point raises unless it is given
   ``device="cpu"``: the port never falls back to the CPU on its own.
 * On the CPU the kernels' plain versions run, and the launch counters
@@ -20,6 +21,7 @@ import torch
 import ml_trainer_tpu_torch as mt
 from ml_trainer_tpu_torch.ops.attention import (
     flash_attention,
+    flash_attention_backward_reference,
     flash_attention_reference,
 )
 from ml_trainer_tpu_torch.ops.kernels import (
@@ -28,7 +30,8 @@ from ml_trainer_tpu_torch.ops.kernels import (
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_trainer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_trainer_tpu", "tqdm",
+             "msgpack")
 
 
 def _port_files():
@@ -70,6 +73,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: mt.SlotDecodeEngine(model),
         lambda: mt.Server(model),
         lambda: mt.resolve_device(),
+        lambda: mt.Trainer("gpt2_tiny"),
+        lambda: mt.Trainer(model),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -79,28 +84,40 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                        device="cpu").shape == (1, 5)
     with mt.Server(model, device="cpu") as server:
         assert server.health()["device"] == "cpu"
+    assert mt.Trainer(model, device="cpu").device.type == "cpu"
+    assert mt.Trainer(model, backend="gloo").device.type == "cpu"
     # A card that the weights are not on is refused too.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="model weights live on"):
         mt.SlotDecodeEngine(model, device="cuda")
 
 
-def test_launch_counters_stay_zero_on_cpu():
+def test_launch_counters_stay_zero_on_cpu(tmp_path):
     mt.reset_launch_counts()
     model = mt.init_gpt2("gpt2_tiny", seed=0, device="cpu", max_len=256)
     with mt.Server(model, kv_page_size=16, paged_kernel=True,
                    device="cpu") as server:
         out = server.complete(np.arange(130) % 1000, 4, timeout=120)
     assert out.shape == (134,)
-    q = torch.randn(1, 2, 128, 64)
-    flash_attention(q, q, q, None, True)
-    assert mt.launch_counts() == {"flash_fwd": 0, "paged_attention": 0}
+    q = torch.randn(1, 2, 128, 64, requires_grad=True)
+    flash_attention(q, q, q, None, True)[0].sum().backward()
+    assert q.grad is not None
+    sets = (mt.SyntheticTokens(size=4, seq_len=128, vocab_size=64),
+            mt.SyntheticTokens(size=4, seq_len=128, vocab_size=64, seed=1))
+    model = mt.get_model("gpt2_tiny", vocab_size=64, embed_dim=128,
+                         num_heads=2, max_len=128, device="cpu")
+    trainer = mt.Trainer(model, datasets=sets, epochs=1, batch_size=4,
+                         grad_accum_steps=2, device="cpu",
+                         model_dir=str(tmp_path))
+    trainer.fit()
+    assert mt.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0, "paged_attention": 0}
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the card (float32,
-    atol 1e-4: the kernel sums in another order)."""
+    atol 1e-4 forward: the kernel sums in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
     dev = torch.device("cuda")
@@ -128,4 +145,22 @@ def test_kernels_match_plain_on_card():
     out = paged_attention(q, kp, vp, table, lengths)
     ref = paged_attention_reference(q, kp, vp, table, lengths)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
-    assert mt.launch_counts() == {"flash_fwd": 6, "paged_attention": 1}
+    # K2/K3 through the autograd Function against the plain backward
+    # (atol 2e-4, rtol 1e-4: float32 sums over up to S keys or queries).
+    for s, d, lens, causal in ((256, 64, None, True), (192, 128, [100, 1],
+                                                     False),
+                               (100, 64, [60, 100], True)):
+        q, k, v, g = (torch.randn(2, 3, s, d, generator=gen).to(dev)
+                      for _ in range(4))
+        kv = None if lens is None else torch.tensor(lens, device=dev)
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        out, lse = flash_attention(*leaves, kv, causal)
+        got = torch.autograd.grad(out, leaves, g)
+        want = flash_attention_backward_reference(
+            q, k, v, kv, out.detach(), lse, g, causal, d ** -0.5)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
+        if lens is not None:
+            assert bool((got[1][1, :, lens[1]:] == 0).all())
+    assert mt.launch_counts() == {"flash_fwd": 9, "flash_bwd_dq": 3,
+                                  "flash_bwd_dkv": 3, "paged_attention": 1}
