@@ -11,6 +11,12 @@ and returns a ``state_dict`` for the port's ``GPT2``:
   it too), ``pos_embed`` as it is;
 * ``block{i}`` -> ``blocks.{i}``.
 
+``quant_from_jax`` takes the JAX package's int8 "quant" collection
+(``ops/kernels/int8_matmul.quantize_tree``: ``block{i}/attn/{qkv,proj}_*``,
+``block{i}/mlp/{fc_in,fc_out}_*``) as numpy and returns the port's, with
+the same [K, N] int8 layout: ``{"blocks": {"{i}": {"attn": ..., "mlp":
+...}}}``.
+
 ``init_gpt2`` builds a registered GPT-2 with weights drawn from a seeded
 CPU ``torch.Generator`` (the same numbers on every device): normal(0.02)
 for the projections and the token embedding, normal(0.01) for the
@@ -63,6 +69,26 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         _linear(f"{pre}.mlp.fc_out", blk["mlp"]["fc_out"], out)
     _layernorm("ln_final", params["ln_final"], out)
     return out
+
+
+def quant_from_jax(quant: Mapping, device=None) -> dict:
+    """The JAX "quant" collection (nested dict of numpy arrays; a
+    ``{"quant": ...}`` wrapper is accepted) -> the port's (tensors on
+    ``device``, the CPU by default)."""
+    if "quant" in quant:
+        quant = quant["quant"]
+
+    def leaf(name: str, x) -> torch.Tensor:
+        dtype = np.int8 if name.endswith("_w") else np.float32
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+
+    def walk(tree: Mapping) -> dict:
+        return {k: walk(v) if isinstance(v, Mapping) else leaf(k, v)
+                for k, v in tree.items()}
+
+    depth = sum(1 for k in quant if k.startswith("block"))
+    return {"blocks": {str(i): walk(quant[f"block{i}"])
+                       for i in range(depth)}}
 
 
 @torch.no_grad()

@@ -6,7 +6,10 @@ full forward with ``cache=None``, and the decode semantics of the
 reference's ``decode=True`` mode with a ``ContiguousKVCache`` or
 ``PagedKVCache`` (models/layers.py), whose per-row positions also place
 the position embeddings (clipped at ``max_len``, like the reference's
-``mode="clip"`` take).
+``mode="clip"`` take).  Given the "quant" collection
+(``ops.kernels.quantize_tree``), ``forward`` runs the four projections of
+every block as int8 matmuls, with or without a cache: the JAX package's
+``model.clone(quant_int8=True)`` with its "quant" variables.
 """
 
 from __future__ import annotations
@@ -32,10 +35,10 @@ class GPT2(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  attention_impl: str = "auto",
                  dropout_rate: float = 0.0, moe_experts: int = 0,
-                 lora_rank: int = 0, quant_int8: bool = False,
-                 loss_chunk: int = 0, device=None, dtype=torch.float32):
+                 lora_rank: int = 0, loss_chunk: int = 0, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        _refuse_unported(dropout_rate, moe_experts, lora_rank, quant_int8)
+        _refuse_unported(dropout_rate, moe_experts, lora_rank)
         if loss_chunk:
             # The chunked LM head (ops.losses.chunked_lm_cross_entropy).
             raise NotImplementedError(
@@ -96,16 +99,23 @@ class GPT2(nn.Module):
             batch, self.max_len, paged_kernel=paged_kernel,
             dtype=self.pos_embed.dtype, device=self.device)
 
-    def forward(self, input_ids, cache=None, select=None):
+    def forward(self, input_ids, cache=None, select=None, quant=None,
+                quant_impl: str = "auto"):
         """Logits [B, S, V]; with ``select`` ([B] position per row) only
         those rows' logits [B, V].  With a cache, the call writes its K/V
-        there and advances the cache's positions by S."""
+        there and advances the cache's positions by S.  With ``quant``
+        the projections are int8 (``quant_impl``: "auto" or "reference",
+        see ``ops.kernels.int8_matmul``); the embeddings and the tied head
+        stay fp32."""
         if cache is None:
             x = self._embed_input(input_ids)
         else:
             x = self._embed_input(input_ids, pos_start=cache.index)
+        q_blocks = None if quant is None else quant["blocks"]
         for i, block in enumerate(self.blocks):
-            x = block(x, cache, i, attention_impl=self.attention_impl)
+            x = block(x, cache, i, attention_impl=self.attention_impl,
+                      quant=None if q_blocks is None else q_blocks[str(i)],
+                      quant_impl=quant_impl)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         if select is not None:

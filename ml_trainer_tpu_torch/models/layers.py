@@ -23,6 +23,12 @@ row's position, then ``advance``).  Two layouts, as in the reference:
   to the trash page 0); reads either gather the pages back into logical
   order for the plain path, or, when the cache's ``paged_kernel`` is
   set and S == 1, run the paged-attention kernel on the pool directly.
+
+Int8 projections.  A layer given its entries of the "quant" collection
+(``ops/kernels/int8_matmul.quantize_tree``) computes qkv / proj / fc_in /
+fc_out as ``int8_matmul(x, w, scale) + b`` instead of its fp32
+``nn.Linear``; ``quant_impl="reference"`` takes the plain version on
+either device.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ml_trainer_tpu_torch.ops.attention import attention
+from ml_trainer_tpu_torch.ops.kernels.int8_matmul import int8_matmul
 from ml_trainer_tpu_torch.ops.kernels.paged_attention import paged_attention
 
 # flax.linen.LayerNorm's default epsilon.
@@ -43,6 +50,16 @@ LN_EPS = 1e-6
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.gelu`` (approximate=True): the tanh form."""
     return F.gelu(x, approximate="tanh")
+
+
+def _dense(linear: nn.Linear, name: str, x, quant, quant_impl: str):
+    """``linear(x)``, or with the layer's quant entries the int8
+    projection ``int8_matmul(x, <name>_w, <name>_scale) + <name>_b`` (the
+    JAX package's ``_quant_dense``; the bias add is fused)."""
+    if quant is None:
+        return linear(x)
+    return int8_matmul(x, quant[f"{name}_w"], quant[f"{name}_scale"],
+                       bias=quant[f"{name}_b"], implementation=quant_impl)
 
 
 class ContiguousKVCache:
@@ -132,9 +149,11 @@ class MultiHeadAttention(nn.Module):
         self.proj = nn.Linear(embed_dim, embed_dim, device=device, dtype=dtype)
 
     def forward(self, x, cache=None, layer: int = 0, mask=None,
-                kv_lens=None, attention_impl: str = "auto"):
+                kv_lens=None, attention_impl: str = "auto", quant=None,
+                quant_impl: str = "auto"):
         b, s, e = x.shape
-        q, k, v = self.qkv(x).split(e, dim=-1)
+        qkv = _dense(self.qkv, "qkv", x, quant, quant_impl)
+        q, k, v = qkv.split(e, dim=-1)
 
         def heads(t):  # [B, S, E] -> [B, H, S, D]
             return t.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
@@ -155,7 +174,7 @@ class MultiHeadAttention(nn.Module):
                 out = self._contiguous_step(q, k, v, cache, layer,
                                             attention_impl)
         out = out.transpose(1, 2).reshape(b, s, e)
-        return self.proj(out)
+        return _dense(self.proj, "proj", out, quant, quant_impl)
 
     def _contiguous_step(self, q, k, v, cache, layer, attention_impl):
         b, h, s, d = q.shape
@@ -238,16 +257,15 @@ class MLP(nn.Module):
         self.fc_out = nn.Linear(hidden_dim, embed_dim, device=device,
                                 dtype=dtype)
 
-    def forward(self, x):
-        return self.fc_out(gelu(self.fc_in(x)))
+    def forward(self, x, quant=None, quant_impl: str = "auto"):
+        h = gelu(_dense(self.fc_in, "fc_in", x, quant, quant_impl))
+        return _dense(self.fc_out, "fc_out", h, quant, quant_impl)
 
 
-def _refuse_unported(dropout_rate=0.0, moe_experts=0, lora_rank=0,
-                     quant_int8=False) -> None:
+def _refuse_unported(dropout_rate=0.0, moe_experts=0, lora_rank=0) -> None:
     for knob, value in (("dropout_rate", dropout_rate),
                         ("moe_experts", moe_experts),
-                        ("lora_rank", lora_rank),
-                        ("quant_int8", quant_int8)):
+                        ("lora_rank", lora_rank)):
         if value:
             raise NotImplementedError(
                 f"{knob}={value!r} is not ported yet; see ROADMAP.md "
@@ -257,16 +275,16 @@ def _refuse_unported(dropout_rate=0.0, moe_experts=0, lora_rank=0,
 
 class TransformerBlock(nn.Module):
     """Pre-LN transformer block (GPT-2); ``post_norm`` is the BERT
-    arrangement.  Dropout, MoE, LoRA and int8 are not ported yet and are
-    refused."""
+    arrangement.  Dropout, MoE and LoRA are not ported yet and are
+    refused.  ``quant`` is the block's entry of the "quant" collection
+    (``{"attn": ..., "mlp": ...}``), threaded to its projections."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
                  causal: bool = False, post_norm: bool = False, device=None,
                  dtype=torch.float32, dropout_rate: float = 0.0,
-                 moe_experts: int = 0, lora_rank: int = 0,
-                 quant_int8: bool = False):
+                 moe_experts: int = 0, lora_rank: int = 0):
         super().__init__()
-        _refuse_unported(dropout_rate, moe_experts, lora_rank, quant_int8)
+        _refuse_unported(dropout_rate, moe_experts, lora_rank)
         self.post_norm = post_norm
         self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device,
                                 dtype=dtype)
@@ -277,13 +295,22 @@ class TransformerBlock(nn.Module):
         self.mlp = MLP(embed_dim, mlp_dim, device=device, dtype=dtype)
 
     def forward(self, x, cache=None, layer: int = 0, mask=None, kv_lens=None,
-                attention_impl: str = "auto"):
+                attention_impl: str = "auto", quant=None,
+                quant_impl: str = "auto"):
+        q_attn = q_mlp = None
+        if quant is not None:
+            q_attn, q_mlp = quant["attn"], quant["mlp"]
+
         def attn(y):
             return self.attn(y, cache, layer, mask=mask, kv_lens=kv_lens,
-                             attention_impl=attention_impl)
+                             attention_impl=attention_impl, quant=q_attn,
+                             quant_impl=quant_impl)
+
+        def mlp(y):
+            return self.mlp(y, quant=q_mlp, quant_impl=quant_impl)
 
         if self.post_norm:
             x = self.ln1(x + attn(x))
-            return self.ln2(x + self.mlp(x))
+            return self.ln2(x + mlp(x))
         x = x + attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        return x + mlp(self.ln2(x))

@@ -5,9 +5,17 @@ launches the kernel for a CUDA tensor (or raises); ``_build`` compiles the
 sources with ``nvcc`` at first use.
 """
 
+from ml_trainer_tpu_torch.ops.kernels.int8_matmul import (
+    int8_matmul,
+    int8_matmul_reference,
+    quantize_per_channel,
+    quantize_tree,
+)
 from ml_trainer_tpu_torch.ops.kernels.paged_attention import (
     paged_attention,
     paged_attention_reference,
 )
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["int8_matmul", "int8_matmul_reference",
+           "paged_attention", "paged_attention_reference",
+           "quantize_per_channel", "quantize_tree"]

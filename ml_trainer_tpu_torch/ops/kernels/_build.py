@@ -57,6 +57,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "paged_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _P],
     },
+    "int8_matmul": {
+        # x, w_q, scale, bias|NULL, out, m, k, n, stream
+        "int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,149 @@
+"""Int8 weight-quantized matmul with per-output-channel scales.
+
+Backs the opt-in quantized decode path (``Server(quant_int8=True)``):
+the four projections of every block (qkv / proj / fc_in / fc_out) read
+int8 weights and f32 per-column scales from a "quant" collection built
+once by :func:`quantize_tree` from the fp32 weights, which stay as they
+are.  The prefill stays fp32; only the engine's S == 1 decode step is
+given the collection.  The embeddings and the tied LM head stay fp32.
+
+This is not a bit-parity path against fp32: quantization changes the
+math by construction.  What is pinned:
+
+* ``quantize_per_channel`` is bitwise the JAX package's (symmetric per
+  output channel: ``scale[n] = max(|w[:, n]|) / 127`` in f32, 1 for an
+  all-zero column, ``w_q = clip(round_half_even(w / scale), -127, 127)``
+  with a true f32 division);
+* the kernel (``csrc/int8_matmul.cu``) and the plain version compute the
+  same function: x and the int8 weights upcast to f32, the full-K f32
+  sum, THEN the column scale (not a per-weight dequantize, which rounds
+  differently), then the optional bias, each a separate f32 rounding;
+* fp32 quality is gated end to end (argmax agreement and relative logit
+  error against the fp32 model).
+
+Layout: ``w_q`` is [K, N] (the JAX package's Dense kernel layout, the
+transpose of ``nn.Linear.weight``), so a JAX-built collection crosses
+unchanged; the kernel gives each thread four adjacent output columns and
+reads them as one 32-bit load per k along the contiguous N axis.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ml_trainer_tpu_torch.device import count_launch
+
+# The four projections the quantized decode path covers (the same four
+# the JAX package's LoRA adapters attach to).
+QUANT_TARGETS = ("qkv", "proj", "fc_in", "fc_out")
+
+
+def quantize_per_channel(w: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K, N] float weights -> (int8 [K, N], f32 scales [N]), per output
+    column N."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # torch.round is round-half-to-even, as jnp.round.
+    w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return w_q, scale
+
+
+def int8_matmul_reference(x, w_q, scale, bias=None) -> torch.Tensor:
+    """Plain version: ``(x_f32 @ f32(w_q)) * scale`` (+ ``bias``), in
+    x.dtype.  x: [..., K]; w_q: [K, N] int8; scale, bias: [N] f32."""
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    y = (x2 @ w_q.float()) * scale
+    if bias is not None:
+        y = y + bias
+    return y.reshape(*x.shape[:-1], w_q.shape[-1]).to(x.dtype)
+
+
+def _int8_kernel(x, w_q, scale, bias):
+    from ml_trainer_tpu_torch.ops.kernels._build import check, load
+
+    k, n = w_q.shape
+    x2 = x.reshape(-1, k)
+    if x2.dtype != torch.float32:
+        raise TypeError(f"int8 matmul kernel takes float32 x, got {x.dtype}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t is not None and (t.shape != (n,) or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be float32 [{n}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    m = x2.shape[0]
+    x2, w_q, scale = x2.contiguous(), w_q.contiguous(), scale.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lib = load("int8_matmul")
+    count_launch("int8_matmul")
+    check(lib.int8_matmul_f32(
+        x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, k, n,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    ), "int8_matmul_f32")
+    return out.reshape(*x.shape[:-1], n)
+
+
+def int8_matmul(x, w_q, scale, *, bias: Optional[torch.Tensor] = None,
+                implementation: str = "auto") -> torch.Tensor:
+    """``x @ dequant(w_q, scale)`` computed as the f32 product of x and
+    the int8 weights, scaled per output column, plus ``bias``; returns
+    x.dtype.  x: [..., K], w_q: [K, N] int8, scale and bias: [N] f32.
+
+    ``implementation``: "auto" launches the CUDA kernel for a CUDA tensor
+    and takes the plain version for a CPU tensor; "reference" takes the
+    plain version on either device."""
+    if w_q.dtype != torch.int8:
+        raise ValueError(f"w_q must be int8, got {w_q.dtype}")
+    if w_q.ndim != 2 or x.shape[-1] != w_q.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not contract with w_q "
+                         f"{tuple(w_q.shape)}")
+    if implementation == "reference":
+        return int8_matmul_reference(x, w_q, scale, bias)
+    if implementation != "auto":
+        raise ValueError(
+            f"Unknown int8_matmul implementation {implementation!r}")
+    if x.device.type == "cuda":
+        return _int8_kernel(x, w_q, scale, bias)
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w_q, scale, bias)
+    raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")
+
+
+@torch.no_grad()
+def quantize_tree(model: nn.Module, targets=QUANT_TARGETS) -> dict:
+    """Build the "quant" collection from a model's fp32 weights.
+
+    Walks the module tree; every ``nn.Linear`` child named in ``targets``
+    contributes ``<name>_w`` (int8 [K, N]), ``<name>_scale`` (f32 [N]) and
+    ``<name>_b`` (the Linear's bias in f32 [N], zeros without one) at its
+    PARENT's place in a nested dict keyed by child names, on the
+    weights' device.  For GPT-2: ``{"blocks": {"0": {"attn": {qkv_*,
+    proj_*}, "mlp": {fc_in_*, fc_out_*}}, ...}}``, the JAX package's
+    ``block{i}/attn|mlp`` scopes.  Returns ``{}`` when nothing matched
+    (the caller refuses rather than serve un-quantized)."""
+    if not isinstance(model, nn.Module):
+        raise TypeError(f"quantize_tree expects an nn.Module, got "
+                        f"{type(model).__name__}")
+
+    def walk(mod):
+        out = {}
+        for name, sub in mod.named_children():
+            if name in targets and isinstance(sub, nn.Linear):
+                w_q, scale = quantize_per_channel(sub.weight.T)
+                out[f"{name}_w"] = w_q.contiguous()
+                out[f"{name}_scale"] = scale
+                out[f"{name}_b"] = (
+                    torch.zeros_like(scale) if sub.bias is None
+                    else sub.bias.detach().float().clone())
+            else:
+                inner = walk(sub)
+                if inner:
+                    out[name] = inner
+        return out
+
+    return walk(model)

@@ -98,7 +98,14 @@ class TokenStream:
 class Server:
     """Continuous-batching server: engine + scheduler + one
     worker thread.  ``device`` defaults to the CUDA card and must be
-    where ``model`` lives."""
+    where ``model`` lives.
+
+    ``quant_int8`` serves the decode step with int8-quantized
+    qkv/proj/fc_in/fc_out weights and per-column scales
+    (``ops/kernels/int8_matmul.py``; the prefill stays fp32).  It is
+    opt-in and quality-gated (argmax agreement and relative logit error
+    against fp32), NOT bit-identical to fp32, and refused with
+    ``spec_k > 0`` or ``adapters``."""
 
     # Seconds the idle loop waits for a submission before looking again.
     _IDLE_POLL = 0.02

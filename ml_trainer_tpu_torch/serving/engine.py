@@ -13,6 +13,12 @@
   1]`` tokens with per-row sampling; requests join and leave at token
   boundaries.  In paged mode with ``paged_kernel`` the S == 1 attention
   is the paged-attention kernel.
+* **Int8 decode** (``quant_int8``): the "quant" collection
+  (``ops/kernels/int8_matmul.quantize_tree``) is built once from the
+  model's weights, and only the S == 1 decode step reads it: its four
+  projections per block are int8 matmuls (the K7 kernel on the card).
+  Both prefills stay fp32, as in the reference, so the prompt's K/V are
+  the fp32 model's.
 * **Paged mode** (``kv_page_size > 0``): K/V live in one page pool behind
   host-owned page tables (``kv_pool.py``); a radix prefix cache
   (``prefix_cache.py``, namespaced by tenant by default) lets a request
@@ -25,7 +31,7 @@
 Sampling follows ``generate.sample_rows``: greedy argmax, or per request
 a generator seeded from ``(rng, t)`` per token, so a served request
 reproduces the port's ``generate()`` for it.  Speculative decoding, LoRA
-adapters, int8 projections and chunked prefill are not ported yet.
+adapters and chunked prefill are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 
 from ml_trainer_tpu_torch.device import check_model_device
 from ml_trainer_tpu_torch.generate import sample_rows
+from ml_trainer_tpu_torch.ops.kernels.int8_matmul import quantize_tree
 from ml_trainer_tpu_torch.serving.kv_pool import KVPagePool
 from ml_trainer_tpu_torch.serving.metrics import ServingMetrics
 from ml_trainer_tpu_torch.serving.prefix_cache import PrefixCache
@@ -58,8 +65,18 @@ class SlotDecodeEngine:
                  prefix_scope: str = "tenant", max_preemptions: int = 8,
                  spec_k: int = 0, adapters=None, quant_int8: bool = False,
                  prefill_chunk: int = 0, device=None):
+        if quant_int8 and spec_k:
+            raise ValueError(
+                "quant_int8 with spec_k > 0 is not supported: the verify "
+                "window runs the fp32 program, so acceptance would compare "
+                "int8 drafts against fp32 verify (serve quantized with "
+                "spec_k=0)")
+        if quant_int8 and adapters is not None:
+            raise ValueError(
+                "quant_int8 with adapters is not supported: LoRA deltas "
+                "attach to the fp32 projections the quantized program does "
+                "not read (serve quantized without adapters)")
         for knob, value in (("spec_k", spec_k), ("adapters", adapters),
-                            ("quant_int8", quant_int8),
                             ("prefill_chunk", prefill_chunk)):
             if value:
                 raise NotImplementedError(
@@ -109,6 +126,15 @@ class SlotDecodeEngine:
                 raise ValueError("kv_pages needs kv_page_size > 0")
             self.kv_pages = 0
             self.cache = model.new_cache(max_batch)
+        # The decode step's int8 weights, or None for the fp32 program.
+        self.quant = None
+        if quant_int8:
+            self.quant = quantize_tree(model)
+            if not self.quant:
+                raise ValueError(
+                    "quant_int8 found no quantizable projections in the "
+                    "model (expected qkv/proj/fc_in/fc_out nn.Linear "
+                    "layers)")
         self.tok = torch.zeros((max_batch, 1), dtype=torch.long,
                                device=self.device)
         self._temps = np.zeros((max_batch,), np.float32)
@@ -400,7 +426,8 @@ class SlotDecodeEngine:
             last = self.model(
                 self.tok, self.cache,
                 select=torch.zeros(self.max_batch, dtype=torch.long,
-                                   device=self.device))
+                                   device=self.device),
+                quant=self.quant)
             # Free slots decode masked garbage nobody reads: greedy there.
             live = np.zeros(self.max_batch, bool)
             live[list(self._active)] = True

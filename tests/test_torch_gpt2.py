@@ -115,7 +115,7 @@ def test_init_gpt2_is_seeded_and_refusals():
         assert torch.equal(va, vb), k
     assert not torch.equal(a.tok_embed.weight, c.tok_embed.weight)
     assert torch.equal(a.blocks[0].ln1.weight, torch.ones(128))
-    for knob in ("dropout_rate", "moe_experts", "lora_rank", "quant_int8"):
+    for knob in ("dropout_rate", "moe_experts", "lora_rank"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model("gpt2_tiny", device="cpu", **{knob: 1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

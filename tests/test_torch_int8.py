@@ -1,0 +1,284 @@
+"""Port parity for int8 serving: the port's quantization, int8 matmul,
+quant collection, int8 forward and ``Server(quant_int8=True)`` against
+the JAX package's, on the CPU, plus the reference's quality gate.
+
+* ``quantize_per_channel`` and ``quantize_tree`` are bitwise the JAX
+  package's (all-zero columns, exact .5 steps round half to even).
+* ``int8_matmul`` on the CPU (its plain version) agrees with the JAX
+  ``int8_matmul`` through its reference and its Pallas kernel in
+  interpret mode within 1e-5 of max|y| (f32 sums in another order).
+* Full-forward int8 logits agree with the JAX
+  ``model.clone(quant_int8=True)`` within 1e-5; greedy int8 ``Server``
+  tokens are identical to the JAX int8 ``Server``'s; two port runs give
+  the same bytes; only the S == 1 decode step reads the collection.
+* Quality gate (``tests/test_kernels.py::test_int8_quality_gate``):
+  gpt2_tiny trained by the JAX ``Trainer`` on a successor map, then
+  converted; the port's int8 forward keeps argmax agreement >= 0.995
+  and relative logit error <= 0.02 against its fp32 forward.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ml_trainer_tpu.models import get_model as j_get_model
+from ml_trainer_tpu.ops.kernels.int8_matmul import (
+    int8_matmul as j_int8_matmul,
+    quantize_per_channel as j_quantize_per_channel,
+    quantize_tree as j_quantize_tree,
+)
+from ml_trainer_tpu.serving import Server as JServer
+from ml_trainer_tpu_torch import (
+    Server,
+    get_model,
+    int8_matmul,
+    params_from_jax,
+    quant_from_jax,
+    quantize_per_channel,
+    quantize_tree,
+)
+from ml_trainer_tpu_torch.serving import SlotDecodeEngine
+
+MAX_LEN = 64
+REL = 1e-5  # int8 matmul / logits: of max|y|, f32 sums in another order
+
+
+@pytest.fixture(scope="module")
+def models():
+    j_model = j_get_model("gpt2_tiny", max_len=MAX_LEN)
+    variables = j_model.init({"params": jax.random.PRNGKey(2)},
+                             np.zeros((1, 8), np.int32), train=False)
+    params = jax.tree.map(np.asarray, variables["params"])
+    t_model = get_model("gpt2_tiny", max_len=MAX_LEN, device="cpu")
+    t_model.load_state_dict(params_from_jax(params))
+    return j_model, variables, t_model
+
+
+def _flat(tree, prefix=""):
+    """Nested dict -> {path: numpy leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _port_paths(quant):
+    """The port's collection keyed by the JAX package's paths."""
+    return {f"block{path.split('/', 2)[1]}/{path.split('/', 2)[2]}": v
+            for path, v in _flat(quant).items()}
+
+
+def _assert_bits(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _weights(seed, k, n):
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(k, n)) * 0.1).astype(np.float32)
+    w[:, 0] = 0.0  # all-zero column: scale 1
+    # amax 254 -> scale exactly 2: w / scale hits .5, 1.5, 2.5 exactly.
+    w[:, 1] = 0.0
+    w[:6, 1] = [1.0, 3.0, 5.0, -5.0, -1.0, 254.0]
+    # amax 127 -> scale exactly 1: halves round half to even.
+    w[:, 2] = 0.0
+    w[:5, 2] = [0.5, 1.5, 2.5, -2.5, 127.0]
+    return w
+
+
+@pytest.mark.parametrize("seed,k,n", [(0, 32, 48), (1, 130, 100),
+                                      (2, 7, 3)])
+def test_quantize_per_channel_is_bitwise_the_jax_one(seed, k, n):
+    w = _weights(seed, k, n)
+    jw, js = j_quantize_per_channel(jnp.asarray(w))
+    tw, ts = quantize_per_channel(torch.from_numpy(w))
+    assert tw.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert ts[0] == 1.0 and ts[1] == 2.0 and ts[2] == 1.0
+    assert tw[:5, 2].tolist() == [0, 2, 2, -2, 127]
+    assert tw[:6, 1].tolist() == [0, 2, 2, -2, 0, 127]
+
+
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
+@pytest.mark.parametrize("m,k,n", [(4, 32, 48), (13, 130, 100),
+                                   (1, 256, 1024)])
+def test_int8_matmul_matches_jax(impl, m, k, n):
+    rng = np.random.default_rng(m * k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w_q, scale = j_quantize_per_channel(jnp.asarray(_weights(m, k, n)))
+    kw = dict(interpret=True) if impl == "pallas" else {}
+    want = np.asarray(j_int8_matmul(jnp.asarray(x), w_q, scale,
+                                    implementation=impl, **kw))
+    tw = torch.from_numpy(np.array(w_q))
+    ts = torch.from_numpy(np.array(scale))
+    got = int8_matmul(torch.from_numpy(x), tw, ts)
+    tol = REL * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    # [B, S, K] inputs and the fused bias: the JAX layer's y + b.
+    b = rng.normal(size=(n,)).astype(np.float32)
+    got_b = int8_matmul(torch.from_numpy(x)[None], tw, ts,
+                        bias=torch.from_numpy(b))
+    assert got_b.shape == (1, m, n)
+    np.testing.assert_allclose(got_b[0].numpy(), want + b, rtol=0,
+                               atol=tol + REL * np.abs(b).max())
+
+
+def test_int8_matmul_refusals():
+    x = torch.zeros(2, 8)
+    w = torch.zeros(8, 4)
+    with pytest.raises(ValueError, match="int8"):
+        int8_matmul(x, w, torch.ones(4))
+    w_q = w.to(torch.int8)
+    with pytest.raises(ValueError, match="implementation"):
+        int8_matmul(x, w_q, torch.ones(4), implementation="pallas")
+    with pytest.raises(ValueError, match="contract"):
+        int8_matmul(torch.zeros(2, 5), w_q, torch.ones(4))
+    assert torch.equal(
+        int8_matmul(x, w_q, torch.ones(4), implementation="reference"),
+        torch.zeros(2, 4))
+
+
+def test_quantize_tree_is_bitwise_the_jax_one(models):
+    _, variables, t_model = models
+    want = j_quantize_tree(variables["params"])
+    got = quantize_tree(t_model)
+    _assert_bits(_port_paths(got), _flat(want))
+    crossed = quant_from_jax(jax.tree.map(np.asarray, want))
+    _assert_bits(_flat(crossed), _flat(got))
+    assert quantize_tree(t_model, targets=("nope",)) == {}
+    with pytest.raises(TypeError):
+        quantize_tree({"qkv": 1})
+
+
+@pytest.mark.parametrize("b,n", [(2, 24), (1, 64)])
+def test_int8_full_forward_logits_match_jax(models, b, n):
+    j_model, variables, t_model = models
+    ids = np.random.default_rng(n).integers(0, 1024, (b, n)).astype(np.int32)
+    jquant = j_quantize_tree(variables["params"])
+    want = np.asarray(j_model.clone(quant_int8=True).apply(
+        {"params": variables["params"], "quant": jquant}, ids, train=False))
+    with torch.no_grad():
+        got = t_model(torch.from_numpy(ids).long(),
+                      quant=quantize_tree(t_model)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=REL * np.abs(want).max())
+
+
+def _prompts():
+    """The prompts of tests/test_torch_serving.py."""
+    rng = np.random.default_rng(0)
+    out = [rng.integers(0, 1024, n).astype(np.int32) for n in (5, 40, 12, 7)]
+    out.append(np.concatenate([out[1][:32],
+                               rng.integers(0, 1024, 9).astype(np.int32)]))
+    return out
+
+
+def _serve(server, prompts, n=10, sampled=()):
+    streams = [server.submit(p, n, temperature=0.9 if i in sampled else 0.0,
+                             rng=31 + i) for i, p in enumerate(prompts)]
+    return [np.asarray(s.result(timeout=300)) for s in streams], streams
+
+
+def test_int8_server_matches_jax_server(models):
+    j_model, variables, t_model = models
+    prompts = _prompts()
+    with JServer(j_model, variables, max_batch=4, kv_page_size=16,
+                 paged_kernel=True, quant_int8=True) as js:
+        want, _ = _serve(js, prompts)
+    with Server(t_model, max_batch=4, kv_page_size=16, paged_kernel=True,
+                quant_int8=True, device="cpu") as ts:
+        got, streams = _serve(ts, prompts)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert streams[-1].request.prefix_hit_tokens == 32
+
+
+def test_int8_server_is_deterministic_and_decode_only(models):
+    """Two identical runs (one request sampled) stream the same bytes,
+    and the model sees the collection on every S == 1 decode step and on
+    no prefill (both prefills stay fp32, as in the reference)."""
+    _, _, t_model = models
+    prompts = _prompts()
+    calls = []
+    forward = t_model.forward
+
+    def spy(ids, cache=None, select=None, quant=None, **kw):
+        calls.append((ids.shape[1], quant is not None))
+        return forward(ids, cache, select, quant=quant, **kw)
+
+    runs = []
+    t_model.forward = spy
+    try:
+        for _ in range(2):
+            with Server(t_model, max_batch=3, kv_page_size=16,
+                        paged_kernel=True, quant_int8=True,
+                        device="cpu") as s:
+                runs.append(_serve(s, prompts, n=9, sampled=(2,))[0])
+    finally:
+        del t_model.forward
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+    assert {(s > 1, q) for s, q in calls} == {(True, False), (False, True)}
+
+
+def test_int8_refusals(models, monkeypatch):
+    _, _, t_model = models
+    with pytest.raises(ValueError, match="quant_int8 with spec_k"):
+        SlotDecodeEngine(t_model, kv_page_size=16, quant_int8=True,
+                         spec_k=2, device="cpu")
+    with pytest.raises(ValueError, match="quant_int8 with adapters"):
+        Server(t_model, kv_page_size=16, quant_int8=True,
+               adapters={"rank": 4}, device="cpu")
+    # Without quant_int8 the same knobs are refused as not ported.
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SlotDecodeEngine(t_model, spec_k=2, device="cpu")
+    # A model with no quantizable projection is refused, never served
+    # un-quantized.
+    import ml_trainer_tpu_torch.serving.engine as engine
+
+    monkeypatch.setattr(engine, "quantize_tree", lambda model: {})
+    with pytest.raises(ValueError, match="no quantizable projections"):
+        SlotDecodeEngine(t_model, quant_int8=True, device="cpu")
+
+
+def test_int8_quality_gate(tmp_path):
+    """The reference's gate on a model with real top-1 margins: random
+    next-token targets leave logits near-tied, which measures
+    tie-breaking, not the quantization."""
+    from ml_trainer_tpu import Trainer
+    from ml_trainer_tpu.data.datasets import ArrayDataset
+
+    rng = np.random.default_rng(0)
+    V, S, N = 64, 32, 64
+    succ = rng.permutation(V)
+    data = np.zeros((N, S), np.int32)
+    data[:, 0] = rng.integers(0, V, N)
+    for t in range(1, S):
+        data[:, t] = succ[data[:, t - 1]]
+    j_model = j_get_model("gpt2_tiny", vocab_size=V)
+    trainer = Trainer(
+        j_model,
+        datasets=(ArrayDataset(data, np.roll(data, -1, axis=1), None),) * 2,
+        model_dir=str(tmp_path / "q"), epochs=4, batch_size=16, seed=3,
+        lr=0.01, optimizer="adamw", metric=None, backend="cpu",
+    )
+    trainer.fit()
+    t_model = get_model("gpt2_tiny", vocab_size=V, device="cpu")
+    t_model.load_state_dict(
+        params_from_jax(jax.tree.map(np.asarray, trainer.state.params)))
+    toks = torch.from_numpy(data[:8]).long()
+    with torch.no_grad():
+        lf = t_model(toks)
+        lq = t_model(toks, quant=quantize_tree(t_model))
+    agreement = (lf.argmax(-1) == lq.argmax(-1)).float().mean().item()
+    rel_err = ((lf - lq).abs().max() / lf.abs().max()).item()
+    assert agreement >= 0.995, f"argmax agreement {agreement}"
+    assert rel_err <= 0.02, f"relative logit error {rel_err}"

@@ -25,8 +25,10 @@ from ml_trainer_tpu_torch.ops.attention import (
     flash_attention_reference,
 )
 from ml_trainer_tpu_torch.ops.kernels import (
+    int8_matmul,
     paged_attention,
     paged_attention_reference,
+    quantize_per_channel,
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -110,14 +112,19 @@ def test_launch_counters_stay_zero_on_cpu(tmp_path):
                          grad_accum_steps=2, device="cpu",
                          model_dir=str(tmp_path))
     trainer.fit()
+    with mt.Server(model, kv_page_size=16, paged_kernel=True,
+                   quant_int8=True, device="cpu") as server:
+        assert server.complete([1, 2, 3], 4, timeout=120).shape == (7,)
     assert mt.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                  "flash_bwd_dkv": 0, "paged_attention": 0}
+                                  "flash_bwd_dkv": 0, "paged_attention": 0,
+                                  "int8_matmul": 0}
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the card (float32,
-    atol 1e-4 forward: the kernel sums in another order)."""
+    atol 1e-4 forward: the kernel sums in another order; K7 within
+    1e-5 of max|y|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
     dev = torch.device("cuda")
@@ -162,5 +169,19 @@ def test_kernels_match_plain_on_card():
             torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
         if lens is not None:
             assert bool((got[1][1, :, lens[1]:] == 0).all())
+    # K7 (int8 matmul) within 1e-5 of max|y| of its plain version (f32
+    # sums over K in another order): a decode shape, and ragged M, N
+    # (not a multiple of 4: byte loads) and K.
+    for m, k, n in ((8, 768, 2304), (13, 130, 99)):
+        x = torch.randn(m, k, generator=gen).to(dev)
+        w_q, scale = quantize_per_channel(
+            (torch.randn(k, n, generator=gen) * 0.02).to(dev))
+        bias = torch.randn(n, generator=gen).to(dev)
+        got = int8_matmul(x, w_q, scale, bias=bias)
+        want = int8_matmul(x, w_q, scale, bias=bias,
+                           implementation="reference")
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
     assert mt.launch_counts() == {"flash_fwd": 9, "flash_bwd_dq": 3,
-                                  "flash_bwd_dkv": 3, "paged_attention": 1}
+                                  "flash_bwd_dkv": 3, "paged_attention": 1,
+                                  "int8_matmul": 2}

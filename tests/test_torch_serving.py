@@ -121,8 +121,7 @@ def test_preemption_under_page_pressure_changes_no_token(models):
 def test_server_refusals_and_failures(models):
     _, _, t_model = models
     for kw in (dict(spec_k=2), dict(adapters={"rank": 4}),
-               dict(quant_int8=True), dict(prefill_chunk=16),
-               dict(http_port=0)):
+               dict(prefill_chunk=16), dict(http_port=0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Server(t_model, device="cpu", kv_page_size=16, **kw)
     with pytest.raises(ValueError, match="paged_kernel needs paged KV"):
