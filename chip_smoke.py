@@ -5,6 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --only kernels  # build + kernel checks only
     python3 chip_smoke.py --only train    # kernel checks + training only
+    python3 chip_smoke.py --only dp       # kernel checks + data-parallel
+                                          # training only
 
 Phases, one line of output each (or a few):
 
@@ -32,7 +34,13 @@ Phases, one line of output each (or a few):
    graph replays (an eager call costs the host more than the kernel
    runs) with the weights cycled through more copies than the 50 MB L2
    holds (as a decode step finds them), beside ``F.linear`` on the fp32
-   weights (``fp32_dense_ms``);
+   weights (``fp32_dense_ms``); the sharded update's optimizer tail, K4
+   (unscale + squared sum) and K5 (clip + Adam + write), at GPT-2 124M's
+   2-replica shapes (the replicated tok_embed, the qkv.weight,
+   fc_out.weight and bias shards) and ragged sizes, K4's quotient and K5's
+   four outputs bitwise and K4's sum within 1e-5 relative of the plain
+   versions, timed beside ``torch._foreach_norm`` (K4) and
+   ``torch._fused_adam_`` (K5), both timed only;
 4. serving: GPT-2 124M at full width (12 layers, 768 wide, 12 heads,
    vocab 50257, max_len 1024) with seeded random weights behind
    ``Server(max_batch=8, kv_page_size=16, paged_kernel=True)``; 8 greedy
@@ -61,11 +69,24 @@ Phases, one line of output each (or a few):
    path; then the run, which must give finite losses, skip no step and
    launch K1 12 x (24 microbatches + 2 validation batches) times and K2
    and K3 12 x 24 times; then the optimizer-step time (CUDA events),
-   tokens/s, peak memory and a profiler split of one step.
+   tokens/s, peak memory and a profiler split of one step;
+6. data-parallel training: the same model through ``Trainer(...,
+   is_parallel=True, mesh_shape={"data": 2}, device=[cuda, cuda],
+   dp_update="sharded")`` (2 replicas sharing the card, global batch 8 =
+   4 rows per replica in 2 microbatches, adam with no weight decay: the
+   fused tail's configuration), 6 optimizer steps and 2 validation
+   batches.  First, from one state and one batch, the single-card step,
+   the sharded step with the plain tail and the sharded step with K4/K5:
+   losses within 1e-5 relative, kernel vs plain params within 1e-6, one
+   card vs sharded within 1e-3; then ``fit()``, which must give finite
+   losses, skip no step and launch K4 = K5 = 2 x 148 per step (and the
+   attention kernels per replica microbatch); then the step time,
+   tokens/s, peak memory and a profiler split with K4's and K5's device
+   ms per step beside their bounds.
 
-The counters are set to 0 just before each serving run and the training
+The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
-is the sum over the three runs.  The second-to-last line is the kernels'
+is the sum over the runs.  The second-to-last line is the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero and prints no ok line.  Exits non-zero at once
 without a CUDA card.
@@ -747,6 +768,7 @@ def device_split(prof, wall: float) -> dict:
     return {
         "wall_s": wall, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall,
+        "device_events": sum(r[2] for r in rows),
         "top_kernels": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
                         for us, k, n in rows[:10]],
     }
@@ -893,7 +915,7 @@ def train(dev):
     want = {"flash_fwd": model.depth * (n_micro + c["val_batches"]),
             "flash_bwd_dq": model.depth * n_micro,
             "flash_bwd_dkv": model.depth * n_micro, "paged_attention": 0,
-            "int8_matmul": 0}
+            "int8_matmul": 0, "unscale_sqsum": 0, "fused_adam": 0}
     if counts != want:
         raise AssertionError(f"training launches {counts}, expected {want}")
 
@@ -920,9 +942,328 @@ def train(dev):
         max_memory_allocated_bytes=peak, grad_check=check, profile=profile)
 
 
+# ------------------------------------------------------------- phase 6
+# K4/K5 at the shapes the 2-replica GPT-2 124M step gives them: the
+# replicated tok_embed (every replica updates all of it), the dim-0
+# shards of qkv.weight, fc_out.weight and a [768] bias (n = 2), then
+# ragged sizes.  The first is the main row.
+FUSED_CASES = [("tok_embed", (50257, 768)), ("qkv_shard", (1152, 768)),
+               ("fc_out_shard", (384, 3072)), ("bias_shard", (384,)),
+               ("ragged_7", (7,)), ("ragged_4097", (4097,)),
+               ("ragged_3x5x7", (3, 5, 7))]
+SQ_RTOL = 1e-5  # K4's sum vs torch.sum: float32 sums in another order
+
+
+def check_fused_adam(dev):
+    """K4 against its plain version for an immediate and a device-scalar
+    denominator (4 and 6: a power of two and not), with and without the
+    sum: the quotient bitwise, the sum within SQ_RTOL; K5 with and
+    without the clip factor: all four outputs bitwise.  Timed with CUDA
+    events beside the plain versions, ``torch._foreach_norm`` (K4, timed
+    only; no one PyTorch call divides and sums) and ``torch._fused_adam_``
+    (K5, timed only: its bias correction and schedule placement differ,
+    and the port never calls it)."""
+    import torch
+
+    from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
+        fused_adam_update, unscale_sqsum)
+
+    rows = {"unscale_sqsum": [], "fused_adam": []}
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 50)
+    for i, (name, shape) in enumerate(FUSED_CASES):
+        g = (torch.randn(shape, generator=gen) * 1e-3).to(dev)
+        p = (torch.randn(shape, generator=gen) * 0.02).to(dev)
+        mu = (torch.randn(shape, generator=gen) * 1e-4).to(dev)
+        nu = (torch.rand(shape, generator=gen) * 1e-7).to(dev)
+        n = g.numel()
+        err4 = 0.0
+        for denom in (4.0, torch.tensor(6.0, device=dev)):
+            for compute_sq in (True, False):
+                got = unscale_sqsum(g, denom, compute_sq=compute_sq)
+                want = unscale_sqsum(g, denom, compute_sq=compute_sq,
+                                     implementation="reference")
+                torch.cuda.synchronize()
+                if not torch.equal(got[0], want[0]):
+                    raise AssertionError(
+                        f"unscale_sqsum {name}: quotient not bitwise "
+                        f"(max abs err "
+                        f"{(got[0] - want[0]).abs().max().item()})")
+                if compute_sq:
+                    d = abs(got[1].item() - want[1].item())
+                    if not d <= SQ_RTOL * abs(want[1].item()):
+                        raise AssertionError(
+                            f"unscale_sqsum {name}: sum {got[1].item()} vs "
+                            f"plain {want[1].item()}")
+                    err4 = max(err4, d)
+                elif got[1] is not None:
+                    raise AssertionError("compute_sq=False returned a sum")
+        scal = dict(bc1=torch.tensor(0.271, device=dev),
+                    bc2=torch.tensor(0.002997, device=dev),
+                    step_size=torch.tensor(-3e-4, device=dev), lr_scale=1.0)
+        for factor in (None, torch.tensor(0.37, device=dev)):
+            got = fused_adam_update(g, p, mu, nu, factor=factor, **scal)
+            want = fused_adam_update(g, p, mu, nu, factor=factor,
+                                     implementation="reference", **scal)
+            torch.cuda.synchronize()
+            for out, a, b in zip(("p", "mu", "nu", "u"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"fused_adam {name} factor={factor is not None}: "
+                        f"{out} not bitwise (max abs err "
+                        f"{(a - b).abs().max().item()})")
+        main = i == 0
+        iters = 20 if main else 50
+        k4 = time_ms(lambda: unscale_sqsum(g, 4.0), iters=iters)
+        k4_plain = time_ms(lambda: unscale_sqsum(
+            g, 4.0, implementation="reference"), iters=iters)
+        norm = time_ms(lambda: torch._foreach_norm([g]), iters=iters)
+        factor = torch.tensor(0.37, device=dev)
+        k5 = time_ms(lambda: fused_adam_update(g, p, mu, nu, factor=factor,
+                                               **scal), iters=iters)
+        k5_plain = time_ms(lambda: fused_adam_update(
+            g, p, mu, nu, factor=factor, implementation="reference", **scal),
+            iters=iters)
+        lib_p, lib_mu, lib_nu = p.clone(), mu.clone(), nu.clone()
+        lib_step = torch.zeros((), dtype=torch.float32, device=dev)
+        lib = time_ms(lambda: torch._fused_adam_(
+            [lib_p], [g], [lib_mu], [lib_nu], [], [lib_step], lr=3e-4,
+            beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+            amsgrad=False, maximize=False), iters=iters)
+        b4 = bound_ms(8.0 * n + 4, 2.0 * n)
+        b5 = bound_ms(32.0 * n + 20, 15.0 * n)
+        rows["unscale_sqsum"].append(dict(
+            case=name, shape=list(shape), max_abs_err=err4, ms=k4,
+            plain_ms=k4_plain, library_ms=None, foreach_norm_ms=norm,
+            bound_ms=b4[0], bound_by=b4[1]))
+        rows["fused_adam"].append(dict(
+            case=name, shape=list(shape), max_abs_err=0.0, ms=k5,
+            plain_ms=k5_plain, library_ms=lib, bound_ms=b5[0],
+            bound_by=b5[1]))
+        for kname in ("unscale_sqsum", "fused_adam"):
+            log(f"kernel {kname} " + json.dumps(rows[kname][-1]))
+        del g, p, mu, nu, lib_p, lib_mu, lib_nu
+        torch.cuda.empty_cache()
+    return rows
+
+
+# Data-parallel training: GPT-2 124M, 2 replicas on the one card,
+# examples/04_gpt2_pretrain.py's config except the optimizer (below).
+DP = dict(model="gpt2", seq_len=1024, vocab_size=50257, batch_size=8,
+          replicas=2, accum=2, steps=6, val_batches=2)
+DP_DIR = "build/chip_smoke_dp"  # model.pth of the run; removed after
+DP_LOSS_RTOL = 1e-5
+DP_KERNEL_ATOL = 1e-6  # sharded plain vs K4/K5: the clip factor's rounding
+DP_SINGLE_ATOL = 1e-3  # one card vs sharded: Adam's first step is ~±lr
+
+
+def _snapshot(trainer):
+    from ml_trainer_tpu_torch.ops.optimizers import tree_map
+
+    return ({k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()},
+            tree_map(lambda t: t.clone(), trainer.state.opt_state))
+
+
+def _restore(trainer, snap):
+    from ml_trainer_tpu_torch.ops.optimizers import tree_map
+
+    trainer.model.load_state_dict(snap[0])
+    trainer.state.opt_state = tree_map(lambda t: t.clone(), snap[1])
+    trainer.state.step = 0
+
+
+def dp_step_check(trainer, single, x, y) -> dict:
+    """From one state and one batch: the single-card step, the sharded
+    step with the plain tail and the sharded step with K4/K5."""
+    import torch
+
+    snap = _snapshot(trainer)
+    out = {}
+    for name, tr, fused in (("single", single, None),
+                            ("sharded_plain", trainer, False),
+                            ("sharded_kernels", trainer, True)):
+        if fused is not None:
+            tr.fused_adam = fused
+        _restore(tr, snap)
+        loss, _ = tr._train_step(x, y, 1.0)
+        out[name] = (loss.item(), {k: v.detach().clone() for k, v in
+                                   tr.model.state_dict().items()})
+    trainer.fused_adam = True
+    _restore(trainer, snap)
+    _restore(single, snap)
+    (l_1, p_1), (l_p, p_p), (l_k, p_k) = (out[k] for k in (
+        "single", "sharded_plain", "sharded_kernels"))
+    for what, a in (("single", l_1), ("sharded K4/K5", l_k)):
+        if not abs(a - l_p) <= DP_LOSS_RTOL * abs(l_p):
+            raise AssertionError(f"{what} loss {a} vs sharded plain {l_p}")
+    d_kernel = max((p_k[k] - p_p[k]).abs().max().item() for k in p_p)
+    d_single = max((p_k[k] - p_1[k]).abs().max().item() for k in p_p)
+    moved = max((p_k[k] - snap[0][k]).abs().max().item() for k in p_p)
+    if not d_kernel <= DP_KERNEL_ATOL:
+        raise AssertionError(f"sharded K4/K5 vs plain params differ by "
+                             f"{d_kernel} > {DP_KERNEL_ATOL}")
+    if not d_single <= DP_SINGLE_ATOL:
+        raise AssertionError(f"sharded vs single-card params differ by "
+                             f"{d_single} > {DP_SINGLE_ATOL}")
+    if not moved > 0:
+        raise AssertionError("the step did not move the params")
+    del out, snap
+    torch.cuda.empty_cache()
+    return dict(loss_single=l_1, loss_sharded_plain=l_p,
+                loss_sharded_kernels=l_k,
+                max_param_diff_kernels_vs_plain=d_kernel,
+                max_param_diff_sharded_vs_single=d_single,
+                max_param_move=moved)
+
+
+def dp_kernel_split(prof) -> dict:
+    """K4's and K5's device ms in a profiled window, by kernel name."""
+    from torch.autograd import DeviceType
+
+    out = {"unscale_sqsum": 0.0, "fused_adam": 0.0}
+    calls = {"unscale_sqsum": 0, "fused_adam": 0}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        for kname, marks in (("unscale_sqsum", ("unscale_sqsum_kernel",
+                                                "sum_partials_kernel")),
+                             ("fused_adam", ("fused_adam_kernel",))):
+            if any(m in evt.key for m in marks):
+                out[kname] += us / 1e3
+                calls[kname] += evt.count
+    return {"device_ms": out, "device_calls": calls}
+
+
+def dp_train(dev):
+    """GPT-2 124M through ``Trainer(..., is_parallel=True,
+    mesh_shape={"data": 2}, device=[cuda, cuda], dp_update="sharded")``:
+    examples/04_gpt2_pretrain.py's config (seq 1024, SyntheticTokens,
+    global batch 8 = 4 rows per replica in 2 microbatches, cosine
+    restarts, clip 1.0), except ``optimizer="adam"`` with
+    ``weight_decay=0``: the one configuration the fused tail (K4/K5)
+    accepts, as in the JAX package.  6 optimizer steps, 2 validation
+    batches."""
+    import math
+    import shutil
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+    from ml_trainer_tpu_torch.parallel import comm_stats
+
+    c = DP
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    sets = (
+        mt.SyntheticTokens(size=c["batch_size"] * c["steps"],
+                           seq_len=c["seq_len"], vocab_size=c["vocab_size"],
+                           seed=SEED),
+        mt.SyntheticTokens(size=c["batch_size"] * c["val_batches"],
+                           seq_len=c["seq_len"], vocab_size=c["vocab_size"],
+                           seed=SEED + 1),
+    )
+    kw = dict(datasets=sets, epochs=1, batch_size=c["batch_size"],
+              grad_accum_steps=c["accum"], optimizer="adam", lr=3e-4,
+              weight_decay=0.0, scheduler="CosineAnnealingWarmRestarts",
+              grad_clip_norm=1.0, metric="accuracy", model_dir=DP_DIR,
+              seed=SEED)
+    t0 = time.perf_counter()
+    trainer = mt.Trainer(c["model"], is_parallel=True,
+                         mesh_shape={"data": c["replicas"]},
+                         device=[dev] * c["replicas"], dp_update="sharded",
+                         **kw)
+    if not (trainer.fused_adam and trainer.dp_update == "sharded"
+            and trainer.mesh.size == c["replicas"]):
+        raise AssertionError("the data-parallel trainer did not take the "
+                             "sharded step with the fused tail")
+    model = trainer.model
+    single = mt.Trainer(model, device=dev, **kw)
+    log(f"dp: Trainer({c['model']}) x {c['replicas']} replicas built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
+    check = dp_step_check(trainer, single, x, y)
+    log("dp: one state, one batch " + json.dumps(check))
+    del single
+
+    plan, n = trainer._bucket_plan, c["replicas"]
+    shapes = [p.shape for p in model.parameters()]
+    # K4/K5 elements per step: each sharded leaf once over the replicas'
+    # shards, each replicated leaf once per replica.
+    elems = sum(s.numel() if sh else s.numel() * n
+                for s, sh in zip(shapes, plan.sharded))
+    torch.cuda.reset_peak_memory_stats()
+    comm_stats.reset_comm_stats()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    if not all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"]):
+        raise AssertionError(f"non-finite losses: {hist}")
+    if hist["skipped_steps"] != [0]:
+        raise AssertionError(f"skipped steps: {hist['skipped_steps']}")
+    leaves = len(shapes)
+    n_micro = c["steps"] * n * c["accum"]
+    want = {"flash_fwd": model.depth * (n_micro + c["val_batches"]),
+            "flash_bwd_dq": model.depth * n_micro,
+            "flash_bwd_dkv": model.depth * n_micro, "paged_attention": 0,
+            "int8_matmul": 0, "unscale_sqsum": n * leaves * c["steps"],
+            "fused_adam": n * leaves * c["steps"]}
+    if counts != want:
+        raise AssertionError(f"dp launches {counts}, expected {want}")
+    comm = {"bytes": comm_stats.comm_bytes(), "calls": comm_stats.comm_calls()}
+
+    n_time = 3
+    trainer._train_step(x, y, 1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_time):
+        trainer._train_step(x, y, 1.0)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n_time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._train_step(x, y, 1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = device_split(prof, wall)
+    split.update(dp_kernel_split(prof))
+    split["bound_ms"] = {
+        "unscale_sqsum": bound_ms(8.0 * elems, 2.0 * elems)[0],
+        "fused_adam": bound_ms(32.0 * elems, 15.0 * elems)[0]}
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    return dict(
+        history={k: hist[k] for k in ("train_loss", "val_loss",
+                                      "train_metric", "val_metric",
+                                      "skipped_steps")},
+        replicas=n, leaves=leaves, buckets=len(plan.buckets),
+        overlap_fraction=plan.overlap_fraction,
+        optimizer_elements_per_step=elems, fit_s=fit_s, launches=counts,
+        expected_launches=(
+            "K1 = depth x (steps x replicas x accum + val_batches), "
+            "K2 = K3 = depth x steps x replicas x accum, "
+            "K4 = K5 = replicas x leaves x steps"),
+        step_ms=step_ms,
+        tokens_per_s=c["batch_size"] * c["seq_len"] / (step_ms / 1e3),
+        max_memory_allocated_bytes=peak, step_check=check, comm=comm,
+        profile=split)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["kernels", "train"],
+    parser.add_argument("--only", choices=["kernels", "train", "dp"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -953,9 +1294,11 @@ def main(argv=None) -> int:
     paged_row = check_paged(dev)
     bwd_rows, padded_err = check_flash_bwd(dev)
     int8_rows = check_int8(dev)
+    fused_rows = check_fused_adam(dev)
     launches = {"flash_fwd": None, "paged_attention": None,
                 "flash_bwd_dq": None, "flash_bwd_dkv": None,
-                "int8_matmul": None}
+                "int8_matmul": None, "unscale_sqsum": None,
+                "fused_adam": None}
     if args.only is None:
         serving = serve(dev)
         for run in ("fp32", "int8"):
@@ -969,6 +1312,17 @@ def main(argv=None) -> int:
         for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             launches[kname] = ((launches[kname] or 0)
                                + training["launches"][kname])
+    dp_split = None
+    if args.only in (None, "dp"):
+        dp = dp_train(dev)
+        log(f"data-parallel training on {smi}: " + json.dumps(dp))
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "unscale_sqsum", "fused_adam"):
+            launches[kname] = (launches[kname] or 0) + dp["launches"][kname]
+        prof = dp["profile"]
+        dp_split = {k: dict(step_device_ms=prof["device_ms"][k],
+                            step_bound_ms=prof["bound_ms"][k])
+                    for k in ("unscale_sqsum", "fused_adam")}
     main_flash = flash_rows[2]  # S=1024 causal: the longest prefill bucket
     bwd = {}
     for kname, row in bwd_rows:  # the main row is each kernel's first
@@ -1005,6 +1359,16 @@ def main(argv=None) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
          **{k: int8_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}},
+    ] + [
+        {"name": kname, "route": "cuda",
+         "source": "ml_trainer_tpu_torch/csrc/fused_adam.cu",
+         "replaces": f"ml_trainer_tpu/ops/kernels/fused_adam.py:{line}",
+         "launches": launches[kname],
+         "max_abs_err": max(r["max_abs_err"] for r in fused_rows[kname]),
+         **{k: fused_rows[kname][0][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **(dp_split[kname] if dp_split else {})}
+        for kname, line in (("unscale_sqsum", 132), ("fused_adam", 241))
     ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

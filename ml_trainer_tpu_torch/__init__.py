@@ -7,10 +7,13 @@ run on the CUDA card unless the caller passes ``device="cpu"``, and raise
 when no card is visible.  The TPU's Pallas kernels on the serving,
 int8 decode and training paths are hand-written CUDA kernels here
 (``csrc/``), built with ``nvcc`` at first use; ``launch_counts()`` shows
-how often each one ran.
+how often each one ran.  Data-parallel training runs its replicas on
+one device (``parallel/``, ``create_mesh``).
 """
 
+from ml_trainer_tpu_torch import parallel
 from ml_trainer_tpu_torch.convert import (
+    adam_state_from_jax,
     init_gpt2,
     params_from_jax,
     quant_from_jax,
@@ -28,6 +31,7 @@ from ml_trainer_tpu_torch.ops.kernels import (
     quantize_per_channel,
     quantize_tree,
 )
+from ml_trainer_tpu_torch.parallel import create_mesh
 from ml_trainer_tpu_torch.serving import Server, SlotDecodeEngine
 from ml_trainer_tpu_torch.trainer import Trainer
 from ml_trainer_tpu_torch.utils import load_history, load_model
@@ -36,8 +40,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "GPT2", "Loader", "Server", "SlotDecodeEngine", "SyntheticTokens",
-    "Trainer", "generate", "get_model", "init_gpt2", "int8_matmul",
-    "launch_counts", "load_history", "load_model", "params_from_jax",
+    "Trainer", "adam_state_from_jax", "create_mesh", "generate",
+    "get_model", "init_gpt2", "int8_matmul", "launch_counts",
+    "load_history", "load_model", "parallel", "params_from_jax",
     "quant_from_jax", "quantize_per_channel", "quantize_tree",
     "reset_launch_counts", "resolve_device",
 ]

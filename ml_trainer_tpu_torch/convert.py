@@ -11,6 +11,10 @@ and returns a ``state_dict`` for the port's ``GPT2``:
   it too), ``pos_embed`` as it is;
 * ``block{i}`` -> ``blocks.{i}``.
 
+``adam_state_from_jax`` carries the JAX trainer's optax Adam state
+(count, moments, schedule count) into the port's optimizer state, the
+moments through the same layout rules.
+
 ``quant_from_jax`` takes the JAX package's int8 "quant" collection
 (``ops/kernels/int8_matmul.quantize_tree``: ``block{i}/attn/{qkv,proj}_*``,
 ``block{i}/mlp/{fc_in,fc_out}_*``) as numpy and returns the port's, with
@@ -69,6 +73,48 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         _linear(f"{pre}.mlp.fc_out", blk["mlp"]["fc_out"], out)
     _layernorm("ln_final", params["ln_final"], out)
     return out
+
+
+def _opt_part(state, device):
+    """One optax state (a NamedTuple) of a chain -> the port's dict."""
+    fields = tuple(state._fields)
+
+    def count(c) -> torch.Tensor:
+        return torch.tensor(np.asarray(c, np.int32)).to(device)
+
+    def moments(tree) -> Dict[str, torch.Tensor]:
+        return {k: v.to(device) for k, v in params_from_jax(tree).items()}
+
+    if not fields:  # EmptyState: identity, clip, add_decayed_weights
+        return {}
+    if {"count", "mu", "nu"} <= set(fields):  # ScaleByAdamState
+        return {"count": count(state.count), "mu": moments(state.mu),
+                "nu": moments(state.nu)}
+    if fields == ("count",):  # ScaleByScheduleState
+        return {"count": count(state.count)}
+    raise ValueError(f"no port counterpart for optimizer state fields "
+                     f"{fields}")
+
+
+def _is_chain(state) -> bool:
+    return isinstance(state, tuple) and not hasattr(state, "_fields")
+
+
+def adam_state_from_jax(opt_state, device=None):
+    """The JAX trainer's optax state of a GPT-2 (``chain(clip|identity,
+    adam(schedule))``, or adamw's ``(adam, add_decayed_weights,
+    schedule)`` inner chain) as numpy -> the port's optimizer state:
+    ``ScaleByAdamState`` to ``{"count", "mu", "nu"}`` with the moments
+    laid out as ``params_from_jax`` lays out the params (Dense kernels
+    transposed), ``ScaleByScheduleState`` to ``{"count"}``, empty states
+    to ``{}``, each chain a tuple; tensors on ``device`` (the CPU by
+    default)."""
+    def convert(state):
+        if _is_chain(state):
+            return tuple(convert(s) for s in state)
+        return _opt_part(state, device)
+
+    return convert(opt_state)
 
 
 def quant_from_jax(quant: Mapping, device=None) -> dict:

@@ -21,7 +21,8 @@ import torch
 # Kernel name -> launches since the last reset.
 _LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-    "paged_attention": 0, "int8_matmul": 0,
+    "paged_attention": 0, "int8_matmul": 0, "unscale_sqsum": 0,
+    "fused_adam": 0,
 }
 
 

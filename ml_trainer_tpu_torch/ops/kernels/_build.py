@@ -32,7 +32,8 @@ FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 # Source name -> {C function: argument types}.
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_fwd": {
@@ -60,6 +61,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "int8_matmul": {
         # x, w_q, scale, bias|NULL, out, m, k, n, stream
         "int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "fused_adam": {
+        # g, denom_ptr|NULL, denom, out, partials, sq_out, n, compute_sq,
+        # stream
+        "unscale_sqsum_f32": [_P, _P, _F, _P, _P, _P, _L, _I, _P],
+        # scalars, g, p, mu, nu, p_out, mu_out, nu_out, u_out, n,
+        # has_factor, stream
+        "fused_adam_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
     },
 }
 

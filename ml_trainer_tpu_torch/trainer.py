@@ -23,6 +23,26 @@ The train step follows the JAX package's compiled step, written out:
 * the epoch loops read the device only every ``log_every`` steps and at
   the epoch's end.
 
+Data parallelism (``is_parallel`` / ``mesh_shape={"data": n}`` with a
+list of ``n`` devices) follows the JAX package's two step flavours over
+replicas that share one device (``parallel/``): replica ``j`` takes row
+block ``j`` of the global batch, its ``grad_accum_steps`` microbatches
+cut from its own rows.
+
+* ``dp_update="fused"`` (the default): the replicas' local-mean
+  gradients are ``pmean``-ed, then go through the single-card update.
+* ``dp_update="sharded"`` (``_make_sharded_train_step`` of the JAX
+  package, written out): the summed local-mean gradients leave through
+  one reduce-scatter per bucket (leaves whose dim 0 does not divide by
+  ``n`` through one ``psum``), are divided by ``n * accum``, clipped by
+  ``clip / max(global norm, clip)`` with the norm summed over the
+  replicas' shards, and each replica updates its dim-0 shard of the
+  params and of the ZeRO-1 moments; a skip needs every replica's
+  consent; the fresh shards come back through one all-gather per bucket.
+  With ``fused_adam`` (on by default for plain Adam with no weight
+  decay) the tail runs kernels K4 and K5 (``ops/kernels/fused_adam.py``)
+  and stays bitwise the unfused chain's on the CPU.
+
 The model runs on the CUDA card unless ``device="cpu"`` (or a CPU
 ``backend``) is asked for.  A model named from the registry is built by
 ``init_gpt2``'s seeded initializer; an ``nn.Module`` is trained as
@@ -48,6 +68,11 @@ from ml_trainer_tpu_torch.config import TrainerConfig, validate_kwargs
 from ml_trainer_tpu_torch.convert import init_gpt2
 from ml_trainer_tpu_torch.data import Loader, prefetch_to_device
 from ml_trainer_tpu_torch.device import resolve_device
+from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
+    adam_scalars,
+    fused_adam_update,
+    unscale_sqsum,
+)
 from ml_trainer_tpu_torch.ops.losses import get_criterion
 from ml_trainer_tpu_torch.ops.metrics import get_metric
 from ml_trainer_tpu_torch.ops.optimizers import (
@@ -62,6 +87,17 @@ from ml_trainer_tpu_torch.ops.predictions import get_prediction_function
 from ml_trainer_tpu_torch.ops.schedules import (
     PlateauController,
     make_lr_schedule,
+)
+from ml_trainer_tpu_torch.parallel import collectives as col
+from ml_trainer_tpu_torch.parallel.distributed import initialize_distributed
+from ml_trainer_tpu_torch.parallel.mesh import create_mesh
+from ml_trainer_tpu_torch.parallel.sharding import (
+    bucketed_all_gather,
+    bucketed_reduce_scatter,
+    join_replica_views,
+    plan_grad_buckets,
+    replica_view,
+    zero1_opt_shardings,
 )
 from ml_trainer_tpu_torch.train_state import TrainState
 from ml_trainer_tpu_torch.utils.logging import get_logger
@@ -124,41 +160,67 @@ class Trainer:
     ):
         """The JAX package's ``Trainer`` arguments, plus ``device``.
 
+        ``device``: one device, or the mesh's device list (one entry per
+        data replica; the replicas must share one device, which may
+        repeat: ``["cpu"] * 8``, ``["cuda", "cuda"]``).
+
         Ported: ``grad_accum_steps``, ``grad_clip_norm``,
         ``early_stop_patience``, ``save_best``, ``decay_exclude_bias_norm``,
-        ``label_smoothing``, ``nonfinite_guard``, ``log_every_steps`` and
-        ``loader`` ('auto' and 'python' both take the Python ``Loader``).
+        ``label_smoothing``, ``nonfinite_guard``, ``log_every_steps``,
+        ``loader`` ('auto' and 'python' both take the Python ``Loader``),
+        and data parallelism: ``is_parallel``, ``mesh_shape`` (the data
+        axis only), ``dp_update`` ('fused' | 'sharded'), ``fused_adam``
+        (None: on exactly for the sharded step with plain Adam and no
+        weight decay), ``bucket_mb`` and ``shard_opt_state`` (ZeRO-1,
+        implied by the sharded step; under the fused step a placement
+        with no effect on replicas that share a device).
         Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
-        ported), ``loss_scale`` and ``bucket_mb`` (they act only with
-        bf16 and the sharded update), ``desync_every_steps`` and
-        ``straggler_factor`` (multi-host and telemetry only), and
-        ``handle_preemption`` (no signal handlers are installed yet).
-        Refused unless at their defaults: ``is_parallel``,
-        ``mesh_shape``, ``sharding_rules``, ``steps_per_execution``,
-        ``shard_opt_state``, ``ema_decay``, ``precision`` other than
+        ported), ``loss_scale`` (it acts only with bf16),
+        ``desync_every_steps`` and ``straggler_factor`` (multi-host and
+        telemetry only), and ``handle_preemption`` (no signal handlers
+        are installed yet).
+        Refused unless at their defaults: ``sharding_rules``,
+        ``steps_per_execution``, ``ema_decay``, ``precision`` other than
         fp32, ``telemetry``, ``elastic``, ``lora``,
-        ``pipeline_schedule``, ``dp_update='sharded'``,
-        ``fused_adam=True``, ``save_every_steps``,
+        ``pipeline_schedule``, ``save_every_steps``,
         ``rollback_bad_steps``, ``sharded_checkpoint=True`` and
-        ``loader='native'``.
+        ``loader='native'``; so are mesh axes other than ``data`` and
+        replicas on distinct devices.
         """
         logger.info("Config inputs.", config=config)
         cfg = TrainerConfig.from_kwargs(**config)
         self.config = cfg
+        if dp_update not in ("fused", "sharded"):
+            raise ValueError(
+                f"dp_update must be 'fused' | 'sharded', got {dp_update!r}")
+        if fused_adam:
+            if dp_update != "sharded":
+                raise ValueError(
+                    "fused_adam=True needs dp_update='sharded': the fused "
+                    "kernels replace the sharded step's optimizer tail (the "
+                    "fused step keeps the unfused update)")
+            if cfg.optimizer != "adam":
+                raise ValueError(
+                    "fused_adam=True supports optimizer='adam' only (got "
+                    f"{cfg.optimizer!r}): the kernels replicate optax.adam's "
+                    "exact op chain")
+            if cfg.weight_decay:
+                raise ValueError(
+                    "fused_adam=True needs weight_decay=0: coupled L2 "
+                    "prepends add_decayed_weights, which the fused kernels "
+                    "do not replicate")
+        if dp_update == "sharded" and steps_per_execution > 1:
+            raise ValueError(
+                "dp_update='sharded' requires steps_per_execution=1")
         for knob, value, accepted in (
-            ("is_parallel", is_parallel, (False,)),
-            ("mesh_shape", mesh_shape, (None,)),
             ("sharding_rules", sharding_rules, (None,)),
             ("steps_per_execution", steps_per_execution, (1,)),
-            ("shard_opt_state", shard_opt_state, (False,)),
             ("ema_decay", ema_decay, (None,)),
             ("precision", precision, (None, "fp32")),
             ("telemetry", telemetry, (False,)),
             ("elastic", elastic, (None,)),
             ("lora", lora, (None,)),
             ("pipeline_schedule", pipeline_schedule, (None,)),
-            ("dp_update", dp_update, ("fused",)),
-            ("fused_adam", fused_adam, (None, False)),
             ("save_every_steps", save_every_steps, (None,)),
             ("rollback_bad_steps", rollback_bad_steps, (None,)),
             ("sharded_checkpoint", sharded_checkpoint, (None, False)),
@@ -190,13 +252,42 @@ class Trainer:
         if bucket_mb <= 0:
             raise ValueError(f"bucket_mb must be positive, got {bucket_mb}")
 
+        listed = isinstance(device, (list, tuple))
+        if listed and not device:
+            raise ValueError("device=[] names no device")
         if cfg.backend == "cpu":
-            if device is not None and torch.device(device).type != "cpu":
+            asked = list(device) if listed else [device]
+            if any(d is not None and torch.device(d).type != "cpu"
+                   for d in asked):
                 raise ValueError(
                     f"backend={config.get('backend')!r} runs on the CPU, "
                     f"but device={device!r} was asked for")
-            device = "cpu"
-        self.device = resolve_device(device)
+            device = ["cpu"] * len(asked) if listed else "cpu"
+        devices = [resolve_device(d) for d in (device if listed
+                                               else [device])]
+        if is_parallel:
+            initialize_distributed(cfg.backend)
+        self.mesh = create_mesh(mesh_shape, devices)
+        self.device = self.mesh.device
+        n_replicas = self.mesh.size
+        self.dp_update = dp_update
+        self.fused_adam = (
+            dp_update == "sharded" and cfg.optimizer == "adam"
+            and not cfg.weight_decay
+        ) if fused_adam is None else bool(fused_adam)
+        self.bucket_mb = float(bucket_mb)
+        if dp_update == "sharded":
+            if n_replicas < 2:
+                logger.warning(
+                    "dp_update='sharded' on a single-replica mesh has "
+                    "nothing to shard; falling back to the fused step.")
+                self.dp_update = "fused"
+                self.fused_adam = False
+            elif not shard_opt_state:
+                logger.info("dp_update='sharded' implies shard_opt_state=True "
+                            "(ZeRO-1 moment placement).")
+                shard_opt_state = True
+        self.shard_opt_state = bool(shard_opt_state)
 
         # Parity attribute names of the reference.
         self.epochs = epochs
@@ -241,6 +332,14 @@ class Trainer:
             raise TypeError(
                 f"model must be a registry name or an nn.Module, got "
                 f"{type(model).__name__}")
+        if self.dp_update == "sharded" and any(
+                isinstance(m, nn.modules.batchnorm._BatchNorm)
+                for m in model.modules()):
+            raise ValueError(
+                "dp_update='sharded' does not support batch_stats models "
+                "(per-replica BatchNorm statistics would diverge from the "
+                "fused global-batch stats); use the fused step for "
+                "BatchNorm models")
         self.model = model
         logger.info(f"Training on device: {self.device}.")
 
@@ -269,14 +368,15 @@ class Trainer:
     # ------------------------------------------------------------------ data
     def _build_loaders(self, train_set, val_set, batch_size, cfg) -> None:
         logger.info("Loading training and validation set.")
-        d = self.grad_accum_steps
-        # The global batch rounds down to a multiple of the microbatch
-        # count (and up to one sample per microbatch), as in the reference.
+        d = self.mesh.size * self.grad_accum_steps
+        # The global batch rounds down to a multiple of the data replicas
+        # x microbatch count (and up to one sample per replica per
+        # microbatch), as in the reference.
         eff = max(batch_size // d, 1) * d
         if eff != batch_size:
             logger.warning(
                 f"Global batch {batch_size} adjusted to {eff} to divide "
-                f"into {d} microbatches.")
+                f"across {d} data-parallel microbatches.")
         drop_last = d > 1  # equal microbatches
         self.global_batch = eff
         self.train_loader = Loader(train_set, batch_size=eff, shuffle=True,
@@ -299,9 +399,13 @@ class Trainer:
             cfg.scheduler, cfg.lr, self.steps_per_epoch,
             total_steps=(self.steps_per_epoch * self.epochs
                          if self.epochs else None))
+        # The sharded step keeps the identity slot (same state structure)
+        # and clips by the global norm it sums over the replicas itself:
+        # a chained clip would see one replica's shard.
         self.tx = chain(
             clip_by_global_norm(self.grad_clip_norm)
-            if self.grad_clip_norm is not None else identity(),
+            if (self.grad_clip_norm is not None
+                and self.dp_update != "sharded") else identity(),
             get_optimizer(
                 cfg.optimizer, self.lr_schedule, cfg.momentum,
                 cfg.weight_decay,
@@ -313,6 +417,18 @@ class Trainer:
         with torch.no_grad():
             params = {k: p.detach() for k, p in self._params().items()}
             self.state = TrainState.create(self.tx.init(params), self.device)
+        n = self.mesh.size
+        self._zero1 = self._bucket_plan = None
+        if self.dp_update == "sharded":
+            # ZeRO-1: which state leaves split over the replicas.
+            self._zero1 = zero1_opt_shardings(self.state.opt_state, n)
+            self._bucket_plan = plan_grad_buckets(
+                params, n, bucket_bytes=int(self.bucket_mb * 2 ** 20))
+            logger.info(
+                f"Sharded DP update: {len(self._bucket_plan.buckets)} "
+                f"reduce-scatter buckets over data={n} (bucket_mb="
+                f"{self.bucket_mb}, analytic overlap fraction "
+                f"{self._bucket_plan.overlap_fraction:.2f}).")
 
     # ------------------------------------------------------------- the step
     def _forward_loss(self, x, y):
@@ -325,11 +441,11 @@ class Trainer:
                       else torch.zeros((), device=loss.device))
         return loss, metric
 
-    def _train_step(self, x, y, lr_scale: float):
-        """One optimizer step on the global batch ``(x, y)``; returns the
-        (guarded) loss and metric as device scalars."""
+    def _local_grads(self, params, x, y):
+        """Forward and backward over the ``grad_accum_steps`` microbatches
+        of rows ``(x, y)``: the summed gradients (taken out of ``.grad``)
+        and the summed loss and metric."""
         accum = self.grad_accum_steps
-        params = self._params()
         self.model.train()
         for p in params.values():
             p.grad = None
@@ -342,14 +458,180 @@ class Trainer:
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             metric_sum = metric if metric_sum is None else metric_sum + metric
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return grads, loss_sum, metric_sum
+
+    def _replica_grads(self, params, x, y):
+        """``_local_grads`` of each replica's row block of the global
+        batch, in replica order."""
+        rows = x.shape[0] // self.mesh.size
+        return [self._local_grads(params, x[j * rows:(j + 1) * rows],
+                                  y[j * rows:(j + 1) * rows])
+                for j in range(self.mesh.size)]
+
+    def _train_step(self, x, y, lr_scale: float):
+        """One optimizer step on the global batch ``(x, y)``; returns the
+        (guarded) loss and metric as device scalars."""
+        if self.dp_update == "sharded":
+            return self._sharded_train_step(x, y, lr_scale)
+        accum = self.grad_accum_steps
+        params = self._params()
+        local = self._replica_grads(params, x, y)
         with torch.no_grad():
-            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for k, p in params.items()}
-            if accum > 1:
-                grads = {k: g / accum for k, g in grads.items()}
-                loss_sum, metric_sum = loss_sum / accum, metric_sum / accum
-            return self._apply_grads(params, grads, loss_sum, metric_sum,
-                                     lr_scale)
+            if len(local) == 1:
+                grads, loss, metric = local[0]
+                if accum > 1:
+                    grads = {k: g / accum for k, g in grads.items()}
+                    loss, metric = loss / accum, metric / accum
+            else:
+                # Local-mean gradients, averaged over the replicas.
+                grads = {k: col.pmean([g[k] / accum for g, _, _ in local])[0]
+                         for k in params}
+                loss = col.pmean([lo / accum for _, lo, _ in local])[0]
+                metric = col.pmean([m / accum for _, _, m in local])[0]
+            del local
+            return self._apply_grads(params, grads, loss, metric, lr_scale)
+
+    @torch.no_grad()
+    def _sharded_train_step(self, x, y, lr_scale: float):
+        """The bucketed reduce-scatter + 1/N-shard update step
+        (``dp_update="sharded"``), the JAX package's
+        ``_make_sharded_train_step`` with its replicas given as lists."""
+        n, plan, accum = self.mesh.size, self._bucket_plan, self.grad_accum_steps
+        clip = self.grad_clip_norm
+        params = self._params()
+        names = list(params)
+        flags = dict(zip(names, plan.sharded))
+        with torch.enable_grad():
+            local = self._replica_grads(params, x, y)
+        # Epoch accounting reads global means.
+        loss = col.pmean([lo / accum for _, lo, _ in local])[0]
+        metric = col.pmean([m / accum for _, _, m in local])[0]
+        # (1) one reduce-scatter per bucket of the summed local-mean
+        # gradients; each replica keeps its dim-0 shard, summed.
+        g = bucketed_reduce_scatter([[gr[k] for k in names]
+                                     for gr, _, _ in local], plan)
+        del local
+        rep_idx = [i for i, s in enumerate(plan.sharded) if not s]
+        if rep_idx:
+            # Leaves whose dim 0 does not divide by n: ONE psum over their
+            # concatenation, a replicated update.
+            flat = col.psum([torch.cat([gj[i].reshape(-1) for i in rep_idx])
+                             for gj in g])
+            for j, gj in enumerate(g):
+                off = 0
+                for i in rep_idx:
+                    size = gj[i].numel()
+                    gj[i] = flat[j][off:off + size].reshape(gj[i].shape)
+                    off += size
+        # (2) unscale: the psum/scatter summed n replicas' local means of
+        # accum microbatches; then each replica's squared-norm parts.
+        dev = self.device
+        denom = float(n * accum)
+        denom_t = torch.full((), denom, dtype=torch.float32, device=dev)
+        grads, sq_loc, sq_rep = [], [], []
+        for gj in g:
+            leaves = {}
+            loc = torch.zeros((), dtype=torch.float32, device=dev)
+            rep = torch.zeros((), dtype=torch.float32, device=dev)
+            for name, gi in zip(names, gj):
+                if self.fused_adam:
+                    g_u, s = unscale_sqsum(gi, denom, compute_sq=clip is not None)
+                else:
+                    g_u = torch.div(gi, denom_t)
+                    s = (torch.sum(torch.square(g_u.to(torch.float32)))
+                         if clip is not None else None)
+                leaves[name] = g_u
+                if s is not None:
+                    loc, rep = (loc + s, rep) if flags[name] else (loc, rep + s)
+            grads.append(leaves)
+            sq_loc.append(loc)
+            sq_rep.append(rep)
+        del g
+        # (3) the global clip factor, from the psum of the shards' squared
+        # sums plus the replicated leaves' (counted once).
+        factors = [None] * n
+        if clip is not None:
+            clip_t = torch.full((), float(clip), dtype=torch.float32,
+                                device=dev)
+            loc_sum = col.psum(sq_loc)
+            factors = [torch.div(clip_t, torch.maximum(
+                torch.sqrt(loc_sum[j] + sq_rep[j]), clip_t))
+                for j in range(n)]
+        # (4) each replica updates its shard of the params and moments.
+        full = {k: p.detach() for k, p in params.items()}
+        state = self.state
+        old_p = [replica_view(full, flags, n, j) for j in range(n)]
+        old_opt = [replica_view(state.opt_state, self._zero1, n, j)
+                   for j in range(n)]
+        new_p, new_opt, checked = [], [], []
+        for j in range(n):
+            if self.fused_adam:
+                pj, oj = self._fused_tail(grads[j], old_p[j], old_opt[j],
+                                          factors[j], lr_scale)
+                checked.append(grads[j])
+            else:
+                gj = grads[j] if factors[j] is None else {
+                    k: t * factors[j] for k, t in grads[j].items()}
+                updates, oj = self.tx.update(gj, old_opt[j], old_p[j])
+                pj = {k: old_p[j][k] + u * lr_scale
+                      for k, u in updates.items()}
+                checked.append(gj)
+            new_p.append(pj)
+            new_opt.append(oj)
+        if self.nonfinite_guard:
+            # A non-finite value lives only in its owner's shard: every
+            # replica must consent for the step to be taken.
+            oks = []
+            for gj in checked:
+                ok = torch.isfinite(loss)
+                for t in gj.values():
+                    ok = ok & torch.isfinite(t).all()
+                oks.append(ok.to(torch.float32))
+            ok = col.psum(oks)[0] > (n - 0.5)
+
+            def sel(a, b):
+                return torch.where(ok, a, b)
+
+            new_p = [tree_map(sel, new_p[j], old_p[j]) for j in range(n)]
+            new_opt = [tree_map(sel, new_opt[j], old_opt[j])
+                       for j in range(n)]
+            bad = (~ok).to(torch.int32)
+            state.skipped_steps = state.skipped_steps + bad
+            state.bad_streak = (state.bad_streak + 1) * bad
+            loss = torch.where(ok, loss, torch.zeros_like(loss))
+            metric = torch.where(ok, metric, torch.zeros_like(metric))
+        # (5) the fresh weights: one all-gather per bucket.
+        gathered = bucketed_all_gather([[pj[k] for k in names] for pj in new_p],
+                                       plan, [full[k].shape for k in names])
+        # The replicas share the model: replica 0's copy is everyone's.
+        for k, leaf in zip(names, gathered[0]):
+            params[k].copy_(leaf)
+        state.opt_state = join_replica_views(new_opt, self._zero1)
+        state.step += 1
+        return loss, metric
+
+    def _fused_tail(self, grads, params, opt_state, factor, lr_scale):
+        """K5 over one replica's leaves (shards and replicated leaves),
+        the optimizer state rebuilt in the unfused chain's structure:
+        ``({}, ({count, mu, nu}, {count}))``."""
+        _, (adam, sched) = opt_state
+        count, bc1, bc2, step_size, sched_count = adam_scalars(
+            adam["count"], sched["count"], self.lr_schedule)
+        lr_t = torch.full((), float(lr_scale), dtype=torch.float32,
+                          device=self.device)
+        outs = {k: fused_adam_update(
+            g, params[k], adam["mu"][k], adam["nu"][k], bc1=bc1, bc2=bc2,
+            step_size=step_size, lr_scale=lr_t, factor=factor)
+            for k, g in grads.items()}
+        new_opt = ({}, ({"count": count,
+                         "mu": {k: o[1] for k, o in outs.items()},
+                         "nu": {k: o[2] for k, o in outs.items()}},
+                        {"count": sched_count}))
+        return {k: o[0] for k, o in outs.items()}, new_opt
 
     def _apply_grads(self, params, grads, loss, metric, lr_scale: float):
         state = self.state

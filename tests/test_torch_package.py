@@ -117,7 +117,8 @@ def test_launch_counters_stay_zero_on_cpu(tmp_path):
         assert server.complete([1, 2, 3], 4, timeout=120).shape == (7,)
     assert mt.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                   "flash_bwd_dkv": 0, "paged_attention": 0,
-                                  "int8_matmul": 0}
+                                  "int8_matmul": 0, "unscale_sqsum": 0,
+                                  "fused_adam": 0}
 
 
 @pytest.mark.cuda
@@ -184,4 +185,5 @@ def test_kernels_match_plain_on_card():
                                    atol=1e-5 * want.abs().max().item())
     assert mt.launch_counts() == {"flash_fwd": 9, "flash_bwd_dq": 3,
                                   "flash_bwd_dkv": 3, "paged_attention": 1,
-                                  "int8_matmul": 2}
+                                  "int8_matmul": 2, "unscale_sqsum": 0,
+                                  "fused_adam": 0}
