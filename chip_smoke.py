@@ -21,11 +21,17 @@ Phases, one line of output each (or a few):
    (K6) on B=8, H=12, D=64, page 16, 64 pages per row, 513 pool pages,
    ragged lengths and an all-trash row, each within 1e-4 absolute of its
    plain version; the flash backward, K2 (dQ) and K3 (dK/dV), on
-   [8, 12, 1024, 64] causal (the main row), the same non-causal with
-   kv_lens, and [2, 8, 1024, 128] causal, within atol 2e-4 / rtol 1e-4
-   of the plain backward, with exact-zero dK/dV past kv_lens, plus the
-   padded path's gradients (S 1000, head_dim 48) through
-   ``attention(implementation="flash")`` against the plain attention;
+   [2, 12, 1024, 64] causal (the main row: one training microbatch),
+   [8, 12, 1024, 64] causal (``b8``, the row of earlier figures),
+   [8, 12, 1024, 64] non-causal with kv_lens, and [2, 8, 1024, 128]
+   causal, within atol 2e-4 / rtol 1e-4 of the plain backward, with
+   exact-zero dK/dV past kv_lens, plus the padded path's gradients (S
+   1000, head_dim 48) through ``attention(implementation="flash")``
+   against the plain attention; at the main row also bitwise-equal
+   results from two calls and device times from profiler events (K2, K3
+   and SDPA's backward) beside the CUDA-event times.  Their ``bound_ms``
+   is the operations at the 3xTF32 tensor-core rate (494.7 / 3 TFLOP/s),
+   ``bound_fp32_core_ms`` the same at the 67 TFLOP/s fp32 CUDA-core rate;
    the int8 matmul (K7) at the four GPT-2 124M decode projections (M=8:
    qkv 768x2304, proj 768x768, fc_in 768x3072, fc_out 3072x768), at M=1,
    ragged M=13 K=130 N=100, the JAX package's bench shape M=8 K=256
@@ -69,7 +75,8 @@ Phases, one line of output each (or a few):
    path; then the run, which must give finite losses, skip no step and
    launch K1 12 x (24 microbatches + 2 validation batches) times and K2
    and K3 12 x 24 times; then the optimizer-step time (CUDA events),
-   tokens/s, peak memory and a profiler split of one step;
+   tokens/s, peak memory and a profiler split of one step, with K2's and
+   K3's device ms per step beside 48 x their main-row bound;
 6. data-parallel training: the same model through ``Trainer(...,
    is_parallel=True, mesh_shape={"data": 2}, device=[cuda, cuda],
    dp_update="sharded")`` (2 replicas sharing the card, global batch 8 =
@@ -81,7 +88,7 @@ Phases, one line of output each (or a few):
    card vs sharded within 1e-3; then ``fit()``, which must give finite
    losses, skip no step and launch K4 = K5 = 2 x 148 per step (and the
    attention kernels per replica microbatch); then the step time,
-   tokens/s, peak memory and a profiler split with K4's and K5's device
+   tokens/s, peak memory and a profiler split with K2's to K5's device
    ms per step beside their bounds.
 
 The counters are set to 0 just before each serving run and each training
@@ -103,6 +110,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 494.7e12    # H100 SXM TF32 tensor cores, dense
 TOL = 1e-4
 BWD_ATOL, BWD_RTOL = 2e-4, 1e-4  # K2/K3 vs the plain backward (float32)
 LOGIT_SLACK = 1e-3
@@ -141,9 +149,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -218,12 +227,80 @@ def kept_pairs(b: int, s: int, causal: bool, lens) -> int:
 
 
 BWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
-    ("main", 8, 12, 1024, 64, True, None),
+    ("main", 2, 12, 1024, 64, True, None),  # one training microbatch
+    ("b8", 8, 12, 1024, 64, True, None),
     ("kv_lens", 8, 12, 1024, 64, False,
      [1024, 700, 1, 513, 64, 1000, 257, 900]),
     ("d128", 2, 8, 1024, 128, True, None),
 ]
 PADDED_CASE = (2, 4, 1000, 48)  # off-tile S and head_dim
+# K2's and K3's kernel names, as the profiler lists them.
+BWD_MARKS = {"flash_bwd_dq": ("flash_bwd_dq_kernel",),
+             "flash_bwd_dkv": ("flash_bwd_dkv_kernel",)}
+
+
+def bwd_bounds(b, h, s, d, causal, lens) -> dict:
+    """K2's and K3's bounds: ``bound_ms``/``bound_by`` with the products
+    at the 3xTF32 tensor-core rate (three TF32 products per fp32-accurate
+    product), ``bound_fp32_core_ms`` at the fp32 CUDA-core rate.  Each
+    input read once, each output written once; 3 (K2) or 4 (K3) length-d
+    products per kept pair."""
+    pairs = kept_pairs(b, s, causal, lens) * h
+    arr = b * h * s * d * 4
+    rows_b = b * h * s * 4
+    out = {}
+    for kname, nbytes, prods in (
+            ("flash_bwd_dq", 4 * arr + 2 * rows_b + arr, 3),
+            ("flash_bwd_dkv", 4 * arr + 2 * rows_b + 2 * arr, 4)):
+        flops = prods * 2.0 * d * pairs
+        b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOPS_PER_S / 3)
+        out[kname] = dict(bound_ms=b_ms, bound_by=b_by,
+                          bound_fp32_core_ms=bound_ms(nbytes, flops)[0])
+    return out
+
+
+def bwd_step_bounds(launches: int) -> dict:
+    """K2's and K3's 3xTF32 bounds for a training step's ``launches``
+    launches at the main row's shape (one microbatch of 2 x 1024)."""
+    _, b, h, s, d, causal, lens = BWD_CASES[0]
+    return {k: launches * v["bound_ms"]
+            for k, v in bwd_bounds(b, h, s, d, causal, lens).items()}
+
+
+def kernel_device_ms(prof, marks: dict) -> dict:
+    """Device ms and calls in a profiled window per kernel, by name:
+    ``marks`` maps a kernel to substrings of its device events' names."""
+    from torch.autograd import DeviceType
+
+    ms = {k: 0.0 for k in marks}
+    calls = {k: 0 for k in marks}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        for kname, subs in marks.items():
+            if any(m in evt.key for m in subs):
+                ms[kname] += us / 1e3
+                calls[kname] += evt.count
+    return {"device_ms": ms, "device_calls": calls}
+
+
+def profiled_ms(fn, marks, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` from profiler events whose names hold
+    one of ``marks`` (``("",)`` takes every device event: a library
+    call's several kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_device_ms(prof, {"k": marks})["device_ms"]["k"] / iters
 
 
 def check_flash_bwd(dev):
@@ -244,8 +321,9 @@ def check_flash_bwd(dev):
         scale = d ** -0.5
         out, lse = flash_attention_reference(q, k, v, kv, causal, scale)
         delta = (dout * out).sum(-1).contiguous()
-        dq = flash_bwd_dq(q, k, v, kv, lse, delta, dout, causal, scale)
-        dk, dv = flash_bwd_dkv(q, k, v, kv, lse, delta, dout, causal, scale)
+        args = (q, k, v, kv, lse, delta, dout, causal, scale)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
         want = flash_attention_backward_reference(q, k, v, kv, out, lse,
                                                   dout, causal, scale)
         torch.cuda.synchronize()
@@ -259,10 +337,15 @@ def check_flash_bwd(dev):
                    >= kv.long()[:, None, None, None]).expand_as(dk)
             if not (bool((dk[pad] == 0).all()) and bool((dv[pad] == 0).all())):
                 raise AssertionError(f"{name}: dK/dV past kv_lens not zero")
-        ms_dq = time_ms(lambda: flash_bwd_dq(q, k, v, kv, lse, delta, dout,
-                                             causal, scale))
-        ms_dkv = time_ms(lambda: flash_bwd_dkv(q, k, v, kv, lse, delta, dout,
-                                               causal, scale))
+        main = i == 0
+        if main:  # no atomics: a second call repeats the first bit for bit
+            again = (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+            for nm, a, b2 in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+                if not torch.equal(a, b2):
+                    raise AssertionError(f"{name} {nm}: two calls differ")
+            del again
+        ms_dq = time_ms(lambda: flash_bwd_dq(*args))
+        ms_dkv = time_ms(lambda: flash_bwd_dkv(*args))
         plain = time_ms(lambda: flash_attention_backward_reference(
             q, k, v, kv, out, lse, dout, causal, scale), iters=10)
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -273,24 +356,30 @@ def check_flash_bwd(dev):
             keep = (torch.arange(s, device=dev)[None, :]
                     < kv.long()[:, None])[:, None, None, :]
             o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
-        lib = time_ms(lambda: torch.autograd.grad(
-            o_lib, (qg, kg, vg), dout, retain_graph=True), iters=10)
-        pairs = kept_pairs(b, s, causal, lens) * h
-        arr = b * h * s * d * 4
-        rows_b = b * h * s * 4
-        b_dq = bound_ms(4 * arr + 2 * rows_b + arr, 3.0 * 2 * d * pairs)
-        b_dkv = bound_ms(4 * arr + 2 * rows_b + 2 * arr,
-                         4.0 * 2 * d * pairs)
-        for kname, ms, bnd, err in (
-                ("flash_bwd_dq", ms_dq, b_dq, errs["dq"]),
-                ("flash_bwd_dkv", ms_dkv, b_dkv, max(errs["dk"],
-                                                     errs["dv"]))):
+
+        def lib_fn():
+            return torch.autograd.grad(o_lib, (qg, kg, vg), dout,
+                                       retain_graph=True)
+
+        lib = time_ms(lib_fn, iters=10)
+        extra = {kn: {} for kn in BWD_MARKS}
+        if main:  # device times: at ~0.05 ms an eager loop is host-bound
+            lib_dev = profiled_ms(lib_fn, ("",), iters=10)
+            for kn, fn in (("flash_bwd_dq", lambda: flash_bwd_dq(*args)),
+                           ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args))):
+                extra[kn] = dict(device_ms=profiled_ms(fn, BWD_MARKS[kn]),
+                                 library_device_ms=lib_dev,
+                                 bitwise_repeat=True)
+        bounds = bwd_bounds(b, h, s, d, causal, lens)
+        for kname, ms, err in (
+                ("flash_bwd_dq", ms_dq, errs["dq"]),
+                ("flash_bwd_dkv", ms_dkv, max(errs["dk"], errs["dv"]))):
             row = dict(case=name, shape=[b, h, s, d], causal=causal,
                        kv_lens=lens, max_abs_err=err, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=bnd[0], bound_by=bnd[1])
+                       library_ms=lib, **bounds[kname], **extra[kname])
             log(f"kernel {kname} " + json.dumps(row))
             rows.append((kname, row))
-        del qg, kg, vg, o_lib, want, out, lse
+        del qg, kg, vg, o_lib, want, out, lse, args
         torch.cuda.empty_cache()
 
     # Off-tile S and head_dim through the padding wrapper, gradients
@@ -857,7 +946,9 @@ def profile_step(trainer, x, y) -> dict:
         trainer._train_step(x, y, 1.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return device_split(prof, wall)
+    split = device_split(prof, wall)
+    split.update(kernel_device_ms(prof, BWD_MARKS))
+    return split
 
 
 def train(dev):
@@ -932,6 +1023,7 @@ def train(dev):
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / n_time
     profile = profile_step(trainer, x, y)
+    profile["bound_ms"] = bwd_step_bounds(model.depth * c["accum"])
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return dict(
         history={k: hist[k] for k in ("train_loss", "val_loss",
@@ -1054,6 +1146,10 @@ DP_DIR = "build/chip_smoke_dp"  # model.pth of the run; removed after
 DP_LOSS_RTOL = 1e-5
 DP_KERNEL_ATOL = 1e-6  # sharded plain vs K4/K5: the clip factor's rounding
 DP_SINGLE_ATOL = 1e-3  # one card vs sharded: Adam's first step is ~±lr
+# K2 to K5 by kernel name in the profiled step (K4 is two kernels).
+DP_MARKS = dict(BWD_MARKS, unscale_sqsum=("unscale_sqsum_kernel",
+                                          "sum_partials_kernel"),
+                fused_adam=("fused_adam_kernel",))
 
 
 def _snapshot(trainer):
@@ -1114,26 +1210,6 @@ def dp_step_check(trainer, single, x, y) -> dict:
                 max_param_diff_kernels_vs_plain=d_kernel,
                 max_param_diff_sharded_vs_single=d_single,
                 max_param_move=moved)
-
-
-def dp_kernel_split(prof) -> dict:
-    """K4's and K5's device ms in a profiled window, by kernel name."""
-    from torch.autograd import DeviceType
-
-    out = {"unscale_sqsum": 0.0, "fused_adam": 0.0}
-    calls = {"unscale_sqsum": 0, "fused_adam": 0}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        for kname, marks in (("unscale_sqsum", ("unscale_sqsum_kernel",
-                                                "sum_partials_kernel")),
-                             ("fused_adam", ("fused_adam_kernel",))):
-            if any(m in evt.key for m in marks):
-                out[kname] += us / 1e3
-                calls[kname] += evt.count
-    return {"device_ms": out, "device_calls": calls}
 
 
 def dp_train(dev):
@@ -1239,10 +1315,11 @@ def dp_train(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     split = device_split(prof, wall)
-    split.update(dp_kernel_split(prof))
+    split.update(kernel_device_ms(prof, DP_MARKS))
     split["bound_ms"] = {
         "unscale_sqsum": bound_ms(8.0 * elems, 2.0 * elems)[0],
-        "fused_adam": bound_ms(32.0 * elems, 15.0 * elems)[0]}
+        "fused_adam": bound_ms(32.0 * elems, 15.0 * elems)[0],
+        **bwd_step_bounds(model.depth * n * c["accum"])}
     shutil.rmtree(DP_DIR, ignore_errors=True)
     return dict(
         history={k: hist[k] for k in ("train_loss", "val_loss",
@@ -1306,12 +1383,18 @@ def main(argv=None) -> int:
                 launches[kname] = (launches[kname] or 0) + count
             log(f"serving {run} on {smi}: " + json.dumps(serving[run]))
         log(f"int8 quality gate on {smi}: " + json.dumps(quality_gate(dev)))
+    step_split = {kname: {} for kname in BWD_MARKS}  # K2/K3 per step
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))
         for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             launches[kname] = ((launches[kname] or 0)
                                + training["launches"][kname])
+        prof = training["profile"]
+        for kname in BWD_MARKS:
+            step_split[kname].update(
+                train_step_device_ms=prof["device_ms"][kname],
+                step_bound_ms=prof["bound_ms"][kname])
     dp_split = None
     if args.only in (None, "dp"):
         dp = dp_train(dev)
@@ -1323,6 +1406,10 @@ def main(argv=None) -> int:
         dp_split = {k: dict(step_device_ms=prof["device_ms"][k],
                             step_bound_ms=prof["bound_ms"][k])
                     for k in ("unscale_sqsum", "fused_adam")}
+        for kname in BWD_MARKS:
+            step_split[kname].update(
+                dp_step_device_ms=prof["device_ms"][kname],
+                step_bound_ms=prof["bound_ms"][kname])
     main_flash = flash_rows[2]  # S=1024 causal: the longest prefill bucket
     bwd = {}
     for kname, row in bwd_rows:  # the main row is each kernel's first
@@ -1348,8 +1435,11 @@ def main(argv=None) -> int:
          "source": "ml_trainer_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"ml_trainer_tpu/ops/attention.py:{line}",
          "launches": launches[kname],
-         **{k: bwd[kname][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}}
+         **{k: bwd[kname][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "bound_fp32_core_ms", "device_ms",
+             "library_device_ms")},
+         **step_split[kname]}
         for kname, line in (("flash_bwd_dq", 385), ("flash_bwd_dkv", 403))
     ] + [
         {"name": "int8_matmul", "route": "cuda",

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32: two kernels.
+// Flash-attention backward for Hopper (sm_90a), float32 in and out, on
+// the tensor cores: two kernels.
 //
 // K2, flash_bwd_dq_kernel, replaces
 //   ml_trainer_tpu/ops/attention.py::_flash_bwd_dq_kernel
@@ -13,79 +14,292 @@
 //   dP = dO . v^T,   dS = P * (dP - delta) * scale
 //   dQ = dS . k      (K2)        dK = dS^T . q,   dV = P^T . dO   (K3)
 // with the JAX kernels' mask (diagonal-aligned causal, key j kept for
-// query i iff i >= j, and/or keys at or past kv_lens[b] dropped) and the
-// JAX backward's scale placement (after the product, not on q).
+// query i iff i >= j, and/or keys at or past kv_lens[b] dropped, kv_lens
+// clamped to >= 1) and the JAX backward's scale placement (after the
+// product, not on q).  D is 64 or 128; any s_q, s_k (the ragged edge is
+// masked and zero-filled).
 //
-// What bounds it on this card: per kept (query, key) pair K2 does three
+// What bounds them on this card: per kept (query, key) pair K2 does three
 // length-D products (q.k, dO.v, dS*k) and K3 four (q.k, dO.v, P*dO,
-// dS*q), 2*D flops each, while each kernel reads its inputs about once:
-// at GPT-2's [8, 12, 1024, 64] causal that is 50.4 M pairs, 19 GFLOP
-// (K2) and 26 GFLOP (K3) against ~126 MB, so both are bound by
-// operations: 0.289 ms and 0.385 ms at the 67 TFLOP/s float32 CUDA-core
-// rate.  They run as float32 FMAs on the CUDA cores, as K1 does: the
-// model trains in fp32, and TF32 tensor cores would change its numbers.
+// dS*q), 2*D flops each, while each kernel reads its inputs about once.
+// At the training launch, [2, 12, 1024, 64] causal, that is 12.6 M pairs,
+// 4.84 GFLOP (K2) and 6.45 GFLOP (K3) against ~30 MB: both are bound by
+// operations.  As fp32-accurate tensor-core work (3 TF32 products per
+// product, 494.7 / 3 TFLOP/s) the bounds are 0.0293 ms and 0.0391 ms; on
+// the fp32 CUDA cores (67 TFLOP/s) 0.0722 ms and 0.0962 ms.
 //
-// What the design does about it: the TPU kernels carried dQ (or dK/dV)
-// in VMEM scratch across a sequential grid axis; here one block owns a
-// tile of 64 rows and a loop inside the block streams the other side's
-// tiles through shared memory, so the accumulators stay in registers
-// and each output is written once.  Splitting dQ from dK/dV is what
-// lets both kernels run without atomics, so results are the same from
-// run to run.  Four threads share a row (each holds D/4 of every row
-// vector); after two butterfly shuffles all four hold the full dot
-// products, so P and dS never leave registers and each streamed row is
-// read from shared memory once per block row.  Tiles above the causal
-// diagonal or wholly past kv_lens are never loaded; a kv tile wholly
-// past kv_lens writes zero dK/dV.  Tensor cores, TMA and wgmma are
-// later work.
+// Why three TF32 products and not one.  TF32 keeps 10 mantissa bits.
+// Emulated on the CPU (tests/test_torch_flash_backward.py: operands
+// rounded as cvt.rna.tf32.f32 rounds, float32 sums) at [1, 2, 256, d]
+// causal against the fp32 plain backward, one TF32 product gives dQ/dK/dV
+// max abs errors 1.4e-3 / 1.3e-3 / 1.8e-3 at d=64 (2.1e-3 / 1.7e-3 /
+// 2.5e-3 at d=128), beyond the chip gate (atol 2e-4, rtol 1e-4); three
+// products (big*small + small*big + big*big, each fp32 x split into
+// big = tf32(x) and small = tf32(x - big)) give 8.9e-7 / 1.6e-6 / 4.3e-6
+// (3.5e-6 / 3.6e-6 / 8.6e-6), under 1/20 of it.  PyTorch's fp32 SDPA
+// backward (the memory-efficient kernel) splits the same way.
+//
+// What the design does about the bound:
+// - Every product is mma.sync.m16n8k8 TF32 in the 3-product split, fp32
+//   accumulators.  A block owns 64 rows (queries in K2, keys in K3), one
+//   warp per 16; the other side streams through a 2-stage ring of
+//   32-row tiles in dynamic shared memory, copied with cp.async (16-byte
+//   copies; rows past s_q/s_k are zero-filled by a source size of 0), so
+//   the next tile's copy runs under this tile's products.  Rows are
+//   padded to D + 4 floats: every per-thread fragment load is free of
+//   bank conflicts.
+// - The owned operands (q, dO in K2; k, v in K3) are split once, when
+//   loaded, into a per-thread fragment store in shared memory (two
+//   16-byte loads per k-step), not into registers: in registers the
+//   split pair would take 128 of 255 registers at D=64 and all of them
+//   at D=128.  Streamed tiles stay raw fp32 and are split on the fragment
+//   load: pre-split big/small copies would double the ring (2 blocks per
+//   SM at D=64, ~99 KB each, would become 1) and the shared-memory bytes
+//   read per product.  The split rounds as cvt.rna.tf32.f32 does, bit for
+//   bit, but with two integer ops (to_tf32): with the conversion
+//   instruction K2/K3 took 0.517 / 0.670 ms at [8, 12, 1024, 64] causal,
+//   with the integer ops 0.449 / 0.578 ms (chip_smoke.py on one H100
+//   80GB HBM3 at 700 W).  ptxas: 166 / 177 registers for K2 / K3 at D=64,
+//   254 / 240 at D=128, no spills.
+// - P and dS stay in registers with no shuffles.  An m16n8k8 accumulator
+//   holds columns {2t, 2t+1} of its tile, an A fragment wants {t, t+4}:
+//   the next product runs over a permuted k index instead (c0/c1/c2/c3
+//   used as a0/a2/a1/a3, B rows 2t and 2t+1 read from shared memory).
+//   K3 computes S^T = K.Q^T and dP^T = V.dO^T with its keys as rows, so
+//   P^T and dS^T are A operands of P^T.dO and dS^T.Q as they stand; lse
+//   and delta are then per column, streamed beside Q/dO.
+// - dQ is split from dK/dV so that neither kernel needs atomics: the
+//   results repeat bit for bit.  Tiles above the causal diagonal or
+//   wholly past kv_lens are never loaded, a warp whose rows a tile's
+//   mask drops wholly skips its products, and a kv tile wholly past
+//   kv_lens writes zero dK/dV.  The grid's slow axis runs the longest
+//   causal tiles first (K2's last q tiles, K3's first kv tiles).
+// At [2, 12, 1024, 64] this design reaches 22-23% of the 3xTF32 bound
+// (K2 0.131 ms, K3 0.168 ms of device time), 1.41x faster than SDPA's
+// fp32 backward for the pair.  wgmma's TF32 form takes only K-major
+// operands from shared memory, so the second product of each kernel
+// would need transposed copies of the streamed tiles: the next step,
+// with TMA.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;  // rows a block owns (queries in K2, keys in K3)
-constexpr int kTPR = 4;    // threads per row
-constexpr int kStream = 32;  // streamed rows per tile
+constexpr int kRows = 64;     // rows a block owns (queries in K2, keys in K3)
+constexpr int kThreads = 128;  // four warps of 16 owned rows
+constexpr int kStream = 32;   // streamed rows per tile
 
-template <int D, int RPT>
-struct Cfg {
-  static constexpr int C = D / 4;                    // float4 chunks per row
-  static constexpr int CPT = C / kTPR;               // chunks per thread
-  static constexpr int THREADS = kRows * kTPR / RPT;
-  static constexpr int ROWS_PER_PASS = kRows / RPT;  // row stride of a thread
+template <int D>
+struct Tile {
+  static constexpr int KS = D / 8;          // k-steps over the head dim
+  static constexpr int NT = kStream / 8;    // 8-row tiles of a stream tile
+  static constexpr int LD = D + 4;          // padded shared row, floats
+  // Owned fragment store: 2 operands x KS x {big, small} float4 a thread.
+  static constexpr int OWN = 2 * KS * 2 * kThreads;
+  static constexpr int STAGE = 2 * kStream * LD;  // two streamed operands
+  // Bytes: store, 2 stages, and (K3) lse/delta for 2 stages.
+  static constexpr int SMEM = OWN * 16 + 2 * STAGE * 4 + 2 * 2 * kStream * 4;
 };
 
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
+// cvt.rna.tf32.f32's rounding (to nearest on the 10 kept mantissa bits,
+// ties away from zero) as two integer ops, bit for bit the same on finite
+// inputs and faster here: K2/K3 split ~200-290 values a thread per
+// stream tile.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// x = big + small, both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
 }
 
-__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
-  y.x = fmaf(a, x.x, y.x);
-  y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z);
-  y.w = fmaf(a, x.w, y.w);
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Sum over the four threads of a row (neighbouring lanes of one warp).
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// A split A fragment (16 x 8) and B fragment (8 x 8).
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// c += a . b in three TF32 products, the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(c, a.big, b.small[0], b.small[1]);
+  mma(c, a.small, b.big[0], b.big[1]);
+  mma(c, a.big, b.big[0], b.big[1]);
+}
+
+__device__ __forceinline__ FragB split_b(float x0, float x1) {
+  FragB b;
+  split(x0, b.big[0], b.small[0]);
+  split(x1, b.big[1], b.small[1]);
+  return b;
+}
+
+// An accumulator (columns 2t, 2t+1 of rows g, g+8) as the A fragment of
+// the next product over the permuted k index {2t -> t, 2t+1 -> t+4}.
+__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
+  FragA a;
+  split(c[0], a.big[0], a.small[0]);
+  split(c[2], a.big[1], a.small[1]);
+  split(c[1], a.big[2], a.small[2]);
+  split(c[3], a.big[3], a.small[3]);
+  return a;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Copy rows [row0, row0 + kStream) of two [n, D] operands into a stage;
+// rows at or past n are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_stream(float* dst, const float* a,
+                                            const float* b, int row0, int n,
+                                            int tid) {
+  constexpr int C = D / 4, LD = Tile<D>::LD;
+#pragma unroll
+  for (int idx = tid; idx < kStream * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C;
+    const bool ok = row0 + r < n;
+    const size_t off = ok ? (size_t)(row0 + r) * D + c * 4 : 0;
+    cp_async16(dst + r * LD + c * 4, a + off, ok);
+    cp_async16(dst + kStream * LD + r * LD + c * 4, b + off, ok);
+  }
+}
+
+// Split this thread's A fragments of rows [row0, row0 + 16) of two
+// [n, D] operands once, into the fragment store.
+template <int D>
+__device__ __forceinline__ void load_owned(float4* own, const float* a,
+                                           const float* b, int row0, int n,
+                                           int tid) {
+  constexpr int KS = Tile<D>::KS;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const float* x = o == 0 ? a : b;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c0 = kk * 8 + t, c1 = c0 + 4;
+      const float v[4] = {
+          r0 < n ? x[(size_t)r0 * D + c0] : 0.f,
+          r1 < n ? x[(size_t)r1 * D + c0] : 0.f,
+          r0 < n ? x[(size_t)r0 * D + c1] : 0.f,
+          r1 < n ? x[(size_t)r1 * D + c1] : 0.f};
+      FragA f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(v[i], f.big[i], f.small[i]);
+      own[((o * KS + kk) * 2) * kThreads + tid] =
+          make_float4(__uint_as_float(f.big[0]), __uint_as_float(f.big[1]),
+                      __uint_as_float(f.big[2]), __uint_as_float(f.big[3]));
+      own[((o * KS + kk) * 2 + 1) * kThreads + tid] = make_float4(
+          __uint_as_float(f.small[0]), __uint_as_float(f.small[1]),
+          __uint_as_float(f.small[2]), __uint_as_float(f.small[3]));
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ FragA owned_frag(const float4* own, int o, int kk,
+                                            int tid) {
+  constexpr int KS = Tile<D>::KS;
+  const float4 b = own[((o * KS + kk) * 2) * kThreads + tid];
+  const float4 s = own[((o * KS + kk) * 2 + 1) * kThreads + tid];
+  FragA f;
+  f.big[0] = __float_as_uint(b.x);
+  f.big[1] = __float_as_uint(b.y);
+  f.big[2] = __float_as_uint(b.z);
+  f.big[3] = __float_as_uint(b.w);
+  f.small[0] = __float_as_uint(s.x);
+  f.small[1] = __float_as_uint(s.y);
+  f.small[2] = __float_as_uint(s.z);
+  f.small[3] = __float_as_uint(s.w);
+  return f;
+}
+
+// S = X . Y^T and dP = dX . dY^T over a stream tile: the owned operands
+// from the store (operands 0 and 1), the streamed rows Y, dY from shared
+// memory (B[k][n] = Y[n][k], read as rows 8n + g, columns t and t + 4).
+template <int D>
+__device__ __forceinline__ void scores(const float4* own, const float* ys,
+                                       const float* dys, int tid,
+                                       float (&s)[Tile<D>::NT][4],
+                                       float (&dp)[Tile<D>::NT][4]) {
+  constexpr int KS = Tile<D>::KS, NT = Tile<D>::NT, LD = Tile<D>::LD;
+  const int g = (tid % 32) / 4, t = tid % 4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const FragA x = owned_frag<D>(own, 0, kk, tid);
+    const FragA dx = owned_frag<D>(own, 1, kk, tid);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* yr = ys + (n * 8 + g) * LD + kk * 8 + t;
+      mma3(s[n], x, split_b(yr[0], yr[4]));
+      const float* dyr = dys + (n * 8 + g) * LD + kk * 8 + t;
+      mma3(dp[n], dx, split_b(dyr[0], dyr[4]));
+    }
+  }
+}
+
+// acc += A . Z for the A fragment of 8-wide k-step j (a permuted
+// accumulator) and the streamed rows Z (B rows 2t and 2t + 1 of k-step j).
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[Tile<D>::KS][4],
+                                           const FragA& a, const float* zs,
+                                           int j, int tid) {
+  constexpr int KS = Tile<D>::KS, LD = Tile<D>::LD;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const float* z0 = zs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+  for (int nd = 0; nd < KS; ++nd)
+    mma3(acc[nd], a, split_b(z0[nd * 8], z0[LD + nd * 8]));
 }
 
 // ------------------------------------------------------------------ K2
 // dQ.  Replaces _flash_bwd_dq_kernel (ops/attention.py:221-281).  Bound:
-// 3 x 2*D flops per kept pair (0.289 ms at [8,12,1024,64] causal).  One
-// block per (q tile, b*h), 128 threads (D=64, two rows each) or 256
-// (D=128); K/V tiles of 32 rows stream through shared memory.
-template <int D, int RPT>
-__global__ void __launch_bounds__(Cfg<D, RPT>::THREADS)
+// 3 x 2*D flops per kept pair.  One block per (b*h, q tile), the longest
+// causal tiles first; K/V tiles of 32 rows stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const int* __restrict__ kv_lens,
@@ -93,114 +307,97 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int heads, int s_q, int s_k, int causal, float scale) {
-  using K = Cfg<D, RPT>;
-  constexpr int C = K::C, CPT = K::CPT, THREADS = K::THREADS;
-  __shared__ float4 ks[kStream][C];
-  __shared__ float4 vs[kStream][C];
+  using T = Tile<D>;
+  constexpr int KS = T::KS, NT = T::NT;
+  extern __shared__ float4 smem[];
+  float4* own = smem;
+  float* ring = reinterpret_cast<float*>(smem + T::OWN);
 
-  const int bh = blockIdx.y;
-  const int q_start = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int part = tid % kTPR;
-  const int row0 = tid / kTPR;  // rows row0 + r * ROWS_PER_PASS
+  const int bh = blockIdx.x;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = q_start + warp * 16;  // this warp's first query
 
-  const size_t q_off = (size_t)bh * s_q;
-  const size_t k_off = (size_t)bh * s_k;
-  const float4* q4 = reinterpret_cast<const float4*>(q) + q_off * C;
-  const float4* do4 = reinterpret_cast<const float4*>(dout) + q_off * C;
-  const float4* k4 = reinterpret_cast<const float4*>(k) + k_off * C;
-  const float4* v4 = reinterpret_cast<const float4*>(v) + k_off * C;
+  const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
+  const float* kb = k + k_off * D;
+  const float* vb = v + k_off * D;
 
-  int kv_len = s_k;
-  if (kv_lens != nullptr) kv_len = min(max(kv_lens[bh / heads], 1), s_k);
-
-  // Thread `part` owns chunks part, part+4, ...: the four threads of a
-  // row read neighbouring 16-byte chunks, so shared reads never clash.
-  float4 qr[RPT][CPT], dor[RPT][CPT], acc[RPT][CPT];
-  float row_lse[RPT], row_delta[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int qi = q_start + row0 + r * K::ROWS_PER_PASS;
-    const bool live = qi < s_q;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const size_t at = (size_t)qi * C + i * kTPR + part;
-      qr[r][i] = live ? q4[at] : zero4();
-      dor[r][i] = live ? do4[at] : zero4();
-      acc[r][i] = zero4();
-    }
-    row_lse[r] = live ? lse[q_off + qi] : 0.f;
-    row_delta[r] = live ? delta[q_off + qi] : 0.f;
-  }
-
+  int live = s_k;  // keys at or past `live` are masked
+  if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
   // Live key range, as the JAX kernel's `live` rule: nothing past the
   // causal diagonal of this q block, nothing wholly past kv_len.
-  int kv_end = s_k;
+  int kv_end = live;
   if (causal) kv_end = min(kv_end, q_start + kRows);
-  if (kv_lens != nullptr) kv_end = min(kv_end, kv_len);
+  const int n_tiles = (kv_end + kStream - 1) / kStream;
 
-  for (int kv_start = 0; kv_start < kv_end; kv_start += kStream) {
-    __syncthreads();
-    for (int idx = tid; idx < kStream * C; idx += THREADS) {
-      const int r = idx / C, c = idx % C;
-      const int kr = kv_start + r;
-      ks[r][c] = kr < s_k ? k4[(size_t)kr * C + c] : zero4();
-      vs[r][c] = kr < s_k ? v4[(size_t)kr * C + c] : zero4();
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < kStream; ++j) {
-      const int col = kv_start + j;
-      float s[RPT], dp[RPT];
+  if (n_tiles > 0) load_stream<D>(ring, kb, vb, 0, s_k, tid);
+  cp_async_commit();
+  load_owned<D>(own, q + q_off * D, dout + q_off * D, row0, s_q, tid);
+  float row_lse[2], row_delta[2];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) s[r] = dp[r] = 0.f;
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const float4 kk = ks[j][i * kTPR + part];
-        const float4 vv = vs[j][i * kTPR + part];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          s[r] = dot4(qr[r][i], kk, s[r]);
-          dp[r] = dot4(dor[r][i], vv, dp[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        s[r] = row_sum(s[r]);
-        dp[r] = row_sum(dp[r]);
-        const int qi = q_start + row0 + r * K::ROWS_PER_PASS;
-        bool keep = col < s_k;
-        if (causal) keep = keep && qi >= col;
-        if (kv_lens != nullptr) keep = keep && col < kv_len;
-        const float p = keep ? expf(s[r] * scale - row_lse[r]) : 0.f;
-        const float ds = p * (dp[r] - row_delta[r]) * scale;
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) axpy4(ds, ks[j][i * kTPR + part],
-                                            acc[r][i]);
-      }
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row0 + g + 8 * h;
+    row_lse[h] = qi < s_q ? lse[q_off + qi] : 0.f;
+    row_delta[h] = qi < s_q ? delta[q_off + qi] : 0.f;
   }
 
-  float4* dq4 = reinterpret_cast<float4*>(dq) + q_off * C;
+  float acc[KS][4];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int qi = q_start + row0 + r * K::ROWS_PER_PASS;
+  for (int nd = 0; nd < KS; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles)
+      load_stream<D>(ring + ((it + 1) & 1) * T::STAGE, kb, vb,
+                     (it + 1) * kStream, s_k, tid);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const int kv0 = it * kStream;
+    // Under the causal mask a tile past this warp's last query is dropped.
+    if (!(causal && kv0 > row0 + 15)) {
+      const float* ks = ring + (it & 1) * T::STAGE;
+      const float* vs = ks + kStream * T::LD;
+      float s[NT][4], dp[NT][4];
+      scores<D>(own, ks, vs, tid, s, dp);
+      const bool edge = kv0 + kStream > live || (causal && kv0 + kStream - 1 > row0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, col = kv0 + n * 8 + 2 * t + (e & 1);
+          const int qi = row0 + g + 8 * h;
+          const bool keep = !edge || (col < live && (!causal || qi >= col));
+          const float p = keep ? expf(s[n][e] * scale - row_lse[h]) : 0.f;
+          s[n][e] = p * (dp[n][e] - row_delta[h]) * scale;  // dS
+        }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) accumulate<D>(acc, acc_as_a(s[j]), ks, j, tid);
+    }
+    __syncthreads();
+  }
+
+  float* out = dq + q_off * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row0 + g + 8 * h;
     if (qi >= s_q) continue;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) dq4[(size_t)qi * C + i * kTPR + part] =
-        acc[r][i];
+    for (int nd = 0; nd < KS; ++nd)
+      *reinterpret_cast<float2*>(out + (size_t)qi * D + nd * 8 + 2 * t) =
+          make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
   }
 }
 
 // ------------------------------------------------------------------ K3
 // dK and dV.  Replaces _flash_bwd_dkv_kernel (ops/attention.py:284-350).
-// Bound: 4 x 2*D flops per kept pair (0.385 ms at [8,12,1024,64] causal).
-// One block per (kv tile, b*h), 256 threads, one key row per four
-// threads; Q/dO tiles of 32 rows and their lse/delta stream through
-// shared memory.
-template <int D, int RPT>
-__global__ void __launch_bounds__(Cfg<D, RPT>::THREADS)
+// Bound: 4 x 2*D flops per kept pair.  One block per (b*h, kv tile), the
+// longest causal tiles first; Q/dO tiles of 32 rows and their lse/delta
+// stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const int* __restrict__ kv_lens,
@@ -209,115 +406,116 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int heads, int s_q, int s_k,
                      int causal, float scale) {
-  using K = Cfg<D, RPT>;
-  constexpr int C = K::C, CPT = K::CPT, THREADS = K::THREADS;
-  __shared__ float4 qs[kStream][C];
-  __shared__ float4 dos[kStream][C];
-  __shared__ float lses[kStream];
-  __shared__ float deltas[kStream];
+  using T = Tile<D>;
+  constexpr int KS = T::KS, NT = T::NT;
+  extern __shared__ float4 smem[];
+  float4* own = smem;
+  float* ring = reinterpret_cast<float*>(smem + T::OWN);
+  float* rows = ring + 2 * T::STAGE;  // [stage][lse | delta][kStream]
 
-  const int bh = blockIdx.y;
-  const int kv_start = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int part = tid % kTPR;
-  const int row0 = tid / kTPR;
+  const int bh = blockIdx.x;
+  const int kv_start = blockIdx.y * kRows;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = kv_start + warp * 16;  // this warp's first key
 
-  const size_t q_off = (size_t)bh * s_q;
-  const size_t k_off = (size_t)bh * s_k;
-  const float4* q4 = reinterpret_cast<const float4*>(q) + q_off * C;
-  const float4* do4 = reinterpret_cast<const float4*>(dout) + q_off * C;
-  const float4* k4 = reinterpret_cast<const float4*>(k) + k_off * C;
-  const float4* v4 = reinterpret_cast<const float4*>(v) + k_off * C;
+  const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
+  const float* qb = q + q_off * D;
+  const float* dob = dout + q_off * D;
 
-  int kv_len = s_k;
-  if (kv_lens != nullptr) kv_len = min(max(kv_lens[bh / heads], 1), s_k);
-
-  float4 kr[RPT][CPT], vr[RPT][CPT], dk_acc[RPT][CPT], dv_acc[RPT][CPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int kj = kv_start + row0 + r * K::ROWS_PER_PASS;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const size_t at = (size_t)kj * C + i * kTPR + part;
-      kr[r][i] = kj < s_k ? k4[at] : zero4();
-      vr[r][i] = kj < s_k ? v4[at] : zero4();
-      dk_acc[r][i] = zero4();
-      dv_acc[r][i] = zero4();
-    }
-  }
-
+  int live = s_k;
+  if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
   // Live query range.  A kv tile wholly past kv_len streams nothing and
   // writes zeros (the JAX kernel's `live` rule); under the causal mask
   // no query before kv_start sees this tile.
-  int q_begin = 0;
-  if (causal) q_begin = (kv_start / kStream) * kStream;
-  const bool dead = kv_lens != nullptr && kv_start >= kv_len;
-  const int q_end = dead ? q_begin : s_q;
+  const int q_begin = causal ? kv_start : 0;
+  const int q_end = kv_start >= live ? q_begin : s_q;
+  const int n_tiles = max(0, (q_end - q_begin + kStream - 1) / kStream);
 
-  for (int q_tile = q_begin; q_tile < q_end; q_tile += kStream) {
-    __syncthreads();
-    for (int idx = tid; idx < kStream * C; idx += THREADS) {
-      const int r = idx / C, c = idx % C;
-      const int qi = q_tile + r;
-      qs[r][c] = qi < s_q ? q4[(size_t)qi * C + c] : zero4();
-      dos[r][c] = qi < s_q ? do4[(size_t)qi * C + c] : zero4();
+  auto fetch = [&](int it) {
+    const int q0 = q_begin + it * kStream;
+    load_stream<D>(ring + (it & 1) * T::STAGE, qb, dob, q0, s_q, tid);
+    if (tid < 2 * kStream) {
+      const int r = tid % kStream, which = tid / kStream;
+      const bool ok = q0 + r < s_q;
+      cp_async4(rows + (it & 1) * 2 * kStream + which * kStream + r,
+                (which == 0 ? lse : delta) + q_off + (ok ? q0 + r : 0), ok);
     }
-    for (int r = tid; r < kStream; r += THREADS) {
-      const int qi = q_tile + r;
-      lses[r] = qi < s_q ? lse[q_off + qi] : 0.f;
-      deltas[r] = qi < s_q ? delta[q_off + qi] : 0.f;
-    }
-    __syncthreads();
+  };
+  if (n_tiles > 0) fetch(0);
+  cp_async_commit();
+  load_owned<D>(own, k + k_off * D, v + k_off * D, row0, s_k, tid);
 
-#pragma unroll 2
-    for (int i_row = 0; i_row < kStream; ++i_row) {
-      const int qi = q_tile + i_row;
-      float s[RPT], dp[RPT];
+  float dk_acc[KS][4], dv_acc[KS][4];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) s[r] = dp[r] = 0.f;
+  for (int nd = 0; nd < KS; ++nd)
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const float4 qq = qs[i_row][i * kTPR + part];
-        const float4 dd = dos[i_row][i * kTPR + part];
+    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) fetch(it + 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const int q0 = q_begin + it * kStream;
+    // Under the causal mask a tile wholly before this warp's first key
+    // is dropped.
+    if (!(causal && q0 + kStream - 1 < row0)) {
+      const float* qs = ring + (it & 1) * T::STAGE;
+      const float* dos = qs + kStream * T::LD;
+      const float* lses = rows + (it & 1) * 2 * kStream;
+      const float* deltas = lses + kStream;
+      float s[NT][4], dp[NT][4];  // S^T and dP^T: keys x queries
+      scores<D>(own, qs, dos, tid, s, dp);
+      const bool edge = q0 + kStream > s_q || row0 + 16 > live ||
+                        (causal && q0 < row0 + 15);
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          s[r] = dot4(qq, kr[r][i], s[r]);
-          dp[r] = dot4(dd, vr[r][i], dp[r]);
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1), qi = q0 + c;
+          const int kj = row0 + g + 8 * (e / 2);
+          const bool keep = !edge || (qi < s_q && kj < live &&
+                                      (!causal || qi >= kj));
+          const float p = keep ? expf(s[n][e] * scale - lses[c]) : 0.f;
+          s[n][e] = p;                                    // P^T
+          dp[n][e] = p * (dp[n][e] - deltas[c]) * scale;  // dS^T
         }
-      }
-      const float row_lse = lses[i_row], row_delta = deltas[i_row];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        s[r] = row_sum(s[r]);
-        dp[r] = row_sum(dp[r]);
-        const int kj = kv_start + row0 + r * K::ROWS_PER_PASS;
-        bool keep = qi < s_q;
-        if (causal) keep = keep && qi >= kj;
-        if (kv_lens != nullptr) keep = keep && kj < kv_len;
-        const float p = keep ? expf(s[r] * scale - row_lse) : 0.f;
-        const float ds = p * (dp[r] - row_delta) * scale;
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) {
-          axpy4(p, dos[i_row][i * kTPR + part], dv_acc[r][i]);
-          axpy4(ds, qs[i_row][i * kTPR + part], dk_acc[r][i]);
-        }
+      for (int j = 0; j < NT; ++j) {
+        accumulate<D>(dv_acc, acc_as_a(s[j]), dos, j, tid);
+        accumulate<D>(dk_acc, acc_as_a(dp[j]), qs, j, tid);
       }
     }
+    __syncthreads();
   }
 
-  float4* dk4 = reinterpret_cast<float4*>(dk) + k_off * C;
-  float4* dv4 = reinterpret_cast<float4*>(dv) + k_off * C;
+  float* dk_out = dk + k_off * D;
+  float* dv_out = dv + k_off * D;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int kj = kv_start + row0 + r * K::ROWS_PER_PASS;
+  for (int h = 0; h < 2; ++h) {
+    const int kj = row0 + g + 8 * h;
     if (kj >= s_k) continue;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const size_t at = (size_t)kj * C + i * kTPR + part;
-      dk4[at] = dk_acc[r][i];
-      dv4[at] = dv_acc[r][i];
+    for (int nd = 0; nd < KS; ++nd) {
+      const size_t at = (size_t)kj * D + nd * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dk_out + at) =
+          make_float2(dk_acc[nd][2 * h], dk_acc[nd][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv_out + at) =
+          make_float2(dv_acc[nd][2 * h], dv_acc[nd][2 * h + 1]);
     }
   }
+}
+
+// Allow the kernel its dynamic shared memory (above 48 KB), then launch.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int bytes, dim3 grid, cudaStream_t st,
+           Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, bytes, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -327,7 +525,7 @@ extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                 const void* lse, const void* delta, void* dq,
                                 int bh, int heads, int s_q, int s_k, int d,
                                 int causal, float scale, void* stream) {
-  const dim3 grid((s_q + kRows - 1) / kRows, bh);
+  const dim3 grid(bh, (s_q + kRows - 1) / kRows);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -337,16 +535,13 @@ extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   const float* lf = static_cast<const float*>(lse);
   const float* df = static_cast<const float*>(delta);
   float* out = static_cast<float*>(dq);
-  if (d == 64) {
-    flash_bwd_dq_kernel<64, 2><<<grid, Cfg<64, 2>::THREADS, 0, st>>>(
-        qf, kf, vf, lens, dof, lf, df, out, heads, s_q, s_k, causal, scale);
-  } else if (d == 128) {
-    flash_bwd_dq_kernel<128, 1><<<grid, Cfg<128, 1>::THREADS, 0, st>>>(
-        qf, kf, vf, lens, dof, lf, df, out, heads, s_q, s_k, causal, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 64)
+    return launch(flash_bwd_dq_kernel<64>, Tile<64>::SMEM, grid, st, qf, kf,
+                  vf, lens, dof, lf, df, out, heads, s_q, s_k, causal, scale);
+  if (d == 128)
+    return launch(flash_bwd_dq_kernel<128>, Tile<128>::SMEM, grid, st, qf, kf,
+                  vf, lens, dof, lf, df, out, heads, s_q, s_k, causal, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -355,7 +550,7 @@ extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                  void* dv, int bh, int heads, int s_q,
                                  int s_k, int d, int causal, float scale,
                                  void* stream) {
-  const dim3 grid((s_k + kRows - 1) / kRows, bh);
+  const dim3 grid(bh, (s_k + kRows - 1) / kRows);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -366,16 +561,13 @@ extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
   const float* df = static_cast<const float*>(delta);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
-  if (d == 64) {
-    flash_bwd_dkv_kernel<64, 1><<<grid, Cfg<64, 1>::THREADS, 0, st>>>(
-        qf, kf, vf, lens, dof, lf, df, dkf, dvf, heads, s_q, s_k, causal,
-        scale);
-  } else if (d == 128) {
-    flash_bwd_dkv_kernel<128, 1><<<grid, Cfg<128, 1>::THREADS, 0, st>>>(
-        qf, kf, vf, lens, dof, lf, df, dkf, dvf, heads, s_q, s_k, causal,
-        scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 64)
+    return launch(flash_bwd_dkv_kernel<64>, Tile<64>::SMEM, grid, st, qf, kf,
+                  vf, lens, dof, lf, df, dkf, dvf, heads, s_q, s_k, causal,
+                  scale);
+  if (d == 128)
+    return launch(flash_bwd_dkv_kernel<128>, Tile<128>::SMEM, grid, st, qf,
+                  kf, vf, lens, dof, lf, df, dkf, dvf, heads, s_q, s_k,
+                  causal, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

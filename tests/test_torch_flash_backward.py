@@ -126,6 +126,63 @@ def test_flash_attention_output_carries_the_function():
     assert type(routed.grad_fn).__name__ == "_FlashAttentionBackward"
 
 
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest on
+    the 10 kept mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, products):
+    """a @ b as the tensor cores take it: TF32 operands, float32 sums;
+    three products (big*small + small*big + big*big) or one (big*big)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if products == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_big @ b_small + a_small @ b_big + a_big @ b_big
+
+
+def _backward_tf32(q, k, v, lse, delta, dout, causal, scale, products):
+    """K2/K3's arithmetic: every product of the backward through
+    ``_mm_tf32``, the rest in float32."""
+    s = q.shape[-2]
+    p = torch.exp(_mm_tf32(q, k.transpose(-1, -2), products) * scale
+                  - lse[..., None])
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool).tril()
+        p = torch.where(keep, p, torch.zeros(()))
+    dp = _mm_tf32(dout, v.transpose(-1, -2), products)
+    ds = p * (dp - delta[..., None]) * scale
+    return (_mm_tf32(ds, k, products),
+            _mm_tf32(ds.transpose(-1, -2), q, products),
+            _mm_tf32(p.transpose(-1, -2), dout, products))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_three_tf32_products_keep_the_chip_gate(d, causal):
+    """The backward kernels' 3xTF32 split, emulated on the CPU at
+    [1, 2, 256, d], is within the chip gate (atol 2e-4, rtol 1e-4) of
+    the float32 plain backward; one TF32 product is at least 10x
+    further off, which is why the kernels split."""
+    q, k, v, g = (torch.tensor(x) for x in _arrays(5, 1, 2, 256, d))
+    scale = d ** -0.5
+    out, lse = tatt.flash_attention_reference(q, k, v, None, causal, scale)
+    want = tatt.flash_attention_backward_reference(q, k, v, None, out, lse,
+                                                   g, causal, scale)
+    delta = (g * out).sum(-1)
+    errs = {}
+    for products in (3, 1):
+        got = _backward_tf32(q, k, v, lse, delta, g, causal, scale, products)
+        errs[products] = max((a - b).abs().max().item()
+                             for a, b in zip(got, want))
+        if products == 3:
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
+    assert errs[1] >= 10 * errs[3], errs
+
+
 @pytest.mark.parametrize("causal,lens", [(True, None), (False, [40, 17])])
 def test_backward_kernel_wrappers_take_the_plain_twin_on_cpu(causal, lens):
     """``flash_bwd_dq`` / ``flash_bwd_dkv`` (the K2/K3 wrappers) on CPU
