@@ -16,10 +16,19 @@ Phases, one line of output each (or a few):
    with the build seconds and the ``-Xptxas -v`` lines;
 3. kernels vs plain, each timed with CUDA events beside its plain
    version, one PyTorch library call where one exists, and its bound:
-   the flash-attention forward (K1) on [1, 12, S, 64] float32 (causal,
-   S in 128/512/1024, plus a kv_lens case) and the paged-attention decode
+   the flash-attention forward (K1) on float32 [2, 12, 1024, 64] causal
+   (the main row: one training microbatch), the serving prefill rows
+   [1, 12, S, 64] causal (S in 128/512/1024, plus kv_len 700 at 1024),
+   [8, 12, 1024, 64] non-causal with kv_lens, [2, 8, 1024, 128] causal
+   and [5467, 12, 64, 64] causal (``bh_over_65535``: B*H = 65,604, past
+   the old grid's cap), out and lse each within 1e-4 absolute of the
+   plain version, at the main row and [1, 12, 1024, 64] also
+   bitwise-equal results from two calls and device times from profiler
+   events (K1 and SDPA's fp32 forward); its ``bound_ms`` is at the
+   3xTF32 rate, ``bound_fp32_core_ms`` at the fp32 CUDA-core rate, as
+   for K2/K3 below; the paged-attention decode
    (K6) on B=8, H=12, D=64, page 16, 64 pages per row, 513 pool pages,
-   ragged lengths and an all-trash row, each within 1e-4 absolute of its
+   ragged lengths and an all-trash row, within 1e-4 absolute of its
    plain version; the flash backward, K2 (dQ) and K3 (dK/dV), on
    [2, 12, 1024, 64] causal (the main row: one training microbatch),
    [8, 12, 1024, 64] causal (``b8``, the row of earlier figures),
@@ -75,8 +84,8 @@ Phases, one line of output each (or a few):
    path; then the run, which must give finite losses, skip no step and
    launch K1 12 x (24 microbatches + 2 validation batches) times and K2
    and K3 12 x 24 times; then the optimizer-step time (CUDA events),
-   tokens/s, peak memory and a profiler split of one step, with K2's and
-   K3's device ms per step beside 48 x their main-row bound;
+   tokens/s, peak memory and a profiler split of one step, with K1's,
+   K2's and K3's device ms per step beside 48 x their main-row bound;
 6. data-parallel training: the same model through ``Trainer(...,
    is_parallel=True, mesh_shape={"data": 2}, device=[cuda, cuda],
    dp_update="sharded")`` (2 replicas sharing the card, global batch 8 =
@@ -88,7 +97,7 @@ Phases, one line of output each (or a few):
    card vs sharded within 1e-3; then ``fit()``, which must give finite
    losses, skip no step and launch K4 = K5 = 2 x 148 per step (and the
    attention kernels per replica microbatch); then the step time,
-   tokens/s, peak memory and a profiler split with K2's to K5's device
+   tokens/s, peak memory and a profiler split with K1's to K5's device
    ms per step beside their bounds.
 
 The counters are set to 0 just before each serving run and each training
@@ -157,50 +166,103 @@ def bound_ms(nbytes: float, flops: float,
 
 
 # ------------------------------------------------------------- phase 3
+FWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
+    ("main", 2, 12, 1024, 64, True, None),  # one training microbatch
+    ("serve_128", 1, 12, 128, 64, True, None),  # serving prefill buckets
+    ("serve_512", 1, 12, 512, 64, True, None),
+    ("serve_1024", 1, 12, 1024, 64, True, None),
+    ("serve_1024_kv700", 1, 12, 1024, 64, True, [700]),
+    ("kv_lens", 8, 12, 1024, 64, False,
+     [1024, 700, 1, 513, 64, 1000, 257, 900]),
+    ("d128", 2, 8, 1024, 128, True, None),
+    ("bh_over_65535", 5467, 12, 64, 64, True, None),  # B*H = 65,604
+]
+# Rows with a bitwise two-call check and profiler device times (K1 and
+# SDPA's fp32 forward): at ~0.1 ms an eager loop is host-bound.
+FWD_PROFILED = ("main", "serve_1024")
+# K1's kernel name, as the profiler lists it.
+FWD_MARKS = {"flash_fwd": ("flash_fwd_kernel",)}
+
+
+def fwd_bounds(b, h, s, d, causal, lens) -> dict:
+    """K1's bounds: ``bound_ms``/``bound_by`` with its two length-d
+    products per kept pair at the 3xTF32 tensor-core rate,
+    ``bound_fp32_core_ms`` at the fp32 CUDA-core rate.  q, k, v read
+    once, out and lse written once."""
+    flops = 2 * 2.0 * d * kept_pairs(b, s, causal, lens) * h
+    nbytes = 4 * b * h * s * d * 4 + b * h * s * 4
+    b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOPS_PER_S / 3)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                bound_fp32_core_ms=bound_ms(nbytes, flops)[0])
+
+
 def check_flash(dev):
+    """K1 against its plain version (out and lse within ``TOL``) on every
+    ``FWD_CASES`` row, timed beside the plain version and SDPA's fp32
+    forward (none at ``bh_over_65535``, whose point is the grid)."""
     import torch
     import torch.nn.functional as F
 
     from ml_trainer_tpu_torch.ops.attention import (
         flash_attention, flash_attention_reference)
 
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
     rows = []
-    cases = [(128, None), (512, None), (1024, None), (1024, 700)]
-    for s, kv_len in cases:
-        q, k, v = (torch.randn(1, 12, s, 64, generator=gen).to(dev)
+    for i, (name, b, h, s, d, causal, lens) in enumerate(FWD_CASES):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + i)
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
                    for _ in range(3))
-        lens = None if kv_len is None else torch.tensor(
-            [kv_len], dtype=torch.int32, device=dev)
-        out, lse = flash_attention(q, k, v, lens, True)
-        ref_out, ref_lse = flash_attention_reference(q, k, v, lens, True)
+        kv = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=dev)
+        out, lse = flash_attention(q, k, v, kv, causal)
+        ref_out, ref_lse = flash_attention_reference(q, k, v, kv, causal)
         torch.cuda.synchronize()
         err = max((out - ref_out).abs().max().item(),
                   (lse - ref_lse).abs().max().item())
+        del ref_out, ref_lse
         if not err <= TOL:
             raise AssertionError(
-                f"flash_fwd S={s} kv_len={kv_len}: max abs err {err} > {TOL}")
-        ms = time_ms(lambda: flash_attention(q, k, v, lens, True))
-        plain = time_ms(lambda: flash_attention_reference(q, k, v, lens, True))
-        if lens is None:
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True))
+                f"flash_fwd {name}: max abs err {err} > {TOL}")
+        extra = {}
+        if name in FWD_PROFILED:  # no atomics: a second call repeats it
+            again = flash_attention(q, k, v, kv, causal)
+            if not (torch.equal(out, again[0])
+                    and torch.equal(lse, again[1])):
+                raise AssertionError(f"flash_fwd {name}: two calls differ")
+            del again
+            extra["bitwise_repeat"] = True
+        big = b * h > 65535
+        ms = time_ms(lambda: flash_attention(q, k, v, kv, causal),
+                     iters=10 if big else 50)
+        plain = time_ms(lambda: flash_attention_reference(
+            q, k, v, kv, causal), iters=10 if big else 50)
+        if kv is None:
+            def lib_fn():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
         else:
             keep = (torch.arange(s, device=dev)[None, :]
-                    <= torch.arange(s, device=dev)[:, None]) & (
-                torch.arange(s, device=dev)[None, :] < kv_len)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=keep))
-        live = min(s, kv_len or s)
-        # Kept (query, key) pairs per head under the causal + kv_lens mask.
-        pairs = sum(min(i + 1, live) for i in range(s))
-        nbytes = 4 * 12 * s * 64 * 4 + 12 * s * 4
-        flops = 4.0 * pairs * 64 * 12
-        b_ms, b_by = bound_ms(nbytes, flops)
-        row = dict(S=s, kv_len=kv_len, max_abs_err=err, ms=ms, plain_ms=plain,
-                   library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                    < kv.long()[:, None])[:, None, None, :]
+            if causal:
+                keep = keep & torch.ones(s, s, dtype=torch.bool,
+                                         device=dev).tril()
+            def lib_fn():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=keep)
+        lib = None if big else time_ms(lib_fn)
+        if name in FWD_PROFILED:
+            extra.update(
+                device_ms=profiled_ms(
+                    lambda: flash_attention(q, k, v, kv, causal),
+                    FWD_MARKS["flash_fwd"]),
+                library_device_ms=profiled_ms(lib_fn, ("",)))
+        row = dict(case=name, shape=[b, h, s, d], causal=causal,
+                   kv_lens=lens, max_abs_err=err, ms=ms, plain_ms=plain,
+                   library_ms=lib, **fwd_bounds(b, h, s, d, causal, lens),
+                   **extra)
         log("kernel flash_fwd " + json.dumps(row))
         rows.append(row)
+        del q, k, v, kv, out, lse
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -237,6 +299,7 @@ PADDED_CASE = (2, 4, 1000, 48)  # off-tile S and head_dim
 # K2's and K3's kernel names, as the profiler lists them.
 BWD_MARKS = {"flash_bwd_dq": ("flash_bwd_dq_kernel",),
              "flash_bwd_dkv": ("flash_bwd_dkv_kernel",)}
+ATTN_MARKS = dict(FWD_MARKS, **BWD_MARKS)  # K1-K3 in a profiled step
 
 
 def bwd_bounds(b, h, s, d, causal, lens) -> dict:
@@ -259,12 +322,14 @@ def bwd_bounds(b, h, s, d, causal, lens) -> dict:
     return out
 
 
-def bwd_step_bounds(launches: int) -> dict:
-    """K2's and K3's 3xTF32 bounds for a training step's ``launches``
-    launches at the main row's shape (one microbatch of 2 x 1024)."""
+def attn_step_bounds(launches: int) -> dict:
+    """K1's, K2's and K3's 3xTF32 bounds for a training step's
+    ``launches`` launches of each at the main rows' shape (one microbatch
+    of 2 x 1024)."""
     _, b, h, s, d, causal, lens = BWD_CASES[0]
-    return {k: launches * v["bound_ms"]
-            for k, v in bwd_bounds(b, h, s, d, causal, lens).items()}
+    bounds = dict(bwd_bounds(b, h, s, d, causal, lens),
+                  flash_fwd=fwd_bounds(*FWD_CASES[0][1:]))
+    return {k: launches * v["bound_ms"] for k, v in bounds.items()}
 
 
 def kernel_device_ms(prof, marks: dict) -> dict:
@@ -947,7 +1012,7 @@ def profile_step(trainer, x, y) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     split = device_split(prof, wall)
-    split.update(kernel_device_ms(prof, BWD_MARKS))
+    split.update(kernel_device_ms(prof, ATTN_MARKS))
     return split
 
 
@@ -1023,7 +1088,7 @@ def train(dev):
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / n_time
     profile = profile_step(trainer, x, y)
-    profile["bound_ms"] = bwd_step_bounds(model.depth * c["accum"])
+    profile["bound_ms"] = attn_step_bounds(model.depth * c["accum"])
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return dict(
         history={k: hist[k] for k in ("train_loss", "val_loss",
@@ -1146,8 +1211,8 @@ DP_DIR = "build/chip_smoke_dp"  # model.pth of the run; removed after
 DP_LOSS_RTOL = 1e-5
 DP_KERNEL_ATOL = 1e-6  # sharded plain vs K4/K5: the clip factor's rounding
 DP_SINGLE_ATOL = 1e-3  # one card vs sharded: Adam's first step is ~±lr
-# K2 to K5 by kernel name in the profiled step (K4 is two kernels).
-DP_MARKS = dict(BWD_MARKS, unscale_sqsum=("unscale_sqsum_kernel",
+# K1 to K5 by kernel name in the profiled step (K4 is two kernels).
+DP_MARKS = dict(ATTN_MARKS, unscale_sqsum=("unscale_sqsum_kernel",
                                           "sum_partials_kernel"),
                 fused_adam=("fused_adam_kernel",))
 
@@ -1319,7 +1384,7 @@ def dp_train(dev):
     split["bound_ms"] = {
         "unscale_sqsum": bound_ms(8.0 * elems, 2.0 * elems)[0],
         "fused_adam": bound_ms(32.0 * elems, 15.0 * elems)[0],
-        **bwd_step_bounds(model.depth * n * c["accum"])}
+        **attn_step_bounds(model.depth * n * c["accum"])}
     shutil.rmtree(DP_DIR, ignore_errors=True)
     return dict(
         history={k: hist[k] for k in ("train_loss", "val_loss",
@@ -1383,7 +1448,7 @@ def main(argv=None) -> int:
                 launches[kname] = (launches[kname] or 0) + count
             log(f"serving {run} on {smi}: " + json.dumps(serving[run]))
         log(f"int8 quality gate on {smi}: " + json.dumps(quality_gate(dev)))
-    step_split = {kname: {} for kname in BWD_MARKS}  # K2/K3 per step
+    step_split = {kname: {} for kname in ATTN_MARKS}  # K1-K3 per step
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))
@@ -1391,7 +1456,7 @@ def main(argv=None) -> int:
             launches[kname] = ((launches[kname] or 0)
                                + training["launches"][kname])
         prof = training["profile"]
-        for kname in BWD_MARKS:
+        for kname in ATTN_MARKS:
             step_split[kname].update(
                 train_step_device_ms=prof["device_ms"][kname],
                 step_bound_ms=prof["bound_ms"][kname])
@@ -1406,11 +1471,11 @@ def main(argv=None) -> int:
         dp_split = {k: dict(step_device_ms=prof["device_ms"][k],
                             step_bound_ms=prof["bound_ms"][k])
                     for k in ("unscale_sqsum", "fused_adam")}
-        for kname in BWD_MARKS:
+        for kname in ATTN_MARKS:
             step_split[kname].update(
                 dp_step_device_ms=prof["device_ms"][kname],
                 step_bound_ms=prof["bound_ms"][kname])
-    main_flash = flash_rows[2]  # S=1024 causal: the longest prefill bucket
+    main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     bwd = {}
     for kname, row in bwd_rows:  # the main row is each kernel's first
         bwd.setdefault(kname, dict(row, max_abs_err=max(
@@ -1422,8 +1487,10 @@ def main(argv=None) -> int:
          "replaces": "ml_trainer_tpu/ops/attention.py:177",
          "launches": launches["flash_fwd"],
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
-         **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}},
+         **{k: main_flash[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "bound_fp32_core_ms", "device_ms", "library_device_ms")},
+         **step_split["flash_fwd"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/paged_attention.cu",
          "replaces": "ml_trainer_tpu/ops/kernels/paged_attention.py:152",

@@ -56,7 +56,8 @@
 //   load: pre-split big/small copies would double the ring (2 blocks per
 //   SM at D=64, ~99 KB each, would become 1) and the shared-memory bytes
 //   read per product.  The split rounds as cvt.rna.tf32.f32 does, bit for
-//   bit, but with two integer ops (to_tf32): with the conversion
+//   bit, but with two integer ops (to_tf32, csrc/tf32_mma.cuh, shared
+//   with K1): with the conversion
 //   instruction K2/K3 took 0.517 / 0.670 ms at [8, 12, 1024, 64] causal,
 //   with the integer ops 0.449 / 0.578 ms (chip_smoke.py on one H100
 //   80GB HBM3 at 700 W).  ptxas: 166 / 177 registers for K2 / K3 at D=64,
@@ -84,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kRows = 64;     // rows a block owns (queries in K2, keys in K3)
@@ -101,88 +104,6 @@ struct Tile {
   // Bytes: store, 2 stages, and (K3) lse/delta for 2 stages.
   static constexpr int SMEM = OWN * 16 + 2 * STAGE * 4 + 2 * 2 * kStream * 4;
 };
-
-// cvt.rna.tf32.f32's rounding (to nearest on the 10 kept mantissa bits,
-// ties away from zero) as two integer ops, bit for bit the same on finite
-// inputs and faster here: K2/K3 split ~200-290 values a thread per
-// stream tile.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A split A fragment (16 x 8) and B fragment (8 x 8).
-struct FragA {
-  uint32_t big[4], small[4];
-};
-struct FragB {
-  uint32_t big[2], small[2];
-};
-
-// c += a . b in three TF32 products, the small terms first.
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
-                                     const FragB& b) {
-  mma(c, a.big, b.small[0], b.small[1]);
-  mma(c, a.small, b.big[0], b.big[1]);
-  mma(c, a.big, b.big[0], b.big[1]);
-}
-
-__device__ __forceinline__ FragB split_b(float x0, float x1) {
-  FragB b;
-  split(x0, b.big[0], b.small[0]);
-  split(x1, b.big[1], b.small[1]);
-  return b;
-}
-
-// An accumulator (columns 2t, 2t+1 of rows g, g+8) as the A fragment of
-// the next product over the permuted k index {2t -> t, 2t+1 -> t+4}.
-__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
-  FragA a;
-  split(c[0], a.big[0], a.small[0]);
-  split(c[2], a.big[1], a.small[1]);
-  split(c[1], a.big[2], a.small[2]);
-  split(c[3], a.big[3], a.small[3]);
-  return a;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Copy rows [row0, row0 + kStream) of two [n, D] operands into a stage;
 // rows at or past n are zero-filled.

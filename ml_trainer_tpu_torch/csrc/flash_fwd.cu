@@ -1,222 +1,316 @@
-// Flash-attention forward for Hopper (sm_90a), float32.
+// Flash-attention forward for Hopper (sm_90a), float32 in and out, on the
+// tensor cores.
 //
 // Replaces: ml_trainer_tpu/ops/attention.py::_flash_kernel, launched by
 // _flash_forward (pl.pallas_call at ops/attention.py:177).
 //
-// Computes, for q/k/v laid out [B*H, S, D] (row-major, contiguous):
-//   out = softmax(mask(q*scale . k^T)) . v     and     lse = m + log(l)
-// with the JAX kernel's mask semantics: a diagonal-aligned causal mask
-// (key j kept for query i iff i >= j) and an optional per-batch kv_lens
-// right-pad mask; masked scores are REPLACED by -FLT_MAX (not -inf), and
-// the online-softmax recurrence is the kernel's own (m, l, o kept in f32).
+// For q/k/v laid out [B*H, S, D] (row-major, contiguous) it runs the JAX
+// kernel's online-softmax recurrence over key tiles, from m = -FLT_MAX,
+// l = 0, o = 0:
+//   s = (q * scale) . k^T, masked scores REPLACED by -FLT_MAX (never a
+//       bias), keys past s_k at -inf;
+//   m_new = max(m, rowmax s), p = exp(s - m_new), alpha = exp(m - m_new);
+//   l = l * alpha + rowsum p,   o = o * alpha + p . v,   m = m_new;
+// then out = o / l and lse = m + log(l).  Masks: diagonal-aligned causal
+// (key j kept for query i iff i >= j) and/or keys at or past kv_lens[b]
+// dropped (kv_lens clamped to [1, s_k]).  D is 64 or 128; any s_q, s_k.
 //
-// What bounds it on this card: at the serving shapes (GPT-2, [1,12,S,64],
-// S 128..1024) the work is 4*S*S*D*H/2 flops for S*D*H*16 bytes, ~S/4
-// flops per byte, so from S=512 up it is bound by operations.  This
-// version runs them as float32 FMAs on the CUDA cores (67 TFLOP/s peak),
-// not on the tensor cores: the model serves in fp32, and the TF32
-// tensor-core path would change its numbers.
+// What bounds it on this card: per kept (query, key) pair two length-D
+// products (q.k and p.v), 4*D flops, while q, k, v are read about once.
+// At the serving shape [1, 12, 1024, 64] causal that is 6.30 M pairs and
+// 1.61 GFLOP against 12.6 MB: bound by operations, 0.00978 ms as
+// fp32-accurate tensor-core work (three TF32 products per product,
+// 494.7 / 3 TFLOP/s), 0.0241 ms on the fp32 CUDA cores (67 TFLOP/s),
+// 0.0038 ms for the bytes.  At the training shape [2, 12, 1024, 64]
+// causal, twice that: 0.0196 / 0.0481 / 0.0075 ms.
 //
-// What the design does about it: one thread block per (64-row q block,
-// batch*head); the loop over key tiles inside the block replaces the
-// TPU's sequential kv grid axis.  K and V tiles are staged through shared
-// memory once per block and read by all 64 rows.  Four threads share a
-// query row (each holds D/4 of q and of the output accumulator) and, at
-// D=64, each thread carries TWO rows, so every 16-byte K or V read from
-// shared memory feeds 8 FMAs.  The tile's probabilities go through shared
-// memory rather than registers, which keeps the loops rolled and the
-// register count low enough for several blocks per SM.  Tiles above the
-// causal diagonal or wholly past kv_lens are never loaded, as in the JAX
-// kernel.  Tensor cores (bf16), TMA and wgmma are later work.
+// Why three TF32 products and not one.  TF32 keeps 10 mantissa bits.
+// Emulated on the CPU (tests/test_torch_flash_forward.py: this kernel's
+// recurrence over 32-key tiles, operands rounded as cvt.rna.tf32.f32
+// rounds, float32 sums) at [1, 2, 256, d], d 64 / 128, causal and with
+// kv_lens, against the float32 plain forward: one TF32 product gives out
+// / lse max abs errors of 2.7e-4 to 1.05e-3, beyond the chip gate (1e-4
+// abs); three products (big*small + small*big + big*big) 5.8e-7 to
+// 1.2e-6, within 8.5e-7 of a float64 forward (the float32 plain
+// forward itself is within 8.1e-7 of it).
+//
+// What the design does about the bound (K2/K3's design, csrc/flash_bwd.cu):
+// - q.k^T and p.v are mma.sync.m16n8k8 TF32 in the 3-product split
+//   (csrc/tf32_mma.cuh), fp32 accumulators.  A block owns 64 query rows,
+//   one warp per 16.  K and V stream through a 2-stage ring of 32-key
+//   tiles in dynamic shared memory, copied with cp.async (16-byte copies;
+//   keys past s_k zero-filled by a source size of 0), so the next tile's
+//   copy runs under this tile's products.  Rows are padded to D + 4
+//   floats: every per-thread fragment load is free of bank conflicts.
+// - q * scale is split once, when loaded, into a per-thread fragment
+//   store in shared memory (two 16-byte loads per k-step): in registers
+//   the split pair would take 64 registers at D=64 and 128 at D=128, and
+//   the store keeps three blocks (12 warps) per SM at D=64.  Streamed K/V
+//   stay raw fp32 and are split on the fragment load.
+// - P stays in registers.  The S accumulator holds columns {2t, 2t+1} of
+//   its tile, an A fragment wants {t, t+4}: p.v runs over a permuted k
+//   index (V rows 2t and 2t+1), so P needs no shuffle.  The row max and
+//   row sum of the online softmax need only the quad's two shuffles.
+// - Tiles above the causal diagonal or wholly past kv_lens are never
+//   loaded; a warp whose 16 rows a tile's mask drops wholly skips its
+//   products (exact: such a tile would add p = 0 with alpha = 1, since
+//   every row keeps key 0 in the first tile).  The mask's compares run
+//   only on tiles that hold the diagonal or the kv_len edge.
+// - bh is gridDim.x (no 65535 cap on B*H); the q tiles are gridDim.y,
+//   the longest causal tiles first.  No atomics: results repeat bit for
+//   bit.
+// Measured (chip_smoke.py, profiler device time, one H100 80GB HBM3 at
+// 700 W): 0.0955 ms at [2, 12, 1024, 64] causal, 20.5% of the 3xTF32
+// bound, where SDPA's fp32 forward takes 0.192 ms; 0.0665 ms at
+// [1, 12, 1024, 64] (14.7%: 192 blocks on 132 SMs, the longest q tiles
+// set the time; SDPA 0.141 ms; the fp32 CUDA-core kernel this replaces
+// took 0.2375 ms there).  ptxas: 123 registers at D=64 (three blocks per
+// SM), 171 at D=128, no spills.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kTPR = 4;   // threads per query row
-constexpr int kBK = 32;   // keys per tile
+constexpr int kRows = 64;      // query rows a block owns
+constexpr int kThreads = 128;  // four warps of 16 query rows
+constexpr int kTile = 32;      // keys per streamed K/V tile
 
-template <int D, int RPT>
-struct Cfg {
-  static constexpr int C = D / 4;                   // float4 chunks per row
-  static constexpr int CPT = C / kTPR;              // chunks per thread
-  static constexpr int THREADS = kBQ * kTPR / RPT;  // 128 at RPT=2
-  static constexpr int ROWS_PER_PASS = kBQ / RPT;   // row stride of a thread
+template <int D>
+struct Fwd {
+  static constexpr int KS = D / 8;      // k-steps of q.k^T, n-tiles of p.v
+  static constexpr int NT = kTile / 8;  // n-tiles of q.k^T, k-steps of p.v
+  static constexpr int LD = D + 4;      // padded shared row, floats
+  // q's fragment store: KS x {big, small} float4 a thread.
+  static constexpr int OWN = KS * 2 * kThreads;
+  static constexpr int STAGE = 2 * kTile * LD;  // a K and a V tile
+  static constexpr int SMEM = OWN * 16 + 2 * STAGE * 4;  // bytes
 };
 
-template <int D, int RPT>
-__global__ void __launch_bounds__(Cfg<D, RPT>::THREADS)
+// Copy keys [row0, row0 + kTile) of K and V into a stage; keys at or past
+// n are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_kv(float* dst, const float* k,
+                                        const float* v, int row0, int n,
+                                        int tid) {
+  constexpr int C = D / 4, LD = Fwd<D>::LD;
+#pragma unroll
+  for (int i = 0; i < kTile * C / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    const int r = idx / C, c = idx % C;
+    const bool ok = row0 + r < n;
+    const size_t off = ok ? (size_t)(row0 + r) * D + c * 4 : 0;
+    cp_async16(dst + r * LD + c * 4, k + off, ok);
+    cp_async16(dst + kTile * LD + r * LD + c * 4, v + off, ok);
+  }
+}
+
+// Split this thread's A fragments of (q * scale), rows [row0, row0 + 16)
+// (zero at or past n), once, into the fragment store.
+template <int D>
+__device__ __forceinline__ void load_q(float4* own, const float* q, int row0,
+                                       int n, float scale, int tid) {
+  constexpr int KS = Fwd<D>::KS;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c0 = kk * 8 + t, c1 = c0 + 4;
+    const float x[4] = {
+        r0 < n ? __fmul_rn(q[(size_t)r0 * D + c0], scale) : 0.f,
+        r1 < n ? __fmul_rn(q[(size_t)r1 * D + c0], scale) : 0.f,
+        r0 < n ? __fmul_rn(q[(size_t)r0 * D + c1], scale) : 0.f,
+        r1 < n ? __fmul_rn(q[(size_t)r1 * D + c1], scale) : 0.f};
+    FragA f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(x[i], f.big[i], f.small[i]);
+    own[(kk * 2) * kThreads + tid] =
+        make_float4(__uint_as_float(f.big[0]), __uint_as_float(f.big[1]),
+                    __uint_as_float(f.big[2]), __uint_as_float(f.big[3]));
+    own[(kk * 2 + 1) * kThreads + tid] = make_float4(
+        __uint_as_float(f.small[0]), __uint_as_float(f.small[1]),
+        __uint_as_float(f.small[2]), __uint_as_float(f.small[3]));
+  }
+}
+
+__device__ __forceinline__ FragA q_frag(const float4* own, int kk, int tid) {
+  const float4 b = own[(kk * 2) * kThreads + tid];
+  const float4 s = own[(kk * 2 + 1) * kThreads + tid];
+  FragA f;
+  f.big[0] = __float_as_uint(b.x);
+  f.big[1] = __float_as_uint(b.y);
+  f.big[2] = __float_as_uint(b.z);
+  f.big[3] = __float_as_uint(b.w);
+  f.small[0] = __float_as_uint(s.x);
+  f.small[1] = __float_as_uint(s.y);
+  f.small[2] = __float_as_uint(s.z);
+  f.small[3] = __float_as_uint(s.w);
+  return f;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ kv_lens,
                  float* __restrict__ out, float* __restrict__ lse,
                  int heads, int s_q, int s_k, int causal, float scale) {
-  using K = Cfg<D, RPT>;
-  constexpr int C = K::C, CPT = K::CPT, THREADS = K::THREADS;
-  __shared__ float4 ks[kBK][C];
-  __shared__ float4 vs[kBK][C];
-  __shared__ float ps[kBQ][kBK + 1];  // +1: rows land on distinct banks
+  using F = Fwd<D>;
+  constexpr int KS = F::KS, NT = F::NT, LD = F::LD;
+  extern __shared__ float4 smem[];
+  float4* own = smem;
+  float* ring = reinterpret_cast<float*>(smem + F::OWN);
 
-  const int bh = blockIdx.y;
-  const int q_start = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int part = tid % kTPR;
-  const int row0 = tid / kTPR;  // rows row0 + r * ROWS_PER_PASS
+  const int bh = blockIdx.x;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = q_start + warp * 16;  // this warp's first query
 
-  const float4* q4 = reinterpret_cast<const float4*>(q) + (size_t)bh * s_q * C;
-  const float4* k4 = reinterpret_cast<const float4*>(k) + (size_t)bh * s_k * C;
-  const float4* v4 = reinterpret_cast<const float4*>(v) + (size_t)bh * s_k * C;
+  const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
+  const float* kb = k + k_off * D;
+  const float* vb = v + k_off * D;
 
-  int kv_len = s_k;
-  if (kv_lens != nullptr) kv_len = min(max(kv_lens[bh / heads], 1), s_k);
+  int live = s_k;  // keys at or past `live` are masked
+  if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
+  // Live key range, as the JAX kernel's `live` rule: nothing past the
+  // causal diagonal of this q block, nothing wholly past kv_len.
+  int kv_end = live;
+  if (causal) kv_end = min(kv_end, q_start + kRows);
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
 
-  // Thread `part` owns chunks part, part+4, ...: the four threads of a
-  // row read neighbouring 16-byte chunks, so shared reads never clash.
-  float4 qr[RPT][CPT], acc[RPT][CPT];
-  float m[RPT], l[RPT];
+  if (n_tiles > 0) load_kv<D>(ring, kb, vb, 0, s_k, tid);
+  cp_async_commit();
+  load_q<D>(own, q + q_off * D, row0, s_q, scale, tid);
+
+  // Rows g (h = 0) and g + 8 (h = 1) of this warp's 16.
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+  float o[KS][4];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int qi = q_start + row0 + r * K::ROWS_PER_PASS;
+  for (int nd = 0; nd < KS; ++nd)
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (qi < s_q) t = q4[(size_t)qi * C + i * kTPR + part];
-      qr[r][i] = make_float4(t.x * scale, t.y * scale, t.z * scale,
-                             t.w * scale);
-      acc[r][i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    m[r] = -FLT_MAX;
-    l[r] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
 
-  // Live key range: nothing past the causal diagonal of this q block,
-  // nothing wholly past kv_len.
-  int kv_end = s_k;
-  if (causal) kv_end = min(kv_end, q_start + kBQ);
-  if (kv_lens != nullptr) kv_end = min(kv_end, kv_len);
-
-  for (int kv_start = 0; kv_start < kv_end; kv_start += kBK) {
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles)
+      load_kv<D>(ring + ((it + 1) & 1) * F::STAGE, kb, vb, (it + 1) * kTile,
+                 s_k, tid);
+    cp_async_commit();
+    cp_async_wait1();
     __syncthreads();
-    for (int idx = tid; idx < kBK * C; idx += THREADS) {
-      const int r = idx / C, c = idx % C;
-      const int kr = kv_start + r;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      ks[r][c] = kr < s_k ? k4[(size_t)kr * C + c] : zero;
-      vs[r][c] = kr < s_k ? v4[(size_t)kr * C + c] : zero;
-    }
-    __syncthreads();
-
-    // Scores.  After the two butterfly shuffles all four threads of a
-    // row hold the full dot product; the owner of column j (j % 4 ==
-    // part) stores it.
-    float m_cur[RPT];
+    const int kv0 = it * kTile;
+    // Under the causal mask a tile past this warp's last query is dropped.
+    if (!(causal && kv0 > row0 + 15)) {
+      const float* ks = ring + (it & 1) * F::STAGE;
+      const float* vs = ks + kTile * LD;
+      // S = (q * scale) . K^T: B[k][n] = K[n][k], read as key rows 8n + g,
+      // columns t and t + 4.
+      float s[NT][4];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) m_cur[r] = -INFINITY;
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const int col = kv_start + j;
-      float d[RPT];
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) d[r] = 0.f;
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const float4 kk = ks[j][i * kTPR + part];
+      for (int kk = 0; kk < KS; ++kk) {
+        const FragA a = q_frag(own, kk, tid);
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          d[r] = fmaf(qr[r][i].x, kk.x, d[r]);
-          d[r] = fmaf(qr[r][i].y, kk.y, d[r]);
-          d[r] = fmaf(qr[r][i].z, kk.z, d[r]);
-          d[r] = fmaf(qr[r][i].w, kk.w, d[r]);
+        for (int n = 0; n < NT; ++n) {
+          const float* kr = ks + (n * 8 + g) * LD + kk * 8 + t;
+          mma3(s[n], a, split_b(kr[0], kr[4]));
         }
       }
+      if (kv0 + kTile > live || (causal && kv0 + kTile - 1 > row0)) {
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        d[r] += __shfl_xor_sync(0xffffffffu, d[r], 1);
-        d[r] += __shfl_xor_sync(0xffffffffu, d[r], 2);
-        const int row = row0 + r * K::ROWS_PER_PASS;
-        bool keep = true;
-        if (causal) keep = q_start + row >= col;
-        if (kv_lens != nullptr) keep = keep && col < kv_len;
-        // Keys past the array do not exist (-inf); masked keys are
-        // replaced by -FLT_MAX exactly as in the JAX kernel.
-        const float val = col >= s_k ? -INFINITY : (keep ? d[r] : -FLT_MAX);
-        if ((j % kTPR) == part) ps[row][j] = val;
-        m_cur[r] = fmaxf(m_cur[r], val);
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kv0 + n * 8 + 2 * t + (e & 1);
+            const int qi = row0 + g + 8 * (e >> 1);
+            // Keys past the array do not exist (-inf); masked keys are
+            // replaced by -FLT_MAX exactly as in the JAX kernel.
+            if (col >= s_k)
+              s[n][e] = -INFINITY;
+            else if (col >= live || (causal && qi < col))
+              s[n][e] = -FLT_MAX;
+          }
       }
-    }
-    __syncwarp();  // a row's four threads are in one warp
-
-    float alpha[RPT];
+      // The quad (t = 0..3) holds a row's 32 scores.  Every tile holds a
+      // key below s_k, so the row max is >= -FLT_MAX and exp never sees
+      // -inf - -inf.
+      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = row0 + r * K::ROWS_PER_PASS;
-      const float m_new = fmaxf(m[r], m_cur[r]);
-      alpha[r] = expf(m[r] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kBK / kTPR; ++jj) {
-        const int j = jj * kTPR + part;
-        const float p = expf(ps[row][j] - m_new);
-        ps[row][j] = p;
-        psum += p;
+      for (int n = 0; n < NT; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
       }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      l[r] = l[r] * alpha[r] + psum;
-      m[r] = m_new;
+      float alpha[2];
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        acc[r][i].x *= alpha[r]; acc[r][i].y *= alpha[r];
-        acc[r][i].z *= alpha[r]; acc[r][i].w *= alpha[r];
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_new);
+        m[h] = m_new;
       }
-    }
-    __syncwarp();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float p[RPT];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) p[r] = ps[row0 + r * K::ROWS_PER_PASS][j];
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const float4 vv = vs[j][i * kTPR + part];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          acc[r][i].x = fmaf(p[r], vv.x, acc[r][i].x);
-          acc[r][i].y = fmaf(p[r], vv.y, acc[r][i].y);
-          acc[r][i].z = fmaf(p[r], vv.z, acc[r][i].z);
-          acc[r][i].w = fmaf(p[r], vv.w, acc[r][i].w);
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - m[e >> 1]);  // P
+          sum[e >> 1] += s[n][e];
         }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * alpha[h] + sum[h];
+      }
+#pragma unroll
+      for (int nd = 0; nd < KS; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
+      // O += P . V over the permuted k index of each 8-key step j.
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const FragA p = acc_as_a(s[j]);
+        const float* v0 = vs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+        for (int nd = 0; nd < KS; ++nd)
+          mma3(o[nd], p, split_b(v0[nd * 8], v0[LD + nd * 8]));
       }
     }
-    // The next tile's score pass overwrites ps: the __syncthreads at the
-    // top of the loop orders it after every thread's reads.
+    __syncthreads();
   }
 
-  float4* o4 = reinterpret_cast<float4*>(out) + (size_t)bh * s_q * C;
+  float* ob = out + q_off * D;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int qi = q_start + row0 + r * K::ROWS_PER_PASS;
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row0 + g + 8 * h;
     if (qi >= s_q) continue;
-    const float inv = 1.f / l[r];
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      o4[(size_t)qi * C + i * kTPR + part] = make_float4(
-          acc[r][i].x * inv, acc[r][i].y * inv, acc[r][i].z * inv,
-          acc[r][i].w * inv);
-    }
-    if (part == 0) lse[(size_t)bh * s_q + qi] = m[r] + logf(l[r]);
+    for (int nd = 0; nd < KS; ++nd)
+      *reinterpret_cast<float2*>(ob + (size_t)qi * D + nd * 8 + 2 * t) =
+          make_float2(o[nd][2 * h] / l[h], o[nd][2 * h + 1] / l[h]);
+    if (t == 0) lse[q_off + qi] = m[h] + logf(l[h]);
   }
 }
 
-template <int D, int RPT>
-void launch(dim3 grid, cudaStream_t st, const float* q, const float* k,
-            const float* v, const int* lens, float* out, float* lse,
-            int heads, int s_q, int s_k, int causal, float scale) {
-  flash_fwd_kernel<D, RPT><<<grid, Cfg<D, RPT>::THREADS, 0, st>>>(
+// Allow the kernel its dynamic shared memory (above 48 KB at D=128), then
+// launch.
+template <int D>
+int launch(dim3 grid, cudaStream_t st, const float* q, const float* k,
+           const float* v, const int* lens, float* out, float* lse,
+           int heads, int s_q, int s_k, int causal, float scale) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Fwd<D>::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_kernel<D><<<grid, kThreads, Fwd<D>::SMEM, st>>>(
       q, k, v, lens, out, lse, heads, s_q, s_k, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -225,7 +319,7 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              const void* kv_lens, void* out, void* lse,
                              int bh, int heads, int s_q, int s_k, int d,
                              int causal, float scale, void* stream) {
-  const dim3 grid((s_q + kBQ - 1) / kBQ, bh);
+  const dim3 grid(bh, (s_q + kRows - 1) / kRows);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -233,14 +327,11 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
   const int* lens = static_cast<const int*>(kv_lens);
   float* of = static_cast<float*>(out);
   float* lf = static_cast<float*>(lse);
-  if (d == 64) {
-    launch<64, 2>(grid, st, qf, kf, vf, lens, of, lf, heads, s_q, s_k,
-                  causal, scale);
-  } else if (d == 128) {
-    launch<128, 1>(grid, st, qf, kf, vf, lens, of, lf, heads, s_q, s_k,
-                   causal, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 64)
+    return launch<64>(grid, st, qf, kf, vf, lens, of, lf, heads, s_q, s_k,
+                      causal, scale);
+  if (d == 128)
+    return launch<128>(grid, st, qf, kf, vf, lens, of, lf, heads, s_q, s_k,
+                       causal, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

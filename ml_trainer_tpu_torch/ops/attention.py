@@ -13,7 +13,9 @@ routing.
   ``torch.autograd.Function`` (``_FlashAttention``, the JAX package's
   ``custom_vjp``): on CUDA tensors the forward launches
   ``csrc/flash_fwd.cu`` (K1) and the backward ``csrc/flash_bwd.cu``
-  (K2 for dQ, K3 for dK/dV); on CPU tensors they run the plain twins
+  (K2 for dQ, K3 for dK/dV), all three on the tensor cores with every
+  product fp32-accurate (three TF32 products, ``csrc/tf32_mma.cuh``);
+  on CPU tensors they run the plain twins
   ``flash_attention_reference`` and
   ``flash_attention_backward_reference``.  The backward recomputes P
   from the saved ``lse``, so training memory stays O(S).
@@ -173,7 +175,9 @@ def _lens_arg(kv_lens, device):
 
 
 def _flash_kernel(q, k, v, kv_lens, causal, scale):
-    """Launch ``csrc/flash_fwd.cu`` (K1) on contiguous CUDA tensors."""
+    """Launch ``csrc/flash_fwd.cu`` (K1: q.k^T and p.v as 3xTF32
+    ``mma.sync`` on the tensor cores) on contiguous CUDA tensors; its
+    function is ``flash_attention_reference``'s."""
     from ml_trainer_tpu_torch.ops.kernels._build import check, load
 
     _check_kernel_inputs(q, k, v, "flash kernel")

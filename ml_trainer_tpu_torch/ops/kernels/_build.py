@@ -4,9 +4,10 @@ Each source under ``ml_trainer_tpu_torch/csrc/`` becomes its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), compiled for ``sm_90a`` at first use into
 ``build/torch_kernels/`` at the root of the checkout.  A library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  ``build_all`` starts one
-``nvcc`` per source at once.
+name carries a hash of its source, of every local header the source
+includes with ``#include "..."`` (recursively), and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+``build_all`` starts one ``nvcc`` per source at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises when that is not 0, because a refused launch never runs
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -91,10 +93,32 @@ def nvcc_path() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: Optional[list] = None) -> list:
+    """``path`` and every local header it includes with ``#include "..."``,
+    recursively, each once, in the order first reached.  A header is
+    looked up beside the file that includes it, as ``nvcc`` does; one that
+    is not there is left to ``nvcc`` to report."""
+    seen = [] if seen is None else seen
+    path = path.resolve()
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep.is_file():
+            _sources(dep, seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in _sources(CSRC / f"{name}.cu"):
+        h.update(path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _tmp_path(name: str) -> Path:

@@ -125,7 +125,8 @@ def test_launch_counters_stay_zero_on_cpu(tmp_path):
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the card (float32,
     atol 1e-4 forward: the kernel sums in another order; K7 within
-    1e-5 of max|y|)."""
+    1e-5 of max|y|).  K1 also past B*H = 65535 (the grid puts B*H on
+    its x axis) and bitwise across two calls (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
     dev = torch.device("cuda")
@@ -141,6 +142,15 @@ def test_kernels_match_plain_on_card():
             ref_out, ref_lse = flash_attention_reference(q, k, v, kv, causal)
             torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=0)
             torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    q, k, v = (torch.randn(2731, 24, 16, 64, generator=gen).to(dev)
+               for _ in range(3))  # B*H = 65,544
+    out, lse = flash_attention(q, k, v, None, True)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, None, True)
+    torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    again = flash_attention(q, k, v, None, True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    del q, k, v, out, lse, ref_out, ref_lse, again
     b, h, d, ps, P = 4, 3, 64, 16, 8
     n = b * P + 1
     q = torch.randn(b, h, d, generator=gen).to(dev)
@@ -186,7 +196,7 @@ def test_kernels_match_plain_on_card():
                            implementation="reference")
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * want.abs().max().item())
-    assert mt.launch_counts() == {"flash_fwd": 9, "flash_bwd_dq": 6,
+    assert mt.launch_counts() == {"flash_fwd": 11, "flash_bwd_dq": 6,
                                   "flash_bwd_dkv": 6, "paged_attention": 1,
                                   "int8_matmul": 2, "unscale_sqsum": 0,
                                   "fused_adam": 0}
