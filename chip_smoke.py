@@ -4,6 +4,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --only kernels  # build + kernel checks only
+    python3 chip_smoke.py --only serve    # kernel checks + both serving
+                                          # runs + the int8 quality gate
     python3 chip_smoke.py --only train    # kernel checks + training only
     python3 chip_smoke.py --only dp       # kernel checks + data-parallel
                                           # training only
@@ -28,8 +30,16 @@ Phases, one line of output each (or a few):
    3xTF32 rate, ``bound_fp32_core_ms`` at the fp32 CUDA-core rate, as
    for K2/K3 below; the paged-attention decode
    (K6) on B=8, H=12, D=64, page 16, 64 pages per row, 513 pool pages,
-   ragged lengths and an all-trash row, within 1e-4 absolute of its
-   plain version; the flash backward, K2 (dQ) and K3 (dK/dV), on
+   ragged lengths and an all-trash row (the main row), one row of 1024
+   positions (``b1_1024``), eight (``b8_full``), D=128 with H=8, D=32,
+   and page 8 with lengths at the split boundaries, each within 1e-4
+   absolute of its plain version and bitwise equal across two calls,
+   its device time taken from CUDA graph replays with the pools cycled
+   through copies whose live K/V exceed 2 x L2 (``ms_eager`` beside it:
+   the host's rate), the main rows also at each split size; then runs of
+   K6 calls with changing B and lengths and of K7 calls with changing M,
+   after which every K6 ticket counter of the split merge must be 0; the
+   flash backward, K2 (dQ) and K3 (dK/dV), on
    [2, 12, 1024, 64] causal (the main row: one training microbatch),
    [8, 12, 1024, 64] causal (``b8``, the row of earlier figures),
    [8, 12, 1024, 64] non-causal with kv_lens, and [2, 8, 1024, 128]
@@ -45,11 +55,14 @@ Phases, one line of output each (or a few):
    qkv 768x2304, proj 768x768, fc_in 768x3072, fc_out 3072x768), at M=1,
    ragged M=13 K=130 N=100, the JAX package's bench shape M=8 K=256
    N=1024 and a weight with an all-zero column, each within 1e-5 x
-   max|plain| of its plain version, its device time taken from CUDA
+   max|plain| of its plain version and bitwise equal across two calls
+   (the projections also timed at each K slice), its device time taken
+   from CUDA
    graph replays (an eager call costs the host more than the kernel
    runs) with the weights cycled through more copies than the 50 MB L2
    holds (as a decode step finds them), beside ``F.linear`` on the fp32
-   weights (``fp32_dense_ms``); the sharded update's optimizer tail, K4
+   weights (``fp32_dense_ms``) and ``torch._weight_int8pack_mm``
+   (``library_ms``, timed only; its refusal is recorded); the sharded update's optimizer tail, K4
    (unscale + squared sum) and K5 (clip + Adam + write), at GPT-2 124M's
    2-replica shapes (the replicated tok_embed, the qkv.weight,
    fc_out.weight and bias shards) and ragged sizes, K4's quotient and K5's
@@ -61,8 +74,9 @@ Phases, one line of output each (or a few):
    ``Server(max_batch=8, kv_page_size=16, paged_kernel=True)``; 8 greedy
    requests of 32 new tokens, prompts of 5..900 tokens, two sharing a
    256-token prefix.  Checks that all complete, that both kernels'
-   launch counters advanced as the path requires, and that every served
-   token is within 1e-3 of the best logit when the sequence is run
+   launch counters advanced as the path requires (the profiled second
+   pass also gives K6's and K7's device ms per decode step by kernel
+   name), and that every served token is within 1e-3 of the best logit when the sequence is run
    again through the plain attention path.  Then the same requests
    through a second ``Server(..., quant_int8=True)``: K7 must launch
    exactly 4 x 12 times per decode step and nowhere else; a replay of
@@ -468,47 +482,166 @@ def check_flash_bwd(dev):
     return rows, err
 
 
-def paged_case(dev):
+# K6 rows: (name, B, H, D, page, pages per row, lengths, trash rows); the
+# first is the main row (the decode batch of the serving run's shape, one
+# row at the full 1024 positions); pools hold B * pages + 1 pages.
+PAGED_MIXED = [1, 16, 17, 1024, 300, 777, 64, 1]
+PAGED_CASES = [
+    ("main", 8, 12, 64, 16, 64, PAGED_MIXED, (7,)),
+    ("b1_1024", 1, 12, 64, 16, 64, [1024], ()),
+    ("b8_full", 8, 12, 64, 16, 64, [1024] * 8, ()),
+    ("d128", 8, 8, 128, 16, 64, PAGED_MIXED, (7,)),
+    ("d32", 8, 12, 32, 16, 64, PAGED_MIXED, (7,)),
+    ("page8_boundary", 8, 12, 64, 8, 128,
+     [63, 64, 65, 127, 128, 129, 1024, 8], ()),
+]
+PAGED_SWEPT = ("main", "b1_1024", "b8_full")  # rows timed at each split
+# K6's and K7's kernel names, as the profiler lists them.
+DECODE_MARKS = {"paged_attention": ("paged_attention_kernel",),
+                "int8_matmul": ("int8_matmul_kernel",)}
+
+
+def paged_case(dev, b, h, d, ps, pages, lengths, trash, seed):
     import torch
 
-    B, H, D, PS, P, N = 8, 12, 64, 16, 64, 513
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    q = torch.randn(B, H, D, generator=gen).to(dev)
-    kp = torch.randn(N, H, PS, D, generator=gen).to(dev)
-    vp = torch.randn(N, H, PS, D, generator=gen).to(dev)
-    table = (1 + torch.randperm(N - 1, generator=gen)).reshape(B, P)
-    table[7] = 0  # an all-trash row (an inactive slot)
-    lengths = torch.tensor([1, 16, 17, 1024, 300, 777, 64, 1],
-                           dtype=torch.int32)
+    n = b * pages + 1
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, h, d, generator=gen).to(dev)
+    kp = torch.randn(n, h, ps, d, generator=gen).to(dev)
+    vp = torch.randn(n, h, ps, d, generator=gen).to(dev)
+    table = (1 + torch.randperm(n - 1, generator=gen)).reshape(b, pages)
+    for r in trash:
+        table[r] = 0  # an all-trash row (an inactive slot)
+    lengths = torch.tensor(lengths, dtype=torch.int32)
     return q, kp, vp, table.to(torch.int32).to(dev), lengths.to(dev)
 
 
+def kernel_option(fn, name: str) -> bool:
+    """Whether a kernel's launch function takes the option ``name`` (the
+    split size; absent in a tree from before the split design)."""
+    import inspect
+
+    return name in inspect.signature(fn).parameters
+
+
 def check_paged(dev):
+    """K6 against its plain version (within ``TOL``) on every
+    ``PAGED_CASES`` row, two calls bitwise equal, timed as device time
+    (CUDA graph replays, ``ms``) with the pools cycled through copies
+    whose live K/V exceed 2 x L2 together, as a decode step finds them,
+    beside the eager rate (``ms_eager``, the host's) and the plain
+    version.  The main rows are also timed at each split size."""
+    import math
+    from importlib import import_module
+
     import torch
 
+    pa = import_module("ml_trainer_tpu_torch.ops.kernels.paged_attention")
+
+    rows = []
+    for i, (name, b, h, d, ps, pages, lens, trash) in enumerate(PAGED_CASES):
+        q, kp, vp, table, lengths = paged_case(dev, b, h, d, ps, pages, lens,
+                                               trash, SEED + 1 + i)
+        out = pa.paged_attention(q, kp, vp, table, lengths)
+        ref = pa.paged_attention_reference(q, kp, vp, table, lengths)
+        again = pa.paged_attention(q, kp, vp, table, lengths)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"paged_attention {name}: max abs err {err} "
+                                 f"> {TOL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged_attention {name}: two calls differ")
+        L = pages * ps
+        live = sum(min(max(n, 1), L) for n in lens)
+        live_bytes = 2 * live * h * d * 4
+        copies = [(q.clone(), kp.clone(), vp.clone())
+                  for _ in range(1 + math.ceil(2 * L2_BYTES / live_bytes))]
+
+        def kernel(a, k_, v_):
+            return pa.paged_attention(a, k_, v_, table, lengths)
+
+        def plain_fn(a, k_, v_):
+            return pa.paged_attention_reference(a, k_, v_, table, lengths)
+
+        ms = time_graph_ms(kernel, copies)
+        ms_eager = time_cold_ms(kernel, copies)
+        plain = time_cold_ms(plain_fn, copies, iters=20)
+        extra = {}
+        if kernel_option(pa._paged_kernel, "split"):
+            extra["split"] = pa.split_positions(b, h, pages, ps)
+            if name in PAGED_SWEPT:
+                scale = d ** -0.5
+                extra["split_ms"] = {
+                    str(sp): time_graph_ms(
+                        lambda a, k_, v_, sp=sp: pa._paged_kernel(
+                            a, k_, v_, table, lengths, scale, split=sp),
+                        copies)
+                    for sp in (16, 32, 64)}
+        nbytes = 2 * b * h * d * 4 + live_bytes + table.numel() * 4 + b * 4
+        b_ms, b_by = bound_ms(nbytes, 4.0 * live * h * d)
+        row = dict(case=name, B=b, H=h, D=d, page=ps, pages=pages,
+                   lengths=lens, max_abs_err=err, bitwise_repeat=True, ms=ms,
+                   ms_eager=ms_eager, plain_ms=plain, library_ms=None,
+                   bound_ms=b_ms, bound_by=b_by, pool_copies=len(copies),
+                   **extra)
+        log("kernel paged_attention " + json.dumps(row))
+        rows.append(row)
+        del q, kp, vp, copies, out, ref, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_tickets(dev):
+    """Runs of K6 calls with changing B and lengths, and of K7 calls with
+    changing M and shapes (its clusters of 1-8 slices, passes of 8 rows),
+    each against its plain version; then every K6 ticket counter must be
+    back at 0 (a tree from before the split design has none)."""
+    import torch
+
+    from ml_trainer_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul, quantize_per_channel)
     from ml_trainer_tpu_torch.ops.kernels.paged_attention import (
         paged_attention, paged_attention_reference)
 
-    q, kp, vp, table, lengths = paged_case(dev)
-    out = paged_attention(q, kp, vp, table, lengths)
-    ref = paged_attention_reference(q, kp, vp, table, lengths)
+    q, kp, vp, table, _ = paged_case(dev, 8, 12, 64, 16, 64, PAGED_MIXED,
+                                     (7,), SEED + 60)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 61)
+    worst = 0.0
+    calls = 0
+    for b in (8, 3, 1, 5, 8, 2, 1, 8):
+        lengths = torch.randint(1, 1025, (b,), generator=gen,
+                                dtype=torch.int32).to(dev)
+        out = paged_attention(q[:b], kp, vp, table[:b], lengths)
+        ref = paged_attention_reference(q[:b], kp, vp, table[:b], lengths)
+        err = (out - ref).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"ticket run B={b}: max abs err {err}")
+        worst = max(worst, err)
+        calls += 1
+    for m, k, n in ((8, 3072, 768), (1, 3072, 768), (13, 768, 2304),
+                    (8, 768, 2304), (3, 130, 100)):
+        x = torch.randn(m, k, generator=gen).to(dev)
+        w_q, scale = quantize_per_channel(
+            (torch.randn(k, n, generator=gen) * 0.02).to(dev))
+        got = int8_matmul(x, w_q, scale)
+        want = int8_matmul(x, w_q, scale, implementation="reference")
+        if not (got - want).abs().max().item() <= (
+                INT8_REL * want.abs().max().item()):
+            raise AssertionError(f"ticket run int8 M={m} K={k} N={n}")
+        calls += 1
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    if not err <= TOL:
-        raise AssertionError(f"paged_attention: max abs err {err} > {TOL}")
-    ms = time_ms(lambda: paged_attention(q, kp, vp, table, lengths))
-    plain = time_ms(lambda: paged_attention_reference(q, kp, vp, table,
-                                                      lengths))
-    B, H, D = q.shape
-    live = int(lengths.clamp(1, table.shape[1] * kp.shape[2]).sum().item())
-    nbytes = 2 * B * H * D * 4 + 2 * live * H * D * 4 + table.numel() * 4 + B * 4
-    flops = 4.0 * live * H * D
-    b_ms, b_by = bound_ms(nbytes, flops)
-    row = dict(B=B, H=H, D=D, lengths=lengths.tolist(), max_abs_err=err,
-               ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by)
-    log("kernel paged_attention " + json.dumps(row))
-    return row
+    try:
+        from ml_trainer_tpu_torch.ops.kernels import _split
+    except ImportError:
+        zero = "no ticket counters"
+    else:
+        zero = _split.all_zero()
+        if not zero:
+            raise AssertionError("a ticket counter is not back at 0")
+    rec = dict(calls=calls, paged_max_abs_err=worst, tickets_all_zero=zero)
+    log("kernel tickets " + json.dumps(rec))
+    return rec
 
 
 INT8_CASES = [  # (name, M, K, N, all-zero column); the first is the main row
@@ -536,7 +669,9 @@ def time_cold_ms(fn, copies, iters: int = 60) -> float:
 def time_graph_ms(fn, copies, iters: int = 60, reps: int = 5) -> float:
     """Device time per call: ``iters`` calls of ``fn(args)`` cycling
     through ``copies``, captured in one CUDA graph and replayed between
-    CUDA events, so that the host's per-call cost is not measured."""
+    CUDA events, so that the host's per-call cost is not measured.  The
+    warm-up runs on the capture stream (K6's ticket counters are made
+    per stream, outside a capture)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -546,7 +681,7 @@ def time_graph_ms(fn, copies, iters: int = 60, reps: int = 5) -> float:
             fn(*copies[i % len(copies)])
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(*copies[i % len(copies)])
     graph.replay()
@@ -563,19 +698,43 @@ def time_graph_ms(fn, copies, iters: int = 60, reps: int = 5) -> float:
     return ms
 
 
+INT8_SWEPT = ("qkv", "proj", "fc_in", "fc_out")  # timed at each K slice
+
+
+def int8_library(x, w_q, scale, copies):
+    """``torch._weight_int8pack_mm`` (x @ (w_q * scale)^T with w_q as
+    [N, K]) timed on the same inputs, or the words with which it
+    refuses.  Timed only: it dequantizes per weight, which rounds
+    otherwise than the port's sum-then-scale, and the port never calls
+    it."""
+    import torch
+
+    packed = [(w.T.contiguous(), sc) for w, sc, _ in copies]
+    try:
+        torch._weight_int8pack_mm(x, *packed[0])
+        torch.cuda.synchronize()
+        return time_graph_ms(
+            lambda w, sc: torch._weight_int8pack_mm(x, w, sc), packed), None
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return None, str(e).splitlines()[0][:200]
+
+
 def check_int8(dev):
-    """K7 against its plain version at the decode shapes, timed cold
-    beside the plain version and ``F.linear`` on the fp32 weights.  The
-    ``*_ms`` times are device times (CUDA graph replays); ``ms_l2`` keeps
-    one weight copy in L2; ``*_eager`` are CUDA events around eager
-    calls, which for these few-microsecond calls is the host's rate."""
+    """K7 against its plain version at the decode shapes, two calls
+    bitwise equal, timed cold beside the plain version, ``F.linear`` on
+    the fp32 weights and ``torch._weight_int8pack_mm`` (``library_ms``).
+    The ``*_ms`` times are device times (CUDA graph replays); ``ms_l2``
+    keeps one weight copy in L2; ``*_eager`` are CUDA events around eager
+    calls, which for these few-microsecond calls is the host's rate.  The
+    four GPT-2 projections are also timed at each K slice."""
     import math
+    from importlib import import_module
 
     import torch
     import torch.nn.functional as F
 
-    from ml_trainer_tpu_torch.ops.kernels.int8_matmul import (
-        int8_matmul, quantize_per_channel)
+    im = import_module("ml_trainer_tpu_torch.ops.kernels.int8_matmul")
+    int8_matmul, quantize_per_channel = im.int8_matmul, im.quantize_per_channel
 
     rows = []
     for i, (name, m, k, n, zero_col) in enumerate(INT8_CASES):
@@ -600,6 +759,8 @@ def check_int8(dev):
                              and torch.equal(got[:, 5], bias[5].expand(m))):
             raise AssertionError("int8_matmul: the all-zero column is not "
                                  "scale 1 and bias only")
+        if not torch.equal(got, int8_matmul(x, w_q, scale, bias=bias)):
+            raise AssertionError(f"int8_matmul {name}: two calls differ")
         nq = max(1, math.ceil(2 * L2_BYTES / (k * n)))
         nf = max(1, math.ceil(2 * L2_BYTES / (4 * k * n)))
         q_copies = [(w_q.clone(), scale, bias) for _ in range(nq)]
@@ -619,15 +780,29 @@ def check_int8(dev):
         plain = time_graph_ms(plain_fn, q_copies, iters=20)
         dense = time_graph_ms(dense_fn, f_copies)
         dense_eager = time_cold_ms(dense_fn, f_copies)
+        lib, lib_error = int8_library(x, w_q, scale, q_copies)
+        extra = {} if lib_error is None else {"library_error": lib_error}
+        if kernel_option(im._int8_kernel, "slice_k"):
+            extra["slice"] = im.k_slice(k, n)
+            if name in INT8_SWEPT:  # the least slice of each count, 1-8
+                step, slices = im.SLICE_STEP, {}
+                for sl in range(step, k + step, step):
+                    slices.setdefault(-(-k // sl), sl)
+                extra["slice_ms"] = {
+                    str(sl): time_graph_ms(
+                        lambda a, b, c, sl=sl: im._int8_kernel(
+                            x, a, b, c, slice_k=sl), q_copies)
+                    for count, sl in sorted(slices.items())
+                    if count <= im.MAX_SLICES}
         # Each input read once, the output written once: int8 weights,
         # x, scale and bias in f32, out in f32; 2*M*K*N f32 operations.
         nbytes = k * n + 4 * m * k + 4 * n + 4 * n + 4 * m * n
         b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n)
         row = dict(case=name, M=m, K=k, N=n, max_abs_err=err, err_bar=bar,
-                   ms=ms, ms_l2=ms_l2, ms_eager=ms_eager, plain_ms=plain,
-                   fp32_dense_ms=dense, fp32_dense_ms_eager=dense_eager,
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                   weight_copies=nq)
+                   bitwise_repeat=True, ms=ms, ms_l2=ms_l2, ms_eager=ms_eager,
+                   plain_ms=plain, fp32_dense_ms=dense,
+                   fp32_dense_ms_eager=dense_eager, library_ms=lib,
+                   bound_ms=b_ms, bound_by=b_by, weight_copies=nq, **extra)
         log("kernel int8_matmul " + json.dumps(row))
         rows.append(row)
         del q_copies, f_copies
@@ -931,7 +1106,8 @@ def device_split(prof, wall: float) -> dict:
 def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
     """Serve the same prompts again under ``torch.profiler`` and split
     the wall time into device-busy time (the serving path runs one
-    stream) and idle time (``device_split``)."""
+    stream) and idle time (``device_split``), with K6's and K7's device
+    ms by kernel name, in all and per decode step of the pass."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -945,7 +1121,11 @@ def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     split = device_split(prof, wall)
-    split["decode_steps"] = server.metrics.snapshot()["decode_steps"] - steps0
+    steps = server.metrics.snapshot()["decode_steps"] - steps0
+    split["decode_steps"] = steps
+    split.update(kernel_device_ms(prof, DECODE_MARKS))
+    split["decode_step_device_ms"] = {
+        k: v / steps for k, v in split["device_ms"].items()} if steps else None
     return split
 
 
@@ -1405,7 +1585,7 @@ def dp_train(dev):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["kernels", "train", "dp"],
+    parser.add_argument("--only", choices=["kernels", "serve", "train", "dp"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -1433,15 +1613,16 @@ def main(argv=None) -> int:
             log(f"  {line}")
 
     flash_rows = check_flash(dev)
-    paged_row = check_paged(dev)
+    paged_rows = check_paged(dev)
     bwd_rows, padded_err = check_flash_bwd(dev)
     int8_rows = check_int8(dev)
+    check_tickets(dev)
     fused_rows = check_fused_adam(dev)
     launches = {"flash_fwd": None, "paged_attention": None,
                 "flash_bwd_dq": None, "flash_bwd_dkv": None,
                 "int8_matmul": None, "unscale_sqsum": None,
                 "fused_adam": None}
-    if args.only is None:
+    if args.only in (None, "serve"):
         serving = serve(dev)
         for run in ("fp32", "int8"):
             for kname, count in serving[run]["launches"].items():
@@ -1495,8 +1676,10 @@ def main(argv=None) -> int:
          "source": "ml_trainer_tpu_torch/csrc/paged_attention.cu",
          "replaces": "ml_trainer_tpu/ops/kernels/paged_attention.py:152",
          "launches": launches["paged_attention"],
-         **{k: paged_row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}},
+         "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
+         **{k: paged_rows[0][k] for k in ("ms", "ms_eager", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}},
     ] + [
         {"name": kname, "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/flash_bwd.cu",

@@ -55,14 +55,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                               _I, _I, _I, _F, _P],
     },
     "paged_attention": {
-        # q, k_pool, v_pool, table, lengths, out, batch, heads, pages,
-        # page_size, d, scale, stream
-        "paged_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _P],
+        # q, k_pool, v_pool, table, lengths, out, workspace|NULL,
+        # tickets|NULL, batch, heads, pages, page_size, d, split, scale,
+        # stream
+        "paged_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _F, _P],
     },
     "int8_matmul": {
-        # x, w_q, scale, bias|NULL, out, m, k, n, stream
-        "int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # x, w_q, scale, bias|NULL, out, m, k, n, slice, stream
+        "int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "fused_adam": {
         # g, denom_ptr|NULL, denom, out, partials, sq_out, n, compute_sq,

@@ -23,8 +23,10 @@ math by construction.  What is pinned:
 
 Layout: ``w_q`` is [K, N] (the JAX package's Dense kernel layout, the
 transpose of ``nn.Linear.weight``), so a JAX-built collection crosses
-unchanged; the kernel gives each thread four adjacent output columns and
-reads them as one 32-bit load per k along the contiguous N axis.
+unchanged; the kernel copies 16 adjacent output columns of a k row at a
+time along the contiguous N axis.  It splits K over the blocks of a
+thread block cluster (``k_slice``); the cluster's first block adds the
+partial sums in slice order, then scales and adds the bias.
 """
 
 from __future__ import annotations
@@ -63,7 +65,26 @@ def int8_matmul_reference(x, w_q, scale, bias=None) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w_q.shape[-1]).to(x.dtype)
 
 
-def _int8_kernel(x, w_q, scale, bias):
+# The slice: rows of K per block of the CUDA kernel, a multiple of 64.  The
+# slices of a column tile run as one thread block cluster, so there are at
+# most 8; about 256 rows each, and no more slices than keep the grid within
+# two blocks per SM (132 SMs), measured fastest at GPT-2's projections
+# (PERF.md).  Static shapes only.
+SLICE_ROWS, SLICE_STEP, MAX_SLICES, TILE_N, MAX_BLOCKS = 256, 64, 8, 32, 264
+
+
+def k_slice(k: int, n: int) -> int:
+    """Rows of K each block of the kernel sums, from the static shapes: K
+    over min(8, ceil(K / 256), 264 // column tiles) slices (at least one),
+    rounded up to a multiple of 64.  M does not change the grid: a block
+    loops over passes of 8 rows of x."""
+    tiles = -(-n // TILE_N)
+    slices = max(1, min(MAX_SLICES, -(-k // SLICE_ROWS), MAX_BLOCKS // tiles))
+    rows = -(-k // slices)
+    return max(SLICE_STEP, -(-rows // SLICE_STEP) * SLICE_STEP)
+
+
+def _int8_kernel(x, w_q, scale, bias, slice_k=None):
     from ml_trainer_tpu_torch.ops.kernels._build import check, load
 
     k, n = w_q.shape
@@ -75,6 +96,8 @@ def _int8_kernel(x, w_q, scale, bias):
             raise ValueError(f"{name} must be float32 [{n}], got "
                              f"{t.dtype} {tuple(t.shape)}")
     m = x2.shape[0]
+    if slice_k is None:
+        slice_k = k_slice(k, n)
     x2, w_q, scale = x2.contiguous(), w_q.contiguous(), scale.contiguous()
     bias = None if bias is None else bias.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -83,7 +106,7 @@ def _int8_kernel(x, w_q, scale, bias):
     check(lib.int8_matmul_f32(
         x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, k, n,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(slice_k), torch.cuda.current_stream(x.device).cuda_stream,
     ), "int8_matmul_f32")
     return out.reshape(*x.shape[:-1], n)
 

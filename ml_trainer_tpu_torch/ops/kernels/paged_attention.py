@@ -5,7 +5,9 @@ against K/V scattered across a shared page pool.  The plain path
 (``paged_attention_reference``) materializes ``pool[table]`` in logical
 order and runs ``dot_product_attention`` under the validity mask; the
 CUDA kernel (``csrc/paged_attention.cu``) streams the pages straight
-from the pool instead.
+from the pool instead, each row's positions split over blocks of
+``split_positions`` positions whose partial softmax sums the row's last
+block merges in split order (deterministic).
 
 Layout contract (owned by serving/kv_pool.py and models/layers.py, the
 same as the JAX package's): ``k_pool``/``v_pool`` are [N, H, page, D]
@@ -43,7 +45,24 @@ def paged_attention_reference(q, k_pool, v_pool, table, lengths, *,
     return out[:, :, 0, :]
 
 
-def _paged_kernel(q, k_pool, v_pool, table, lengths, scale):
+# The split: positions per block of the CUDA kernel, at most 64 (whole
+# pages at page 16), halved while a decode batch would put fewer than two
+# blocks per SM (132) in flight when every row is full.  Static shapes
+# only: reading ``lengths`` here would synchronise.
+SPLIT_MAX, SPLIT_MIN, TARGET_BLOCKS = 64, 16, 2 * 132
+
+
+def split_positions(batch: int, heads: int, pages: int, page_size: int) -> int:
+    """Positions each block of the kernel owns, from the static shapes."""
+    L = pages * page_size
+    split = SPLIT_MAX
+    while split > SPLIT_MIN and batch * heads * -(-L // split) < TARGET_BLOCKS:
+        split //= 2
+    return split
+
+
+def _paged_kernel(q, k_pool, v_pool, table, lengths, scale, split=None):
+    from ml_trainer_tpu_torch.ops.kernels import _split
     from ml_trainer_tpu_torch.ops.kernels._build import check, load
 
     b, h, d = q.shape
@@ -58,16 +77,28 @@ def _paged_kernel(q, k_pool, v_pool, table, lengths, scale):
     if table.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"table {tuple(table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {b}")
+    pages = table.shape[1]
+    if split is None:
+        split = split_positions(b, h, pages, ps)
+    n_splits = -(-pages * ps // split)
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
     table = table.to(device=q.device, dtype=torch.int32).contiguous()
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device)
+    work = tick = None
+    if n_splits > 1:  # partials (acc [D], m, l) per (b, h, split)
+        work = torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        tick = _split.tickets(q.device, stream, b * h)
     lib = load("paged_attention")
     count_launch("paged_attention")
     check(lib.paged_attention_f32(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, table.shape[1], ps, d,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        lengths.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(),
+        None if tick is None else tick.data_ptr(), b, h, pages, ps, d,
+        int(split), float(scale), stream.cuda_stream,
     ), "paged_attention_f32")
     return out
 

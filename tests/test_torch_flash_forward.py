@@ -148,11 +148,14 @@ def test_build_key_follows_flags(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_kernel_sources_hash_their_headers(name):
-    """Every kernel source's key covers the shared 3xTF32 header exactly
-    where the source includes it (K1 and K2/K3), and is stable."""
+    """Every kernel source's key covers the shared headers exactly where
+    the source includes them (the 3xTF32 helpers in K1 and K2/K3, the
+    split merge's ticket in K6 and K7), and is stable."""
     files = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
     want = [f"{name}.cu"]
     if name in ("flash_fwd", "flash_bwd"):
         want.append("tf32_mma.cuh")
+    if name in ("paged_attention", "int8_matmul"):
+        want.append("split_merge.cuh")
     assert files == want
     assert _build._lib_path(name) == _build._lib_path(name)

@@ -11,6 +11,10 @@ the JAX package's, on the CPU, plus the reference's quality gate.
   ``model.clone(quant_int8=True)`` within 1e-5; greedy int8 ``Server``
   tokens are identical to the JAX int8 ``Server``'s; two port runs give
   the same bytes; only the S == 1 decode step reads the collection.
+* The CUDA kernel's split of K over blocks, emulated in float32 on the
+  CPU (``_split_sum``: per-slice f32 partial sums, their sum in slice
+  order, then the scale, then the bias), agrees with the plain version
+  and the JAX kernel within 1e-5 of max|y| at K = 130 and K = 3072.
 * Quality gate (``tests/test_kernels.py::test_int8_quality_gate``):
   gpt2_tiny trained by the JAX ``Trainer`` on a successor map, then
   converted; the port's int8 forward keeps argmax agreement >= 0.995
@@ -38,6 +42,10 @@ from ml_trainer_tpu_torch import (
     quant_from_jax,
     quantize_per_channel,
     quantize_tree,
+)
+from ml_trainer_tpu_torch.ops.kernels.int8_matmul import (
+    int8_matmul_reference,
+    k_slice,
 )
 from ml_trainer_tpu_torch.serving import SlotDecodeEngine
 
@@ -144,6 +152,53 @@ def test_int8_matmul_refusals():
     assert torch.equal(
         int8_matmul(x, w_q, torch.ones(4), implementation="reference"),
         torch.zeros(2, 4))
+
+
+def _split_sum(x, w_q, scale, bias, slice_k):
+    """The CUDA kernel's split of K in float32 (test-only): one f32
+    partial sum per slice of ``slice_k`` rows, the partials added in slice
+    order, then the column scale, then the bias."""
+    k = w_q.shape[0]
+    total = torch.zeros(x.shape[0], w_q.shape[1])
+    for k0 in range(0, k, slice_k):
+        total = total + x[:, k0:k0 + slice_k] @ w_q[k0:k0 + slice_k].float()
+    return total * scale + bias
+
+
+@pytest.mark.parametrize("m,k,n", [(13, 130, 100), (8, 3072, 768)])
+@pytest.mark.parametrize("slice_k", [64, 512, None])
+def test_split_sum_matches_plain_and_jax(m, k, n, slice_k):
+    """Ragged K = 130 (3 slices of 64, the last of 2 rows) and fc_out's
+    K = 3072 (8 slices of 384 at the wrapper's choice)."""
+    slice_k = slice_k or k_slice(k, n)
+    rng = np.random.default_rng(k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    b = (rng.normal(size=(n,)) * 0.02).astype(np.float32)
+    w_q, scale = j_quantize_per_channel(jnp.asarray(_weights(m, k, n)))
+    tx, tw, ts, tb = (torch.from_numpy(np.array(a)) for a in (x, w_q, scale, b))
+    got = _split_sum(tx, tw, ts, tb, slice_k).numpy()
+    plain = int8_matmul_reference(tx, tw, ts, tb).numpy()
+    jax_y = np.asarray(j_int8_matmul(jnp.asarray(x), w_q, scale,
+                                     implementation="pallas",
+                                     interpret=True)) + b
+    tol = REL * np.abs(plain).max()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=tol)
+    np.testing.assert_allclose(got, jax_y, rtol=0, atol=tol)
+    assert (got[:, 0] == b[0]).all()  # the all-zero column: bias only
+
+
+def test_k_slice_rule():
+    """K over min(8, ceil(K / 256), 264 // column tiles) slices (the
+    cluster of a column tile; two blocks per SM at most), each a multiple
+    of 64 rows: 3 slices of 256 at qkv and proj, 2 of 384 at fc_in (96
+    tiles), 8 of 384 at fc_out, one slice for a short K or a wide N, and
+    slices past 512 rows (staged in chunks) once K passes 8 x 512."""
+    for k, n, want in ((768, 2304, 256), (768, 768, 256), (768, 3072, 384),
+                       (3072, 768, 384), (130, 100, 192), (256, 1024, 256),
+                       (768, 32 * 264, 768), (1, 100, 64), (5000, 100, 640)):
+        sl = k_slice(k, n)
+        assert sl == want and sl % 64 == 0
+        assert -(-k // sl) <= 8
 
 
 def test_quantize_tree_is_bitwise_the_jax_one(models):

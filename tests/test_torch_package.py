@@ -126,7 +126,10 @@ def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the card (float32,
     atol 1e-4 forward: the kernel sums in another order; K7 within
     1e-5 of max|y|).  K1 also past B*H = 65535 (the grid puts B*H on
-    its x axis) and bitwise across two calls (no atomics)."""
+    its x axis) and bitwise across two calls (no atomics); K6 also on
+    one full 1024-position row (split over 32 blocks per head), and K6
+    and K7 bitwise across two calls (their split merge adds in a fixed
+    order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
     dev = torch.device("cuda")
@@ -151,18 +154,21 @@ def test_kernels_match_plain_on_card():
     again = flash_attention(q, k, v, None, True)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     del q, k, v, out, lse, ref_out, ref_lse, again
-    b, h, d, ps, P = 4, 3, 64, 16, 8
-    n = b * P + 1
-    q = torch.randn(b, h, d, generator=gen).to(dev)
-    kp, vp = (torch.randn(n, h, ps, d, generator=gen).to(dev)
-              for _ in range(2))
-    table = (1 + torch.randperm(n - 1, generator=gen)).reshape(b, P)
-    table[3] = 0
-    table = table.to(torch.int32).to(dev)
-    lengths = torch.tensor([128, 1, 17, 1], dtype=torch.int32, device=dev)
-    out = paged_attention(q, kp, vp, table, lengths)
-    ref = paged_attention_reference(q, kp, vp, table, lengths)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    for b, h, d, ps, P, lens in ((4, 3, 64, 16, 8, [128, 1, 17, 1]),
+                                 (1, 12, 64, 16, 64, [1024])):
+        n = b * P + 1
+        q = torch.randn(b, h, d, generator=gen).to(dev)
+        kp, vp = (torch.randn(n, h, ps, d, generator=gen).to(dev)
+                  for _ in range(2))
+        table = (1 + torch.randperm(n - 1, generator=gen)).reshape(b, P)
+        if b > 1:
+            table[3] = 0
+        table = table.to(torch.int32).to(dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = paged_attention(q, kp, vp, table, lengths)
+        ref = paged_attention_reference(q, kp, vp, table, lengths)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        assert torch.equal(out, paged_attention(q, kp, vp, table, lengths))
     # K2/K3 through the autograd Function against the plain backward
     # (atol 2e-4, rtol 1e-4: 3xTF32 products, float32 sums over up to S
     # keys or queries); no atomics, so a second backward is bitwise equal.
@@ -196,7 +202,8 @@ def test_kernels_match_plain_on_card():
                            implementation="reference")
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * want.abs().max().item())
+        assert torch.equal(got, int8_matmul(x, w_q, scale, bias=bias))
     assert mt.launch_counts() == {"flash_fwd": 11, "flash_bwd_dq": 6,
-                                  "flash_bwd_dkv": 6, "paged_attention": 1,
-                                  "int8_matmul": 2, "unscale_sqsum": 0,
+                                  "flash_bwd_dkv": 6, "paged_attention": 4,
+                                  "int8_matmul": 4, "unscale_sqsum": 0,
                                   "fused_adam": 0}
