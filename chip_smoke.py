@@ -63,12 +63,18 @@ Phases, one line of output each (or a few):
    holds (as a decode step finds them), beside ``F.linear`` on the fp32
    weights (``fp32_dense_ms``) and ``torch._weight_int8pack_mm``
    (``library_ms``, timed only; its refusal is recorded); the sharded update's optimizer tail, K4
-   (unscale + squared sum) and K5 (clip + Adam + write), at GPT-2 124M's
+   (unscale + squared sum) and K5 (clip + Adam + write), each one launch
+   over a list of leaves: the main row ``step_list`` is one 2-replica
+   GPT-2 124M step's lists (each replica's 148 leaves as the plan splits
+   them, one launch of each kernel per replica), timed per step by CUDA
+   graph replays, eagerly and by profiler device time, beside
+   ``torch._foreach_norm`` (K4) and one ``torch._fused_adam_`` (K5) over
+   the same lists, both timed only; then one-leaf rows at GPT-2 124M's
    2-replica shapes (the replicated tok_embed, the qkv.weight,
-   fc_out.weight and bias shards) and ragged sizes, K4's quotient and K5's
-   four outputs bitwise and K4's sum within 1e-5 relative of the plain
-   versions, timed beside ``torch._foreach_norm`` (K4) and
-   ``torch._fused_adam_`` (K5), both timed only;
+   fc_out.weight and bias shards) and ragged sizes; K4's quotients and
+   K5's four outputs bitwise, K4's sums (each leaf's, and sq_loc/sq_rep)
+   within 1e-5 relative of the plain versions, every call bitwise across
+   two calls;
 4. serving: GPT-2 124M at full width (12 layers, 768 wide, 12 heads,
    vocab 50257, max_len 1024) with seeded random weights behind
    ``Server(max_batch=8, kv_page_size=16, paged_kernel=True)``; 8 greedy
@@ -109,8 +115,8 @@ Phases, one line of output each (or a few):
    the sharded step with the plain tail and the sharded step with K4/K5:
    losses within 1e-5 relative, kernel vs plain params within 1e-6, one
    card vs sharded within 1e-3; then ``fit()``, which must give finite
-   losses, skip no step and launch K4 = K5 = 2 x 148 per step (and the
-   attention kernels per replica microbatch); then the step time,
+   losses, skip no step and launch K4 = K5 = 2 per step, one per replica
+   (and the attention kernels per replica microbatch); then the step time,
    tokens/s, peak memory and a profiler split with K1's to K5's device
    ms per step beside their bounds.
 
@@ -1280,34 +1286,201 @@ def train(dev):
 
 
 # ------------------------------------------------------------- phase 6
-# K4/K5 at the shapes the 2-replica GPT-2 124M step gives them: the
-# replicated tok_embed (every replica updates all of it), the dim-0
-# shards of qkv.weight, fc_out.weight and a [768] bias (n = 2), then
-# ragged sizes.  The first is the main row.
+# K4/K5 at the shapes the 2-replica GPT-2 124M step gives them.  The main
+# row, ``step_list``, is one step's lists: each replica's 148 leaves (the
+# dim-0 shards of the sharded leaves, the whole of tok_embed and
+# pos_embed) as ``plan_grad_buckets`` splits them, one launch of each
+# kernel per replica.  Then one-leaf rows: the replicated tok_embed, the
+# shards of qkv.weight, fc_out.weight and a [768] bias, and ragged sizes.
 FUSED_CASES = [("tok_embed", (50257, 768)), ("qkv_shard", (1152, 768)),
                ("fc_out_shard", (384, 3072)), ("bias_shard", (384,)),
                ("ragged_7", (7,)), ("ragged_4097", (4097,)),
                ("ragged_3x5x7", (3, 5, 7))]
-SQ_RTOL = 1e-5  # K4's sum vs torch.sum: float32 sums in another order
+SQ_RTOL = 1e-5  # K4's sums vs torch.sum: float32 sums in another order
+# K4 (two kernels) and K5 by kernel name, as the profiler lists them.
+FUSED_MARKS = {"unscale_sqsum": ("unscale_sqsum_list_kernel",
+                                 "sum_leaves_kernel"),
+               "fused_adam": ("fused_adam_list_kernel",)}
+
+
+def _bitwise(what, got, want) -> None:
+    import torch
+
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{what}: leaf {i} not bitwise (max abs err "
+                f"{(a - b).abs().max().item()})")
+
+
+def _sums_close(what, got, want) -> float:
+    """K4's sums within SQ_RTOL relative of the plain ones; the largest
+    absolute difference."""
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        d = abs(a.item() - b.item())
+        if not d <= SQ_RTOL * abs(b.item()):
+            raise AssertionError(f"{what}: sum {i} {a.item()} vs plain "
+                                 f"{b.item()}")
+        err = max(err, d)
+    return err
+
+
+def dp_lists(dev, n: int):
+    """The sharded step's per-replica leaf shapes and ``sharded`` flags for
+    GPT-2 124M over ``n`` replicas (the trainer's ``plan_grad_buckets``)."""
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.parallel.sharding import plan_grad_buckets
+
+    params = dict(mt.get_model(DP["model"], device=dev).named_parameters())
+    plan = plan_grad_buckets(params, n)
+    shapes = [(p.shape[0] // n,) + tuple(p.shape[1:]) if sh
+              else tuple(p.shape)
+              for p, sh in zip(params.values(), plan.sharded)]
+    return shapes, list(plan.sharded)
+
+
+def check_fused_list(dev) -> dict:
+    """The ``step_list`` row: one 2-replica GPT-2 124M step's lists, one
+    launch of K4 and one of K5 per replica.  K4's quotients bitwise, each
+    leaf's sum and sq_loc/sq_rep within SQ_RTOL relative (immediate and
+    device-scalar denominators); K5 bitwise with and without the clip
+    factor; two calls bitwise.  Timed per step (both replicas): CUDA
+    graph replays (``ms``, device time with no host cost), eager calls
+    (``ms_eager``, the host's rate), profiler device time of the kernels
+    (``device_ms``); beside the plain versions, ``torch._foreach_norm``
+    over the same lists (K4) and one ``torch._fused_adam_`` over the same
+    lists (K5), both timed only."""
+    import math
+
+    import torch
+
+    from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
+        fused_adam_update_list, unscale_sqsum_list)
+
+    n = DP["replicas"]
+    shapes, flags = dp_lists(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+
+    def make(scale, fn=torch.randn):
+        return [[fn(s, generator=gen, device=dev) * scale for s in shapes]
+                for _ in range(n)]
+
+    g, p, mu = make(1e-3), make(0.02), make(1e-4)
+    nu = make(1e-7, torch.rand)
+    elems = n * sum(math.prod(s) for s in shapes)
+    err4 = 0.0
+    for denom in (4.0, torch.tensor(6.0, device=dev)):
+        for j in range(n):
+            runs = [unscale_sqsum_list(g[j], denom, sharded=flags)
+                    for _ in range(2)]
+            want = unscale_sqsum_list(g[j], denom, sharded=flags,
+                                      implementation="reference")
+            torch.cuda.synchronize()
+            what = f"unscale_sqsum step_list replica {j}"
+            _bitwise(what, runs[0][0], want[0])
+            _bitwise(what + " (two calls)", runs[0][0], runs[1][0])
+            _bitwise(what + " sums (two calls)",
+                     runs[0][1] + list(runs[0][2]),
+                     runs[1][1] + list(runs[1][2]))
+            err4 = max(err4, _sums_close(what, runs[0][1], want[1]),
+                       _sums_close(what + " sq_loc/sq_rep", runs[0][2],
+                                   want[2]))
+    scal = dict(bc1=torch.tensor(0.271, device=dev),
+                bc2=torch.tensor(0.002997, device=dev),
+                step_size=torch.tensor(-3e-4, device=dev), lr_scale=1.0)
+    for factor in (None, torch.tensor(0.37, device=dev)):
+        for j in range(n):
+            runs = [fused_adam_update_list(g[j], p[j], mu[j], nu[j],
+                                           factor=factor, **scal)
+                    for _ in range(2)]
+            want = fused_adam_update_list(g[j], p[j], mu[j], nu[j],
+                                          factor=factor,
+                                          implementation="reference", **scal)
+            torch.cuda.synchronize()
+            for k, out in enumerate(("p", "mu", "nu", "u")):
+                what = (f"fused_adam step_list replica {j} factor="
+                        f"{factor is not None} {out}")
+                _bitwise(what, runs[0][k], want[k])
+                _bitwise(what + " (two calls)", runs[0][k], runs[1][k])
+            del runs, want
+
+    factor = torch.tensor(0.37, device=dev)
+
+    def k4(impl="auto"):
+        for j in range(n):
+            unscale_sqsum_list(g[j], 4.0, sharded=flags, implementation=impl)
+
+    def k5(impl="auto"):
+        for j in range(n):
+            fused_adam_update_list(g[j], p[j], mu[j], nu[j], factor=factor,
+                                   implementation=impl, **scal)
+
+    flat = [t for j in range(n) for t in g[j]]
+    lib_p, lib_mu, lib_nu = ([t.clone() for j in range(n) for t in x[j]]
+                             for x in (p, mu, nu))
+    lib_steps = [torch.zeros((), dtype=torch.float32, device=dev)
+                 for _ in flat]
+
+    def lib_adam():
+        torch._fused_adam_(lib_p, flat, lib_mu, lib_nu, [], lib_steps,
+                           lr=3e-4, beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    b4 = bound_ms(8.0 * elems + 8 * n, 2.0 * elems)
+    b5 = bound_ms(32.0 * elems + 20 * n, 15.0 * elems)
+    lib5 = bound_ms(28.0 * elems, 15.0 * elems)
+    rows = {
+        "unscale_sqsum": dict(
+            case="step_list", replicas=n, leaves=len(shapes),
+            elements_per_step=elems, launches_per_step=n,
+            ms=time_graph_ms(k4, [()], iters=4),
+            ms_eager=time_ms(k4, iters=10, warmup=2),
+            device_ms=profiled_ms(k4, FUSED_MARKS["unscale_sqsum"], 5),
+            plain_ms=time_ms(lambda: k4("reference"), iters=3, warmup=1),
+            library_ms=None,
+            foreach_norm_ms=time_ms(lambda: torch._foreach_norm(flat),
+                                    iters=10, warmup=2),
+            bound_ms=b4[0], bound_by=b4[1], max_abs_err=err4),
+        "fused_adam": dict(
+            case="step_list", replicas=n, leaves=len(shapes),
+            elements_per_step=elems, launches_per_step=n,
+            ms=time_graph_ms(k5, [()], iters=4),
+            ms_eager=time_ms(k5, iters=10, warmup=2),
+            device_ms=profiled_ms(k5, FUSED_MARKS["fused_adam"], 5),
+            plain_ms=time_ms(lambda: k5("reference"), iters=3, warmup=1),
+            library_ms=time_ms(lib_adam, iters=10, warmup=2),
+            library_device_ms=profiled_ms(lib_adam, ("",), 5),
+            library_bound_ms=lib5[0],
+            bound_ms=b5[0], bound_by=b5[1], max_abs_err=0.0),
+    }
+    for kname, row in rows.items():
+        log(f"kernel {kname} " + json.dumps(row))
+    del g, p, mu, nu, flat, lib_p, lib_mu, lib_nu
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_fused_adam(dev):
-    """K4 against its plain version for an immediate and a device-scalar
-    denominator (4 and 6: a power of two and not), with and without the
-    sum: the quotient bitwise, the sum within SQ_RTOL; K5 with and
-    without the clip factor: all four outputs bitwise.  Timed with CUDA
-    events beside the plain versions, ``torch._foreach_norm`` (K4, timed
-    only; no one PyTorch call divides and sums) and ``torch._fused_adam_``
-    (K5, timed only: its bias correction and schedule placement differ,
-    and the port never calls it)."""
+    """The ``step_list`` row (``check_fused_list``), then the one-leaf
+    rows: K4 against its plain version for an immediate and a
+    device-scalar denominator (4 and 6: a power of two and not), with and
+    without the sum: the quotient bitwise, the sum within SQ_RTOL; K5
+    with and without the clip factor: all four outputs bitwise; every
+    call bitwise across two calls.  Timed with CUDA events beside the
+    plain versions, ``torch._foreach_norm`` (K4, timed only; no one
+    PyTorch call divides and sums) and ``torch._fused_adam_`` (K5, timed
+    only: its bias correction and schedule placement differ, and the port
+    never calls it)."""
     import torch
 
     from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
         fused_adam_update, unscale_sqsum)
 
-    rows = {"unscale_sqsum": [], "fused_adam": []}
+    first = check_fused_list(dev)
+    rows = {k: [v] for k, v in first.items()}
     gen = torch.Generator(device="cpu").manual_seed(SEED + 50)
-    for i, (name, shape) in enumerate(FUSED_CASES):
+    for name, shape in FUSED_CASES:
         g = (torch.randn(shape, generator=gen) * 1e-3).to(dev)
         p = (torch.randn(shape, generator=gen) * 0.02).to(dev)
         mu = (torch.randn(shape, generator=gen) * 1e-4).to(dev)
@@ -1317,21 +1490,17 @@ def check_fused_adam(dev):
         for denom in (4.0, torch.tensor(6.0, device=dev)):
             for compute_sq in (True, False):
                 got = unscale_sqsum(g, denom, compute_sq=compute_sq)
+                again = unscale_sqsum(g, denom, compute_sq=compute_sq)
                 want = unscale_sqsum(g, denom, compute_sq=compute_sq,
                                      implementation="reference")
                 torch.cuda.synchronize()
-                if not torch.equal(got[0], want[0]):
-                    raise AssertionError(
-                        f"unscale_sqsum {name}: quotient not bitwise "
-                        f"(max abs err "
-                        f"{(got[0] - want[0]).abs().max().item()})")
+                _bitwise(f"unscale_sqsum {name}", [got[0]], [want[0]])
+                _bitwise(f"unscale_sqsum {name} (two calls)",
+                         [got[0]] + ([got[1]] if compute_sq else []),
+                         [again[0]] + ([again[1]] if compute_sq else []))
                 if compute_sq:
-                    d = abs(got[1].item() - want[1].item())
-                    if not d <= SQ_RTOL * abs(want[1].item()):
-                        raise AssertionError(
-                            f"unscale_sqsum {name}: sum {got[1].item()} vs "
-                            f"plain {want[1].item()}")
-                    err4 = max(err4, d)
+                    err4 = max(err4, _sums_close(f"unscale_sqsum {name}",
+                                                 [got[1]], [want[1]]))
                 elif got[1] is not None:
                     raise AssertionError("compute_sq=False returned a sum")
         scal = dict(bc1=torch.tensor(0.271, device=dev),
@@ -1339,16 +1508,14 @@ def check_fused_adam(dev):
                     step_size=torch.tensor(-3e-4, device=dev), lr_scale=1.0)
         for factor in (None, torch.tensor(0.37, device=dev)):
             got = fused_adam_update(g, p, mu, nu, factor=factor, **scal)
+            again = fused_adam_update(g, p, mu, nu, factor=factor, **scal)
             want = fused_adam_update(g, p, mu, nu, factor=factor,
                                      implementation="reference", **scal)
             torch.cuda.synchronize()
-            for out, a, b in zip(("p", "mu", "nu", "u"), got, want):
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"fused_adam {name} factor={factor is not None}: "
-                        f"{out} not bitwise (max abs err "
-                        f"{(a - b).abs().max().item()})")
-        main = i == 0
+            what = f"fused_adam {name} factor={factor is not None}"
+            _bitwise(what, got, want)
+            _bitwise(what + " (two calls)", got, again)
+        main = name == "tok_embed"
         iters = 20 if main else 50
         k4 = time_ms(lambda: unscale_sqsum(g, 4.0), iters=iters)
         k4_plain = time_ms(lambda: unscale_sqsum(
@@ -1392,9 +1559,7 @@ DP_LOSS_RTOL = 1e-5
 DP_KERNEL_ATOL = 1e-6  # sharded plain vs K4/K5: the clip factor's rounding
 DP_SINGLE_ATOL = 1e-3  # one card vs sharded: Adam's first step is ~±lr
 # K1 to K5 by kernel name in the profiled step (K4 is two kernels).
-DP_MARKS = dict(ATTN_MARKS, unscale_sqsum=("unscale_sqsum_kernel",
-                                          "sum_partials_kernel"),
-                fused_adam=("fused_adam_kernel",))
+DP_MARKS = dict(ATTN_MARKS, **FUSED_MARKS)
 
 
 def _snapshot(trainer):
@@ -1533,8 +1698,8 @@ def dp_train(dev):
     want = {"flash_fwd": model.depth * (n_micro + c["val_batches"]),
             "flash_bwd_dq": model.depth * n_micro,
             "flash_bwd_dkv": model.depth * n_micro, "paged_attention": 0,
-            "int8_matmul": 0, "unscale_sqsum": n * leaves * c["steps"],
-            "fused_adam": n * leaves * c["steps"]}
+            "int8_matmul": 0, "unscale_sqsum": n * c["steps"],
+            "fused_adam": n * c["steps"]}
     if counts != want:
         raise AssertionError(f"dp launches {counts}, expected {want}")
     comm = {"bytes": comm_stats.comm_bytes(), "calls": comm_stats.comm_calls()}
@@ -1576,7 +1741,8 @@ def dp_train(dev):
         expected_launches=(
             "K1 = depth x (steps x replicas x accum + val_batches), "
             "K2 = K3 = depth x steps x replicas x accum, "
-            "K4 = K5 = replicas x leaves x steps"),
+            "K4 = K5 = replicas x steps (one launch per replica over "
+            "its list of leaves)"),
         step_ms=step_ms,
         tokens_per_s=c["batch_size"] * c["seq_len"] / (step_ms / 1e3),
         max_memory_allocated_bytes=peak, step_check=check, comm=comm,

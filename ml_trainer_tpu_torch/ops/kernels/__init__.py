@@ -8,8 +8,12 @@ sources with ``nvcc`` at first use.
 from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
     adam_scalars,
     fused_adam_update,
+    fused_adam_update_list,
+    fused_adam_update_list_reference,
     fused_adam_update_reference,
     unscale_sqsum,
+    unscale_sqsum_list,
+    unscale_sqsum_list_reference,
     unscale_sqsum_reference,
 )
 from ml_trainer_tpu_torch.ops.kernels.int8_matmul import (
@@ -23,8 +27,10 @@ from ml_trainer_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_reference,
 )
 
-__all__ = ["adam_scalars", "fused_adam_update", "fused_adam_update_reference",
+__all__ = ["adam_scalars", "fused_adam_update", "fused_adam_update_list",
+           "fused_adam_update_list_reference", "fused_adam_update_reference",
            "int8_matmul", "int8_matmul_reference",
            "paged_attention", "paged_attention_reference",
            "quantize_per_channel", "quantize_tree", "unscale_sqsum",
+           "unscale_sqsum_list", "unscale_sqsum_list_reference",
            "unscale_sqsum_reference"]

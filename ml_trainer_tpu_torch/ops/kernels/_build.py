@@ -66,12 +66,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "fused_adam": {
-        # g, denom_ptr|NULL, denom, out, partials, sq_out, n, compute_sq,
-        # stream
-        "unscale_sqsum_f32": [_P, _P, _F, _P, _P, _P, _L, _I, _P],
-        # scalars, g, p, mu, nu, p_out, mu_out, nu_out, u_out, n,
+        # g[], out[], n[], chunk0[], sharded[], n_leaves, chunk,
+        # denom_ptr|NULL, denom, partials, leaf_sq, sq, compute_sq,
+        # accumulate, stream
+        "unscale_sqsum_list_f32": [_P, _P, _P, _P, _P, _I, _L, _P, _F, _P,
+                                   _P, _P, _I, _I, _P],
+        # ptrs[8][n_leaves], n[], chunk0[], n_leaves, chunk, scalars,
         # has_factor, stream
-        "fused_adam_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+        "fused_adam_list_f32": [_P, _P, _P, _I, _L, _P, _I, _P],
     },
 }
 

@@ -40,7 +40,8 @@ cut from its own rows.
   params and of the ZeRO-1 moments; a skip needs every replica's
   consent; the fresh shards come back through one all-gather per bucket.
   With ``fused_adam`` (on by default for plain Adam with no weight
-  decay) the tail runs kernels K4 and K5 (``ops/kernels/fused_adam.py``)
+  decay) the tail runs kernels K4 and K5 (``ops/kernels/fused_adam.py``),
+  each one launch per replica over that replica's whole list of leaves,
   and stays bitwise the unfused chain's on the CPU.
 
 The model runs on the CUDA card unless ``device="cpu"`` (or a CPU
@@ -70,8 +71,8 @@ from ml_trainer_tpu_torch.data import Loader, prefetch_to_device
 from ml_trainer_tpu_torch.device import resolve_device
 from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
     adam_scalars,
-    fused_adam_update,
-    unscale_sqsum,
+    fused_adam_update_list,
+    unscale_sqsum_list,
 )
 from ml_trainer_tpu_torch.ops.losses import get_criterion
 from ml_trainer_tpu_torch.ops.metrics import get_metric
@@ -106,6 +107,13 @@ from ml_trainer_tpu_torch.utils.utils import LoadedModel
 logger = get_logger("ml_trainer_tpu_torch.trainer")
 
 MODEL_FILE = "model.pth"
+
+
+def _own_storage(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when it is a view into a larger buffer."""
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        return t.clone()
+    return t
 
 
 def _refuse(knob: str, value, accepted) -> None:
@@ -534,16 +542,23 @@ class Trainer:
         denom_t = torch.full((), denom, dtype=torch.float32, device=dev)
         grads, sq_loc, sq_rep = [], [], []
         for gj in g:
+            if self.fused_adam:
+                # K4: one launch over the replica's leaves, the sums added
+                # in leaf order as below.
+                outs, _, (loc, rep) = unscale_sqsum_list(
+                    gj, denom, sharded=plan.sharded,
+                    compute_sq=clip is not None)
+                grads.append(dict(zip(names, outs)))
+                sq_loc.append(loc)
+                sq_rep.append(rep)
+                continue
             leaves = {}
             loc = torch.zeros((), dtype=torch.float32, device=dev)
             rep = torch.zeros((), dtype=torch.float32, device=dev)
             for name, gi in zip(names, gj):
-                if self.fused_adam:
-                    g_u, s = unscale_sqsum(gi, denom, compute_sq=clip is not None)
-                else:
-                    g_u = torch.div(gi, denom_t)
-                    s = (torch.sum(torch.square(g_u.to(torch.float32)))
-                         if clip is not None else None)
+                g_u = torch.div(gi, denom_t)
+                s = (torch.sum(torch.square(g_u.to(torch.float32)))
+                     if clip is not None else None)
                 leaves[name] = g_u
                 if s is not None:
                     loc, rep = (loc + s, rep) if flags[name] else (loc, rep + s)
@@ -611,27 +626,33 @@ class Trainer:
         for k, leaf in zip(names, gathered[0]):
             params[k].copy_(leaf)
         state.opt_state = join_replica_views(new_opt, self._zero1)
+        if self.fused_adam and not self.nonfinite_guard:
+            # K5's moments are views of one buffer per replica, and a
+            # replicated leaf joins as replica 0's view: copy such a leaf
+            # out, or it would keep that whole buffer alive.
+            state.opt_state = tree_map(_own_storage, state.opt_state)
         state.step += 1
         return loss, metric
 
     def _fused_tail(self, grads, params, opt_state, factor, lr_scale):
-        """K5 over one replica's leaves (shards and replicated leaves),
-        the optimizer state rebuilt in the unfused chain's structure:
-        ``({}, ({count, mu, nu}, {count}))``."""
+        """K5 over one replica's leaves (shards and replicated leaves) in
+        one launch, the optimizer state rebuilt in the unfused chain's
+        structure: ``({}, ({count, mu, nu}, {count}))``."""
         _, (adam, sched) = opt_state
         count, bc1, bc2, step_size, sched_count = adam_scalars(
             adam["count"], sched["count"], self.lr_schedule)
         lr_t = torch.full((), float(lr_scale), dtype=torch.float32,
                           device=self.device)
-        outs = {k: fused_adam_update(
-            g, params[k], adam["mu"][k], adam["nu"][k], bc1=bc1, bc2=bc2,
-            step_size=step_size, lr_scale=lr_t, factor=factor)
-            for k, g in grads.items()}
-        new_opt = ({}, ({"count": count,
-                         "mu": {k: o[1] for k, o in outs.items()},
-                         "nu": {k: o[2] for k, o in outs.items()}},
+        names = list(grads)
+        p_n, mu_n, nu_n, _ = fused_adam_update_list(
+            [grads[k] for k in names], [params[k] for k in names],
+            [adam["mu"][k] for k in names], [adam["nu"][k] for k in names],
+            bc1=bc1, bc2=bc2, step_size=step_size, lr_scale=lr_t,
+            factor=factor)
+        new_opt = ({}, ({"count": count, "mu": dict(zip(names, mu_n)),
+                         "nu": dict(zip(names, nu_n))},
                         {"count": sched_count}))
-        return {k: o[0] for k, o in outs.items()}, new_opt
+        return dict(zip(names, p_n)), new_opt
 
     def _apply_grads(self, params, grads, loss, metric, lr_scale: float):
         state = self.state

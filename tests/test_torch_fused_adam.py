@@ -28,7 +28,8 @@ a seed.  Bars:
   every step.
 
 ``test_fused_adam_kernels_match_plain_on_card`` needs an NVIDIA card and
-nvcc (marker ``cuda``) and skips here.
+nvcc (marker ``cuda``) and skips here.  The list entry points have their
+own CPU tests in ``tests/test_torch_fused_adam_list.py``.
 """
 
 import importlib
@@ -43,7 +44,9 @@ from ml_trainer_tpu_torch.ops import optimizers as topt
 from ml_trainer_tpu_torch.ops.kernels import (
     adam_scalars,
     fused_adam_update,
+    fused_adam_update_list,
     unscale_sqsum,
+    unscale_sqsum_list,
 )
 from ml_trainer_tpu_torch.ops.schedules import make_lr_schedule
 
@@ -275,8 +278,10 @@ def test_fused_adam_dispatch_and_refusals():
 
 @pytest.mark.cuda
 def test_fused_adam_kernels_match_plain_on_card():
-    """K4 and K5 against their plain versions on the card: K4's quotient
-    bitwise and its sum within 1e-5 relative, K5 bitwise (float32)."""
+    """K4 and K5 against their plain versions on the card, per leaf and
+    over a list of leaves: K4's quotient bitwise and its sums within 1e-5
+    relative, K5 bitwise (float32); the list calls also bitwise across
+    two calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
     dev = torch.device("cuda")
@@ -303,3 +308,38 @@ def test_fused_adam_kernels_match_plain_on_card():
                 assert torch.equal(a, b)
     counts = mt.launch_counts()
     assert counts["unscale_sqsum"] == counts["fused_adam"] == 10
+    # The list entry points over ragged leaves, an empty one and a view at
+    # an odd element offset, one launch each: bitwise the plain versions,
+    # and two calls bitwise equal.
+    shapes = ((7,), (4097,), (0,), (3, 5, 7), (1152, 768), (384,))
+    gs, ps, mus = ([torch.randn(s, generator=gen).to(dev) for s in shapes]
+                   for _ in range(3))
+    nus = [torch.rand(s, generator=gen).to(dev) * 1e-3 for s in shapes]
+    gs.append(torch.randn(2 * 16384 + 3, generator=gen).to(dev)[1:])
+    for kind in (ps, mus, nus):
+        kind.append(torch.rand(gs[-1].shape, generator=gen).to(dev))
+    sharded = [i % 3 != 1 for i in range(len(gs))]
+    mt.reset_launch_counts()
+    runs = [unscale_sqsum_list(gs, 4.0, sharded=sharded) for _ in range(2)]
+    want = unscale_sqsum_list(gs, 4.0, sharded=sharded,
+                              implementation="reference")
+    for a, b, c in zip(runs[0][0], runs[1][0], want[0]):
+        assert torch.equal(a, c) and torch.equal(a, b)
+    for a, b, c in zip(runs[0][1], runs[1][1], want[1]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=0)
+    for a, b, c in zip(runs[0][2], runs[1][2], want[2]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=0)
+    kw = dict(bc1=torch.tensor(0.19, device=dev),
+              bc2=torch.tensor(0.002, device=dev),
+              step_size=torch.tensor(-3e-4, device=dev), lr_scale=0.5,
+              factor=torch.tensor(0.3, device=dev))
+    runs = [fused_adam_update_list(gs, ps, mus, nus, **kw) for _ in range(2)]
+    want = fused_adam_update_list(gs, ps, mus, nus,
+                                  implementation="reference", **kw)
+    for kind in range(4):
+        for a, b, c in zip(runs[0][kind], runs[1][kind], want[kind]):
+            assert torch.equal(a, c) and torch.equal(a, b)
+    counts = mt.launch_counts()
+    assert counts["unscale_sqsum"] == counts["fused_adam"] == 2
