@@ -9,6 +9,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only train    # kernel checks + training only
     python3 chip_smoke.py --only dp       # kernel checks + data-parallel
                                           # training only
+    python3 chip_smoke.py --only models   # kernel checks + the image and
+                                          # encoder families
 
 Phases, one line of output each (or a few):
 
@@ -21,12 +23,14 @@ Phases, one line of output each (or a few):
    the flash-attention forward (K1) on float32 [2, 12, 1024, 64] causal
    (the main row: one training microbatch), the serving prefill rows
    [1, 12, S, 64] causal (S in 128/512/1024, plus kv_len 700 at 1024),
-   [8, 12, 1024, 64] non-causal with kv_lens, [2, 8, 1024, 128] causal
-   and [5467, 12, 64, 64] causal (``bh_over_65535``: B*H = 65,604, past
-   the old grid's cap), out and lse each within 1e-4 absolute of the
-   plain version, at the main row and [1, 12, 1024, 64] also
-   bitwise-equal results from two calls and device times from profiler
-   events (K1 and SDPA's fp32 forward); its ``bound_ms`` is at the
+   [8, 12, 1024, 64] non-causal with kv_lens, [2, 8, 1024, 128] causal,
+   [5467, 12, 64, 64] causal (``bh_over_65535``: B*H = 65,604, past
+   the old grid's cap) and ``bert``, BERT-base fine-tuning's launch
+   [32, 12, 128, 64] non-causal with kv_lens ragged in 8..128, out and
+   lse each within 1e-4 absolute of the plain version, at the main row,
+   [1, 12, 1024, 64] and ``bert`` also bitwise-equal results from two
+   calls and device times from profiler events (K1 and SDPA's fp32
+   forward with the same boolean mask); its ``bound_ms`` is at the
    3xTF32 rate, ``bound_fp32_core_ms`` at the fp32 CUDA-core rate, as
    for K2/K3 below; the paged-attention decode
    (K6) on B=8, H=12, D=64, page 16, 64 pages per row, 513 pool pages,
@@ -42,13 +46,14 @@ Phases, one line of output each (or a few):
    flash backward, K2 (dQ) and K3 (dK/dV), on
    [2, 12, 1024, 64] causal (the main row: one training microbatch),
    [8, 12, 1024, 64] causal (``b8``, the row of earlier figures),
-   [8, 12, 1024, 64] non-causal with kv_lens, and [2, 8, 1024, 128]
-   causal, within atol 2e-4 / rtol 1e-4 of the plain backward, with
-   exact-zero dK/dV past kv_lens, plus the padded path's gradients (S
-   1000, head_dim 48) through ``attention(implementation="flash")``
-   against the plain attention; at the main row also bitwise-equal
-   results from two calls and device times from profiler events (K2, K3
-   and SDPA's backward) beside the CUDA-event times.  Their ``bound_ms``
+   [8, 12, 1024, 64] non-causal with kv_lens, [2, 8, 1024, 128] causal
+   and ``bert`` (as K1's), within atol 2e-4 / rtol 1e-4 of the plain
+   backward, with exact-zero dK/dV past kv_lens, plus the padded path's
+   gradients (S 1000, head_dim 48) through
+   ``attention(implementation="flash")`` against the plain attention; at
+   the main row and ``bert`` also bitwise-equal results from two calls
+   and device times from profiler events (K2, K3 and SDPA's backward)
+   beside the CUDA-event times.  Their ``bound_ms``
    is the operations at the 3xTF32 tensor-core rate (494.7 / 3 TFLOP/s),
    ``bound_fp32_core_ms`` the same at the 67 TFLOP/s fp32 CUDA-core rate;
    the int8 matmul (K7) at the four GPT-2 124M decode projections (M=8:
@@ -118,7 +123,26 @@ Phases, one line of output each (or a few):
    losses, skip no step and launch K4 = K5 = 2 per step, one per replica
    (and the attention kernels per replica microbatch); then the step time,
    tokens/s, peak memory and a profiler split with K1's to K5's device
-   ms per step beside their bounds.
+   ms per step beside their bounds;
+7. the image and encoder families at full width through
+   ``Trainer(...).fit()`` on seeded synthetic data (``MODEL_RUNS``):
+   ResNet-18 (CIFAR stem, ``SyntheticCIFAR10`` through
+   ``custom_pre_process_function``, batch 256), ResNet-50 and ViT-B/16
+   (fp32) on seeded 224x224 images (batch 64 and 32), BERT-base
+   (``right_padded``, batch 32 at sequence 128, right-padded lengths
+   8..128) and MLModel (CIFAR transforms, batch 32).  First the TF32
+   switches (both must be off); ResNet-18's first 32 rows through one
+   training step on the card against the same step of the port on the
+   CPU from the same weights: in float64 the whole step (loss 1e-4
+   relative, gradients 1e-3 and running statistics 1e-4 of their
+   largest entry), in float32 the loss and statistics at those bars and
+   each layer from its own inputs (outputs 1e-4, gradients 1e-3); BERT's
+   kernel path against its plain path on the first batch (as in 5).
+   Each run must give finite losses and skip no step; BERT launches
+   exactly 12 K1, K2 and K3 a training step and 12 K1 an eval batch,
+   the others no kernel.  Each family's line has its optimizer-step time
+   (CUDA events), samples/s, peak memory and a profiler split of one
+   step; BERT's also K1-K3 device ms per step beside their bounds.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -186,6 +210,11 @@ def bound_ms(nbytes: float, flops: float,
 
 
 # ------------------------------------------------------------- phase 3
+# BERT-base fine-tuning's attention: batch 32 at sequence 128, d 64, the
+# rows' valid lengths ragged in 8..128 (seeded; right padding).
+BERT_LENS = [128, 8, 124, 42, 21, 80, 88, 102, 85, 94, 118, 118, 120, 112,
+             95, 119, 9, 11, 104, 60, 98, 66, 117, 15, 89, 8, 25, 108, 43,
+             126, 50, 102]
 FWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
     ("main", 2, 12, 1024, 64, True, None),  # one training microbatch
     ("serve_128", 1, 12, 128, 64, True, None),  # serving prefill buckets
@@ -196,10 +225,11 @@ FWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
      [1024, 700, 1, 513, 64, 1000, 257, 900]),
     ("d128", 2, 8, 1024, 128, True, None),
     ("bh_over_65535", 5467, 12, 64, 64, True, None),  # B*H = 65,604
+    ("bert", 32, 12, 128, 64, False, BERT_LENS),
 ]
 # Rows with a bitwise two-call check and profiler device times (K1 and
 # SDPA's fp32 forward): at ~0.1 ms an eager loop is host-bound.
-FWD_PROFILED = ("main", "serve_1024")
+FWD_PROFILED = ("main", "serve_1024", "bert")
 # K1's kernel name, as the profiler lists it.
 FWD_MARKS = {"flash_fwd": ("flash_fwd_kernel",)}
 
@@ -207,10 +237,11 @@ FWD_MARKS = {"flash_fwd": ("flash_fwd_kernel",)}
 def fwd_bounds(b, h, s, d, causal, lens) -> dict:
     """K1's bounds: ``bound_ms``/``bound_by`` with its two length-d
     products per kept pair at the 3xTF32 tensor-core rate,
-    ``bound_fp32_core_ms`` at the fp32 CUDA-core rate.  q, k, v read
-    once, out and lse written once."""
+    ``bound_fp32_core_ms`` at the fp32 CUDA-core rate.  q read once,
+    k and v once over their live rows, out and lse written once."""
     flops = 2 * 2.0 * d * kept_pairs(b, s, causal, lens) * h
-    nbytes = 4 * b * h * s * d * 4 + b * h * s * 4
+    nbytes = (2 * b * s + 2 * live_rows(b, s, lens)) * h * d * 4 \
+        + b * h * s * 4
     b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOPS_PER_S / 3)
     return dict(bound_ms=b_ms, bound_by=b_by,
                 bound_fp32_core_ms=bound_ms(nbytes, flops)[0])
@@ -298,6 +329,12 @@ def bwd_case(dev, b, h, s, d, lens, seed):
     return q, k, v, kv, dout
 
 
+def live_rows(b: int, s: int, lens) -> int:
+    """Key rows below ``kv_lens`` summed over the batch: the rows of k
+    and v that the kernels read."""
+    return sum(min(s, n) for n in (lens or [s] * b))
+
+
 def kept_pairs(b: int, s: int, causal: bool, lens) -> int:
     """Kept (query, key) pairs summed over the batch, per head."""
     total = 0
@@ -314,7 +351,10 @@ BWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
     ("kv_lens", 8, 12, 1024, 64, False,
      [1024, 700, 1, 513, 64, 1000, 257, 900]),
     ("d128", 2, 8, 1024, 128, True, None),
+    ("bert", 32, 12, 128, 64, False, BERT_LENS),
 ]
+# Rows with a bitwise two-call check and profiler device times.
+BWD_PROFILED = ("main", "bert")
 PADDED_CASE = (2, 4, 1000, 48)  # off-tile S and head_dim
 # K2's and K3's kernel names, as the profiler lists them.
 BWD_MARKS = {"flash_bwd_dq": ("flash_bwd_dq_kernel",),
@@ -326,15 +366,17 @@ def bwd_bounds(b, h, s, d, causal, lens) -> dict:
     """K2's and K3's bounds: ``bound_ms``/``bound_by`` with the products
     at the 3xTF32 tensor-core rate (three TF32 products per fp32-accurate
     product), ``bound_fp32_core_ms`` at the fp32 CUDA-core rate.  Each
-    input read once, each output written once; 3 (K2) or 4 (K3) length-d
-    products per kept pair."""
+    input read once (k and v over their live rows), each output written
+    once (dK and dV in full: zeros past ``kv_lens``); 3 (K2) or 4 (K3)
+    length-d products per kept pair."""
     pairs = kept_pairs(b, s, causal, lens) * h
     arr = b * h * s * d * 4
+    kv = 2 * live_rows(b, s, lens) * h * d * 4
     rows_b = b * h * s * 4
     out = {}
     for kname, nbytes, prods in (
-            ("flash_bwd_dq", 4 * arr + 2 * rows_b + arr, 3),
-            ("flash_bwd_dkv", 4 * arr + 2 * rows_b + 2 * arr, 4)):
+            ("flash_bwd_dq", 2 * arr + kv + 2 * rows_b + arr, 3),
+            ("flash_bwd_dkv", 2 * arr + kv + 2 * rows_b + 2 * arr, 4)):
         flops = prods * 2.0 * d * pairs
         b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOPS_PER_S / 3)
         out[kname] = dict(bound_ms=b_ms, bound_by=b_by,
@@ -422,7 +464,7 @@ def check_flash_bwd(dev):
                    >= kv.long()[:, None, None, None]).expand_as(dk)
             if not (bool((dk[pad] == 0).all()) and bool((dv[pad] == 0).all())):
                 raise AssertionError(f"{name}: dK/dV past kv_lens not zero")
-        main = i == 0
+        main = name in BWD_PROFILED
         if main:  # no atomics: a second call repeats the first bit for bit
             again = (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
             for nm, a, b2 in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
@@ -1174,9 +1216,13 @@ def grad_check(trainer, x, y) -> dict:
                 f"plain entry > {GRAD_RTOL}")
         if ratio > worst:
             worst, worst_name = ratio, name
-    for i in range(model.depth):
-        if not bool((g_k[f"blocks.{i}.attn.qkv.weight"] != 0).any()):
-            raise AssertionError(f"layer {i}: zero qkv gradient")
+    qkv = [n for n in g_k if n.endswith("attn.qkv.weight")]  # a layer each
+    if len(qkv) != model.depth:
+        raise AssertionError(f"{len(qkv)} qkv weights for depth "
+                             f"{model.depth}")
+    for n in qkv:
+        if not bool((g_k[n] != 0).any()):
+            raise AssertionError(f"{n}: zero gradient")
     del g_k, g_p
     torch.cuda.empty_cache()
     return dict(loss_kernel=l_k, loss_plain=l_p, worst_grad_ratio=worst,
@@ -1749,9 +1795,306 @@ def dp_train(dev):
         profile=split)
 
 
+# ------------------------------------------------------------- phase 7
+# The image and encoder families through Trainer.fit at full width:
+# (registry name, model kwargs, optimizer config, data, global batch,
+# optimizer steps).  ResNet-18, ResNet-50 and BERT-base take examples 02
+# and 05's configs, MLModel example 01's; ViT-B/16 (no example) adamw.
+SGD_02 = dict(optimizer="sgd", momentum=0.9, lr=0.01)
+MODEL_RUNS = [
+    ("resnet18", {"cifar_stem": True}, SGD_02, "cifar", 256, 6),
+    ("resnet50", {}, SGD_02, "imagenet", 64, 4),
+    ("bert_base", {"right_padded": True},
+     dict(optimizer="adamw", lr=2e-4, weight_decay=0.01), "tokens", 32, 6),
+    ("vit_b16", {"dtype": "float32"},
+     dict(optimizer="adamw", lr=3e-4, weight_decay=0.1), "imagenet", 32, 4),
+    ("mlmodel", {}, dict(optimizer="sgd", momentum=0.9, lr=0.001,
+                         scheduler="CosineAnnealingWarmRestarts"),
+     "cifar", 32, 8),
+]
+VAL_BATCHES = 1
+IMAGES_224 = 256  # seeded uint8 224x224x3 images, 1000 classes
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+BERT_DATA = dict(vocab_size=30522, seq_len=128, min_len=8, classes=2)
+MODELS_DIR = "build/chip_smoke_models"  # each run's model.pth; removed after
+# ResNet-18's first RESNET_ROWS rows through one training step on the card
+# against the same step of the port on the CPU, from the same weights.
+# The card's float64 step is held to the CPU's float64 step over the whole
+# network: loss 1e-4 relative, every gradient 1e-3 of its largest entry,
+# every running statistic 1e-4 of its largest entry.  The card's float32
+# step (the training path, cuDNN's float32 algorithms) is held to the
+# CPU's float64 loss and running statistics at the same bars, and layer by
+# layer: each conv, BatchNorm and the head, recomputed in float64 on the
+# CPU from the input and output gradient that the float32 step gave it,
+# must match in output (1e-4), input and parameter gradients (1e-3) and
+# running statistics (1e-4), each of its largest entry.  Whole-network
+# float32 gradients are read but not held to a bar: rounding flips ReLU
+# masks where a pre-activation sits within float32's rounding of zero (24
+# of 17.8M on this batch on the CPU, 3 on 8 rows), and each flip puts an
+# error the size of one position's gradient into a weight gradient whose
+# terms BatchNorm's zero-mean backward mostly cancels: 2.9% of a leaf's
+# largest entry on the card, with the float64 gradient moving 8e-7 under a
+# 1e-7 relative change of the input.
+RESNET_ROWS = 32
+RESNET_LOSS_RTOL, RESNET_GRAD_RTOL, RESNET_STATS_RTOL = 1e-4, 1e-3, 1e-4
+
+
+def model_sets(data: str, batch: int, steps: int):
+    """(train, validation) datasets of ``steps`` and ``VAL_BATCHES``
+    batches, made from ``SEED`` with numpy."""
+    import numpy as np
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import Compose, Normalize, ToFloat
+
+    n, n_val = batch * steps, batch * VAL_BATCHES
+    if data == "cifar":
+        pre = mt.custom_pre_process_function
+        return (mt.SyntheticCIFAR10(size=n, transform=pre(), seed=SEED),
+                mt.SyntheticCIFAR10(size=n_val, transform=pre(),
+                                    seed=SEED + 1))
+    if data == "imagenet":
+        def images(size, seed):
+            rng = np.random.default_rng(seed)
+            x = rng.integers(0, 256, size=(IMAGES_224, 224, 224, 3),
+                             dtype=np.uint8)[:size]
+            y = rng.integers(0, 1000, size=IMAGES_224).astype(np.int32)
+            return mt.ArrayDataset(x, y[:size], Compose(
+                [ToFloat(), Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+        return images(n, SEED), images(n_val, SEED + 1)
+    c = BERT_DATA
+    rng = np.random.default_rng(SEED)
+
+    def tokens(size):
+        # Real tokens in [1, vocab) so that the mask has no holes, then
+        # right padding with 0 from each row's length in min_len..seq_len.
+        s = c["seq_len"]
+        ids = rng.integers(1, c["vocab_size"], size=(size, s)).astype(
+            np.int32)
+        lens = rng.integers(c["min_len"], s + 1, size=size)
+        ids[np.arange(s)[None, :] >= lens[:, None]] = 0
+        labels = rng.integers(0, c["classes"], size=size).astype(np.int32)
+        return mt.ArrayDataset(ids, labels)
+
+    return tokens(n), tokens(n_val)
+
+
+def _bars(what: str, errs: dict, bars: dict) -> None:
+    for key, bar in bars.items():
+        if not errs[key] <= bar:
+            raise AssertionError(f"resnet18 {what}: {key} {errs[key]} > {bar}")
+
+
+def _ratio(got, want) -> float:
+    """Worst error against the reference's largest entry (a running mean
+    near 0 has no relative error of its own)."""
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def resnet_cpu_check(trainer, x, y) -> dict:
+    """ResNet-18's first ``RESNET_ROWS`` rows through one training step
+    (train-mode forward, loss, backward) from the trainer's weights: on
+    the card in float32 and float64 and on the CPU in float64, the card's
+    float32 step also layer by layer against float64 on the CPU.  Returns
+    every worst error; raises at the bars.  The card's model is restored
+    after."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    model = trainer.model
+    card, cpu = x.device, torch.device("cpu")
+    snap = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    layers = {n: m for n, m in model.named_modules()
+              if isinstance(m, (mt.models.layers.Conv,
+                                mt.models.layers.BatchNorm, torch.nn.Linear))}
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: seen.__setitem__(n, [i[0], o]))
+        for n, m in layers.items()]
+    hooks += [m.register_full_backward_hook(
+        lambda m, gi, go, n=n: seen[n].extend([gi[0], go[0]]))
+        for n, m in layers.items()]
+
+    def fresh(dev, dtype):
+        m = mt.get_model("resnet18", device=dev)
+        m.load_state_dict(snap)
+        return m.to(dtype)
+
+    out = {}
+    for where, dev, dtype in (("card_fp32", card, torch.float32),
+                              ("card_fp64", card, torch.float64),
+                              ("cpu_fp64", cpu, torch.float64)):
+        m = model if where == "card_fp32" else fresh(dev, dtype)
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss = trainer.criterion(m(x[:RESNET_ROWS].to(dev, dtype)),
+                                 y[:RESNET_ROWS].to(dev))
+        loss.backward()
+        if where == "card_fp32":
+            for h in hooks:
+                h.remove()
+        out[where] = (loss.item(),
+                      {n: p.grad.detach().cpu().double()
+                       for n, p in m.named_parameters()},
+                      {n: b.detach().cpu().double()
+                       for n, b in m.named_buffers()})
+        del m, loss
+    l_ref, g_ref, b_ref = out["cpu_fp64"]
+
+    def step_errs(where):
+        loss, grads, stats = out[where]
+        return dict(loss_rel=abs(loss - l_ref) / abs(l_ref),
+                    worst_grad_ratio=max(_ratio(grads[n], g)
+                                         for n, g in g_ref.items()),
+                    worst_stats_ratio=max(_ratio(stats[n], b)
+                                          for n, b in b_ref.items()))
+
+    res = {w: step_errs(w) for w in ("card_fp32", "card_fp64")}
+    bars = {"loss_rel": RESNET_LOSS_RTOL, "worst_grad_ratio": RESNET_GRAD_RTOL,
+            "worst_stats_ratio": RESNET_STATS_RTOL}
+    _bars("card vs cpu (float64)", res["card_fp64"], bars)
+    _bars("card (float32) vs cpu (float64)", res["card_fp32"],
+          {k: bars[k] for k in ("loss_rel", "worst_stats_ratio")})
+
+    # Each layer of the card's float32 step from its own inputs.
+    _, grads, stats = out["card_fp32"]
+    ref = dict(fresh(cpu, torch.float64).train().named_modules())
+    worst = dict(out=0.0, grad_in=0.0, grad_params=0.0, stats=0.0)
+    for n, (inp, o, g_in, g_out) in seen.items():
+        i64 = inp.detach().cpu().double().requires_grad_(g_in is not None)
+        o64 = ref[n](i64)
+        o64.backward(g_out.cpu().double())
+        worst["out"] = max(worst["out"], _ratio(o.detach().cpu(), o64))
+        if g_in is not None:
+            worst["grad_in"] = max(worst["grad_in"],
+                                   _ratio(g_in.cpu(), i64.grad))
+        for pn, p in ref[n].named_parameters():
+            worst["grad_params"] = max(worst["grad_params"],
+                                       _ratio(grads[f"{n}.{pn}"], p.grad))
+        for bn, b in ref[n].named_buffers():
+            worst["stats"] = max(worst["stats"],
+                                 _ratio(stats[f"{n}.{bn}"], b))
+    _bars("layers, card (float32) vs cpu (float64)", worst,
+          dict(out=RESNET_STATS_RTOL, grad_in=RESNET_GRAD_RTOL,
+               grad_params=RESNET_GRAD_RTOL, stats=RESNET_STATS_RTOL))
+    del seen
+    model.load_state_dict(snap)
+    model.zero_grad(set_to_none=True)
+    return dict(rows=RESNET_ROWS, loss_cpu_fp64=l_ref,
+                loss_card_fp32=out["card_fp32"][0], **res,
+                card_fp32_layers=dict(worst, layers=len(layers)))
+
+
+def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
+    """One family through ``Trainer(...).fit()``: one epoch of ``steps``
+    optimizer steps and ``VAL_BATCHES`` validation batches, then the
+    step time, samples/s, peak memory and a profiled step."""
+    import math
+    import shutil
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    kw = dict(model_kw)
+    if kw.get("dtype") == "float32":
+        kw["dtype"] = torch.float32
+    run_dir = f"{MODELS_DIR}/{name}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    model = mt.init_model(name, seed=SEED, device=dev, **kw)
+    trainer = mt.Trainer(model, datasets=model_sets(data, batch, steps),
+                         epochs=1, batch_size=batch, metric="accuracy",
+                         model_dir=run_dir, seed=SEED, device=dev, **opt)
+    build_s = time.perf_counter() - t0
+    x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
+    check = None
+    if name == "resnet18":
+        check = resnet_cpu_check(trainer, x, y)
+        log("models: resnet18 one step, card vs cpu " + json.dumps(check))
+    elif name == "bert_base":
+        check = grad_check(trainer, x, y)
+        log("models: bert_base first batch, kernels vs plain "
+            + json.dumps(check))
+
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    if not all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"]):
+        raise AssertionError(f"{name}: non-finite losses: {hist}")
+    if hist["skipped_steps"] != [0]:
+        raise AssertionError(f"{name}: skipped steps {hist['skipped_steps']}")
+    want = {k: 0 for k in counts}
+    if name == "bert_base":  # grad_accum_steps 1: one microbatch a step
+        want.update(flash_fwd=model.depth * (steps + VAL_BATCHES),
+                    flash_bwd_dq=model.depth * steps,
+                    flash_bwd_dkv=model.depth * steps)
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+
+    n_time = 3
+    trainer._train_step(x, y, 1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_time):
+        trainer._train_step(x, y, 1.0)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n_time
+    profile = profile_step(trainer, x, y)
+    if name == "bert_base":
+        # K1-K3's bounds at this batch's lengths, 12 launches of each.
+        lens = torch.clamp((x != 0).sum(dim=1), min=1).tolist()
+        b, s = x.shape
+        attn = model.layers[0].attn
+        heads, d = attn.num_heads, attn.head_dim
+        bounds = dict(bwd_bounds(b, heads, s, d, False, lens),
+                      flash_fwd=fwd_bounds(b, heads, s, d, False, lens))
+        profile["bound_ms"] = {k: model.depth * v["bound_ms"]
+                               for k, v in bounds.items()}
+    else:
+        for k in ("device_ms", "device_calls"):
+            profile.pop(k)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    del trainer, model, x, y
+    torch.cuda.empty_cache()
+    return dict(
+        model=name, config={**model_kw, **opt}, data=data, batch=batch,
+        steps=steps, build_s=build_s, fit_s=fit_s,
+        history={k: hist[k] for k in ("train_loss", "val_loss",
+                                      "train_metric", "val_metric",
+                                      "skipped_steps")},
+        launches=counts, step_ms=step_ms,
+        samples_per_s=batch / (step_ms / 1e3),
+        max_memory_allocated_bytes=peak, check=check, profile=profile)
+
+
+def models(dev) -> list:
+    """Every ``MODEL_RUNS`` family through ``model_run``, after the TF32
+    switches are checked off."""
+    import torch
+
+    tf32 = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                cuda_matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    log("models: " + json.dumps(tf32))
+    if any(tf32.values()):
+        raise AssertionError(f"TF32 is on: {tf32}")
+    return [model_run(dev, *run) for run in MODEL_RUNS]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["kernels", "serve", "train", "dp"],
+    parser.add_argument("--only",
+                        choices=["kernels", "serve", "train", "dp", "models"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -1822,7 +2165,28 @@ def main(argv=None) -> int:
             step_split[kname].update(
                 dp_step_device_ms=prof["device_ms"][kname],
                 step_bound_ms=prof["bound_ms"][kname])
+    if args.only in (None, "models"):
+        for run in models(dev):
+            log(f"model {run['model']} on {smi}: " + json.dumps(run))
+            if run["model"] == "bert_base":
+                prof = run["profile"]
+                for kname in ATTN_MARKS:
+                    launches[kname] = ((launches[kname] or 0)
+                                       + run["launches"][kname])
+                    step_split[kname].update(
+                        bert_step_device_ms=prof["device_ms"][kname],
+                        bert_step_bound_ms=prof["bound_ms"][kname])
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
+    # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
+    bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+                 "library_device_ms", "max_abs_err", "bitwise_repeat")
+    bert_rows = {"flash_fwd": next(r for r in flash_rows
+                                   if r["case"] == "bert")}
+    for kname, row in bwd_rows:
+        if row["case"] == "bert":
+            bert_rows[kname] = row
+    bert_rows = {k: {key: r.get(key) for key in bert_keys}
+                 for k, r in bert_rows.items()}
     bwd = {}
     for kname, row in bwd_rows:  # the main row is each kernel's first
         bwd.setdefault(kname, dict(row, max_abs_err=max(
@@ -1837,7 +2201,7 @@ def main(argv=None) -> int:
          **{k: main_flash[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "bound_fp32_core_ms", "device_ms", "library_device_ms")},
-         **step_split["flash_fwd"]},
+         **step_split["flash_fwd"], "bert_row": bert_rows["flash_fwd"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/paged_attention.cu",
          "replaces": "ml_trainer_tpu/ops/kernels/paged_attention.py:152",
@@ -1855,7 +2219,7 @@ def main(argv=None) -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "bound_fp32_core_ms", "device_ms",
              "library_device_ms")},
-         **step_split[kname]}
+         **step_split[kname], "bert_row": bert_rows[kname]}
         for kname, line in (("flash_bwd_dq", 385), ("flash_bwd_dkv", 403))
     ] + [
         {"name": "int8_matmul", "route": "cuda",

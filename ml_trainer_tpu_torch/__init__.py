@@ -4,28 +4,37 @@ The JAX package beside it stays the reference; this package imports
 ``torch`` and numpy only.  Its entry points (``Server``,
 ``SlotDecodeEngine``, ``generate``, ``Trainer``, the model constructors)
 run on the CUDA card unless the caller passes ``device="cpu"``, and raise
-when no card is visible.  The TPU's Pallas kernels on the serving,
-int8 decode and training paths are hand-written CUDA kernels here
-(``csrc/``), built with ``nvcc`` at first use; ``launch_counts()`` shows
-how often each one ran.  Data-parallel training runs its replicas on
-one device (``parallel/``, ``create_mesh``).
+when no card is visible.  The model zoo holds MLModel, ResNet-18/50/101/
+152, ViT, BERT and GPT-2 (``models.available_models()``), with the
+CIFAR-10 input path (``data``, ``custom_pre_process_function``).  The
+TPU's Pallas kernels on the serving, int8 decode and training paths are
+hand-written CUDA kernels here (``csrc/``), built with ``nvcc`` at first
+use; ``launch_counts()`` shows how often each one ran.  Data-parallel
+training runs its replicas on one device (``parallel/``,
+``create_mesh``).
 """
 
 from ml_trainer_tpu_torch import parallel
 from ml_trainer_tpu_torch.convert import (
     adam_state_from_jax,
     init_gpt2,
+    init_model,
     params_from_jax,
     quant_from_jax,
 )
-from ml_trainer_tpu_torch.data import Loader, SyntheticTokens
+from ml_trainer_tpu_torch.data import (
+    ArrayDataset,
+    Loader,
+    SyntheticCIFAR10,
+    SyntheticTokens,
+)
 from ml_trainer_tpu_torch.device import (
     launch_counts,
     reset_launch_counts,
     resolve_device,
 )
 from ml_trainer_tpu_torch.generate import generate
-from ml_trainer_tpu_torch.models import GPT2, get_model
+from ml_trainer_tpu_torch.models import GPT2, MLModel, get_model
 from ml_trainer_tpu_torch.ops.kernels import (
     int8_matmul,
     quantize_per_channel,
@@ -34,15 +43,20 @@ from ml_trainer_tpu_torch.ops.kernels import (
 from ml_trainer_tpu_torch.parallel import create_mesh
 from ml_trainer_tpu_torch.serving import Server, SlotDecodeEngine
 from ml_trainer_tpu_torch.trainer import Trainer
-from ml_trainer_tpu_torch.utils import load_history, load_model
+from ml_trainer_tpu_torch.utils import (
+    custom_pre_process_function,
+    load_history,
+    load_model,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "GPT2", "Loader", "Server", "SlotDecodeEngine", "SyntheticTokens",
-    "Trainer", "adam_state_from_jax", "create_mesh", "generate",
-    "get_model", "init_gpt2", "int8_matmul", "launch_counts",
-    "load_history", "load_model", "parallel", "params_from_jax",
-    "quant_from_jax", "quantize_per_channel", "quantize_tree",
-    "reset_launch_counts", "resolve_device",
+    "ArrayDataset", "GPT2", "Loader", "MLModel", "Server",
+    "SlotDecodeEngine", "SyntheticCIFAR10", "SyntheticTokens", "Trainer",
+    "adam_state_from_jax", "create_mesh", "custom_pre_process_function",
+    "generate", "get_model", "init_gpt2", "init_model", "int8_matmul",
+    "launch_counts", "load_history", "load_model", "parallel",
+    "params_from_jax", "quant_from_jax", "quantize_per_channel",
+    "quantize_tree", "reset_launch_counts", "resolve_device",
 ]

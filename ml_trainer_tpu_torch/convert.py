@@ -1,15 +1,22 @@
-"""Weights for the port's GPT-2: converted from the JAX package's flax
-params, or drawn from a seed.
+"""Weights for the port's models: converted from the JAX package's flax
+variables, or drawn from a seed.
 
-``params_from_jax`` takes the flax param tree of the JAX package's
-``GPT2`` as a nested dict of numpy arrays (no JAX needed to call it)
-and returns a ``state_dict`` for the port's ``GPT2``:
+``params_from_jax`` takes the flax variables of any ported family (the
+``{"params": ..., "batch_stats": ...}`` tree, or bare params) as nested
+dicts of numpy arrays (no JAX needed to call it) and returns the port's
+``state_dict``, buffers included.  The layout rules are those of the JAX
+package's ``checkpoint/torch_export.py``, copied:
 
-* Dense ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in];
-* LayerNorm ``scale`` -> ``weight``;
-* ``tok_embed.embedding`` -> ``tok_embed.weight`` (the tied head reads
-  it too), ``pos_embed`` as it is;
-* ``block{i}`` -> ``blocks.{i}``.
+* Dense ``kernel`` [in, out] -> ``weight`` [out, in];
+* Conv ``kernel`` HWIO -> ``weight`` OIHW;
+* ``embedding`` -> ``weight``; LayerNorm/BatchNorm ``scale`` -> ``weight``;
+* ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+* ``block{i}`` -> ``blocks.{i}``, ``layer{i}`` -> ``layers.{i}``; every
+  other module keeps its flax name (``stage1_block1``, ``tok_embed``),
+  and bare params (``pos_embed``, ``cls_token``) keep theirs.
+
+MLModel's ``fc1`` needs no permutation: the port flattens in H, W, C
+order, as the JAX package does.
 
 ``adam_state_from_jax`` carries the JAX trainer's optax Adam state
 (count, moments, schedule count) into the port's optimizer state, the
@@ -21,57 +28,83 @@ moments through the same layout rules.
 the same [K, N] int8 layout: ``{"blocks": {"{i}": {"attn": ..., "mlp":
 ...}}}``.
 
-``init_gpt2`` builds a registered GPT-2 with weights drawn from a seeded
-CPU ``torch.Generator`` (the same numbers on every device): normal(0.02)
-for the projections and the token embedding, normal(0.01) for the
-positions (the reference's initializer), zero biases, unit LayerNorm
-scales.
+``init_model`` builds a registered model with weights drawn from a seeded
+CPU ``torch.Generator`` (the same numbers on every device).  The GPT-2
+family (``init_gpt2``) draws normal(0.02) for the projections and the
+token embedding, normal(0.01) for the positions, zero biases and unit
+LayerNorm scales.  Every other family draws flax's defaults, as its JAX
+module does: lecun normal (truncated at two deviations) for Dense and
+Conv kernels, normal(1/sqrt(features)) for embeddings, zero biases, unit
+norm scales, BatchNorm statistics 0 and 1; ViT's ``cls_token`` is zero
+and its ``pos_embed`` normal(0.02).
 """
 
 from __future__ import annotations
 
+import math
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
+from ml_trainer_tpu_torch.models.gpt2 import GPT2
+from ml_trainer_tpu_torch.models.layers import BatchNorm, Conv
 from ml_trainer_tpu_torch.models.registry import get_model
 
-
-def _f32(x) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, np.float32))
-
-
-def _linear(prefix: str, tree: Mapping, out: Dict[str, torch.Tensor]) -> None:
-    out[f"{prefix}.weight"] = _f32(tree["kernel"]).T.contiguous()
-    out[f"{prefix}.bias"] = _f32(tree["bias"])
+# flax module lists: ``block{i}`` / ``layer{i}`` -> ``blocks.{i}`` /
+# ``layers.{i}``.
+_LIST_MODULE = re.compile(r"^(block|layer)(\d+)$")
 
 
-def _layernorm(prefix: str, tree: Mapping,
-               out: Dict[str, torch.Tensor]) -> None:
-    out[f"{prefix}.weight"] = _f32(tree["scale"])
-    out[f"{prefix}.bias"] = _f32(tree["bias"])
+def _module_name(key: str) -> str:
+    m = _LIST_MODULE.match(key)
+    return f"{m[1]}s.{m[2]}" if m else key
 
 
-def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax GPT2 params (nested dict of numpy arrays; a ``{"params": ...}``
-    wrapper is accepted) -> the port's GPT2 ``state_dict`` (CPU tensors)."""
-    if "params" in params:
-        params = params["params"]
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def _leaf(prefix: str, name: str, value, out: Dict[str, torch.Tensor]):
+    arr = np.asarray(value, np.float32)
+    if name == "kernel":
+        if arr.ndim == 2:  # Dense [in, out] -> [out, in]
+            arr = arr.T
+        elif arr.ndim == 4:  # Conv HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(
+                f"{prefix}/kernel has rank {arr.ndim}; only Dense (2-D) and "
+                "Conv (4-D HWIO) kernels have a torch layout")
+        name = "weight"
+    else:
+        name = {"scale": "weight", "embedding": "weight",
+                "mean": "running_mean", "var": "running_var"}.get(name, name)
+    out[_join(prefix, name)] = torch.tensor(np.ascontiguousarray(arr))
+
+
+def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            _walk(value, _join(prefix, _module_name(key)), out)
+        else:
+            _leaf(prefix, key, value, out)
+
+
+def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables (``{"params": ..., "batch_stats": ...}`` or bare
+    params; nested dicts of numpy arrays) -> the port's ``state_dict``
+    (CPU tensors).  ``model.load_state_dict`` refuses a key or shape
+    that is not the model's own, such as the ``pos_embed`` of a ViT
+    built for another ``image_size``."""
     out: Dict[str, torch.Tensor] = {}
-    out["tok_embed.weight"] = _f32(params["tok_embed"]["embedding"])
-    out["pos_embed"] = _f32(params["pos_embed"])
-    depth = sum(1 for k in params if k.startswith("block"))
-    for i in range(depth):
-        blk = params[f"block{i}"]
-        pre = f"blocks.{i}"
-        _layernorm(f"{pre}.ln1", blk["ln1"], out)
-        _layernorm(f"{pre}.ln2", blk["ln2"], out)
-        _linear(f"{pre}.attn.qkv", blk["attn"]["qkv"], out)
-        _linear(f"{pre}.attn.proj", blk["attn"]["proj"], out)
-        _linear(f"{pre}.mlp.fc_in", blk["mlp"]["fc_in"], out)
-        _linear(f"{pre}.mlp.fc_out", blk["mlp"]["fc_out"], out)
-    _layernorm("ln_final", params["ln_final"], out)
+    if "params" in variables:
+        _walk(variables["params"], "", out)
+        _walk(variables.get("batch_stats") or {}, "", out)
+    else:
+        _walk(variables, "", out)
     return out
 
 
@@ -137,17 +170,7 @@ def quant_from_jax(quant: Mapping, device=None) -> dict:
                        for i in range(depth)}}
 
 
-@torch.no_grad()
-def init_gpt2(config="gpt2", seed: int = 0, device=None, **kwargs):
-    """A registered GPT-2 (``config``: registry name, or a dict with
-    ``name`` plus constructor kwargs) with weights drawn from
-    ``torch.Generator().manual_seed(seed)``."""
-    if isinstance(config, Mapping):
-        kwargs = {**{k: v for k, v in config.items() if k != "name"},
-                  **kwargs}
-        config = config.get("name", "gpt2")
-    model = get_model(config, device=device, **kwargs)
-    gen = torch.Generator().manual_seed(int(seed))
+def _draw_gpt2(model: GPT2, gen: torch.Generator) -> None:
     for name, p in model.named_parameters():
         if name.endswith("bias"):
             vals = torch.zeros(p.shape)
@@ -157,4 +180,65 @@ def init_gpt2(config="gpt2", seed: int = 0, device=None, **kwargs):
             std = 0.01 if name == "pos_embed" else 0.02
             vals = torch.randn(p.shape, generator=gen) * std
         p.copy_(vals)
+
+
+# Bare parameters of the flax families and their normal init's deviation
+# (0: zeros): ViT's class token and positions.
+_BARE_STD = {"cls_token": 0.0, "pos_embed": 0.02}
+
+
+def _draw_flax_defaults(model: nn.Module, gen: torch.Generator) -> None:
+    for mod in model.modules():
+        own = dict(mod.named_parameters(recurse=False))
+        if isinstance(mod, (nn.Linear, Conv)):
+            w = mod.weight
+            # flax's lecun_normal: truncated at +-2, rescaled to unit
+            # variance; fan_in = in (* kh * kw).
+            std = math.sqrt(1.0 / w[0].numel()) / .87962566103423978
+            w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std,
+                                          -2 * std, 2 * std, generator=gen))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            w = mod.weight
+            w.copy_(torch.randn(w.shape, generator=gen)
+                    * math.sqrt(1.0 / w.shape[1]))
+        elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        else:
+            for name, p in own.items():
+                if name not in _BARE_STD:
+                    raise ValueError(
+                        f"no flax initializer known for {name!r} of "
+                        f"{type(mod).__name__}")
+                std = _BARE_STD[name]
+                p.copy_(torch.randn(p.shape, generator=gen) * std if std
+                        else torch.zeros(p.shape))
+
+
+@torch.no_grad()
+def init_model(config="gpt2", seed: int = 0, device=None, **kwargs):
+    """A registered model (``config``: registry name, or a dict with
+    ``name`` plus constructor kwargs) with weights drawn from
+    ``torch.Generator().manual_seed(seed)``: GPT-2's draws for the GPT-2
+    family, flax's default initializers for the others."""
+    if isinstance(config, Mapping):
+        kwargs = {**{k: v for k, v in config.items() if k != "name"},
+                  **kwargs}
+        config = config.get("name", "gpt2")
+    model = get_model(config, device=device, **kwargs)
+    gen = torch.Generator().manual_seed(int(seed))
+    if isinstance(model, GPT2):
+        _draw_gpt2(model, gen)
+    else:
+        _draw_flax_defaults(model, gen)
     return model
+
+
+def init_gpt2(config="gpt2", seed: int = 0, device=None, **kwargs):
+    """``init_model`` for the GPT-2 family (its former name)."""
+    return init_model(config, seed=seed, device=device, **kwargs)

@@ -2,16 +2,22 @@
 containers the ``Loader`` batches with numpy gathers.
 
 The same seeds give the same arrays as the JAX package.  A transform is
-any ``(batch, rng) -> batch`` callable applied per batch; the
-reference's CIFAR-10 augmentation classes are not ported yet, so a
-foreign (torchvision) transform is refused by ``as_dataset``.
+any ``(batch, rng) -> batch`` callable applied per batch
+(``data/transforms.py``); ``as_dataset`` wraps a foreign dataset's
+per-sample (torchvision) transform in ``ForeignTransform``.  ``CIFAR10``
+reads the ``cifar-10-batches-py`` pickles only when they are already on
+disk.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
+
+from ml_trainer_tpu_torch.data.transforms import ForeignTransform, Transform
 
 
 class Dataset:
@@ -50,6 +56,33 @@ class ArrayDataset(Dataset):
         return self.data[indices], self.targets[indices]
 
 
+class CIFAR10(ArrayDataset):
+    """CIFAR-10 from the ``cifar-10-batches-py`` pickle layout under
+    ``root`` (the files torchvision unpacks); no download is attempted.
+    Images are NHWC uint8."""
+
+    def __init__(self, root: str, train: bool = True, transform=None):
+        base = os.path.join(root, "cifar-10-batches-py")
+        if not os.path.isdir(base):
+            raise FileNotFoundError(
+                f"CIFAR-10 pickle batches not found under {base!r}. "
+                "Place the extracted 'cifar-10-batches-py' directory there "
+                "(no download is attempted), or use SyntheticCIFAR10 for "
+                "smoke tests and benchmarks."
+            )
+        files = ([f"data_batch_{i}" for i in range(1, 6)] if train
+                 else ["test_batch"])
+        xs, ys = [], []
+        for name in files:
+            with open(os.path.join(base, name), "rb") as fp:
+                entry = pickle.load(fp, encoding="latin1")
+            xs.append(entry["data"])
+            ys.extend(entry["labels"])
+        # The files pack NCHW; the batches are NHWC.
+        data = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        super().__init__(data, np.asarray(ys, dtype=np.int32), transform)
+
+
 class SyntheticCIFAR10(ArrayDataset):
     """Deterministic CIFAR-10-shaped random data (NHWC uint8)."""
 
@@ -80,19 +113,18 @@ class SyntheticTokens(ArrayDataset):
 
 def as_dataset(ds: Any) -> Dataset:
     """Adapt a foreign dataset (``data``/``targets`` arrays, NCHW images
-    turned NHWC, or item by item) into an ``ArrayDataset``."""
+    turned NHWC, a foreign per-sample transform wrapped in
+    ``ForeignTransform``; or item by item) into an ``ArrayDataset``."""
     if isinstance(ds, Dataset):
         return ds
     if hasattr(ds, "data") and hasattr(ds, "targets"):
-        if getattr(ds, "transform", None) is not None:
-            raise NotImplementedError(
-                "per-sample (torchvision) transforms are not ported yet; "
-                "see ROADMAP.md Queue A"
-            )
         data = np.asarray(ds.data)
         if (data.ndim == 4 and data.shape[1] in (1, 3)
                 and data.shape[-1] not in (1, 3)):
             data = data.transpose(0, 2, 3, 1)
-        return ArrayDataset(data, np.asarray(ds.targets))
+        transform = getattr(ds, "transform", None)
+        if transform is not None and not isinstance(transform, Transform):
+            transform = ForeignTransform(transform)
+        return ArrayDataset(data, np.asarray(ds.targets), transform)
     xs, ys = zip(*[ds[i] for i in range(len(ds))])
     return ArrayDataset(np.stack([np.asarray(x) for x in xs]), np.asarray(ys))

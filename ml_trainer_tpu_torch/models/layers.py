@@ -29,11 +29,20 @@ Int8 projections.  A layer given its entries of the "quant" collection
 fc_out as ``int8_matmul(x, w, scale) + b`` instead of its fp32
 ``nn.Linear``; ``quant_impl="reference"`` takes the plain version on
 either device.
+
+Convolutions and BatchNorm (the image families).  ``Conv`` is flax's
+``nn.Conv`` over an NCHW-shaped tensor, with flax's "SAME" padding for
+any stride (the odd pixel of an uneven split goes to the high side, which
+``nn.Conv2d(padding=k // 2)`` does not reproduce at stride 2).
+``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9)``: batch mean and
+BIASED batch variance in train mode, running statistics updated as
+``r = 0.9 r + 0.1 batch`` (torch's ``BatchNorm2d`` updates the variance
+with the unbiased one), epsilon 1e-5.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -45,6 +54,10 @@ from ml_trainer_tpu_torch.ops.kernels.paged_attention import paged_attention
 
 # flax.linen.LayerNorm's default epsilon.
 LN_EPS = 1e-6
+# flax.linen.BatchNorm's epsilon, and the momentum the JAX package's
+# image families pass it (the weight of the old running value).
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -314,3 +327,91 @@ class TransformerBlock(nn.Module):
             return self.ln2(x + mlp(x))
         x = x + attn(self.ln1(x))
         return x + mlp(self.ln2(x))
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax/XLA "SAME" padding of one spatial dim: ``ceil(size / stride)``
+    outputs, the total padding split low/high with the odd pixel high."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on an NCHW-shaped tensor (a channels-last view of
+    the NHWC batch is fine): ``weight`` [out, in, kh, kw] is flax's HWIO
+    ``kernel`` transposed.  ``padding``: "SAME" (flax's split, computed
+    from each input's size), "VALID", or ``((top, bottom), (left,
+    right))``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1,
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+                 bias: bool = True, device=None, dtype=torch.float32):
+        super().__init__()
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel, kernel, device=device,
+            dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device,
+                                              dtype=dtype))
+                     if bias else None)
+
+    def _pads(self, h: int, w: int):
+        if self.padding == "SAME":
+            return (same_pads(h, self.kernel, self.stride),
+                    same_pads(w, self.kernel, self.stride))
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
+        return tuple(tuple(p) for p in self.padding)
+
+    def forward(self, x):
+        (top, bottom), (left, right) = self._pads(*x.shape[-2:])
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (top, left))
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight,
+                        self.bias, self.stride)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over dim 1 of an NCHW-shaped (or [B, C])
+    tensor: ``weight``/``bias`` are flax's ``scale``/``bias``,
+    ``running_mean``/``running_var`` its ``batch_stats`` ``mean``/``var``.
+
+    Train mode normalises with the batch mean and biased variance and
+    updates the running statistics as ``momentum * r + (1 - momentum) *
+    batch`` with the BIASED variance; eval mode normalises with the
+    running statistics.  ``F.batch_norm`` does the normalising (cuDNN on
+    the card); its own running update, which takes the unbiased variance,
+    writes only to scratch buffers at momentum 1, whose variance is turned
+    biased before the flax update."""
+
+    def __init__(self, num_features: int, momentum: float = BN_MOMENTUM,
+                 eps: float = BN_EPS, device=None, dtype=torch.float32):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device,
+                                              dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device,
+                                             dtype=dtype))
+        self.register_buffer("running_mean", torch.zeros(
+            num_features, device=device, dtype=dtype))
+        self.register_buffer("running_var", torch.ones(
+            num_features, device=device, dtype=dtype))
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var
+                                   + (1 - m) * (var * ((n - 1) / n)))
+        return out

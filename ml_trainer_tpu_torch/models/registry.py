@@ -1,5 +1,5 @@
 """Model registry: name -> ``nn.Module`` factory (the JAX package's
-``models/registry.py``; only the GPT-2 family is ported so far)."""
+``models/registry.py``; every family but Llama is ported)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from torch import nn
 
 MODELS: Dict[str, Callable[..., nn.Module]] = {}
 
-_FAMILY_MODULES = ("gpt2",)
+_FAMILY_MODULES = ("mlmodel", "resnet", "vit", "bert", "gpt2")
 
 
 def register_model(name: str):

@@ -31,6 +31,10 @@ cut from its own rows.
 
 * ``dp_update="fused"`` (the default): the replicas' local-mean
   gradients are ``pmean``-ed, then go through the single-card update.
+  A model with BatchNorm instead runs each of the ``grad_accum_steps``
+  GLOBAL microbatches at once, as the JAX package's compiled step does
+  (SyncBN): its statistics cover the global microbatch and the running
+  statistics update once per microbatch, not once per replica.
 * ``dp_update="sharded"`` (``_make_sharded_train_step`` of the JAX
   package, written out): the summed local-mean gradients leave through
   one reduce-scatter per bucket (leaves whose dim 0 does not divide by
@@ -46,8 +50,11 @@ cut from its own rows.
 
 The model runs on the CUDA card unless ``device="cpu"`` (or a CPU
 ``backend``) is asked for.  A model named from the registry is built by
-``init_gpt2``'s seeded initializer; an ``nn.Module`` is trained as
-given (moved to the device).  Knobs not ported yet are accepted at their
+``init_model``'s seeded initializer; an ``nn.Module`` is trained as
+given (moved to the device).  Training runs the model in train mode,
+evaluation in eval mode (BatchNorm: the running statistics).  The
+non-finite guard also reverts the model's buffers (BatchNorm's running
+statistics) on a skipped step.  Knobs not ported yet are accepted at their
 defaults and raise ``NotImplementedError`` naming ROADMAP.md otherwise.
 """
 
@@ -66,9 +73,10 @@ import torch
 from torch import nn
 
 from ml_trainer_tpu_torch.config import TrainerConfig, validate_kwargs
-from ml_trainer_tpu_torch.convert import init_gpt2
+from ml_trainer_tpu_torch.convert import init_model
 from ml_trainer_tpu_torch.data import Loader, prefetch_to_device
 from ml_trainer_tpu_torch.device import resolve_device
+from ml_trainer_tpu_torch.models.layers import BatchNorm
 from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
     adam_scalars,
     fused_adam_update_list,
@@ -333,16 +341,17 @@ class Trainer:
         self._bad_epochs = 0
 
         if isinstance(model, str):
-            model = init_gpt2(model, seed=cfg.seed, device=self.device)
+            model = init_model(model, seed=cfg.seed, device=self.device)
         elif isinstance(model, nn.Module):
             model = model.to(self.device)
         else:
             raise TypeError(
                 f"model must be a registry name or an nn.Module, got "
                 f"{type(model).__name__}")
-        if self.dp_update == "sharded" and any(
-                isinstance(m, nn.modules.batchnorm._BatchNorm)
-                for m in model.modules()):
+        self._has_batch_norm = any(
+            isinstance(m, (BatchNorm, nn.modules.batchnorm._BatchNorm))
+            for m in model.modules())
+        if self.dp_update == "sharded" and self._has_batch_norm:
             raise ValueError(
                 "dp_update='sharded' does not support batch_stats models "
                 "(per-replica BatchNorm statistics would diverge from the "
@@ -474,7 +483,12 @@ class Trainer:
 
     def _replica_grads(self, params, x, y):
         """``_local_grads`` of each replica's row block of the global
-        batch, in replica order."""
+        batch, in replica order; for a BatchNorm model, of the whole
+        global batch at once (global-batch statistics, as the JAX
+        package's SyncBN: the replicas' blocks are equal, so the mean
+        over the batch is the mean of their means)."""
+        if self._has_batch_norm:
+            return [self._local_grads(params, x, y)]
         rows = x.shape[0] // self.mesh.size
         return [self._local_grads(params, x[j * rows:(j + 1) * rows],
                                   y[j * rows:(j + 1) * rows])
@@ -487,6 +501,9 @@ class Trainer:
             return self._sharded_train_step(x, y, lr_scale)
         accum = self.grad_accum_steps
         params = self._params()
+        # The running statistics the guard restores on a skipped step.
+        buffers = ({k: b.clone() for k, b in self.model.named_buffers()}
+                   if self.nonfinite_guard else {})
         local = self._replica_grads(params, x, y)
         with torch.no_grad():
             if len(local) == 1:
@@ -501,7 +518,8 @@ class Trainer:
                 loss = col.pmean([lo / accum for _, lo, _ in local])[0]
                 metric = col.pmean([m / accum for _, _, m in local])[0]
             del local
-            return self._apply_grads(params, grads, loss, metric, lr_scale)
+            return self._apply_grads(params, grads, loss, metric, lr_scale,
+                                     buffers)
 
     @torch.no_grad()
     def _sharded_train_step(self, x, y, lr_scale: float):
@@ -654,7 +672,10 @@ class Trainer:
                         {"count": sched_count}))
         return dict(zip(names, p_n)), new_opt
 
-    def _apply_grads(self, params, grads, loss, metric, lr_scale: float):
+    def _apply_grads(self, params, grads, loss, metric, lr_scale: float,
+                     buffers: dict):
+        """The update of the fused step; the guard's revert covers the
+        model's ``buffers`` as they were before the forward."""
         state = self.state
         old = {k: p.detach() for k, p in params.items()}
         updates, new_opt = self.tx.update(grads, state.opt_state, old)
@@ -671,6 +692,9 @@ class Trainer:
 
             new_params = tree_map(sel, new_params, old)
             new_opt = tree_map(sel, new_opt, state.opt_state)
+            live = dict(self.model.named_buffers())
+            for k, before in buffers.items():
+                live[k].copy_(sel(live[k], before))
             bad = (~ok).to(torch.int32)
             state.skipped_steps = state.skipped_steps + bad
             state.bad_streak = (state.bad_streak + 1) * bad

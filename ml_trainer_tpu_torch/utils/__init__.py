@@ -1,6 +1,12 @@
-"""Utilities: the custom loss hook, logging, history and model loading."""
+"""Utilities: the custom preprocess and loss hooks, logging, history and
+model loading."""
 
-from ml_trainer_tpu_torch.utils.functions import custom_loss_function
+from ml_trainer_tpu_torch.utils.functions import (
+    CIFAR10_MEAN,
+    CIFAR10_STD,
+    custom_loss_function,
+    custom_pre_process_function,
+)
 from ml_trainer_tpu_torch.utils.logging import get_logger
 from ml_trainer_tpu_torch.utils.utils import (
     LoadedModel,
@@ -8,5 +14,6 @@ from ml_trainer_tpu_torch.utils.utils import (
     load_model,
 )
 
-__all__ = ["LoadedModel", "custom_loss_function", "get_logger",
-           "load_history", "load_model"]
+__all__ = ["CIFAR10_MEAN", "CIFAR10_STD", "LoadedModel",
+           "custom_loss_function", "custom_pre_process_function",
+           "get_logger", "load_history", "load_model"]

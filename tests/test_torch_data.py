@@ -98,9 +98,15 @@ def test_as_dataset_adapts_foreign_arrays():
 
     a, b = jdata.as_dataset(Foreign()), tdata.as_dataset(Foreign())
     assert a.data.shape == b.data.shape == (4, 8, 8, 3)
-    Foreign.transform = lambda x: x
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tdata.as_dataset(Foreign())
+    # A foreign per-sample transform is wrapped as the JAX package wraps
+    # it, and the batch it gives is the JAX package's.
+    Foreign.transform = staticmethod(lambda x: np.asarray(x) + 1)
+    a, b = jdata.as_dataset(Foreign()), tdata.as_dataset(Foreign())
+    assert type(b.transform).__name__ == type(a.transform).__name__ == (
+        "ForeignTransform")
+    batch = a.data[:2]
+    np.testing.assert_array_equal(b.transform(batch, None),
+                                  a.transform(batch, None))
 
 
 def test_prefetch_on_cpu_yields_the_batches_as_tensors():

@@ -65,6 +65,38 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert bad == []
 
 
+# The modules of the image and encoder families and the CIFAR-10 input
+# path: each exists and imports nothing of JAX or the JAX package.
+NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
+               "models/vit.py", "models/layers.py", "data/transforms.py",
+               "data/datasets.py", "utils/functions.py", "convert.py",
+               "trainer.py"]
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_family_modules_never_import_jax(rel):
+    path = ROOT / "ml_trainer_tpu_torch" / rel
+    assert path in _port_files()
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("mlmodel", {}), ("resnet18", {}), ("resnet50", {}), ("bert_tiny", {}),
+    ("vit_tiny", {}), ("vit_b16", {"dtype": torch.float32, "depth": 1}),
+])
+def test_family_constructors_raise_without_a_card(monkeypatch, name, kw):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt.get_model(name, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt.init_model(name, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt.Trainer(name)
+    assert mt.init_model(name, device="cpu", **kw).training
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     model = mt.get_model("gpt2_tiny", max_len=32, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
