@@ -56,6 +56,13 @@ Phases, one line of output each (or a few):
    beside the CUDA-event times.  Their ``bound_ms``
    is the operations at the 3xTF32 tensor-core rate (494.7 / 3 TFLOP/s),
    ``bound_fp32_core_ms`` the same at the 67 TFLOP/s fp32 CUDA-core rate;
+   K1-K3's bf16 entry points at the main and ``bert`` rows with bf16
+   inputs: each output within 2 bf16 ulps of the plain version on the
+   same inputs (|diff| <= 2^-7 |plain| + 1e-3 max|plain|; lse within
+   1e-4), dK/dV exactly 0 past kv_lens, bitwise across two calls and
+   bitwise the float32 kernels' result on the widened inputs, timed
+   beside SDPA with bf16 inputs, ``bound_ms`` at the 989 TFLOP/s bf16
+   rate with bf16 values at 2 bytes;
    the int8 matmul (K7) at the four GPT-2 124M decode projections (M=8:
    qkv 768x2304, proj 768x768, fc_in 768x3072, fc_out 3072x768), at M=1,
    ragged M=13 K=130 N=100, the JAX package's bench shape M=8 K=256
@@ -111,6 +118,11 @@ Phases, one line of output each (or a few):
    and K3 12 x 24 times; then the optimizer-step time (CUDA events),
    tokens/s, peak memory and a profiler split of one step, with K1's,
    K2's and K3's device ms per step beside 48 x their main-row bound;
+   then the same run with ``precision="bf16"`` (dynamic loss scale, the
+   bf16 K1-K3): its first microbatch loss within 2e-2 of the fp32 run's,
+   the kernel path against the kernels' plain versions (loss 2e-3) and
+   against exact attention (gradients: ``BF16_*``), the same launch
+   counts, its final loss scale;
 6. data-parallel training: the same model through ``Trainer(...,
    is_parallel=True, mesh_shape={"data": 2}, device=[cuda, cuda],
    dp_update="sharded")`` (2 replicas sharing the card, global batch 8 =
@@ -123,21 +135,25 @@ Phases, one line of output each (or a few):
    losses, skip no step and launch K4 = K5 = 2 per step, one per replica
    (and the attention kernels per replica microbatch); then the step time,
    tokens/s, peak memory and a profiler split with K1's to K5's device
-   ms per step beside their bounds;
+   ms per step beside their bounds; then a 3-step bf16 run of the same
+   (the loss scale folded into K4's denominator; sharded plain vs K4/K5
+   at the same bars and with an equal loss scale, no single-card step);
 7. the image and encoder families at full width through
    ``Trainer(...).fit()`` on seeded synthetic data (``MODEL_RUNS``):
    ResNet-18 (CIFAR stem, ``SyntheticCIFAR10`` through
    ``custom_pre_process_function``, batch 256), ResNet-50 and ViT-B/16
-   (fp32) on seeded 224x224 images (batch 64 and 32), BERT-base
-   (``right_padded``, batch 32 at sequence 128, right-padded lengths
-   8..128) and MLModel (CIFAR transforms, batch 32).  First the TF32
+   (at its default bf16, ``precision="bf16"``) on seeded 224x224 images
+   (batch 64 and 32), BERT-base (``right_padded``, batch 32 at sequence
+   128, right-padded lengths 8..128; fp32, then bf16) and MLModel (CIFAR
+   transforms, batch 32).  First the TF32
    switches (both must be off); ResNet-18's first 32 rows through one
    training step on the card against the same step of the port on the
    CPU from the same weights: in float64 the whole step (loss 1e-4
    relative, gradients 1e-3 and running statistics 1e-4 of their
    largest entry), in float32 the loss and statistics at those bars and
    each layer from its own inputs (outputs 1e-4, gradients 1e-3); BERT's
-   kernel path against its plain path on the first batch (as in 5).
+   kernel path against its plain path on the first batch (as in 5, by
+   precision).
    Each run must give finite losses and skip no step; BERT launches
    exactly 12 K1, K2 and K3 a training step and 12 K1 an eval batch,
    the others no kernel.  Each family's line has its optimizer-step time
@@ -164,6 +180,7 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 494.7e12    # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 TOL = 1e-4
 BWD_ATOL, BWD_RTOL = 2e-4, 1e-4  # K2/K3 vs the plain backward (float32)
 LOGIT_SLACK = 1e-3
@@ -234,14 +251,20 @@ FWD_PROFILED = ("main", "serve_1024", "bert")
 FWD_MARKS = {"flash_fwd": ("flash_fwd_kernel",)}
 
 
-def fwd_bounds(b, h, s, d, causal, lens) -> dict:
+def fwd_bounds(b, h, s, d, causal, lens, bf16: bool = False) -> dict:
     """K1's bounds: ``bound_ms``/``bound_by`` with its two length-d
     products per kept pair at the 3xTF32 tensor-core rate,
     ``bound_fp32_core_ms`` at the fp32 CUDA-core rate.  q read once,
-    k and v once over their live rows, out and lse written once."""
+    k and v once over their live rows, out and lse written once.  With
+    ``bf16``: q, k, v and out at 2 bytes a value (lse 4) and the
+    products at the bf16 dense rate."""
     flops = 2 * 2.0 * d * kept_pairs(b, s, causal, lens) * h
-    nbytes = (2 * b * s + 2 * live_rows(b, s, lens)) * h * d * 4 \
+    size = 2 if bf16 else 4
+    nbytes = (2 * b * s + 2 * live_rows(b, s, lens)) * h * d * size \
         + b * h * s * 4
+    if bf16:
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        return dict(bound_ms=b_ms, bound_by=b_by)
     b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOPS_PER_S / 3)
     return dict(bound_ms=b_ms, bound_by=b_by,
                 bound_fp32_core_ms=bound_ms(nbytes, flops)[0])
@@ -362,35 +385,42 @@ BWD_MARKS = {"flash_bwd_dq": ("flash_bwd_dq_kernel",),
 ATTN_MARKS = dict(FWD_MARKS, **BWD_MARKS)  # K1-K3 in a profiled step
 
 
-def bwd_bounds(b, h, s, d, causal, lens) -> dict:
+def bwd_bounds(b, h, s, d, causal, lens, bf16: bool = False) -> dict:
     """K2's and K3's bounds: ``bound_ms``/``bound_by`` with the products
     at the 3xTF32 tensor-core rate (three TF32 products per fp32-accurate
     product), ``bound_fp32_core_ms`` at the fp32 CUDA-core rate.  Each
     input read once (k and v over their live rows), each output written
     once (dK and dV in full: zeros past ``kv_lens``); 3 (K2) or 4 (K3)
-    length-d products per kept pair."""
+    length-d products per kept pair.  With ``bf16``: q, k, v, dO and
+    the gradients at 2 bytes a value (lse and delta 4) and the products
+    at the bf16 dense rate."""
     pairs = kept_pairs(b, s, causal, lens) * h
-    arr = b * h * s * d * 4
-    kv = 2 * live_rows(b, s, lens) * h * d * 4
+    size = 2 if bf16 else 4
+    arr = b * h * s * d * size
+    kv = 2 * live_rows(b, s, lens) * h * d * size
     rows_b = b * h * s * 4
     out = {}
     for kname, nbytes, prods in (
             ("flash_bwd_dq", 2 * arr + kv + 2 * rows_b + arr, 3),
             ("flash_bwd_dkv", 2 * arr + kv + 2 * rows_b + 2 * arr, 4)):
         flops = prods * 2.0 * d * pairs
+        if bf16:
+            b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+            out[kname] = dict(bound_ms=b_ms, bound_by=b_by)
+            continue
         b_ms, b_by = bound_ms(nbytes, flops, TF32_FLOPS_PER_S / 3)
         out[kname] = dict(bound_ms=b_ms, bound_by=b_by,
                           bound_fp32_core_ms=bound_ms(nbytes, flops)[0])
     return out
 
 
-def attn_step_bounds(launches: int) -> dict:
-    """K1's, K2's and K3's 3xTF32 bounds for a training step's
+def attn_step_bounds(launches: int, bf16: bool = False) -> dict:
+    """K1's, K2's and K3's bounds (3xTF32, or bf16) for a training step's
     ``launches`` launches of each at the main rows' shape (one microbatch
     of 2 x 1024)."""
     _, b, h, s, d, causal, lens = BWD_CASES[0]
-    bounds = dict(bwd_bounds(b, h, s, d, causal, lens),
-                  flash_fwd=fwd_bounds(*FWD_CASES[0][1:]))
+    bounds = dict(bwd_bounds(b, h, s, d, causal, lens, bf16),
+                  flash_fwd=fwd_bounds(*FWD_CASES[0][1:], bf16=bf16))
     return {k: launches * v["bound_ms"] for k, v in bounds.items()}
 
 
@@ -528,6 +558,144 @@ def check_flash_bwd(dev):
     log("kernel flash_bwd padded " + json.dumps(
         dict(shape=list(PADDED_CASE), causal=True, max_abs_err=err)))
     return rows, err
+
+
+# K1-K3's bf16 entry points at the bf16 training launches: GPT-2 124M's
+# microbatch and BERT-base's (the main and ``bert`` rows of FWD_CASES).
+BF16_CASES = [c for c in FWD_CASES if c[0] in ("main", "bert")]
+
+
+def bf16_gate(got, want) -> float:
+    """The bf16 gate as a ratio: max over elements of |got - want| /
+    (2^-7 |want| + 1e-3 max|want|), at most 1 within 2 bf16 ulps of the
+    plain value."""
+    got, want = got.float(), want.float()
+    bar = 2 ** -7 * want.abs() + 1e-3 * want.abs().max()
+    return ((got - want).abs() / bar).max().item()
+
+
+def check_flash_bf16(dev):
+    """K1, K2 and K3's bf16 entry points against their plain versions on
+    the same bf16 inputs (out, dQ, dK, dV within 2 bf16 ulps: the
+    ``bf16_gate`` ratio <= 1; lse within ``TOL``), dK/dV exactly 0 past
+    kv_lens, two calls bitwise; also bitwise what the float32 kernels
+    give on the widened values and rounded to bf16 (the design: a bf16
+    value's TF32 split is exact).  Timed by CUDA events and profiler
+    device time beside the plain versions and SDPA with bf16 inputs (the
+    same boolean mask; timed only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ml_trainer_tpu_torch.ops.attention import (
+        _backward_plain, _row_delta, flash_attention,
+        flash_attention_reference, flash_bwd_dkv, flash_bwd_dq)
+
+    rows = []
+    for i, (name, b, h, s, d, causal, lens) in enumerate(BF16_CASES):
+        q, k, v, kv, dout = bwd_case(dev, b, h, s, d, lens, SEED + 40 + i)
+        q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+        scale = d ** -0.5
+        out, lse = flash_attention(q, k, v, kv, causal)
+        ref_out, ref_lse = flash_attention_reference(q, k, v, kv, causal)
+        delta = _row_delta(ref_out, dout)
+        args = (q, k, v, kv, ref_lse, delta, dout, causal, scale)
+        grads = (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+        want = _backward_plain(*args)
+        wide = (q.float(), k.float(), v.float(), kv, ref_lse, delta,
+                dout.float(), causal, scale)
+        out32, lse32 = flash_attention(*wide[:4], causal)
+        grads32 = (flash_bwd_dq(*wide),) + flash_bwd_dkv(*wide)
+        torch.cuda.synchronize()
+        if not (out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+                and all(g.dtype == torch.bfloat16 for g in grads)):
+            raise AssertionError(f"bf16 {name}: output dtypes "
+                                 f"{out.dtype} {[g.dtype for g in grads]}")
+        gates = {"flash_fwd": bf16_gate(out, ref_out)}
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= TOL:
+            raise AssertionError(f"bf16 {name}: lse err {lse_err} > {TOL}")
+        gates["flash_bwd_dq"] = bf16_gate(grads[0], want[0])
+        gates["flash_bwd_dkv"] = max(bf16_gate(grads[1], want[1]),
+                                     bf16_gate(grads[2], want[2]))
+        errs = {"flash_fwd": max((out.float() - ref_out.float()).abs().max()
+                                 .item(), lse_err),
+                "flash_bwd_dq": (grads[0].float() - want[0].float()).abs()
+                .max().item(),
+                "flash_bwd_dkv": max((g.float() - w.float()).abs().max()
+                                     .item() for g, w in zip(grads[1:],
+                                                             want[1:]))}
+        for kname, ratio in gates.items():
+            if not ratio <= 1.0:
+                raise AssertionError(f"bf16 {kname} {name}: {ratio} of the "
+                                     "2-ulp bar")
+        if lens is not None:
+            pad = (torch.arange(s, device=dev)[None, None, :, None]
+                   >= kv.long()[:, None, None, None]).expand_as(grads[1])
+            if not (bool((grads[1][pad] == 0).all())
+                    and bool((grads[2][pad] == 0).all())):
+                raise AssertionError(f"bf16 {name}: dK/dV past kv_lens "
+                                     "not zero")
+        as_f32 = (torch.equal(out, out32.to(torch.bfloat16))
+                  and torch.equal(lse, lse32)
+                  and all(torch.equal(g, g32.to(torch.bfloat16))
+                          for g, g32 in zip(grads, grads32)))
+        if not as_f32:
+            raise AssertionError(f"bf16 {name}: not the float32 kernels' "
+                                 "result on the widened values")
+        again = (flash_attention(q, k, v, kv, causal)[0],
+                 flash_bwd_dq(*args)) + flash_bwd_dkv(*args)
+        if not all(torch.equal(a, b2) for a, b2 in
+                   zip(again, (out,) + grads)):
+            raise AssertionError(f"bf16 {name}: two calls differ")
+        del out32, lse32, grads32, again, wide
+        fns = {"flash_fwd": lambda: flash_attention(q, k, v, kv, causal),
+               "flash_bwd_dq": lambda: flash_bwd_dq(*args),
+               "flash_bwd_dkv": lambda: flash_bwd_dkv(*args)}
+        plain = {"flash_fwd": lambda: flash_attention_reference(
+                     q, k, v, kv, causal),
+                 "flash_bwd_dq": lambda: _backward_plain(*args)}
+        plain["flash_bwd_dkv"] = plain["flash_bwd_dq"]
+        keep = None
+        if kv is not None:
+            keep = (torch.arange(s, device=dev)[None, :]
+                    < kv.long()[:, None])[:, None, None, :]
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=keep, is_causal=causal and keep is None)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep, is_causal=causal and keep is None)
+
+        def lib_bwd():
+            return torch.autograd.grad(o_lib, (qg, kg, vg), dout,
+                                       retain_graph=True)
+
+        lib = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+        bounds = dict(bwd_bounds(b, h, s, d, causal, lens, bf16=True),
+                      flash_fwd=fwd_bounds(b, h, s, d, causal, lens,
+                                           bf16=True))
+        marks = dict(FWD_MARKS, **BWD_MARKS)
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            row = dict(case=name, dtype="bfloat16", shape=[b, h, s, d],
+                       causal=causal, kv_lens=lens,
+                       max_abs_err=errs[kname],
+                       gate_ratio=gates[kname], bitwise_repeat=True,
+                       bitwise_f32_kernel_widened=True,
+                       ms=time_ms(fns[kname]),
+                       device_ms=profiled_ms(fns[kname], marks[kname]),
+                       plain_ms=time_ms(plain[kname], iters=10),
+                       library_ms=time_ms(lib[kname], iters=10),
+                       library_device_ms=profiled_ms(lib[kname], ("",),
+                                                     iters=10),
+                       **bounds[kname])
+            log(f"kernel {kname} bf16 " + json.dumps(row))
+            rows.append((kname, row))
+        del q, k, v, kv, dout, out, lse, ref_out, ref_lse, grads, want
+        del qg, kg, vg, o_lib, args
+        torch.cuda.empty_cache()
+    return rows
 
 
 # K6 rows: (name, B, H, D, page, pages per row, lengths, trash rows); the
@@ -1185,37 +1353,106 @@ TRAIN = dict(model="gpt2", seq_len=1024, vocab_size=50257, batch_size=8,
 # gradient within GRAD_RTOL of that parameter's largest plain gradient
 # (the two paths sum over keys in another order, through 12 layers).
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+# The same in bf16 (the policy's casts, the bf16 K1-K3).  There the plain
+# path is the kernels' own plain versions (flash_attention_reference and
+# the plain backward, P in float32 as in the kernels), not the plain
+# attention, which rounds P to bf16 before PV (JAX's dot_product_
+# attention): another function.  The loss within BF16_LOSS_RTOL of the
+# plain path's.  The gradients are held against the plain versions run
+# with float64 math inside ("exact attention"): every activation rounds
+# to 8 significant bits, so any float32-level difference in the
+# attention moves some values by a bf16 ulp, and 12 layers carry that
+# to ~2% of a leaf's largest gradient (PERF.md §6: the float32 plain
+# path is itself 2.06% (BERT-base) and 1.5% (GPT-2 124M) from exact
+# attention on the card).  So each leaf of the kernel path must lie
+# within 2e-2 of its largest exact-attention entry (the JAX package's
+# own bf16 bar, tests/test_attention.py), or within BF16_NOISE_FACTOR
+# times the float32 plain path's own worst distance from exact
+# attention in the same run.
+BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_NOISE_FACTOR = 2e-3, 2e-2, 1.5
+# The first bf16 loss against the fp32 run's first loss, same weights
+# and batch.
+BF16_VS_FP32_RTOL = 2e-2
 TRAIN_DIR = "build/chip_smoke_train"  # model.pth of the run; removed after
+
+
+def _worst_leaf(got: dict, want: dict):
+    """(worst ratio, leaf): max |got - want| of a leaf against the leaf's
+    largest ``want`` entry, over the leaves."""
+    import torch
+
+    worst, worst_name = 0.0, None
+    for name, w in want.items():
+        if got[name].dtype != torch.float32:
+            raise AssertionError(f"gradient of {name} is {got[name].dtype}")
+        ratio = ((got[name] - w).abs().max() / w.abs().max()).item()
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
 
 
 def grad_check(trainer, x, y) -> dict:
     """Loss and every parameter gradient of one microbatch through the
-    kernels and through the plain attention path."""
+    kernels and through the plain path (fp32: the plain attention; bf16:
+    the kernels' plain versions, taken on the card by routing the
+    attention Function as for a CPU tensor, and those with float64 math
+    inside), each through the trainer's loss function (its precision
+    policy's casts); float32 gradients either way.  Bars by the
+    trainer's policy (``BF16_*`` above)."""
+    import contextlib
+    import importlib
+    from unittest import mock
+
     import torch
 
+    tatt = importlib.import_module("ml_trainer_tpu_torch.ops.attention")
+    bf16 = trainer.precision.active
     model = trainer.model
+    runs = ("auto", "xla") + (("exact",) if bf16 else ())
     out = {}
-    for impl in ("auto", "xla"):
-        model.attention_impl = impl
+    for impl in runs:
+        route = contextlib.ExitStack()
+        if bf16:
+            model.attention_impl = "auto"
+            if impl != "auto":
+                route.enter_context(mock.patch.object(
+                    tatt, "_device_kind", lambda q: "cpu"))
+            if impl == "exact":
+                route.enter_context(mock.patch.object(
+                    tatt, "_compute_dtype", lambda q: torch.float64))
+        else:
+            model.attention_impl = impl
         model.zero_grad(set_to_none=True)
-        loss = trainer.criterion(model(x), y)
-        loss.backward()
+        with route:
+            loss = trainer._forward_loss(x, y)[0]
+            loss.backward()
         out[impl] = (loss.item(), {n: p.grad.detach().clone()
                                    for n, p in model.named_parameters()})
     model.attention_impl = "auto"
     model.zero_grad(set_to_none=True)
     (l_k, g_k), (l_p, g_p) = out["auto"], out["xla"]
-    if not abs(l_k - l_p) <= LOSS_RTOL * abs(l_p):
+    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    if not abs(l_k - l_p) <= loss_rtol * abs(l_p):
         raise AssertionError(f"kernel-path loss {l_k} vs plain {l_p}")
-    worst, worst_name = 0.0, None
-    for name, gp in g_p.items():
-        ratio = ((g_k[name] - gp).abs().max() / gp.abs().max()).item()
-        if not ratio <= GRAD_RTOL:
+    worst, worst_name = _worst_leaf(g_k, g_p)
+    rec = {}
+    if bf16:
+        g_x = out["exact"][1]
+        k_exact, k_name = _worst_leaf(g_k, g_x)
+        p_exact, p_name = _worst_leaf(g_p, g_x)
+        bar = max(BF16_GRAD_RTOL, BF16_NOISE_FACTOR * p_exact)
+        rec = dict(loss_exact=out["exact"][0], kernel_vs_exact=k_exact,
+                   kernel_vs_exact_param=k_name, plain_vs_exact=p_exact,
+                   plain_vs_exact_param=p_name, grad_bar=bar)
+        if not k_exact <= bar:
             raise AssertionError(
-                f"gradient of {name}: max diff {ratio} of its largest "
-                f"plain entry > {GRAD_RTOL}")
-        if ratio > worst:
-            worst, worst_name = ratio, name
+                f"gradient of {k_name}: {k_exact} of its largest "
+                f"exact-attention entry > {bar} (the float32 plain path: "
+                f"{p_exact})")
+    elif not worst <= GRAD_RTOL:
+        raise AssertionError(
+            f"gradient of {worst_name}: max diff {worst} of its largest "
+            f"plain entry > {GRAD_RTOL}")
     qkv = [n for n in g_k if n.endswith("attn.qkv.weight")]  # a layer each
     if len(qkv) != model.depth:
         raise AssertionError(f"{len(qkv)} qkv weights for depth "
@@ -1225,8 +1462,20 @@ def grad_check(trainer, x, y) -> dict:
             raise AssertionError(f"{n}: zero gradient")
     del g_k, g_p
     torch.cuda.empty_cache()
-    return dict(loss_kernel=l_k, loss_plain=l_p, worst_grad_ratio=worst,
-                worst_grad_param=worst_name)
+    return dict(precision=trainer.precision.label(), loss_kernel=l_k,
+                loss_plain=l_p, worst_grad_ratio=worst,
+                worst_grad_param=worst_name, **rec)
+
+
+def loss_scale_record(trainer):
+    """The run's loss scale, its finite-step counter and the rollback
+    streak (None without loss scaling)."""
+    state = trainer.state
+    if state.loss_scale is None:
+        return None
+    return dict(loss_scale=state.loss_scale.item(),
+                good_steps=int(state.good_steps),
+                bad_streak=int(state.bad_streak))
 
 
 def profile_step(trainer, x, y) -> dict:
@@ -1248,11 +1497,14 @@ def profile_step(trainer, x, y) -> dict:
     return split
 
 
-def train(dev):
-    """GPT-2 124M, fp32, through ``Trainer(...).fit()``: the real config
-    of examples/04_gpt2_pretrain.py (seq 1024, global batch 8 in 4
+def train(dev, precision=None, fp32_first_loss=None):
+    """GPT-2 124M through ``Trainer(...).fit()``: the real config of
+    examples/04_gpt2_pretrain.py (seq 1024, global batch 8 in 4
     microbatches, adamw 3e-4 / wd 0.01, cosine restarts, clip 1.0,
-    accuracy), one epoch of 6 optimizer steps and 2 validation batches."""
+    accuracy), one epoch of 6 optimizer steps and 2 validation batches;
+    fp32, or ``precision="bf16"`` (the bf16 K1-K3, dynamic loss scale),
+    whose first microbatch loss is then held to the fp32 run's
+    ``fp32_first_loss`` from the same weights and batch."""
     import math
     import shutil
 
@@ -1277,13 +1529,21 @@ def train(dev):
         grad_accum_steps=c["accum"], optimizer="adamw", lr=3e-4,
         weight_decay=0.01, scheduler="CosineAnnealingWarmRestarts",
         grad_clip_norm=1.0, metric="accuracy", model_dir=TRAIN_DIR,
-        seed=SEED, device=dev)
+        seed=SEED, device=dev, precision=precision)
     model = trainer.model
-    log(f"train: Trainer({c['model']}) built in "
+    bf16 = trainer.precision.active
+    log(f"train: Trainer({c['model']}, precision={precision}) built in "
         f"{time.perf_counter() - t0:.2f}s")
     x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
     micro = c["batch_size"] // c["accum"]
     check = grad_check(trainer, x[:micro], y[:micro])
+    if fp32_first_loss is not None:
+        check["loss_fp32"] = fp32_first_loss
+        rel = abs(check["loss_kernel"] - fp32_first_loss) / fp32_first_loss
+        check["loss_vs_fp32_rel"] = rel
+        if not rel <= BF16_VS_FP32_RTOL:
+            raise AssertionError(f"first bf16 loss {check['loss_kernel']} "
+                                 f"vs fp32 {fp32_first_loss}")
     log("train: first microbatch, kernels vs plain " + json.dumps(check))
 
     torch.cuda.reset_peak_memory_stats()
@@ -1306,6 +1566,7 @@ def train(dev):
             "int8_matmul": 0, "unscale_sqsum": 0, "fused_adam": 0}
     if counts != want:
         raise AssertionError(f"training launches {counts}, expected {want}")
+    scale = loss_scale_record(trainer)
 
     # Optimizer-step time: CUDA events around steps on one batch (the
     # run above includes loading, validation and the weights' export).
@@ -1320,15 +1581,17 @@ def train(dev):
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / n_time
     profile = profile_step(trainer, x, y)
-    profile["bound_ms"] = attn_step_bounds(model.depth * c["accum"])
+    profile["bound_ms"] = attn_step_bounds(model.depth * c["accum"], bf16)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return dict(
+        precision=trainer.precision.label(),
         history={k: hist[k] for k in ("train_loss", "val_loss",
                                       "train_metric", "val_metric",
                                       "skipped_steps")},
         fit_s=fit_s, launches=counts, step_ms=step_ms,
         tokens_per_s=c["batch_size"] * c["seq_len"] / (step_ms / 1e3),
-        max_memory_allocated_bytes=peak, grad_check=check, profile=profile)
+        max_memory_allocated_bytes=peak, grad_check=check,
+        loss_scale=scale, profile=profile)
 
 
 # ------------------------------------------------------------- phase 6
@@ -1606,14 +1869,18 @@ DP_KERNEL_ATOL = 1e-6  # sharded plain vs K4/K5: the clip factor's rounding
 DP_SINGLE_ATOL = 1e-3  # one card vs sharded: Adam's first step is ~±lr
 # K1 to K5 by kernel name in the profiled step (K4 is two kernels).
 DP_MARKS = dict(ATTN_MARKS, **FUSED_MARKS)
+DP_BF16_STEPS = 3  # the bf16 run's optimizer steps
 
 
 def _snapshot(trainer):
     from ml_trainer_tpu_torch.ops.optimizers import tree_map
 
+    st = trainer.state
+    scale = (None if st.loss_scale is None
+             else (st.loss_scale.clone(), st.good_steps.clone()))
     return ({k: v.detach().clone()
              for k, v in trainer.model.state_dict().items()},
-            tree_map(lambda t: t.clone(), trainer.state.opt_state))
+            tree_map(lambda t: t.clone(), st.opt_state), scale)
 
 
 def _restore(trainer, snap):
@@ -1622,61 +1889,78 @@ def _restore(trainer, snap):
     trainer.model.load_state_dict(snap[0])
     trainer.state.opt_state = tree_map(lambda t: t.clone(), snap[1])
     trainer.state.step = 0
+    if snap[2] is not None:
+        trainer.state.loss_scale, trainer.state.good_steps = (
+            t.clone() for t in snap[2])
 
 
 def dp_step_check(trainer, single, x, y) -> dict:
-    """From one state and one batch: the single-card step, the sharded
-    step with the plain tail and the sharded step with K4/K5."""
+    """From one state and one batch: the single-card step (``single``,
+    or None to skip it), the sharded step with the plain tail and the
+    sharded step with K4/K5; with loss scaling, the scale after the
+    step must be equal on both sharded paths."""
     import torch
 
     snap = _snapshot(trainer)
     out = {}
-    for name, tr, fused in (("single", single, None),
-                            ("sharded_plain", trainer, False),
-                            ("sharded_kernels", trainer, True)):
+    runs = [("sharded_plain", trainer, False),
+            ("sharded_kernels", trainer, True)]
+    if single is not None:
+        runs.insert(0, ("single", single, None))
+    for name, tr, fused in runs:
         if fused is not None:
             tr.fused_adam = fused
         _restore(tr, snap)
         loss, _ = tr._train_step(x, y, 1.0)
         out[name] = (loss.item(), {k: v.detach().clone() for k, v in
-                                   tr.model.state_dict().items()})
+                                   tr.model.state_dict().items()},
+                     loss_scale_record(tr))
     trainer.fused_adam = True
     _restore(trainer, snap)
-    _restore(single, snap)
-    (l_1, p_1), (l_p, p_p), (l_k, p_k) = (out[k] for k in (
-        "single", "sharded_plain", "sharded_kernels"))
-    for what, a in (("single", l_1), ("sharded K4/K5", l_k)):
-        if not abs(a - l_p) <= DP_LOSS_RTOL * abs(l_p):
-            raise AssertionError(f"{what} loss {a} vs sharded plain {l_p}")
+    (l_p, p_p, s_p), (l_k, p_k, s_k) = (out[k] for k in (
+        "sharded_plain", "sharded_kernels"))
+    rec = {}
+    if single is not None:
+        _restore(single, snap)
+        l_1, p_1, _ = out["single"]
+        if not abs(l_1 - l_p) <= DP_LOSS_RTOL * abs(l_p):
+            raise AssertionError(f"single loss {l_1} vs sharded plain {l_p}")
+        d_single = max((p_k[k] - p_1[k]).abs().max().item() for k in p_p)
+        if not d_single <= DP_SINGLE_ATOL:
+            raise AssertionError(f"sharded vs single-card params differ by "
+                                 f"{d_single} > {DP_SINGLE_ATOL}")
+        rec = dict(loss_single=l_1, max_param_diff_sharded_vs_single=d_single)
+    if not abs(l_k - l_p) <= DP_LOSS_RTOL * abs(l_p):
+        raise AssertionError(f"sharded K4/K5 loss {l_k} vs sharded plain "
+                             f"{l_p}")
+    if s_k != s_p:
+        raise AssertionError(f"loss scale after the step: K4/K5 {s_k}, "
+                             f"plain {s_p}")
     d_kernel = max((p_k[k] - p_p[k]).abs().max().item() for k in p_p)
-    d_single = max((p_k[k] - p_1[k]).abs().max().item() for k in p_p)
     moved = max((p_k[k] - snap[0][k]).abs().max().item() for k in p_p)
     if not d_kernel <= DP_KERNEL_ATOL:
         raise AssertionError(f"sharded K4/K5 vs plain params differ by "
                              f"{d_kernel} > {DP_KERNEL_ATOL}")
-    if not d_single <= DP_SINGLE_ATOL:
-        raise AssertionError(f"sharded vs single-card params differ by "
-                             f"{d_single} > {DP_SINGLE_ATOL}")
     if not moved > 0:
         raise AssertionError("the step did not move the params")
     del out, snap
     torch.cuda.empty_cache()
-    return dict(loss_single=l_1, loss_sharded_plain=l_p,
-                loss_sharded_kernels=l_k,
+    return dict(rec, loss_sharded_plain=l_p, loss_sharded_kernels=l_k,
                 max_param_diff_kernels_vs_plain=d_kernel,
-                max_param_diff_sharded_vs_single=d_single,
-                max_param_move=moved)
+                max_param_move=moved, loss_scale_plain=s_p,
+                loss_scale_kernels=s_k)
 
 
-def dp_train(dev):
+def dp_train(dev, precision=None, steps=None):
     """GPT-2 124M through ``Trainer(..., is_parallel=True,
     mesh_shape={"data": 2}, device=[cuda, cuda], dp_update="sharded")``:
     examples/04_gpt2_pretrain.py's config (seq 1024, SyntheticTokens,
     global batch 8 = 4 rows per replica in 2 microbatches, cosine
     restarts, clip 1.0), except ``optimizer="adam"`` with
     ``weight_decay=0``: the one configuration the fused tail (K4/K5)
-    accepts, as in the JAX package.  6 optimizer steps, 2 validation
-    batches."""
+    accepts, as in the JAX package.  6 optimizer steps (or ``steps``),
+    2 validation batches; fp32 or ``precision="bf16"`` (the loss scale
+    folded into K4's denominator; no single-card comparison)."""
     import math
     import shutil
 
@@ -1686,7 +1970,7 @@ def dp_train(dev):
     from ml_trainer_tpu_torch.data import prefetch_to_device
     from ml_trainer_tpu_torch.parallel import comm_stats
 
-    c = DP
+    c = dict(DP, steps=steps or DP["steps"])
     shutil.rmtree(DP_DIR, ignore_errors=True)
     sets = (
         mt.SyntheticTokens(size=c["batch_size"] * c["steps"],
@@ -1700,7 +1984,7 @@ def dp_train(dev):
               grad_accum_steps=c["accum"], optimizer="adam", lr=3e-4,
               weight_decay=0.0, scheduler="CosineAnnealingWarmRestarts",
               grad_clip_norm=1.0, metric="accuracy", model_dir=DP_DIR,
-              seed=SEED)
+              seed=SEED, precision=precision)
     t0 = time.perf_counter()
     trainer = mt.Trainer(c["model"], is_parallel=True,
                          mesh_shape={"data": c["replicas"]},
@@ -1711,9 +1995,10 @@ def dp_train(dev):
         raise AssertionError("the data-parallel trainer did not take the "
                              "sharded step with the fused tail")
     model = trainer.model
-    single = mt.Trainer(model, device=dev, **kw)
-    log(f"dp: Trainer({c['model']}) x {c['replicas']} replicas built in "
-        f"{time.perf_counter() - t0:.2f}s")
+    bf16 = trainer.precision.active
+    single = None if bf16 else mt.Trainer(model, device=dev, **kw)
+    log(f"dp: Trainer({c['model']}, precision={precision}) x "
+        f"{c['replicas']} replicas built in {time.perf_counter() - t0:.2f}s")
     x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
     check = dp_step_check(trainer, single, x, y)
     log("dp: one state, one batch " + json.dumps(check))
@@ -1748,6 +2033,7 @@ def dp_train(dev):
             "fused_adam": n * c["steps"]}
     if counts != want:
         raise AssertionError(f"dp launches {counts}, expected {want}")
+    scale = loss_scale_record(trainer)
     comm = {"bytes": comm_stats.comm_bytes(), "calls": comm_stats.comm_calls()}
 
     n_time = 3
@@ -1775,9 +2061,11 @@ def dp_train(dev):
     split["bound_ms"] = {
         "unscale_sqsum": bound_ms(8.0 * elems, 2.0 * elems)[0],
         "fused_adam": bound_ms(32.0 * elems, 15.0 * elems)[0],
-        **attn_step_bounds(model.depth * n * c["accum"])}
+        **attn_step_bounds(model.depth * n * c["accum"], bf16)}
     shutil.rmtree(DP_DIR, ignore_errors=True)
     return dict(
+        precision=trainer.precision.label(), steps=c["steps"],
+        loss_scale=scale,
         history={k: hist[k] for k in ("train_loss", "val_loss",
                                       "train_metric", "val_metric",
                                       "skipped_steps")},
@@ -1800,14 +2088,19 @@ def dp_train(dev):
 # (registry name, model kwargs, optimizer config, data, global batch,
 # optimizer steps).  ResNet-18, ResNet-50 and BERT-base take examples 02
 # and 05's configs, MLModel example 01's; ViT-B/16 (no example) adamw.
+# BERT-base runs fp32 and bf16 (``precision="bf16"``: the bf16 K1-K3);
+# ViT-B/16 computes in bf16, its default, under the bf16 policy.
 SGD_02 = dict(optimizer="sgd", momentum=0.9, lr=0.01)
+BERT_05 = dict(optimizer="adamw", lr=2e-4, weight_decay=0.01)
 MODEL_RUNS = [
     ("resnet18", {"cifar_stem": True}, SGD_02, "cifar", 256, 6),
     ("resnet50", {}, SGD_02, "imagenet", 64, 4),
-    ("bert_base", {"right_padded": True},
-     dict(optimizer="adamw", lr=2e-4, weight_decay=0.01), "tokens", 32, 6),
-    ("vit_b16", {"dtype": "float32"},
-     dict(optimizer="adamw", lr=3e-4, weight_decay=0.1), "imagenet", 32, 4),
+    ("bert_base", {"right_padded": True}, BERT_05, "tokens", 32, 6),
+    ("bert_base", {"right_padded": True}, dict(BERT_05, precision="bf16"),
+     "tokens", 32, 6),
+    ("vit_b16", {},
+     dict(optimizer="adamw", lr=3e-4, weight_decay=0.1, precision="bf16"),
+     "imagenet", 32, 4),
     ("mlmodel", {}, dict(optimizer="sgd", momentum=0.9, lr=0.001,
                          scheduler="CosineAnnealingWarmRestarts"),
      "cifar", 32, 8),
@@ -1998,16 +2291,15 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
     import ml_trainer_tpu_torch as mt
     from ml_trainer_tpu_torch.data import prefetch_to_device
 
-    kw = dict(model_kw)
-    if kw.get("dtype") == "float32":
-        kw["dtype"] = torch.float32
     run_dir = f"{MODELS_DIR}/{name}"
     shutil.rmtree(run_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    model = mt.init_model(name, seed=SEED, device=dev, **kw)
+    model = mt.init_model(name, seed=SEED, device=dev, **model_kw)
     trainer = mt.Trainer(model, datasets=model_sets(data, batch, steps),
                          epochs=1, batch_size=batch, metric="accuracy",
                          model_dir=run_dir, seed=SEED, device=dev, **opt)
+    model = trainer.model  # rebuilt at the policy's compute dtype
+    bf16 = trainer.precision.active
     build_s = time.perf_counter() - t0
     x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
     check = None
@@ -2016,8 +2308,8 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
         log("models: resnet18 one step, card vs cpu " + json.dumps(check))
     elif name == "bert_base":
         check = grad_check(trainer, x, y)
-        log("models: bert_base first batch, kernels vs plain "
-            + json.dumps(check))
+        log(f"models: bert_base ({trainer.precision.label()}) first batch, "
+            "kernels vs plain " + json.dumps(check))
 
     torch.cuda.reset_peak_memory_stats()
     mt.reset_launch_counts()
@@ -2039,6 +2331,7 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
                     flash_bwd_dkv=model.depth * steps)
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    scale = loss_scale_record(trainer)
 
     n_time = 3
     trainer._train_step(x, y, 1.0)
@@ -2057,19 +2350,22 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
         b, s = x.shape
         attn = model.layers[0].attn
         heads, d = attn.num_heads, attn.head_dim
-        bounds = dict(bwd_bounds(b, heads, s, d, False, lens),
-                      flash_fwd=fwd_bounds(b, heads, s, d, False, lens))
+        bounds = dict(bwd_bounds(b, heads, s, d, False, lens, bf16),
+                      flash_fwd=fwd_bounds(b, heads, s, d, False, lens,
+                                           bf16=bf16))
         profile["bound_ms"] = {k: model.depth * v["bound_ms"]
                                for k, v in bounds.items()}
     else:
         for k in ("device_ms", "device_calls"):
             profile.pop(k)
     shutil.rmtree(run_dir, ignore_errors=True)
+    label, cdt = trainer.precision.label(), str(getattr(model, "dtype", None))
     del trainer, model, x, y
     torch.cuda.empty_cache()
     return dict(
-        model=name, config={**model_kw, **opt}, data=data, batch=batch,
-        steps=steps, build_s=build_s, fit_s=fit_s,
+        model=name, precision=label, compute_dtype=cdt,
+        config={**model_kw, **opt}, data=data, batch=batch,
+        steps=steps, build_s=build_s, fit_s=fit_s, loss_scale=scale,
         history={k: hist[k] for k in ("train_loss", "val_loss",
                                       "train_metric", "val_metric",
                                       "skipped_steps")},
@@ -2124,6 +2420,7 @@ def main(argv=None) -> int:
     flash_rows = check_flash(dev)
     paged_rows = check_paged(dev)
     bwd_rows, padded_err = check_flash_bwd(dev)
+    bf16_rows = check_flash_bf16(dev)
     int8_rows = check_int8(dev)
     check_tickets(dev)
     fused_rows = check_fused_adam(dev)
@@ -2142,40 +2439,51 @@ def main(argv=None) -> int:
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))
-        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            launches[kname] = ((launches[kname] or 0)
-                               + training["launches"][kname])
-        prof = training["profile"]
-        for kname in ATTN_MARKS:
-            step_split[kname].update(
-                train_step_device_ms=prof["device_ms"][kname],
-                step_bound_ms=prof["bound_ms"][kname])
+        training_bf16 = train(
+            dev, "bf16", fp32_first_loss=training["grad_check"]["loss_kernel"])
+        log(f"training bf16 on {smi}: " + json.dumps(training_bf16))
+        for run, pre in ((training, ""), (training_bf16, "bf16_")):
+            prof = run["profile"]
+            for kname in ATTN_MARKS:
+                launches[kname] = ((launches[kname] or 0)
+                                   + run["launches"][kname])
+                step_split[kname].update({
+                    f"{pre}train_step_device_ms": prof["device_ms"][kname],
+                    f"{pre}step_bound_ms": prof["bound_ms"][kname]})
     dp_split = None
     if args.only in (None, "dp"):
         dp = dp_train(dev)
         log(f"data-parallel training on {smi}: " + json.dumps(dp))
-        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                      "unscale_sqsum", "fused_adam"):
-            launches[kname] = (launches[kname] or 0) + dp["launches"][kname]
-        prof = dp["profile"]
-        dp_split = {k: dict(step_device_ms=prof["device_ms"][k],
-                            step_bound_ms=prof["bound_ms"][k])
-                    for k in ("unscale_sqsum", "fused_adam")}
-        for kname in ATTN_MARKS:
-            step_split[kname].update(
-                dp_step_device_ms=prof["device_ms"][kname],
-                step_bound_ms=prof["bound_ms"][kname])
+        dp_bf16 = dp_train(dev, "bf16", steps=DP_BF16_STEPS)
+        log(f"data-parallel training bf16 on {smi}: " + json.dumps(dp_bf16))
+        dp_split = {}
+        for run, pre in ((dp, ""), (dp_bf16, "bf16_")):
+            prof = run["profile"]
+            for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                          "unscale_sqsum", "fused_adam"):
+                launches[kname] = ((launches[kname] or 0)
+                                   + run["launches"][kname])
+            for k in ("unscale_sqsum", "fused_adam"):
+                dp_split.setdefault(k, {}).update({
+                    f"{pre}step_device_ms": prof["device_ms"][k],
+                    f"{pre}step_bound_ms": prof["bound_ms"][k]})
+            for kname in ATTN_MARKS:
+                step_split[kname].update({
+                    f"{pre}dp_step_device_ms": prof["device_ms"][kname],
+                    f"{pre}step_bound_ms": prof["bound_ms"][kname]})
     if args.only in (None, "models"):
         for run in models(dev):
-            log(f"model {run['model']} on {smi}: " + json.dumps(run))
+            log(f"model {run['model']} ({run['precision']}) on {smi}: "
+                + json.dumps(run))
             if run["model"] == "bert_base":
                 prof = run["profile"]
+                pre = "" if run["precision"] == "float32" else "bf16_"
                 for kname in ATTN_MARKS:
                     launches[kname] = ((launches[kname] or 0)
                                        + run["launches"][kname])
-                    step_split[kname].update(
-                        bert_step_device_ms=prof["device_ms"][kname],
-                        bert_step_bound_ms=prof["bound_ms"][kname])
+                    step_split[kname].update({
+                        f"{pre}bert_step_device_ms": prof["device_ms"][kname],
+                        f"{pre}bert_step_bound_ms": prof["bound_ms"][kname]})
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",
@@ -2187,6 +2495,14 @@ def main(argv=None) -> int:
             bert_rows[kname] = row
     bert_rows = {k: {key: r.get(key) for key in bert_keys}
                  for k, r in bert_rows.items()}
+    # K1-K3's bf16 rows (main and ``bert``), beside each kernel's entry.
+    bf16_keys = ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                 "library_ms", "library_device_ms", "max_abs_err",
+                 "gate_ratio")
+    bf16 = {}
+    for kname, row in bf16_rows:
+        bf16.setdefault(kname, {})[row["case"]] = {
+            key: row[key] for key in bf16_keys}
     bwd = {}
     for kname, row in bwd_rows:  # the main row is each kernel's first
         bwd.setdefault(kname, dict(row, max_abs_err=max(
@@ -2201,7 +2517,8 @@ def main(argv=None) -> int:
          **{k: main_flash[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "bound_fp32_core_ms", "device_ms", "library_device_ms")},
-         **step_split["flash_fwd"], "bert_row": bert_rows["flash_fwd"]},
+         **step_split["flash_fwd"], "bert_row": bert_rows["flash_fwd"],
+         "bf16_rows": bf16["flash_fwd"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/paged_attention.cu",
          "replaces": "ml_trainer_tpu/ops/kernels/paged_attention.py:152",
@@ -2219,7 +2536,8 @@ def main(argv=None) -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "bound_fp32_core_ms", "device_ms",
              "library_device_ms")},
-         **step_split[kname], "bert_row": bert_rows[kname]}
+         **step_split[kname], "bert_row": bert_rows[kname],
+         "bf16_rows": bf16[kname]}
         for kname, line in (("flash_bwd_dq", 385), ("flash_bwd_dkv", 403))
     ] + [
         {"name": "int8_matmul", "route": "cuda",

@@ -11,10 +11,11 @@ TPU's Pallas kernels on the serving, int8 decode and training paths are
 hand-written CUDA kernels here (``csrc/``), built with ``nvcc`` at first
 use; ``launch_counts()`` shows how often each one ran.  Data-parallel
 training runs its replicas on one device (``parallel/``,
-``create_mesh``).
+``create_mesh``).  ``Trainer(precision="bf16")`` trains in bf16 against
+float32 master parameters with dynamic loss scaling (``precision``).
 """
 
-from ml_trainer_tpu_torch import parallel
+from ml_trainer_tpu_torch import parallel, precision
 from ml_trainer_tpu_torch.convert import (
     adam_state_from_jax,
     init_gpt2,
@@ -57,6 +58,6 @@ __all__ = [
     "adam_state_from_jax", "create_mesh", "custom_pre_process_function",
     "generate", "get_model", "init_gpt2", "init_model", "int8_matmul",
     "launch_counts", "load_history", "load_model", "parallel",
-    "params_from_jax", "quant_from_jax", "quantize_per_channel",
+    "params_from_jax", "precision", "quant_from_jax", "quantize_per_channel",
     "quantize_tree", "reset_launch_counts", "resolve_device",
 ]

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), float32 in and out, on
-// the tensor cores: two kernels.
+// Flash-attention backward for Hopper (sm_90a), float32 or bfloat16 in
+// and out (the _f32 and _bf16 entry points), on the tensor cores: two
+// kernels.
 //
 // K2, flash_bwd_dq_kernel, replaces
 //   ml_trainer_tpu/ops/attention.py::_flash_bwd_dq_kernel
@@ -81,6 +82,17 @@
 // operands from shared memory, so the second product of each kernel
 // would need transposed copies of the streamed tiles: the next step,
 // with TMA.
+//
+// bfloat16 (flash_bwd_dq_bf16, flash_bwd_dkv_bf16: the JAX kernels' bf16
+// contract, q/k/v/dO in bf16, f32 math inside, lse and delta f32, dQ,
+// dK, dV in bf16).  The same kernels with bf16 streamed tiles in the ring
+// (rows padded to D + 8 elements: conflict-free fragment loads, 16-byte
+// cp.async copies of 8 elements) and bf16 owned operands, widened exactly
+// with __bfloat162float where a fragment is loaded or split.  All three
+// TF32 products are kept: they give what the float32 kernels give on the
+// widened values (a bf16 value's small part is 0).  P and dS stay f32,
+// as in the JAX kernels; each output is rounded once with
+// __float2bfloat16_rn, and K3 still writes exact zeros past kv_lens.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,55 +105,55 @@ constexpr int kRows = 64;     // rows a block owns (queries in K2, keys in K3)
 constexpr int kThreads = 128;  // four warps of 16 owned rows
 constexpr int kStream = 32;   // streamed rows per tile
 
-template <int D>
+template <int D, typename T>
 struct Tile {
   static constexpr int KS = D / 8;          // k-steps over the head dim
   static constexpr int NT = kStream / 8;    // 8-row tiles of a stream tile
-  static constexpr int LD = D + 4;          // padded shared row, floats
+  static constexpr int LD = D + Elem<T>::kPad;  // padded shared row
   // Owned fragment store: 2 operands x KS x {big, small} float4 a thread.
   static constexpr int OWN = 2 * KS * 2 * kThreads;
   static constexpr int STAGE = 2 * kStream * LD;  // two streamed operands
   // Bytes: store, 2 stages, and (K3) lse/delta for 2 stages.
-  static constexpr int SMEM = OWN * 16 + 2 * STAGE * 4 + 2 * 2 * kStream * 4;
+  static constexpr int SMEM =
+      OWN * 16 + 2 * STAGE * (int)sizeof(T) + 2 * 2 * kStream * 4;
 };
 
 // Copy rows [row0, row0 + kStream) of two [n, D] operands into a stage;
 // rows at or past n are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_stream(float* dst, const float* a,
-                                            const float* b, int row0, int n,
-                                            int tid) {
-  constexpr int C = D / 4, LD = Tile<D>::LD;
+template <int D, typename T>
+__device__ __forceinline__ void load_stream(T* dst, const T* a, const T* b,
+                                            int row0, int n, int tid) {
+  constexpr int V = Elem<T>::kVec, C = D / V, LD = Tile<D, T>::LD;
 #pragma unroll
   for (int idx = tid; idx < kStream * C; idx += kThreads) {
     const int r = idx / C, c = idx % C;
     const bool ok = row0 + r < n;
-    const size_t off = ok ? (size_t)(row0 + r) * D + c * 4 : 0;
-    cp_async16(dst + r * LD + c * 4, a + off, ok);
-    cp_async16(dst + kStream * LD + r * LD + c * 4, b + off, ok);
+    const size_t off = ok ? (size_t)(row0 + r) * D + c * V : 0;
+    cp_async16(dst + r * LD + c * V, a + off, ok);
+    cp_async16(dst + kStream * LD + r * LD + c * V, b + off, ok);
   }
 }
 
 // Split this thread's A fragments of rows [row0, row0 + 16) of two
 // [n, D] operands once, into the fragment store.
-template <int D>
-__device__ __forceinline__ void load_owned(float4* own, const float* a,
-                                           const float* b, int row0, int n,
+template <int D, typename T>
+__device__ __forceinline__ void load_owned(float4* own, const T* a,
+                                           const T* b, int row0, int n,
                                            int tid) {
-  constexpr int KS = Tile<D>::KS;
+  constexpr int KS = Tile<D, T>::KS;
   const int g = (tid % 32) / 4, t = tid % 4;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int o = 0; o < 2; ++o) {
-    const float* x = o == 0 ? a : b;
+    const T* x = o == 0 ? a : b;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const int c0 = kk * 8 + t, c1 = c0 + 4;
       const float v[4] = {
-          r0 < n ? x[(size_t)r0 * D + c0] : 0.f,
-          r1 < n ? x[(size_t)r1 * D + c0] : 0.f,
-          r0 < n ? x[(size_t)r0 * D + c1] : 0.f,
-          r1 < n ? x[(size_t)r1 * D + c1] : 0.f};
+          r0 < n ? to_f32(x[(size_t)r0 * D + c0]) : 0.f,
+          r1 < n ? to_f32(x[(size_t)r1 * D + c0]) : 0.f,
+          r0 < n ? to_f32(x[(size_t)r0 * D + c1]) : 0.f,
+          r1 < n ? to_f32(x[(size_t)r1 * D + c1]) : 0.f};
       FragA f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) split(v[i], f.big[i], f.small[i]);
@@ -158,7 +170,7 @@ __device__ __forceinline__ void load_owned(float4* own, const float* a,
 template <int D>
 __device__ __forceinline__ FragA owned_frag(const float4* own, int o, int kk,
                                             int tid) {
-  constexpr int KS = Tile<D>::KS;
+  constexpr int KS = D / 8;
   const float4 b = own[((o * KS + kk) * 2) * kThreads + tid];
   const float4 s = own[((o * KS + kk) * 2 + 1) * kThreads + tid];
   FragA f;
@@ -176,12 +188,13 @@ __device__ __forceinline__ FragA owned_frag(const float4* own, int o, int kk,
 // S = X . Y^T and dP = dX . dY^T over a stream tile: the owned operands
 // from the store (operands 0 and 1), the streamed rows Y, dY from shared
 // memory (B[k][n] = Y[n][k], read as rows 8n + g, columns t and t + 4).
-template <int D>
-__device__ __forceinline__ void scores(const float4* own, const float* ys,
-                                       const float* dys, int tid,
-                                       float (&s)[Tile<D>::NT][4],
-                                       float (&dp)[Tile<D>::NT][4]) {
-  constexpr int KS = Tile<D>::KS, NT = Tile<D>::NT, LD = Tile<D>::LD;
+template <int D, typename T>
+__device__ __forceinline__ void scores(const float4* own, const T* ys,
+                                       const T* dys, int tid,
+                                       float (&s)[Tile<D, T>::NT][4],
+                                       float (&dp)[Tile<D, T>::NT][4]) {
+  constexpr int KS = Tile<D, T>::KS, NT = Tile<D, T>::NT;
+  constexpr int LD = Tile<D, T>::LD;
   const int g = (tid % 32) / 4, t = tid % 4;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -193,46 +206,46 @@ __device__ __forceinline__ void scores(const float4* own, const float* ys,
     const FragA dx = owned_frag<D>(own, 1, kk, tid);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const float* yr = ys + (n * 8 + g) * LD + kk * 8 + t;
-      mma3(s[n], x, split_b(yr[0], yr[4]));
-      const float* dyr = dys + (n * 8 + g) * LD + kk * 8 + t;
-      mma3(dp[n], dx, split_b(dyr[0], dyr[4]));
+      const T* yr = ys + (n * 8 + g) * LD + kk * 8 + t;
+      mma3(s[n], x, split_b(to_f32(yr[0]), to_f32(yr[4])));
+      const T* dyr = dys + (n * 8 + g) * LD + kk * 8 + t;
+      mma3(dp[n], dx, split_b(to_f32(dyr[0]), to_f32(dyr[4])));
     }
   }
 }
 
 // acc += A . Z for the A fragment of 8-wide k-step j (a permuted
 // accumulator) and the streamed rows Z (B rows 2t and 2t + 1 of k-step j).
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[Tile<D>::KS][4],
-                                           const FragA& a, const float* zs,
+template <int D, typename T>
+__device__ __forceinline__ void accumulate(float (&acc)[Tile<D, T>::KS][4],
+                                           const FragA& a, const T* zs,
                                            int j, int tid) {
-  constexpr int KS = Tile<D>::KS, LD = Tile<D>::LD;
+  constexpr int KS = Tile<D, T>::KS, LD = Tile<D, T>::LD;
   const int g = (tid % 32) / 4, t = tid % 4;
-  const float* z0 = zs + (j * 8 + 2 * t) * LD + g;
+  const T* z0 = zs + (j * 8 + 2 * t) * LD + g;
 #pragma unroll
   for (int nd = 0; nd < KS; ++nd)
-    mma3(acc[nd], a, split_b(z0[nd * 8], z0[LD + nd * 8]));
+    mma3(acc[nd], a, split_b(to_f32(z0[nd * 8]), to_f32(z0[LD + nd * 8])));
 }
 
 // ------------------------------------------------------------------ K2
 // dQ.  Replaces _flash_bwd_dq_kernel (ops/attention.py:221-281).  Bound:
 // 3 x 2*D flops per kept pair.  One block per (b*h, q tile), the longest
 // causal tiles first; K/V tiles of 32 rows stream through the ring.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
                     const int* __restrict__ kv_lens,
-                    const float* __restrict__ dout,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int heads, int s_q, int s_k, int causal, float scale) {
-  using T = Tile<D>;
-  constexpr int KS = T::KS, NT = T::NT;
+  using L = Tile<D, T>;
+  constexpr int KS = L::KS, NT = L::NT;
   extern __shared__ float4 smem[];
   float4* own = smem;
-  float* ring = reinterpret_cast<float*>(smem + T::OWN);
+  T* ring = reinterpret_cast<T*>(smem + L::OWN);
 
   const int bh = blockIdx.x;
   const int q_start = (gridDim.y - 1 - blockIdx.y) * kRows;
@@ -241,8 +254,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = q_start + warp * 16;  // this warp's first query
 
   const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
-  const float* kb = k + k_off * D;
-  const float* vb = v + k_off * D;
+  const T* kb = k + k_off * D;
+  const T* vb = v + k_off * D;
 
   int live = s_k;  // keys at or past `live` are masked
   if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
@@ -252,9 +265,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) kv_end = min(kv_end, q_start + kRows);
   const int n_tiles = (kv_end + kStream - 1) / kStream;
 
-  if (n_tiles > 0) load_stream<D>(ring, kb, vb, 0, s_k, tid);
+  if (n_tiles > 0) load_stream<D, T>(ring, kb, vb, 0, s_k, tid);
   cp_async_commit();
-  load_owned<D>(own, q + q_off * D, dout + q_off * D, row0, s_q, tid);
+  load_owned<D, T>(own, q + q_off * D, dout + q_off * D, row0, s_q, tid);
   float row_lse[2], row_delta[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -271,18 +284,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int it = 0; it < n_tiles; ++it) {
     if (it + 1 < n_tiles)
-      load_stream<D>(ring + ((it + 1) & 1) * T::STAGE, kb, vb,
-                     (it + 1) * kStream, s_k, tid);
+      load_stream<D, T>(ring + ((it + 1) & 1) * L::STAGE, kb, vb,
+                        (it + 1) * kStream, s_k, tid);
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();
     const int kv0 = it * kStream;
     // Under the causal mask a tile past this warp's last query is dropped.
     if (!(causal && kv0 > row0 + 15)) {
-      const float* ks = ring + (it & 1) * T::STAGE;
-      const float* vs = ks + kStream * T::LD;
+      const T* ks = ring + (it & 1) * L::STAGE;
+      const T* vs = ks + kStream * L::LD;
       float s[NT][4], dp[NT][4];
-      scores<D>(own, ks, vs, tid, s, dp);
+      scores<D, T>(own, ks, vs, tid, s, dp);
       const bool edge = kv0 + kStream > live || (causal && kv0 + kStream - 1 > row0);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -295,20 +308,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           s[n][e] = p * (dp[n][e] - row_delta[h]) * scale;  // dS
         }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) accumulate<D>(acc, acc_as_a(s[j]), ks, j, tid);
+      for (int j = 0; j < NT; ++j)
+        accumulate<D, T>(acc, acc_as_a(s[j]), ks, j, tid);
     }
     __syncthreads();
   }
 
-  float* out = dq + q_off * D;
+  T* out = dq + q_off * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = row0 + g + 8 * h;
     if (qi >= s_q) continue;
 #pragma unroll
     for (int nd = 0; nd < KS; ++nd)
-      *reinterpret_cast<float2*>(out + (size_t)qi * D + nd * 8 + 2 * t) =
-          make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
+      store2(out + (size_t)qi * D + nd * 8 + 2 * t, acc[nd][2 * h],
+             acc[nd][2 * h + 1]);
   }
 }
 
@@ -317,22 +331,23 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Bound: 4 x 2*D flops per kept pair.  One block per (b*h, kv tile), the
 // longest causal tiles first; Q/dO tiles of 32 rows and their lse/delta
 // stream through the ring.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
                      const int* __restrict__ kv_lens,
-                     const float* __restrict__ dout,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int heads, int s_q, int s_k,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int heads, int s_q, int s_k,
                      int causal, float scale) {
-  using T = Tile<D>;
-  constexpr int KS = T::KS, NT = T::NT;
+  using L = Tile<D, T>;
+  constexpr int KS = L::KS, NT = L::NT;
   extern __shared__ float4 smem[];
   float4* own = smem;
-  float* ring = reinterpret_cast<float*>(smem + T::OWN);
-  float* rows = ring + 2 * T::STAGE;  // [stage][lse | delta][kStream]
+  T* ring = reinterpret_cast<T*>(smem + L::OWN);
+  // [stage][lse | delta][kStream], after the ring.
+  float* rows = reinterpret_cast<float*>(ring + 2 * L::STAGE);
 
   const int bh = blockIdx.x;
   const int kv_start = blockIdx.y * kRows;
@@ -341,8 +356,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = kv_start + warp * 16;  // this warp's first key
 
   const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
-  const float* qb = q + q_off * D;
-  const float* dob = dout + q_off * D;
+  const T* qb = q + q_off * D;
+  const T* dob = dout + q_off * D;
 
   int live = s_k;
   if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
@@ -355,7 +370,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto fetch = [&](int it) {
     const int q0 = q_begin + it * kStream;
-    load_stream<D>(ring + (it & 1) * T::STAGE, qb, dob, q0, s_q, tid);
+    load_stream<D, T>(ring + (it & 1) * L::STAGE, qb, dob, q0, s_q, tid);
     if (tid < 2 * kStream) {
       const int r = tid % kStream, which = tid / kStream;
       const bool ok = q0 + r < s_q;
@@ -365,7 +380,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
   if (n_tiles > 0) fetch(0);
   cp_async_commit();
-  load_owned<D>(own, k + k_off * D, v + k_off * D, row0, s_k, tid);
+  load_owned<D, T>(own, k + k_off * D, v + k_off * D, row0, s_k, tid);
 
   float dk_acc[KS][4], dv_acc[KS][4];
 #pragma unroll
@@ -382,12 +397,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // Under the causal mask a tile wholly before this warp's first key
     // is dropped.
     if (!(causal && q0 + kStream - 1 < row0)) {
-      const float* qs = ring + (it & 1) * T::STAGE;
-      const float* dos = qs + kStream * T::LD;
+      const T* qs = ring + (it & 1) * L::STAGE;
+      const T* dos = qs + kStream * L::LD;
       const float* lses = rows + (it & 1) * 2 * kStream;
       const float* deltas = lses + kStream;
       float s[NT][4], dp[NT][4];  // S^T and dP^T: keys x queries
-      scores<D>(own, qs, dos, tid, s, dp);
+      scores<D, T>(own, qs, dos, tid, s, dp);
       const bool edge = q0 + kStream > s_q || row0 + 16 > live ||
                         (causal && q0 < row0 + 15);
 #pragma unroll
@@ -404,15 +419,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        accumulate<D>(dv_acc, acc_as_a(s[j]), dos, j, tid);
-        accumulate<D>(dk_acc, acc_as_a(dp[j]), qs, j, tid);
+        accumulate<D, T>(dv_acc, acc_as_a(s[j]), dos, j, tid);
+        accumulate<D, T>(dk_acc, acc_as_a(dp[j]), qs, j, tid);
       }
     }
     __syncthreads();
   }
 
-  float* dk_out = dk + k_off * D;
-  float* dv_out = dv + k_off * D;
+  T* dk_out = dk + k_off * D;
+  T* dv_out = dv + k_off * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kj = row0 + g + 8 * h;
@@ -420,10 +435,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int nd = 0; nd < KS; ++nd) {
       const size_t at = (size_t)kj * D + nd * 8 + 2 * t;
-      *reinterpret_cast<float2*>(dk_out + at) =
-          make_float2(dk_acc[nd][2 * h], dk_acc[nd][2 * h + 1]);
-      *reinterpret_cast<float2*>(dv_out + at) =
-          make_float2(dv_acc[nd][2 * h], dv_acc[nd][2 * h + 1]);
+      store2(dk_out + at, dk_acc[nd][2 * h], dk_acc[nd][2 * h + 1]);
+      store2(dv_out + at, dv_acc[nd][2 * h], dv_acc[nd][2 * h + 1]);
     }
   }
 }
@@ -439,56 +452,101 @@ int launch(Kernel kernel, int bytes, dim3 grid, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int bwd_dq(const void* q, const void* k, const void* v, const void* kv_lens,
+           const void* dout, const void* lse, const void* delta, void* dq,
+           int bh, int heads, int s_q, int s_k, int d, int causal,
+           float scale, void* stream) {
+  const dim3 grid(bh, (s_q + kRows - 1) / kRows);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const int* lens = static_cast<const int*>(kv_lens);
+  const T* dot = static_cast<const T*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  const float* df = static_cast<const float*>(delta);
+  T* out = static_cast<T*>(dq);
+  if (d == 64)
+    return launch(flash_bwd_dq_kernel<64, T>, Tile<64, T>::SMEM, grid, st,
+                  qt, kt, vt, lens, dot, lf, df, out, heads, s_q, s_k,
+                  causal, scale);
+  if (d == 128)
+    return launch(flash_bwd_dq_kernel<128, T>, Tile<128, T>::SMEM, grid, st,
+                  qt, kt, vt, lens, dot, lf, df, out, heads, s_q, s_k,
+                  causal, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* kv_lens,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, int bh, int heads, int s_q, int s_k, int d, int causal,
+            float scale, void* stream) {
+  const dim3 grid(bh, (s_k + kRows - 1) / kRows);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const int* lens = static_cast<const int*>(kv_lens);
+  const T* dot = static_cast<const T*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  const float* df = static_cast<const float*>(delta);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  if (d == 64)
+    return launch(flash_bwd_dkv_kernel<64, T>, Tile<64, T>::SMEM, grid, st,
+                  qt, kt, vt, lens, dot, lf, df, dkt, dvt, heads, s_q, s_k,
+                  causal, scale);
+  if (d == 128)
+    return launch(flash_bwd_dkv_kernel<128, T>, Tile<128, T>::SMEM, grid,
+                  st, qt, kt, vt, lens, dot, lf, df, dkt, dvt, heads, s_q,
+                  s_k, causal, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
+// q, k, v, kv_lens|NULL, dout, lse, delta, dq, bh, heads, s_q, s_k, d,
+// causal, scale, stream
 extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                 const void* kv_lens, const void* dout,
                                 const void* lse, const void* delta, void* dq,
                                 int bh, int heads, int s_q, int s_k, int d,
                                 int causal, float scale, void* stream) {
-  const dim3 grid(bh, (s_q + kRows - 1) / kRows);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int* lens = static_cast<const int*>(kv_lens);
-  const float* dof = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  const float* df = static_cast<const float*>(delta);
-  float* out = static_cast<float*>(dq);
-  if (d == 64)
-    return launch(flash_bwd_dq_kernel<64>, Tile<64>::SMEM, grid, st, qf, kf,
-                  vf, lens, dof, lf, df, out, heads, s_q, s_k, causal, scale);
-  if (d == 128)
-    return launch(flash_bwd_dq_kernel<128>, Tile<128>::SMEM, grid, st, qf, kf,
-                  vf, lens, dof, lf, df, out, heads, s_q, s_k, causal, scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_dq<float>(q, k, v, kv_lens, dout, lse, delta, dq, bh, heads,
+                       s_q, s_k, d, causal, scale, stream);
 }
 
+extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                                 const void* kv_lens, const void* dout,
+                                 const void* lse, const void* delta,
+                                 void* dq, int bh, int heads, int s_q,
+                                 int s_k, int d, int causal, float scale,
+                                 void* stream) {
+  return bwd_dq<__nv_bfloat16>(q, k, v, kv_lens, dout, lse, delta, dq, bh,
+                               heads, s_q, s_k, d, causal, scale, stream);
+}
+
+// q, k, v, kv_lens|NULL, dout, lse, delta, dk, dv, bh, heads, s_q, s_k, d,
+// causal, scale, stream
 extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                  const void* kv_lens, const void* dout,
                                  const void* lse, const void* delta, void* dk,
                                  void* dv, int bh, int heads, int s_q,
                                  int s_k, int d, int causal, float scale,
                                  void* stream) {
-  const dim3 grid(bh, (s_k + kRows - 1) / kRows);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int* lens = static_cast<const int*>(kv_lens);
-  const float* dof = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  const float* df = static_cast<const float*>(delta);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  if (d == 64)
-    return launch(flash_bwd_dkv_kernel<64>, Tile<64>::SMEM, grid, st, qf, kf,
-                  vf, lens, dof, lf, df, dkf, dvf, heads, s_q, s_k, causal,
-                  scale);
-  if (d == 128)
-    return launch(flash_bwd_dkv_kernel<128>, Tile<128>::SMEM, grid, st, qf,
-                  kf, vf, lens, dof, lf, df, dkf, dvf, heads, s_q, s_k,
-                  causal, scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_dkv<float>(q, k, v, kv_lens, dout, lse, delta, dk, dv, bh,
+                        heads, s_q, s_k, d, causal, scale, stream);
+}
+
+extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
+                                  const void* v, const void* kv_lens,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dk, void* dv,
+                                  int bh, int heads, int s_q, int s_k, int d,
+                                  int causal, float scale, void* stream) {
+  return bwd_dkv<__nv_bfloat16>(q, k, v, kv_lens, dout, lse, delta, dk, dv,
+                                bh, heads, s_q, s_k, d, causal, scale,
+                                stream);
 }

@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), float32 in and out, on the
-// tensor cores.
+// Flash-attention forward for Hopper (sm_90a), float32 or bfloat16 in and
+// out (flash_fwd_f32, flash_fwd_bf16), on the tensor cores.
 //
 // Replaces: ml_trainer_tpu/ops/attention.py::_flash_kernel, launched by
 // _flash_forward (pl.pallas_call at ops/attention.py:177).
@@ -66,6 +66,17 @@
 // set the time; SDPA 0.141 ms; the fp32 CUDA-core kernel this replaces
 // took 0.2375 ms there).  ptxas: 123 registers at D=64 (three blocks per
 // SM), 171 at D=128, no spills.
+//
+// bfloat16 (flash_fwd_bf16, the JAX kernel's bf16 contract: f32 math
+// inside, O in bf16, lse f32).  The same kernel with bf16 K/V tiles in
+// the ring (rows padded to D + 8 elements, 16-byte cp.async copies of 8
+// elements) and bf16 q: every element is widened exactly with
+// __bfloat162float where a fragment is loaded (q then times scale with
+// __fmul_rn, as the JAX kernel does in f32), so all three TF32 products
+// are kept and give what the float32 kernel gives on the widened values;
+// O is rounded once with __float2bfloat16_rn.  P stays float32, as in the
+// JAX kernel.  Half the K/V bytes; the products are the float32
+// kernel's, so at [2, 12, 1024, 64] it is bound by the same operations.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -80,51 +91,50 @@ constexpr int kRows = 64;      // query rows a block owns
 constexpr int kThreads = 128;  // four warps of 16 query rows
 constexpr int kTile = 32;      // keys per streamed K/V tile
 
-template <int D>
+template <int D, typename T>
 struct Fwd {
   static constexpr int KS = D / 8;      // k-steps of q.k^T, n-tiles of p.v
   static constexpr int NT = kTile / 8;  // n-tiles of q.k^T, k-steps of p.v
-  static constexpr int LD = D + 4;      // padded shared row, floats
+  static constexpr int LD = D + Elem<T>::kPad;  // padded shared row
   // q's fragment store: KS x {big, small} float4 a thread.
   static constexpr int OWN = KS * 2 * kThreads;
   static constexpr int STAGE = 2 * kTile * LD;  // a K and a V tile
-  static constexpr int SMEM = OWN * 16 + 2 * STAGE * 4;  // bytes
+  static constexpr int SMEM = OWN * 16 + 2 * STAGE * (int)sizeof(T);
 };
 
 // Copy keys [row0, row0 + kTile) of K and V into a stage; keys at or past
 // n are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_kv(float* dst, const float* k,
-                                        const float* v, int row0, int n,
-                                        int tid) {
-  constexpr int C = D / 4, LD = Fwd<D>::LD;
+template <int D, typename T>
+__device__ __forceinline__ void load_kv(T* dst, const T* k, const T* v,
+                                        int row0, int n, int tid) {
+  constexpr int V = Elem<T>::kVec, C = D / V, LD = Fwd<D, T>::LD;
 #pragma unroll
   for (int i = 0; i < kTile * C / kThreads; ++i) {
     const int idx = tid + i * kThreads;
     const int r = idx / C, c = idx % C;
     const bool ok = row0 + r < n;
-    const size_t off = ok ? (size_t)(row0 + r) * D + c * 4 : 0;
-    cp_async16(dst + r * LD + c * 4, k + off, ok);
-    cp_async16(dst + kTile * LD + r * LD + c * 4, v + off, ok);
+    const size_t off = ok ? (size_t)(row0 + r) * D + c * V : 0;
+    cp_async16(dst + r * LD + c * V, k + off, ok);
+    cp_async16(dst + kTile * LD + r * LD + c * V, v + off, ok);
   }
 }
 
 // Split this thread's A fragments of (q * scale), rows [row0, row0 + 16)
 // (zero at or past n), once, into the fragment store.
-template <int D>
-__device__ __forceinline__ void load_q(float4* own, const float* q, int row0,
+template <int D, typename T>
+__device__ __forceinline__ void load_q(float4* own, const T* q, int row0,
                                        int n, float scale, int tid) {
-  constexpr int KS = Fwd<D>::KS;
+  constexpr int KS = Fwd<D, T>::KS;
   const int g = (tid % 32) / 4, t = tid % 4;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const int c0 = kk * 8 + t, c1 = c0 + 4;
     const float x[4] = {
-        r0 < n ? __fmul_rn(q[(size_t)r0 * D + c0], scale) : 0.f,
-        r1 < n ? __fmul_rn(q[(size_t)r1 * D + c0], scale) : 0.f,
-        r0 < n ? __fmul_rn(q[(size_t)r0 * D + c1], scale) : 0.f,
-        r1 < n ? __fmul_rn(q[(size_t)r1 * D + c1], scale) : 0.f};
+        r0 < n ? __fmul_rn(to_f32(q[(size_t)r0 * D + c0]), scale) : 0.f,
+        r1 < n ? __fmul_rn(to_f32(q[(size_t)r1 * D + c0]), scale) : 0.f,
+        r0 < n ? __fmul_rn(to_f32(q[(size_t)r0 * D + c1]), scale) : 0.f,
+        r1 < n ? __fmul_rn(to_f32(q[(size_t)r1 * D + c1]), scale) : 0.f};
     FragA f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) split(x[i], f.big[i], f.small[i]);
@@ -152,17 +162,17 @@ __device__ __forceinline__ FragA q_frag(const float4* own, int kk, int tid) {
   return f;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ kv_lens,
-                 float* __restrict__ out, float* __restrict__ lse,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ kv_lens,
+                 T* __restrict__ out, float* __restrict__ lse,
                  int heads, int s_q, int s_k, int causal, float scale) {
-  using F = Fwd<D>;
+  using F = Fwd<D, T>;
   constexpr int KS = F::KS, NT = F::NT, LD = F::LD;
   extern __shared__ float4 smem[];
   float4* own = smem;
-  float* ring = reinterpret_cast<float*>(smem + F::OWN);
+  T* ring = reinterpret_cast<T*>(smem + F::OWN);
 
   const int bh = blockIdx.x;
   const int q_start = (gridDim.y - 1 - blockIdx.y) * kRows;
@@ -171,8 +181,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = q_start + warp * 16;  // this warp's first query
 
   const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
-  const float* kb = k + k_off * D;
-  const float* vb = v + k_off * D;
+  const T* kb = k + k_off * D;
+  const T* vb = v + k_off * D;
 
   int live = s_k;  // keys at or past `live` are masked
   if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
@@ -182,9 +192,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) kv_end = min(kv_end, q_start + kRows);
   const int n_tiles = (kv_end + kTile - 1) / kTile;
 
-  if (n_tiles > 0) load_kv<D>(ring, kb, vb, 0, s_k, tid);
+  if (n_tiles > 0) load_kv<D, T>(ring, kb, vb, 0, s_k, tid);
   cp_async_commit();
-  load_q<D>(own, q + q_off * D, row0, s_q, scale, tid);
+  load_q<D, T>(own, q + q_off * D, row0, s_q, scale, tid);
 
   // Rows g (h = 0) and g + 8 (h = 1) of this warp's 16.
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
@@ -196,16 +206,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int it = 0; it < n_tiles; ++it) {
     if (it + 1 < n_tiles)
-      load_kv<D>(ring + ((it + 1) & 1) * F::STAGE, kb, vb, (it + 1) * kTile,
-                 s_k, tid);
+      load_kv<D, T>(ring + ((it + 1) & 1) * F::STAGE, kb, vb,
+                    (it + 1) * kTile, s_k, tid);
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();
     const int kv0 = it * kTile;
     // Under the causal mask a tile past this warp's last query is dropped.
     if (!(causal && kv0 > row0 + 15)) {
-      const float* ks = ring + (it & 1) * F::STAGE;
-      const float* vs = ks + kTile * LD;
+      const T* ks = ring + (it & 1) * F::STAGE;
+      const T* vs = ks + kTile * LD;
       // S = (q * scale) . K^T: B[k][n] = K[n][k], read as key rows 8n + g,
       // columns t and t + 4.
       float s[NT][4];
@@ -218,8 +228,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const FragA a = q_frag(own, kk, tid);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          const float* kr = ks + (n * 8 + g) * LD + kk * 8 + t;
-          mma3(s[n], a, split_b(kr[0], kr[4]));
+          const T* kr = ks + (n * 8 + g) * LD + kk * 8 + t;
+          mma3(s[n], a, split_b(to_f32(kr[0]), to_f32(kr[4])));
         }
       }
       if (kv0 + kTile > live || (causal && kv0 + kTile - 1 > row0)) {
@@ -276,41 +286,63 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const FragA p = acc_as_a(s[j]);
-        const float* v0 = vs + (j * 8 + 2 * t) * LD + g;
+        const T* v0 = vs + (j * 8 + 2 * t) * LD + g;
 #pragma unroll
         for (int nd = 0; nd < KS; ++nd)
-          mma3(o[nd], p, split_b(v0[nd * 8], v0[LD + nd * 8]));
+          mma3(o[nd], p, split_b(to_f32(v0[nd * 8]), to_f32(v0[LD + nd * 8])));
       }
     }
     __syncthreads();
   }
 
-  float* ob = out + q_off * D;
+  T* ob = out + q_off * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = row0 + g + 8 * h;
     if (qi >= s_q) continue;
 #pragma unroll
     for (int nd = 0; nd < KS; ++nd)
-      *reinterpret_cast<float2*>(ob + (size_t)qi * D + nd * 8 + 2 * t) =
-          make_float2(o[nd][2 * h] / l[h], o[nd][2 * h + 1] / l[h]);
+      store2(ob + (size_t)qi * D + nd * 8 + 2 * t, o[nd][2 * h] / l[h],
+             o[nd][2 * h + 1] / l[h]);
     if (t == 0) lse[q_off + qi] = m[h] + logf(l[h]);
   }
 }
 
 // Allow the kernel its dynamic shared memory (above 48 KB at D=128), then
 // launch.
-template <int D>
-int launch(dim3 grid, cudaStream_t st, const float* q, const float* k,
-           const float* v, const int* lens, float* out, float* lse,
-           int heads, int s_q, int s_k, int causal, float scale) {
+template <int D, typename T>
+int launch(dim3 grid, cudaStream_t st, const T* q, const T* k, const T* v,
+           const int* lens, T* out, float* lse, int heads, int s_q, int s_k,
+           int causal, float scale) {
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Fwd<D>::SMEM);
+      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Fwd<D, T>::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_kernel<D><<<grid, kThreads, Fwd<D>::SMEM, st>>>(
+  flash_fwd_kernel<D, T><<<grid, kThreads, Fwd<D, T>::SMEM, st>>>(
       q, k, v, lens, out, lse, heads, s_q, s_k, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int flash_fwd(const void* q, const void* k, const void* v,
+              const void* kv_lens, void* out, void* lse, int bh, int heads,
+              int s_q, int s_k, int d, int causal, float scale,
+              void* stream) {
+  const dim3 grid(bh, (s_q + kRows - 1) / kRows);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const int* lens = static_cast<const int*>(kv_lens);
+  T* ot = static_cast<T*>(out);
+  float* lf = static_cast<float*>(lse);
+  if (d == 64)
+    return launch<64, T>(grid, st, qt, kt, vt, lens, ot, lf, heads, s_q,
+                         s_k, causal, scale);
+  if (d == 128)
+    return launch<128, T>(grid, st, qt, kt, vt, lens, ot, lf, heads, s_q,
+                          s_k, causal, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -319,19 +351,14 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              const void* kv_lens, void* out, void* lse,
                              int bh, int heads, int s_q, int s_k, int d,
                              int causal, float scale, void* stream) {
-  const dim3 grid(bh, (s_q + kRows - 1) / kRows);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int* lens = static_cast<const int*>(kv_lens);
-  float* of = static_cast<float*>(out);
-  float* lf = static_cast<float*>(lse);
-  if (d == 64)
-    return launch<64>(grid, st, qf, kf, vf, lens, of, lf, heads, s_q, s_k,
-                      causal, scale);
-  if (d == 128)
-    return launch<128>(grid, st, qf, kf, vf, lens, of, lf, heads, s_q, s_k,
-                       causal, scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return flash_fwd<float>(q, k, v, kv_lens, out, lse, bh, heads, s_q, s_k,
+                          d, causal, scale, stream);
+}
+
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                              const void* kv_lens, void* out, void* lse,
+                              int bh, int heads, int s_q, int s_k, int d,
+                              int causal, float scale, void* stream) {
+  return flash_fwd<__nv_bfloat16>(q, k, v, kv_lens, out, lse, bh, heads,
+                                  s_q, s_k, d, causal, scale, stream);
 }

@@ -8,6 +8,17 @@
 // small.small term and the rounding of small leave ~fp32 accuracy, where
 // one TF32 product (10 mantissa bits) does not.
 //
+// bfloat16 operands.  Any bf16 value is exact in float32 and in TF32
+// (8 significant bits), so its split is (value, 0) and the three
+// products give exactly what they give for the same values stored as
+// float32: the kernels stage bf16 tiles raw (half the bytes of a float32
+// tile), widen each element with __bfloat162float where a fragment is
+// loaded, and round each output once with __float2bfloat16_rn.  `Elem`
+// holds what differs between the two element types: the elements one
+// 16-byte cp.async moves, and the padding of a shared row that keeps
+// the fragment loads free of bank conflicts (4 floats, 8 bf16: a row of
+// D + pad elements starts 4 words further along each time).
+//
 // Fragment layouts of m16n8k8 (g = lane / 4, t = lane % 4):
 //   A (16 x 8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
 //   B (8 x 8):  b0 = B[t][g], b1 = B[t+4][g]
@@ -15,8 +26,38 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int kVec = 4;  // elements per 16-byte copy
+  static constexpr int kPad = 4;  // padding of a shared row, elements
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static constexpr int kPad = 8;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Two adjacent outputs, rounded once to the output type.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  __nv_bfloat162 v;
+  v.x = __float2bfloat16_rn(a);
+  v.y = __float2bfloat16_rn(b);
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
 
 // cvt.rna.tf32.f32's rounding (to nearest on the 10 kept mantissa bits,
 // ties away from zero) as two integer ops, bit for bit the same on finite
@@ -76,7 +117,7 @@ __device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
   return a;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),

@@ -14,6 +14,11 @@ flash kernels fuse (K1 forward, K2/K3 backward), so a padded batch keeps
 the kernel.  The mask still goes along for the plain path.  A mask with
 holes under ``right_padded=True`` would be mis-masked on the kernel path,
 as in the JAX package, so the default is False.
+
+``dtype`` is the compute dtype (``models/layers.py``): the embedding sum
+is cast to it and the encoder computes in it; the ``pooler`` and the
+``classifier`` compute in float32, as in the JAX package.  Parameters
+stay float32.
 """
 
 from __future__ import annotations
@@ -26,8 +31,12 @@ from torch import nn
 from ml_trainer_tpu_torch.device import resolve_device
 from ml_trainer_tpu_torch.models.layers import (
     LN_EPS,
+    Dense,
+    LayerNorm,
     TransformerBlock,
+    _cast,
     _refuse_unported,
+    compute_dtype,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
 
@@ -47,24 +56,32 @@ class BertEncoder(nn.Module):
             raise NotImplementedError(
                 "remat=True is not ported yet; see ROADMAP.md Queue A")
         device = resolve_device(device)
-        kw = dict(device=device, dtype=dtype)
+        self.dtype = dtype
+        cdt = compute_dtype(dtype)
+        # The pooler and classifier compute in float32 (flax's
+        # Dense(dtype=float32)); with no policy they cast nothing.
+        head = None if cdt is None else torch.float32
+        kw = dict(device=device, dtype=cdt)
         self.depth = depth
         self.num_classes = num_classes
         self.pad_token_id = pad_token_id
         self.right_padded = right_padded
         # 'auto' | 'xla' | 'flash', as in GPT2.
         self.attention_impl = attention_impl
-        self.tok_embed = nn.Embedding(vocab_size, embed_dim, **kw)
-        self.pos_embed = nn.Embedding(max_len, embed_dim, **kw)
-        self.seg_embed = nn.Embedding(type_vocab_size, embed_dim, **kw)
-        self.embed_ln = nn.LayerNorm(embed_dim, eps=LN_EPS, **kw)
+        self.tok_embed = nn.Embedding(vocab_size, embed_dim, device=device)
+        self.pos_embed = nn.Embedding(max_len, embed_dim, device=device)
+        self.seg_embed = nn.Embedding(type_vocab_size, embed_dim,
+                                      device=device)
+        self.embed_ln = LayerNorm(embed_dim, eps=LN_EPS, **kw)
         self.layers = nn.ModuleList(
             TransformerBlock(embed_dim, num_heads, mlp_dim, post_norm=True,
                              **kw)
             for _ in range(depth))
         if num_classes is not None:
-            self.pooler = nn.Linear(embed_dim, embed_dim, **kw)
-            self.classifier = nn.Linear(embed_dim, num_classes, **kw)
+            self.pooler = Dense(embed_dim, embed_dim, device=device,
+                                dtype=head)
+            self.classifier = Dense(embed_dim, num_classes, device=device,
+                                    dtype=head)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         s = input_ids.shape[1]
@@ -73,8 +90,8 @@ class BertEncoder(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         pos_ids = torch.arange(s, device=input_ids.device)[None, :]
-        x = (self.tok_embed(input_ids) + self.pos_embed(pos_ids)
-             + self.seg_embed(token_type_ids))
+        x = _cast(self.tok_embed(input_ids) + self.pos_embed(pos_ids)
+                  + self.seg_embed(token_type_ids), compute_dtype(self.dtype))
         x = self.embed_ln(x)
         mask = attention_mask[:, None, None, :].to(torch.bool)
         kv_lens = None

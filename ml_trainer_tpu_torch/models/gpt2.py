@@ -1,7 +1,10 @@
 """GPT-2 causal LM in PyTorch: the JAX package's ``models/gpt2.py``.
 
 Pre-LN decoder stack, learned position embeddings, weight-tied LM head
-computed in fp32 (logits = h @ tok_embed^T).  ``forward`` runs a plain
+computed in fp32 (logits = h @ tok_embed^T).  ``dtype`` is the compute
+dtype (``models/layers.py``): the embedding sum is cast to it, the blocks
+and ``ln_final`` compute in it, the parameters stay float32.  Serving
+(the decode caches) is float32 only.  ``forward`` runs a plain
 full forward with ``cache=None``, and the decode semantics of the
 reference's ``decode=True`` mode with a ``ContiguousKVCache`` or
 ``PagedKVCache`` (models/layers.py), whose per-row positions also place
@@ -23,9 +26,12 @@ from ml_trainer_tpu_torch.device import resolve_device
 from ml_trainer_tpu_torch.models.layers import (
     LN_EPS,
     ContiguousKVCache,
+    LayerNorm,
     PagedKVCache,
     TransformerBlock,
+    _cast,
     _refuse_unported,
+    compute_dtype,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
 
@@ -54,17 +60,18 @@ class GPT2(nn.Module):
         # 'auto' | 'xla' | 'flash' for the full (prefill) attention; the
         # plain path is 'xla' (the JAX package's name).
         self.attention_impl = attention_impl
-        self.tok_embed = nn.Embedding(vocab_size, embed_dim, device=device,
-                                      dtype=dtype)
+        self.dtype = dtype
+        cdt = compute_dtype(dtype)
+        self.tok_embed = nn.Embedding(vocab_size, embed_dim, device=device)
         self.pos_embed = nn.Parameter(
-            torch.zeros(1, max_len, embed_dim, device=device, dtype=dtype))
+            torch.zeros(1, max_len, embed_dim, device=device))
         self.blocks = nn.ModuleList(
             TransformerBlock(embed_dim, num_heads, 4 * embed_dim, causal=True,
-                             device=device, dtype=dtype)
+                             device=device, dtype=cdt)
             for _ in range(depth)
         )
-        self.ln_final = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device,
-                                     dtype=dtype)
+        self.ln_final = LayerNorm(embed_dim, eps=LN_EPS, device=device,
+                                  dtype=cdt)
 
     @property
     def device(self) -> torch.device:
@@ -77,23 +84,33 @@ class GPT2(nn.Module):
         s = input_ids.shape[1]
         x = self.tok_embed(input_ids)
         pos = self.pos_embed[0]
+        cdt = compute_dtype(self.dtype)
         if pos_start is None:
-            return x + pos[:s][None]
+            return _cast(x + pos[:s][None], cdt)
         rows = pos_start[:, None] + torch.arange(s, device=x.device)[None, :]
-        return x + pos[torch.clamp(rows, 0, self.max_len - 1)]
+        return _cast(x + pos[torch.clamp(rows, 0, self.max_len - 1)], cdt)
 
     def _tied_head(self, x):
         x = self.ln_final(x)
         return x.float() @ self.tok_embed.weight.float().T
 
+    def _refuse_bf16_serving(self) -> None:
+        if compute_dtype(self.dtype) is not None:
+            raise NotImplementedError(
+                f"serving at dtype={self.dtype} is not ported yet (bf16 "
+                "prefill through K1, K6 over bf16 pools, K7 with bf16 "
+                "activations); see ROADMAP.md Queue A")
+
     def new_cache(self, batch: int, max_len: Optional[int] = None
                   ) -> ContiguousKVCache:
+        self._refuse_bf16_serving()
         return ContiguousKVCache(
             self.depth, batch, self.num_heads, max_len or self.max_len,
             self.head_dim, dtype=self.pos_embed.dtype, device=self.device)
 
     def new_paged_cache(self, batch: int, num_pages: int, page_size: int,
                         paged_kernel: bool = False) -> PagedKVCache:
+        self._refuse_bf16_serving()
         return PagedKVCache(
             self.depth, num_pages, self.num_heads, page_size, self.head_dim,
             batch, self.max_len, paged_kernel=paged_kernel,
@@ -111,6 +128,8 @@ class GPT2(nn.Module):
             x = self._embed_input(input_ids)
         else:
             x = self._embed_input(input_ids, pos_start=cache.index)
+        if quant is not None:
+            self._refuse_bf16_serving()
         q_blocks = None if quant is None else quant["blocks"]
         for i, block in enumerate(self.blocks):
             x = block(x, cache, i, attention_impl=self.attention_impl,

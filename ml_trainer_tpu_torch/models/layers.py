@@ -30,6 +30,16 @@ fc_out as ``int8_matmul(x, w, scale) + b`` instead of its fp32
 ``nn.Linear``; ``quant_impl="reference"`` takes the plain version on
 either device.
 
+Compute dtype.  A module's ``dtype`` is the dtype it COMPUTES in, as
+flax's ``dtype=``; its parameters stay float32 (flax's ``param_dtype``).
+``Dense`` casts its input, weight and bias to ``dtype``; ``LayerNorm``
+normalises in float32 and returns ``dtype``, as flax's
+``nn.LayerNorm(dtype=...)``.  ``dtype=None`` casts nothing and computes
+in the dtype the tensors already have: the pre-policy float32 program,
+bit for bit (and float64 after ``model.to(torch.float64)``).  The model
+families map their public ``dtype`` knob through ``compute_dtype``:
+float32 -> None.
+
 Convolutions and BatchNorm (the image families).  ``Conv`` is flax's
 ``nn.Conv`` over an NCHW-shaped tensor, with flax's "SAME" padding for
 any stride (the odd pixel of an uneven split goes to the high side, which
@@ -37,12 +47,15 @@ any stride (the odd pixel of an uneven split goes to the high side, which
 ``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9)``: batch mean and
 BIASED batch variance in train mode, running statistics updated as
 ``r = 0.9 r + 0.1 batch`` (torch's ``BatchNorm2d`` updates the variance
-with the unbiased one), epsilon 1e-5.
+with the unbiased one), epsilon 1e-5.  With a compute dtype, ``Conv``
+casts like ``Dense`` and ``BatchNorm`` normalises in float32 (batch
+statistics included) and returns ``dtype``; the running statistics stay
+float32.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -58,6 +71,50 @@ LN_EPS = 1e-6
 # image families pass it (the weight of the old running value).
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
+
+
+def compute_dtype(dtype: torch.dtype) -> Optional[torch.dtype]:
+    """A family's ``dtype`` knob as its layers' compute dtype: None (cast
+    nothing, the pre-policy program) for float32."""
+    return None if dtype == torch.float32 else dtype
+
+
+def _cast(t, dtype: Optional[torch.dtype]):
+    return t if dtype is None or t is None else t.to(dtype)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)`` as an ``nn.Linear``: float32 weight
+    [out, in] and bias; input, weight and bias cast to ``dtype`` for the
+    product (None: no cast)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(*(_cast(t, self.dtype)
+                          for t in (x, self.weight, self.bias)))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=...)``: float32 scale and bias; with a
+    compute dtype the statistics and the normalisation run in float32
+    and the result is cast to ``dtype`` (None: no cast)."""
+
+    def __init__(self, features: int, eps: float = 1e-6, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(features, eps=eps, device=device)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype is None:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(self.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +206,7 @@ class MultiHeadAttention(nn.Module):
     """Self-attention over [B, S, E] with a fused QKV projection."""
 
     def __init__(self, embed_dim: int, num_heads: int, causal: bool = False,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
@@ -157,9 +214,8 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.causal = causal
-        self.qkv = nn.Linear(embed_dim, 3 * embed_dim, device=device,
-                             dtype=dtype)
-        self.proj = nn.Linear(embed_dim, embed_dim, device=device, dtype=dtype)
+        self.qkv = Dense(embed_dim, 3 * embed_dim, device=device, dtype=dtype)
+        self.proj = Dense(embed_dim, embed_dim, device=device, dtype=dtype)
 
     def forward(self, x, cache=None, layer: int = 0, mask=None,
                 kv_lens=None, attention_impl: str = "auto", quant=None,
@@ -263,12 +319,10 @@ class MLP(nn.Module):
     """Transformer feed-forward block (tanh GELU, as flax's nn.gelu)."""
 
     def __init__(self, embed_dim: int, hidden_dim: int, device=None,
-                 dtype=torch.float32):
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.fc_in = nn.Linear(embed_dim, hidden_dim, device=device,
-                               dtype=dtype)
-        self.fc_out = nn.Linear(hidden_dim, embed_dim, device=device,
-                                dtype=dtype)
+        self.fc_in = Dense(embed_dim, hidden_dim, device=device, dtype=dtype)
+        self.fc_out = Dense(hidden_dim, embed_dim, device=device, dtype=dtype)
 
     def forward(self, x, quant=None, quant_impl: str = "auto"):
         h = gelu(_dense(self.fc_in, "fc_in", x, quant, quant_impl))
@@ -294,15 +348,16 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
                  causal: bool = False, post_norm: bool = False, device=None,
-                 dtype=torch.float32, dropout_rate: float = 0.0,
-                 moe_experts: int = 0, lora_rank: int = 0):
+                 dtype: Optional[torch.dtype] = None,
+                 dropout_rate: float = 0.0, moe_experts: int = 0,
+                 lora_rank: int = 0):
         super().__init__()
         _refuse_unported(dropout_rate, moe_experts, lora_rank)
         self.post_norm = post_norm
-        self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device,
-                                dtype=dtype)
-        self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device,
-                                dtype=dtype)
+        self.ln1 = LayerNorm(embed_dim, eps=LN_EPS, device=device,
+                             dtype=dtype)
+        self.ln2 = LayerNorm(embed_dim, eps=LN_EPS, device=device,
+                             dtype=dtype)
         self.attn = MultiHeadAttention(embed_dim, num_heads, causal=causal,
                                        device=device, dtype=dtype)
         self.mlp = MLP(embed_dim, mlp_dim, device=device, dtype=dtype)
@@ -347,14 +402,14 @@ class Conv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1,
                  padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
-                 bias: bool = True, device=None, dtype=torch.float32):
+                 bias: bool = True, device=None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel, kernel, device=device,
-            dtype=dtype))
-        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device,
-                                              dtype=dtype))
+            out_channels, in_channels, kernel, kernel, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
                      if bias else None)
 
     def _pads(self, h: int, w: int):
@@ -367,11 +422,11 @@ class Conv(nn.Module):
 
     def forward(self, x):
         (top, bottom), (left, right) = self._pads(*x.shape[-2:])
+        x, w, b = (_cast(t, self.dtype) for t in (x, self.weight, self.bias))
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (top, left))
-        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight,
-                        self.bias, self.stride)
+            return F.conv2d(x, w, b, self.stride, (top, left))
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b,
+                        self.stride)
 
 
 class BatchNorm(nn.Module):
@@ -388,26 +443,31 @@ class BatchNorm(nn.Module):
     biased before the flax update."""
 
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM,
-                 eps: float = BN_EPS, device=None, dtype=torch.float32):
+                 eps: float = BN_EPS, device=None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(num_features, device=device,
-                                              dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(num_features, device=device,
-                                             dtype=dtype))
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(
-            num_features, device=device, dtype=dtype))
+            num_features, device=device))
         self.register_buffer("running_var", torch.ones(
-            num_features, device=device, dtype=dtype))
+            num_features, device=device))
 
     def forward(self, x):
+        if self.dtype is None:
+            return self._normalize(x, self.weight, self.bias)
+        return self._normalize(x.float(), self.weight.float(),
+                               self.bias.float()).to(self.dtype)
+
+    def _normalize(self, x, weight, bias):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                weight, bias, False, 0.0, self.eps)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                           self.eps)
+        out = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             m = self.momentum

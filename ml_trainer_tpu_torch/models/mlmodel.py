@@ -8,7 +8,9 @@ Dense(84) -> ReLU -> Dense(num_classes).
 Inputs are NHWC, as the ``Loader`` gives them; the convolutions see the
 NCHW-shaped permutation (a channels-last view).  The flatten is in
 H, W, C order, as in the JAX package, so ``fc1``'s weight is flax's
-kernel transposed and nothing more.
+kernel transposed and nothing more.  As in the JAX package it has no
+``dtype`` knob: under a bf16 policy the Trainer's cast of its
+parameters and inputs makes it compute in bf16.
 """
 
 from __future__ import annotations
@@ -23,11 +25,10 @@ from ml_trainer_tpu_torch.models.registry import register_model
 
 
 class MLModel(nn.Module):
-    def __init__(self, num_classes: int = 10, device=None,
-                 dtype=torch.float32):
+    def __init__(self, num_classes: int = 10, device=None):
         super().__init__()
         device = resolve_device(device)
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=device)
         self.conv1 = Conv(3, 6, 5, padding="VALID", **kw)
         self.conv2 = Conv(6, 16, 5, padding="VALID", **kw)
         self.fc1 = nn.Linear(16 * 5 * 5, 120, **kw)  # 32x32 inputs

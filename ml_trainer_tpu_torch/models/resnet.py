@@ -15,18 +15,27 @@ stride-1 conv, so ResNet-18 trains on 32x32 inputs.  A block's
 ``downsample`` (1x1 conv, no padding, and ``bn_down``) exists when its
 stride is not 1 or its input width differs from its output width: flax's
 ``residual.shape != y.shape``, decided at construction.
+
+``dtype`` is the compute dtype (``models/layers.py``): convolutions in
+it, BatchNorm in float32 returning it, the ``head`` in float32, as in the
+JAX package.  Parameters and running statistics stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Type
+from typing import Optional, Sequence, Type
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ml_trainer_tpu_torch.device import resolve_device
-from ml_trainer_tpu_torch.models.layers import BatchNorm, Conv
+from ml_trainer_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    Dense,
+    compute_dtype,
+)
 from ml_trainer_tpu_torch.models.registry import register_model
 
 
@@ -49,7 +58,7 @@ class _Block(nn.Module):
 
 class BasicBlock(_Block):
     def __init__(self, in_channels: int, filters: int, strides: int = 1,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.conv1 = Conv(in_channels, filters, 3, strides, bias=False, **kw)
@@ -68,7 +77,7 @@ class BottleneckBlock(_Block):
     expansion = 4
 
     def __init__(self, in_channels: int, filters: int, strides: int = 1,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         out = filters * self.expansion
@@ -95,7 +104,9 @@ class ResNet(nn.Module):
                  device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        kw = dict(device=device, dtype=dtype)
+        self.dtype = dtype
+        cdt = compute_dtype(dtype)
+        kw = dict(device=device, dtype=cdt)
         self.cifar_stem = cifar_stem
         if cifar_stem:
             self.stem_conv = Conv(3, 64, 3, bias=False, **kw)
@@ -113,7 +124,9 @@ class ResNet(nn.Module):
                                             **kw))
                 self.block_names.append(name)
                 width = 64 * 2 ** stage * block.expansion
-        self.head = nn.Linear(width, num_classes, **kw)
+        # flax's Dense(dtype=float32); with no policy it casts nothing.
+        self.head = Dense(width, num_classes, device=device,
+                          dtype=None if cdt is None else torch.float32)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2).to(self.stem_conv.weight.dtype)

@@ -11,9 +11,12 @@ flax sizes ``pos_embed`` from the first input it sees; torch allocates at
 construction, so the port takes ``image_size`` (224 for ``vit_b16``, 32
 for ``vit_tiny``), and ``load_state_dict`` refuses flax variables made
 for another size.  At 197 tokens (vit_tiny: 17) ``attention`` routes to
-the plain path under "auto", as the JAX package does.  The JAX
-``vit_b16`` computes in bf16 by default; bf16 is not ported, so a
-``dtype`` other than float32 raises.
+the plain path under "auto", as the JAX package does.
+
+``dtype`` is the compute dtype (``models/layers.py``): the patch
+embedding, the blocks and ``ln_final`` compute in it, the ``head`` in
+float32, as in the JAX package; parameters stay float32.  ``vit_b16``
+computes in bf16 by default, as the JAX ``vit_b16`` does.
 """
 
 from __future__ import annotations
@@ -25,8 +28,11 @@ from ml_trainer_tpu_torch.device import resolve_device
 from ml_trainer_tpu_torch.models.layers import (
     LN_EPS,
     Conv,
+    Dense,
+    LayerNorm,
     TransformerBlock,
     _refuse_unported,
+    compute_dtype,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
 
@@ -38,16 +44,14 @@ class VisionTransformer(nn.Module):
                  dtype=torch.float32, attention_impl: str = "auto",
                  remat: bool = False, image_size: int = 224, device=None):
         super().__init__()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"dtype={dtype!r}: bf16 compute is not ported yet; see "
-                "ROADMAP.md Queue A 2b.2 (pass dtype=torch.float32)")
         _refuse_unported(dropout_rate)
         if remat:
             raise NotImplementedError(
                 "remat=True is not ported yet; see ROADMAP.md Queue A")
         device = resolve_device(device)
-        kw = dict(device=device, dtype=dtype)
+        self.dtype = dtype
+        cdt = compute_dtype(dtype)
+        kw = dict(device=device, dtype=cdt)
         self.depth = depth
         self.embed_dim = embed_dim
         # 'auto' | 'xla' | 'flash', as in GPT2.
@@ -55,14 +59,17 @@ class VisionTransformer(nn.Module):
         self.patch_embed = Conv(3, embed_dim, patch_size,
                                 patch_size, padding="VALID", **kw)
         patches = (image_size // patch_size) ** 2
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim, **kw))
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim,
+                                                  device=device))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + patches, embed_dim,
-                                                  **kw))
+                                                  device=device))
         self.blocks = nn.ModuleList(
             TransformerBlock(embed_dim, num_heads, mlp_dim, **kw)
             for _ in range(depth))
-        self.ln_final = nn.LayerNorm(embed_dim, eps=LN_EPS, **kw)
-        self.head = nn.Linear(embed_dim, num_classes, **kw)
+        self.ln_final = LayerNorm(embed_dim, eps=LN_EPS, **kw)
+        # flax's Dense(dtype=float32); with no policy it casts nothing.
+        self.head = Dense(embed_dim, num_classes, device=device,
+                          dtype=None if cdt is None else torch.float32)
 
     def forward(self, x):
         b = x.shape[0]
@@ -73,8 +80,9 @@ class VisionTransformer(nn.Module):
                 f"{x.shape[1]} patches, but pos_embed holds "
                 f"{self.pos_embed.shape[1] - 1}: build the model with the "
                 "inputs' image_size")
-        x = torch.cat([self.cls_token.expand(b, 1, self.embed_dim), x], dim=1)
-        x = x + self.pos_embed
+        x = torch.cat([self.cls_token.expand(b, 1, self.embed_dim).to(x.dtype),
+                       x], dim=1)
+        x = x + self.pos_embed.to(x.dtype)
         for block in self.blocks:
             x = block(x, attention_impl=self.attention_impl)
         return self.head(self.ln_final(x[:, 0]))  # LayerNorm is per token
@@ -83,8 +91,8 @@ class VisionTransformer(nn.Module):
 @register_model("vit_b16")
 def vit_b16(num_classes: int = 1000, dtype=torch.bfloat16,
             **kw) -> VisionTransformer:
-    """ViT-B/16: 12 layers, 768 wide, 12 heads, 224x224 inputs.  bf16 by
-    default, as in the JAX package, which the port refuses."""
+    """ViT-B/16: 12 layers, 768 wide, 12 heads, 224x224 inputs; computes
+    in bf16 by default, as in the JAX package."""
     return VisionTransformer(num_classes=num_classes, dtype=dtype, **kw)
 
 

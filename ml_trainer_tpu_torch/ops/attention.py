@@ -18,7 +18,10 @@ routing.
   on CPU tensors they run the plain twins
   ``flash_attention_reference`` and
   ``flash_attention_backward_reference``.  The backward recomputes P
-  from the saved ``lse``, so training memory stays O(S).
+  from the saved ``lse``, so training memory stays O(S).  The dtype
+  contract is the JAX kernels': q, k, v and dO are all float32 or all
+  bfloat16, the math is float32 inside, O, dQ, dK and dV come back in
+  the input dtype, lse and ``delta`` are float32.
 * ``attention`` routes between the two exactly as the JAX package does
   on a TPU: the kernel for tile-aligned ``s_q == s_k`` with
   ``head_dim % 64 == 0``, the padded kernel from 1024 tokens up, the
@@ -106,8 +109,10 @@ def flash_attention_reference(q, k, v, kv_lens=None, causal: bool = False,
 
 def _backward_plain(q, k, v, kv_lens, lse, delta, dout, causal, scale):
     """dq, dk, dv from ``delta`` = rowsum(dO * O) [B, H, S]: the function
-    of both backward kernels in plain PyTorch."""
+    of both backward kernels in plain PyTorch, computed in float32 (at
+    least) and returned in the inputs' dtypes."""
     ct = _compute_dtype(q)
+    dtypes = q.dtype, k.dtype, v.dtype
     q, k, v, dout = (t.to(ct) for t in (q, k, v, dout))
     p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale
                   - lse.to(ct)[..., None])
@@ -119,7 +124,7 @@ def _backward_plain(q, k, v, kv_lens, lse, delta, dout, causal, scale):
     ds = p * (dp - delta.to(ct)[..., None]) * scale
     dq = torch.matmul(ds, k)
     dk = torch.matmul(ds.transpose(-1, -2), q)
-    return dq, dk, dv
+    return tuple(g.to(dt) for g, dt in zip((dq, dk, dv), dtypes))
 
 
 def _row_delta(out, dout) -> torch.Tensor:
@@ -142,12 +147,17 @@ def flash_attention_backward_reference(q, k, v, kv_lens, out, lse, dout,
                            dout, causal, scale)
 
 
+# The kernels' input dtypes -> their C entry points' suffix.
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _check_kernel_inputs(q, k, v, what: str) -> None:
     b, h, _, d = q.shape
-    if q.dtype != torch.float32 or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
         raise TypeError(
-            f"{what} takes float32 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
-        )
+            f"{what} takes float32 or bfloat16 q/k/v, all alike; got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in (64, 128):
         raise ValueError(f"{what} takes head_dim 64 or 128, got {d}")
     if k.shape != (b, h, k.shape[2], d) or v.shape != k.shape:
@@ -156,10 +166,11 @@ def _check_kernel_inputs(q, k, v, what: str) -> None:
 
 def _check_backward_inputs(q, k, v, lse, delta, dout) -> None:
     _check_kernel_inputs(q, k, v, "flash backward kernel")
-    if dout.shape != q.shape or dout.dtype != torch.float32:
+    if dout.dtype != q.dtype:
+        raise TypeError(f"dout must be {q.dtype} as q/k/v, got {dout.dtype}")
+    if dout.shape != q.shape:
         raise ValueError(
-            f"dout must be float32 {tuple(q.shape)}, got {dout.dtype} "
-            f"{tuple(dout.shape)}")
+            f"dout must be {tuple(q.shape)}, got {tuple(dout.shape)}")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:3] or t.dtype != torch.float32:
             raise ValueError(
@@ -176,8 +187,9 @@ def _lens_arg(kv_lens, device):
 
 def _flash_kernel(q, k, v, kv_lens, causal, scale):
     """Launch ``csrc/flash_fwd.cu`` (K1: q.k^T and p.v as 3xTF32
-    ``mma.sync`` on the tensor cores) on contiguous CUDA tensors; its
-    function is ``flash_attention_reference``'s."""
+    ``mma.sync`` on the tensor cores; float32 or bfloat16 in and out) on
+    contiguous CUDA tensors; its function is
+    ``flash_attention_reference``'s."""
     from ml_trainer_tpu_torch.ops.kernels._build import check, load
 
     _check_kernel_inputs(q, k, v, "flash kernel")
@@ -186,22 +198,24 @@ def _flash_kernel(q, k, v, kv_lens, causal, scale):
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     lens = _lens_arg(kv_lens, q.device)
+    fn = f"flash_fwd_{_KERNEL_DTYPES[q.dtype]}"
     lib = load("flash_fwd")
     count_launch("flash_fwd")
-    check(lib.flash_fwd_f32(
+    check(getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b * h, h, s_q, s_k, d,
         int(causal), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
-    ), "flash_fwd_f32")
+    ), fn)
     return out, lse
 
 
 def flash_bwd_dq(q, k, v, kv_lens, lse, delta, dout, causal, scale):
     """dQ of flash attention, [B, H, S, D]; ``delta`` [B, H, S] is
-    ``rowsum(dO * O)``.  CUDA tensors launch ``csrc/flash_bwd.cu``'s dQ
-    kernel (K2); CPU tensors take the plain twin."""
+    ``rowsum(dO * O)``, float32.  CUDA tensors launch
+    ``csrc/flash_bwd.cu``'s dQ kernel (K2); CPU tensors take the plain
+    twin.  dQ comes back in q's dtype."""
     if _device_kind(q) == "cpu":
         return _backward_plain(q, k, v, kv_lens, lse, delta, dout, causal,
                                scale)[0]
@@ -212,15 +226,16 @@ def flash_bwd_dq(q, k, v, kv_lens, lse, delta, dout, causal, scale):
     b, h, s_q, d = q.shape
     dq = torch.empty_like(q)
     lens = _lens_arg(kv_lens, q.device)
+    fn = f"flash_bwd_dq_{_KERNEL_DTYPES[q.dtype]}"
     lib = load("flash_bwd")
     count_launch("flash_bwd_dq")
-    check(lib.flash_bwd_dq_f32(
+    check(getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), dout.data_ptr(),
         lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
         dq.data_ptr(), b * h, h, s_q, k.shape[2], d, int(causal),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    ), "flash_bwd_dq_f32")
+    ), fn)
     return dq
 
 
@@ -238,16 +253,17 @@ def flash_bwd_dkv(q, k, v, kv_lens, lse, delta, dout, causal, scale):
     b, h, s_q, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lens = _lens_arg(kv_lens, q.device)
+    fn = f"flash_bwd_dkv_{_KERNEL_DTYPES[q.dtype]}"
     lib = load("flash_bwd")
     count_launch("flash_bwd_dkv")
-    check(lib.flash_bwd_dkv_f32(
+    check(getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), dout.data_ptr(),
         lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b * h, h, s_q, k.shape[2], d,
         int(causal), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
-    ), "flash_bwd_dkv_f32")
+    ), fn)
     return dk, dv
 
 
@@ -261,7 +277,9 @@ def _device_kind(q) -> str:
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its backward: kernels K1 | K2 + K3 on CUDA
     tensors, the plain twins on CPU tensors.  Saves ``q, k, v, kv_lens,
-    out, lse`` as the JAX package's ``_flash_fwd`` does."""
+    out, lse`` as the JAX package's ``_flash_fwd`` does; the gradients
+    come back in the inputs' dtype (bf16 for bf16 inputs), as its
+    ``_flash_bwd``'s."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, causal, scale):
@@ -283,8 +301,7 @@ class _FlashAttention(torch.autograd.Function):
                 ctx.causal, ctx.scale)
         dq = flash_bwd_dq(*args)
         dk, dv = flash_bwd_dkv(*args)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, \
-            None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, kv_lens=None, causal: bool = False,

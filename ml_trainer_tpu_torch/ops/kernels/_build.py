@@ -38,21 +38,27 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 # Source name -> {C function: argument types}.
 SIGNATURES: Dict[str, Dict[str, list]] = {
+    # K1-K3: float32 (_f32) and bfloat16 (_bf16) entry points, alike.
     "flash_fwd": {
         # q, k, v, kv_lens|NULL, out, lse, bh, heads, s_q, s_k, d,
         # causal, scale, stream
-        "flash_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _P],
+        f"flash_fwd_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _P] for t in ("f32", "bf16")
     },
     "flash_bwd": {
-        # q, k, v, kv_lens|NULL, dout, lse, delta, dq, bh, heads, s_q, s_k,
-        # d, causal, scale, stream
-        "flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _P],
-        # q, k, v, kv_lens|NULL, dout, lse, delta, dk, dv, bh, heads, s_q,
-        # s_k, d, causal, scale, stream
-        "flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _F, _P],
+        **{
+            # q, k, v, kv_lens|NULL, dout, lse, delta, dq, bh, heads, s_q,
+            # s_k, d, causal, scale, stream
+            f"flash_bwd_dq_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _F, _P] for t in ("f32", "bf16")
+        },
+        **{
+            # q, k, v, kv_lens|NULL, dout, lse, delta, dk, dv, bh, heads,
+            # s_q, s_k, d, causal, scale, stream
+            f"flash_bwd_dkv_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _F, _P]
+            for t in ("f32", "bf16")
+        },
     },
     "paged_attention": {
         # q, k_pool, v_pool, table, lengths, out, workspace|NULL,

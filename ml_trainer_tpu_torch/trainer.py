@@ -21,7 +21,17 @@ The train step follows the JAX package's compiled step, written out:
   schedule's), through device-side selects; only ``step`` advances and
   the skipped/streak counters live on the device;
 * the epoch loops read the device only every ``log_every`` steps and at
-  the epoch's end.
+  the epoch's end;
+* ``precision="bf16"`` (``precision.py``): the loss function runs the
+  model on bf16 copies of the float32 master parameters
+  (``torch.func.functional_call``; the gradients come home float32
+  through the casts' backward), floating inputs cast to bf16, BatchNorm
+  buffers float32, the output cast to float32 before the criterion and
+  the metric.  ``loss_scale`` (dynamic by default) multiplies the loss
+  before ``backward()`` and divides the gradients after; the guard backs
+  the scale off on an overflow without advancing ``bad_streak`` while it
+  can still fall, and grows it after ``growth_interval`` finite steps,
+  all by device-side selects.  At fp32 none of this runs.
 
 Data parallelism (``is_parallel`` / ``mesh_shape={"data": n}`` with a
 list of ``n`` devices) follows the JAX package's two step flavours over
@@ -50,12 +60,15 @@ cut from its own rows.
 
 The model runs on the CUDA card unless ``device="cpu"`` (or a CPU
 ``backend``) is asked for.  A model named from the registry is built by
-``init_model``'s seeded initializer; an ``nn.Module`` is trained as
-given (moved to the device).  Training runs the model in train mode,
-evaluation in eval mode (BatchNorm: the running statistics).  The
-non-finite guard also reverts the model's buffers (BatchNorm's running
-statistics) on a skipped step.  Knobs not ported yet are accepted at their
-defaults and raise ``NotImplementedError`` naming ROADMAP.md otherwise.
+``init_model``'s seeded initializer (at the policy's compute dtype); an
+``nn.Module`` is trained as given (moved to the device), except that one
+the registry built at another compute dtype than an active policy's is
+rebuilt at the policy's, with the same weights.  Training runs the model
+in train mode, evaluation in eval mode (BatchNorm: the running
+statistics).  The non-finite guard also reverts the model's buffers
+(BatchNorm's running statistics) on a skipped step.  Knobs not ported
+yet are accepted at their defaults and raise ``NotImplementedError``
+naming ROADMAP.md otherwise.
 """
 
 from __future__ import annotations
@@ -107,6 +120,11 @@ from ml_trainer_tpu_torch.parallel.sharding import (
     plan_grad_buckets,
     replica_view,
     zero1_opt_shardings,
+)
+from ml_trainer_tpu_torch.precision import (
+    cast_floating,
+    resolve_loss_scale,
+    resolve_precision,
 )
 from ml_trainer_tpu_torch.train_state import TrainState
 from ml_trainer_tpu_torch.utils.logging import get_logger
@@ -183,6 +201,9 @@ class Trainer:
         Ported: ``grad_accum_steps``, ``grad_clip_norm``,
         ``early_stop_patience``, ``save_best``, ``decay_exclude_bias_norm``,
         ``label_smoothing``, ``nonfinite_guard``, ``log_every_steps``,
+        ``precision`` (None | 'fp32' | 'bf16' | a ``Precision``),
+        ``loss_scale`` ('dynamic' | a float | a ``LossScaleConfig`` |
+        None; it acts only with bf16, and needs ``nonfinite_guard``),
         ``loader`` ('auto' and 'python' both take the Python ``Loader``),
         and data parallelism: ``is_parallel``, ``mesh_shape`` (the data
         axis only), ``dp_update`` ('fused' | 'sharded'), ``fused_adam``
@@ -191,13 +212,12 @@ class Trainer:
         implied by the sharded step; under the fused step a placement
         with no effect on replicas that share a device).
         Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
-        ported), ``loss_scale`` (it acts only with bf16),
-        ``desync_every_steps`` and ``straggler_factor`` (multi-host and
-        telemetry only), and ``handle_preemption`` (no signal handlers
-        are installed yet).
+        ported), ``desync_every_steps`` and ``straggler_factor``
+        (multi-host and telemetry only), and ``handle_preemption`` (no
+        signal handlers are installed yet).
         Refused unless at their defaults: ``sharding_rules``,
-        ``steps_per_execution``, ``ema_decay``, ``precision`` other than
-        fp32, ``telemetry``, ``elastic``, ``lora``,
+        ``steps_per_execution``, ``ema_decay``, ``telemetry``,
+        ``elastic``, ``lora``,
         ``pipeline_schedule``, ``save_every_steps``,
         ``rollback_bad_steps``, ``sharded_checkpoint=True`` and
         ``loader='native'``; so are mesh axes other than ``data`` and
@@ -206,6 +226,16 @@ class Trainer:
         logger.info("Config inputs.", config=config)
         cfg = TrainerConfig.from_kwargs(**config)
         self.config = cfg
+        self.precision = resolve_precision(precision)
+        self._compute_dtype = (self.precision.compute
+                               if self.precision.active else None)
+        self._loss_scale_cfg = resolve_loss_scale(loss_scale, self.precision)
+        if self._loss_scale_cfg is not None and not nonfinite_guard:
+            raise ValueError(
+                "loss scaling rides the non-finite guard (overflow steps "
+                "are skipped by the same where-selects); pass "
+                "loss_scale=None to run bare bf16 with nonfinite_guard "
+                "disabled")
         if dp_update not in ("fused", "sharded"):
             raise ValueError(
                 f"dp_update must be 'fused' | 'sharded', got {dp_update!r}")
@@ -232,7 +262,6 @@ class Trainer:
             ("sharding_rules", sharding_rules, (None,)),
             ("steps_per_execution", steps_per_execution, (1,)),
             ("ema_decay", ema_decay, (None,)),
-            ("precision", precision, (None, "fp32")),
             ("telemetry", telemetry, (False,)),
             ("elastic", elastic, (None,)),
             ("lora", lora, (None,)),
@@ -341,9 +370,10 @@ class Trainer:
         self._bad_epochs = 0
 
         if isinstance(model, str):
-            model = init_model(model, seed=cfg.seed, device=self.device)
+            model = init_model(model, seed=cfg.seed, device=self.device,
+                               precision=self.precision)
         elif isinstance(model, nn.Module):
-            model = model.to(self.device)
+            model = self._at_compute_dtype(model.to(self.device))
         else:
             raise TypeError(
                 f"model must be a registry name or an nn.Module, got "
@@ -381,6 +411,23 @@ class Trainer:
             self._build_state(cfg)
         else:
             logger.warning("Testing only available. No datasets in arguments.")
+
+    def _at_compute_dtype(self, model: nn.Module) -> nn.Module:
+        """A registry-built model whose ``dtype`` disagrees with an active
+        policy, rebuilt at the policy's compute dtype with the same
+        (float32) weights: the JAX package's ``model.clone(dtype=...)``,
+        so that the module's own casts agree with the trainer's."""
+        dt = self._compute_dtype
+        config = getattr(model, "registry_config", None)
+        if dt is None or config is None or getattr(model, "dtype", dt) == dt:
+            return model
+        from ml_trainer_tpu_torch.models.registry import get_model
+
+        name, kwargs = config
+        rebuilt = get_model(name, **{**kwargs, "device": self.device,
+                                     "dtype": dt})
+        rebuilt.load_state_dict(model.state_dict())
+        return rebuilt
 
     # ------------------------------------------------------------------ data
     def _build_loaders(self, train_set, val_set, batch_size, cfg) -> None:
@@ -433,7 +480,10 @@ class Trainer:
             self._plateau = PlateauController(cfg.lr)
         with torch.no_grad():
             params = {k: p.detach() for k, p in self._params().items()}
-            self.state = TrainState.create(self.tx.init(params), self.device)
+            scale_cfg = self._loss_scale_cfg
+            self.state = TrainState.create(
+                self.tx.init(params), self.device,
+                init_scale=None if scale_cfg is None else scale_cfg.init_scale)
         n = self.mesh.size
         self._zero1 = self._bucket_plan = None
         if self.dp_update == "sharded":
@@ -448,9 +498,20 @@ class Trainer:
                 f"{self._bucket_plan.overlap_fraction:.2f}).")
 
     # ------------------------------------------------------------- the step
+    def _apply_model(self, model: nn.Module, x):
+        """``model(x)``; under an active policy, on compute-dtype copies
+        of its parameters (buffers as they are) and a floating ``x`` cast
+        likewise, the output cast back to float32."""
+        dt = self._compute_dtype
+        if dt is None:
+            return model(x)
+        params = cast_floating(dict(model.named_parameters()), dt)
+        return torch.func.functional_call(
+            model, params, (cast_floating(x, dt),)).float()
+
     def _forward_loss(self, x, y):
         """Loss and metric of one microbatch, the graph kept for backward."""
-        out = self.model(x)
+        out = self._apply_model(self.model, x)
         loss = self.criterion(out, y)
         with torch.no_grad():
             metric = (self.metric_fn(out.detach(), y)
@@ -458,10 +519,11 @@ class Trainer:
                       else torch.zeros((), device=loss.device))
         return loss, metric
 
-    def _local_grads(self, params, x, y):
+    def _local_grads(self, params, x, y, scale=None):
         """Forward and backward over the ``grad_accum_steps`` microbatches
-        of rows ``(x, y)``: the summed gradients (taken out of ``.grad``)
-        and the summed loss and metric."""
+        of rows ``(x, y)``: the summed gradients (taken out of ``.grad``;
+        of ``loss * scale`` with a loss scale) and the summed, unscaled
+        loss and metric."""
         accum = self.grad_accum_steps
         self.model.train()
         for p in params.values():
@@ -471,7 +533,7 @@ class Trainer:
         for i in range(accum):
             sl = slice(i * micro, (i + 1) * micro)
             loss, metric = self._forward_loss(x[sl], y[sl])
-            loss.backward()
+            (loss if scale is None else loss * scale).backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             metric_sum = metric if metric_sum is None else metric_sum + metric
@@ -481,17 +543,17 @@ class Trainer:
             p.grad = None
         return grads, loss_sum, metric_sum
 
-    def _replica_grads(self, params, x, y):
+    def _replica_grads(self, params, x, y, scale=None):
         """``_local_grads`` of each replica's row block of the global
         batch, in replica order; for a BatchNorm model, of the whole
         global batch at once (global-batch statistics, as the JAX
         package's SyncBN: the replicas' blocks are equal, so the mean
         over the batch is the mean of their means)."""
         if self._has_batch_norm:
-            return [self._local_grads(params, x, y)]
+            return [self._local_grads(params, x, y, scale)]
         rows = x.shape[0] // self.mesh.size
         return [self._local_grads(params, x[j * rows:(j + 1) * rows],
-                                  y[j * rows:(j + 1) * rows])
+                                  y[j * rows:(j + 1) * rows], scale)
                 for j in range(self.mesh.size)]
 
     def _train_step(self, x, y, lr_scale: float):
@@ -501,19 +563,23 @@ class Trainer:
             return self._sharded_train_step(x, y, lr_scale)
         accum = self.grad_accum_steps
         params = self._params()
+        scale = self.state.loss_scale
         # The running statistics the guard restores on a skipped step.
         buffers = ({k: b.clone() for k, b in self.model.named_buffers()}
                    if self.nonfinite_guard else {})
-        local = self._replica_grads(params, x, y)
+        local = self._replica_grads(params, x, y, scale)
         with torch.no_grad():
+            # One division folds the microbatch mean and the loss scale.
+            denom = accum if scale is None else accum * scale
             if len(local) == 1:
                 grads, loss, metric = local[0]
+                if accum > 1 or scale is not None:
+                    grads = {k: g / denom for k, g in grads.items()}
                 if accum > 1:
-                    grads = {k: g / accum for k, g in grads.items()}
                     loss, metric = loss / accum, metric / accum
             else:
                 # Local-mean gradients, averaged over the replicas.
-                grads = {k: col.pmean([g[k] / accum for g, _, _ in local])[0]
+                grads = {k: col.pmean([g[k] / denom for g, _, _ in local])[0]
                          for k in params}
                 loss = col.pmean([lo / accum for _, lo, _ in local])[0]
                 metric = col.pmean([m / accum for _, _, m in local])[0]
@@ -531,8 +597,9 @@ class Trainer:
         params = self._params()
         names = list(params)
         flags = dict(zip(names, plan.sharded))
+        scale = self.state.loss_scale
         with torch.enable_grad():
-            local = self._replica_grads(params, x, y)
+            local = self._replica_grads(params, x, y, scale)
         # Epoch accounting reads global means.
         loss = col.pmean([lo / accum for _, lo, _ in local])[0]
         metric = col.pmean([m / accum for _, _, m in local])[0]
@@ -554,10 +621,13 @@ class Trainer:
                     gj[i] = flat[j][off:off + size].reshape(gj[i].shape)
                     off += size
         # (2) unscale: the psum/scatter summed n replicas' local means of
-        # accum microbatches; then each replica's squared-norm parts.
+        # accum microbatches (of the scaled loss: /scale folds into the
+        # same division); then each replica's squared-norm parts.
         dev = self.device
         denom = float(n * accum)
         denom_t = torch.full((), denom, dtype=torch.float32, device=dev)
+        if scale is not None:
+            denom = denom_t = denom_t * scale
         grads, sq_loc, sq_rep = [], [], []
         for gj in g:
             if self.fused_adam:
@@ -632,9 +702,7 @@ class Trainer:
             new_p = [tree_map(sel, new_p[j], old_p[j]) for j in range(n)]
             new_opt = [tree_map(sel, new_opt[j], old_opt[j])
                        for j in range(n)]
-            bad = (~ok).to(torch.int32)
-            state.skipped_steps = state.skipped_steps + bad
-            state.bad_streak = (state.bad_streak + 1) * bad
+            self._count_skip(ok)
             loss = torch.where(ok, loss, torch.zeros_like(loss))
             metric = torch.where(ok, metric, torch.zeros_like(metric))
         # (5) the fresh weights: one all-gather per bucket.
@@ -695,9 +763,7 @@ class Trainer:
             live = dict(self.model.named_buffers())
             for k, before in buffers.items():
                 live[k].copy_(sel(live[k], before))
-            bad = (~ok).to(torch.int32)
-            state.skipped_steps = state.skipped_steps + bad
-            state.bad_streak = (state.bad_streak + 1) * bad
+            self._count_skip(ok)
             # A skipped step adds zero to the epoch's sums.
             loss = torch.where(ok, loss, torch.zeros_like(loss))
             metric = torch.where(ok, metric, torch.zeros_like(metric))
@@ -708,9 +774,38 @@ class Trainer:
         state.step += 1
         return loss, metric
 
+    def _count_skip(self, ok: torch.Tensor) -> None:
+        """The guard's counters after a step whose finiteness is ``ok``,
+        with the loss scale's arithmetic folded in (the JAX package's
+        ``_scale_streak_updates``): an overflow is the scale's fault
+        while the scale can still back off, so it does NOT advance the
+        rollback streak; the scale halves on it and doubles after
+        ``growth_interval`` finite steps.  Device-side selects only."""
+        state, cfg = self.state, self._loss_scale_cfg
+        bad = (~ok).to(torch.int32)
+        state.skipped_steps = state.skipped_steps + bad
+        if cfg is None:
+            state.bad_streak = (state.bad_streak + 1) * bad
+            return
+        scale, good = state.loss_scale, state.good_steps
+        attributed = scale > cfg.min_scale
+        state.bad_streak = torch.where(
+            ok, torch.zeros_like(state.bad_streak),
+            torch.where(attributed, state.bad_streak, state.bad_streak + 1))
+        grown = good + 1 >= cfg.growth_interval
+        state.loss_scale = torch.where(
+            ok,
+            torch.where(grown,
+                        torch.clamp(scale * cfg.growth_factor,
+                                    max=cfg.max_scale),
+                        scale),
+            torch.clamp(scale * cfg.backoff_factor, min=cfg.min_scale))
+        state.good_steps = torch.where(ok & ~grown, good + 1,
+                                       torch.zeros_like(good))
+
     @torch.no_grad()
     def _eval_step(self, model, x, y):
-        out = model(x)
+        out = self._apply_model(model, x)
         loss = self.criterion(out, y)
         metric = (self.metric_fn(out, y) if self.metric_fn is not None
                   else torch.zeros((), device=loss.device))

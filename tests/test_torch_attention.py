@@ -10,6 +10,7 @@ seed and cross as numpy arrays.
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,3 +125,35 @@ def test_attention_kv_lens_clamped_and_refusals():
                        implementation="flash")
     with pytest.raises(ValueError, match="equal query/key"):
         tatt.attention(q[:, :, :64], k, v, implementation="flash")
+
+
+@pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True),
+                                              (True, True)])
+def test_dot_product_attention_bf16_matches_jax(causal, with_mask):
+    """The plain path in bf16 follows JAX ``dot_product_attention``:
+    f32 scores, the weights cast to v's dtype before PV, the result in
+    q's dtype.  Output and gradients (bf16) within 2e-2, the JAX
+    package's own bf16 bar."""
+    q, k, v = _qkv(4, 2, 2, 24, 24, 16)
+    g = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    mask = (np.random.default_rng(6).random((2, 1, 24, 24)) > 0.3
+            if with_mask else None)
+    if mask is not None:
+        mask[..., 0] = True
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    jm = None if mask is None else jnp.asarray(mask)
+    j_out, vjp = jax.vjp(
+        lambda q, k, v: jatt.dot_product_attention(q, k, v, causal=causal,
+                                                   mask=jm), jq, jk, jv)
+    leaves = [_t(x).to(torch.bfloat16).requires_grad_(True)
+              for x in (q, k, v)]
+    tm = None if mask is None else _t(mask)
+    out = tatt.dot_product_attention(*leaves, causal=causal, mask=tm)
+    grads = torch.autograd.grad(out, leaves, _t(g).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16 == grads[0].dtype
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(j_out, np.float32),
+                               atol=2e-2, rtol=2e-2)
+    for name, a, b in zip("qkv", grads, vjp(jg)):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32),
+                                   atol=2e-2, rtol=2e-2, err_msg=f"d{name}")

@@ -197,3 +197,108 @@ def test_backward_kernel_wrappers_take_the_plain_twin_on_cpu(causal, lens):
     dk, dv = tatt.flash_bwd_dkv(q, k, v, t_lens, lse, delta, g, causal, 0.25)
     for a, b in zip((dq, dk, dv), want):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# -------------------------------------------------------------- bfloat16
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # the JAX package's own bf16 bar
+
+
+def _bf16(arrays):
+    """The same float32 numpy arrays rounded to bf16 in both packages
+    (round to nearest even in each): equal bf16 values."""
+    return ([jnp.asarray(x, jnp.bfloat16) for x in arrays],
+            [torch.tensor(x).to(torch.bfloat16) for x in arrays])
+
+
+@pytest.mark.parametrize("causal,lens", [(True, None), (False, None),
+                                         (True, [128, 50]),
+                                         (False, [128, 50])])
+@pytest.mark.parametrize("blocks", [(64, 64), (64, 32)])
+def test_flash_bf16_matches_jax_interpret_and_keeps_the_dtype(causal, lens,
+                                                              blocks):
+    """bf16 q, k, v and cotangent: the port's plain K1-K3 (f32 inside)
+    against JAX ``flash_attention(..., interpret=True)`` through
+    ``jax.vjp`` on the same bf16 values; the output and every gradient
+    are bf16 in both packages (``tests/test_attention.py``'s dtype
+    contract)."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _bf16(_arrays(11, 2, 2, 128, 64))
+    j_lens = None if lens is None else jnp.asarray(lens, jnp.int32)
+    t_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    j_out, vjp = jax.vjp(
+        lambda q, k, v: jatt.flash_attention(q, k, v, j_lens, causal, None,
+                                             *blocks, True), jq, jk, jv)
+    j_grads = vjp(jg)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out, lse = tatt.flash_attention(*leaves, t_lens, causal)
+    grads = torch.autograd.grad(out, leaves, tg)
+    assert j_out.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    assert lse.dtype == torch.float32
+    assert all(g.dtype == jnp.bfloat16 for g in j_grads)
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(j_out, np.float32), **BF16_TOL)
+    for name, a, b in zip("qkv", grads, j_grads):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32),
+                                   err_msg=f"d{name}", **BF16_TOL)
+    if lens is not None:
+        assert bool((grads[1][1, :, 50:] == 0).all())
+        assert bool((grads[2][1, :, 50:] == 0).all())
+
+
+def _bf16_gate(got, want):
+    """The chip gate of the bf16 kernels, as a margin: max over elements
+    of |got - want| - (2^-7 |want| + 1e-3 max|want|), <= 0 passes
+    (within 2 bf16 ulps of the plain value)."""
+    got, want = got.float(), want.float()
+    bar = 2 ** -7 * want.abs() + 1e-3 * want.abs().max()
+    return float(((got - want).abs() - bar).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_three_tf32_products_keep_the_chip_gate_in_bf16(d, causal):
+    """The backward kernels' arithmetic on bf16 inputs, emulated at
+    [1, 2, 256, d]: a bf16 value widened to float32 is its own TF32
+    big part (its small part is exactly 0, so the products with a bf16
+    small operand add zero), and the 3xTF32 backward on the widened
+    inputs, rounded once to bf16, is within the chip gate (2 bf16 ulps
+    of the plain bf16 backward)."""
+    q, k, v, g = (torch.tensor(x).to(torch.bfloat16)
+                  for x in _arrays(5, 1, 2, 256, d))
+    for t in (q, k, v, g):
+        w = t.float()
+        assert torch.equal(_tf32(w), w)
+        assert torch.equal(_tf32(w - _tf32(w)), torch.zeros_like(w))
+    scale = d ** -0.5
+    out, lse = tatt.flash_attention_reference(q, k, v, None, causal, scale)
+    want = tatt.flash_attention_backward_reference(q, k, v, None, out, lse,
+                                                   g, causal, scale)
+    assert all(w.dtype == torch.bfloat16 for w in want)
+    delta = tatt._row_delta(out, g)
+    got = _backward_tf32(*(t.float() for t in (q, k, v)), lse, delta,
+                         g.float(), causal, scale, 3)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _bf16_gate(a.to(torch.bfloat16), b) <= 0, name
+
+
+def test_kernel_checks_refuse_mixed_dtypes_and_float16():
+    """The kernels take float32 or bfloat16 q/k/v/dO, all alike, and
+    float32 lse/delta: anything else is refused before a launch."""
+    x = torch.zeros(1, 2, 64, 64)
+    lse = delta = torch.zeros(1, 2, 64)
+    bf = x.to(torch.bfloat16)
+    tatt._check_kernel_inputs(bf, bf, bf, "k")
+    tatt._check_backward_inputs(bf, bf, bf, lse, delta, bf)
+    for q, k, v in ((x, bf, bf), (bf, x, bf), (bf, bf, x),
+                    (x.half(), x.half(), x.half()),
+                    (x.double(), x.double(), x.double())):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            tatt._flash_kernel(q, k, v, None, True, 0.125)
+    with pytest.raises(TypeError, match="dout"):
+        tatt._check_backward_inputs(bf, bf, bf, lse, delta, x)
+    with pytest.raises(ValueError, match="lse"):
+        tatt._check_backward_inputs(bf, bf, bf, lse.to(torch.bfloat16),
+                                    delta, bf)
+    with pytest.raises(ValueError, match="delta"):
+        tatt._check_backward_inputs(x, x, x, lse, delta[..., :8], x)

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from ml_trainer_tpu_torch.ops.kernels import _build
-from test_torch_flash_backward import _arrays, _mm_tf32
+from test_torch_flash_backward import _arrays, _bf16_gate, _mm_tf32, _tf32
 
 jatt = importlib.import_module("ml_trainer_tpu.ops.attention")
 tatt = importlib.import_module("ml_trainer_tpu_torch.ops.attention")
@@ -99,6 +99,30 @@ def test_three_tf32_products_keep_the_forward_gate(d, causal, lens):
     assert errs[3] <= GATE / 10, errs
     assert _err(three, jax_ref) <= GATE / 10
     assert errs[1] >= 10 * errs[3], errs
+
+
+@pytest.mark.parametrize("causal,lens", [(True, None), (True, [173]),
+                                         (False, [173])])
+@pytest.mark.parametrize("d", [64, 128])
+def test_three_tf32_products_keep_the_forward_gate_in_bf16(d, causal, lens):
+    """K1 on bf16 inputs, emulated at [1, 2, 256, d]: the widened bf16
+    K and V (and q * scale at d = 64, a power-of-two scale) are their own
+    TF32 big parts; the 3xTF32 recurrence on the widened values, its out
+    rounded once to bf16, is within the bf16 chip gate (2 bf16 ulps) of
+    the plain bf16 forward, and its lse within the float32 gate."""
+    q, k, v = (torch.tensor(x).to(torch.bfloat16)
+               for x in _arrays(8, 1, 2, 256, d, n=3))
+    t_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    scale = d ** -0.5
+    for t in (k, v) + ((q.float() * scale,) if d == 64 else ()):
+        w = t.float()
+        assert torch.equal(_tf32(w - _tf32(w)), torch.zeros_like(w))
+    out, lse = tatt.flash_attention_reference(q, k, v, t_lens, causal, scale)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got_out, got_lse = _forward_tiles(q.float(), k.float(), v.float(),
+                                      t_lens, causal, scale, 3)
+    assert _bf16_gate(got_out.to(torch.bfloat16), out) <= 0
+    assert (got_lse - lse).abs().max().item() <= GATE
 
 
 def _fake_csrc(tmp_path, monkeypatch):

@@ -239,3 +239,51 @@ def test_kernels_match_plain_on_card():
                                   "flash_bwd_dkv": 6, "paged_attention": 4,
                                   "int8_matmul": 4, "unscale_sqsum": 0,
                                   "fused_adam": 0}
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_match_plain_on_card():
+    """K1-K3's bf16 entry points against their plain versions on the same
+    bf16 inputs (within 2 bf16 ulps: |diff| <= 2^-7 |plain| + 1e-3
+    max|plain|; lse, float32, within 1e-4), bf16 outputs and gradients,
+    exact zeros past kv_lens, bitwise across two calls, and bitwise what
+    the float32 kernels give on the widened values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    mt.reset_launch_counts()
+
+    def gate(got, want):
+        got, want = got.float(), want.float()
+        bar = 2 ** -7 * want.abs() + 1e-3 * want.abs().max()
+        assert bool(((got - want).abs() <= bar).all())
+
+    for s, d, lens, causal in ((256, 64, None, True), (192, 128, [100, 1],
+                                                     False),
+                               (100, 64, [60, 100], True)):
+        q, k, v, g = (torch.randn(2, 3, s, d, generator=gen).to(dev)
+                      .to(torch.bfloat16) for _ in range(4))
+        kv = None if lens is None else torch.tensor(lens, device=dev)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out, lse = flash_attention(*leaves, kv, causal)
+        got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, g)
+        ref_out, ref_lse = flash_attention_reference(q, k, v, kv, causal)
+        want = flash_attention_backward_reference(
+            q, k, v, kv, out.detach(), lse, g, causal, d ** -0.5)
+        assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        gate(out, ref_out)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        wide, _ = flash_attention(q.float(), k.float(), v.float(), kv, causal)
+        assert torch.equal(out.detach(), wide.to(torch.bfloat16))
+        for a, b, c in zip(got, want, again):
+            assert a.dtype == torch.bfloat16
+            gate(a, b)
+            assert torch.equal(a, c)
+        if lens is not None:
+            assert bool((got[1][1, :, lens[1]:] == 0).all())
+            assert bool((got[2][1, :, lens[1]:] == 0).all())
+    counts = mt.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd_dq"],
+            counts["flash_bwd_dkv"]) == (6, 6, 6)
