@@ -4,8 +4,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --only serve    # kernel checks + both serving
-                                          # runs + the int8 quality gate
+    python3 chip_smoke.py --only serve    # kernel checks + the serving
+                                          # runs (fp32, int8, bf16, bf16
+                                          # int8) + the int8 quality gate
     python3 chip_smoke.py --only train    # kernel checks + training only
     python3 chip_smoke.py --only dp       # kernel checks + data-parallel
                                           # training only
@@ -40,7 +41,16 @@ Phases, one line of output each (or a few):
    absolute of its plain version and bitwise equal across two calls,
    its device time taken from CUDA graph replays with the pools cycled
    through copies whose live K/V exceed 2 x L2 (``ms_eager`` beside it:
-   the host's rate), the main rows also at each split size; then runs of
+   the host's rate), the main rows also at each split size; K6's bf16
+   entry (q and pools in bf16, a row's splits one thread block cluster)
+   at the main row, ``b1_1024``, D=128, D=32 and ``b1_2048`` (16 splits:
+   the non-portable cluster size), each within 2 bf16 ulps of its plain
+   version (|diff| <= 2^-7 |plain| + 1e-3 max|plain|) and bitwise across
+   two calls, timed as the float32 rows, then the planted row (two
+   positions, values of opposite sign large against the output) on which
+   the kernel must sit within that bar of the plain version and rounding
+   the normalised weights, rounding the unnormalised exp(s - m) and not
+   rounding must land more than a bar apart; then runs of
    K6 calls with changing B and lengths and of K7 calls with changing M,
    after which every K6 ticket counter of the split merge must be 0; the
    flash backward, K2 (dQ) and K3 (dK/dV), on
@@ -74,7 +84,11 @@ Phases, one line of output each (or a few):
    runs) with the weights cycled through more copies than the 50 MB L2
    holds (as a decode step finds them), beside ``F.linear`` on the fp32
    weights (``fp32_dense_ms``) and ``torch._weight_int8pack_mm``
-   (``library_ms``, timed only; its refusal is recorded); the sharded update's optimizer tail, K4
+   (``library_ms``, timed only; its refusal is recorded); K7's bf16
+   entry (bf16 x and out, the bias added with the JAX layer's two
+   roundings) at the four projections, within 2 bf16 ulps of its plain
+   version, bitwise across two calls, timed by graph replays beside
+   ``torch._weight_int8pack_mm`` on the same bf16 x; the sharded update's optimizer tail, K4
    (unscale + squared sum) and K5 (clip + Adam + write), each one launch
    over a list of leaves: the main row ``step_list`` is one 2-replica
    GPT-2 124M step's lists (each replica's 148 leaves as the plan splits
@@ -104,6 +118,19 @@ Phases, one line of output each (or a few):
    logit; the int8 step's relative logit error against the fp32 step's
    and their argmax agreement are reported, not gated (random weights:
    near-ties, and a few percent of error through 12 random layers);
+   then the same two runs of the same weights at ``precision="bf16"``
+   (bf16 caches and page pools: K1's bf16 prefill, K6 over bf16 pools,
+   K7 with bf16 activations), each with exact launch counts (K6 12 per
+   decode step, K7 48 per decode step in the int8 run and none in the
+   other, K1 the fp32 run's count), the per-call check (every K1, K6
+   and K7 call of one prefill and one decode step recorded and held to
+   the JAX function computed in float64, rounded where it rounds, within
+   2 bf16 ulps), and every served token within max(1e-3, 2 d) of the
+   best logit on a teacher-forced replay through the plain versions, d
+   the largest logit difference between the replay through the kernels
+   and through the plain versions (both printed); reported: the share of
+   bf16 greedy tokens equal to fp32's and the int8 run's logit error and
+   argmax agreement against bf16;
    then the JAX package's int8 quality gate at full width (``QGATE``): a
    GPT-2 124M trained by the port's ``Trainer`` on a successor map, whose
    int8 full forward (K7) and int8-served replay must both keep argmax
@@ -122,7 +149,9 @@ Phases, one line of output each (or a few):
    bf16 K1-K3): its first microbatch loss within 2e-2 of the fp32 run's,
    the kernel path against the kernels' plain versions (loss 2e-3) and
    against exact attention (gradients: ``BF16_*``), the same launch
-   counts, its final loss scale;
+   counts, its final loss scale, and the per-call check of one step
+   (every K1, K2 and K3 call's bf16 inputs and dO recorded, each output
+   within 2 bf16 ulps of the float64 JAX function on them);
 6. data-parallel training: the same model through ``Trainer(...,
    is_parallel=True, mesh_shape={"data": 2}, device=[cuda, cuda],
    dp_update="sharded")`` (2 replicas sharing the card, global batch 8 =
@@ -153,7 +182,7 @@ Phases, one line of output each (or a few):
    largest entry), in float32 the loss and statistics at those bars and
    each layer from its own inputs (outputs 1e-4, gradients 1e-3); BERT's
    kernel path against its plain path on the first batch (as in 5, by
-   precision).
+   precision), and in bf16 the per-call check of one step as in 5.
    Each run must give finite losses and skip no step; BERT launches
    exactly 12 K1, K2 and K3 a training step and 12 K1 an eval batch,
    the others no kernel.  Each family's line has its optimizer-step time
@@ -171,6 +200,7 @@ without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -713,7 +743,8 @@ PAGED_CASES = [
 ]
 PAGED_SWEPT = ("main", "b1_1024", "b8_full")  # rows timed at each split
 # K6's and K7's kernel names, as the profiler lists them.
-DECODE_MARKS = {"paged_attention": ("paged_attention_kernel",),
+DECODE_MARKS = {"paged_attention": ("paged_attention_kernel",
+                                     "paged_attention_bf16_kernel"),
                 "int8_matmul": ("int8_matmul_kernel",)}
 
 
@@ -1026,6 +1057,212 @@ def check_int8(dev):
     return rows
 
 
+# K6's bf16 entry (a bf16 model's decode step): rows as PAGED_CASES with q
+# and the pools in bf16 (the main row is the bf16 serving run's decode
+# batch); ``b1_2048`` takes 16 splits of 128, the non-portable cluster
+# size.  Then the planted row (``PLANTED``).
+PAGED_BF16_CASES = [c for c in PAGED_CASES
+                    if c[0] in ("main", "b1_1024", "d128", "d32")] + [
+    ("b1_2048", 1, 12, 64, 16, 128, [2048], ())]
+# The planted row: one row of two live positions, scores (0.828125, 0)
+# (q = 6.625 e_0 against k rows e_0 and 0, scale 1/8 at D = 64) and
+# values +16 and -36.25 on every channel.  Its output (0.0801) is small
+# against the values, and the weights' f32 values lie over 0.16 of a bf16
+# ulp from a rounding midpoint, so rounding the normalised weights (the
+# JAX function), rounding the unnormalised exp(s - m) and not rounding
+# give outputs 0.0801, 0.0977 and 0.1138: over 20 bars apart.
+PLANTED = dict(q=6.625, v=(16.0, -36.25), d=64, heads=12)
+
+
+def planted_case(dev):
+    import torch
+
+    d, h = PLANTED["d"], PLANTED["heads"]
+    q = torch.zeros(1, h, d)
+    q[..., 0] = PLANTED["q"]
+    kp = torch.zeros(2, h, 16, d)
+    vp = torch.zeros(2, h, 16, d)
+    kp[1, :, 0, 0] = 1.0
+    vp[1, :, 0], vp[1, :, 1] = PLANTED["v"]
+    bf = torch.bfloat16
+    return (q.to(bf).to(dev), kp.to(bf).to(dev), vp.to(bf).to(dev),
+            torch.tensor([[1]], dtype=torch.int32, device=dev),
+            torch.tensor([2], dtype=torch.int32, device=dev))
+
+
+def planted_designs(q, kp, vp, table, lengths):
+    """The planted row through the two designs that are not the JAX
+    function: the unnormalised exp(s - m) rounded to bf16 before PV and
+    divided by l after, and no rounding of the weights."""
+    import torch
+
+    n = int(lengths[0])
+    pos = torch.arange(n, device=q.device)
+    page = table[0, pos // kp.shape[2]].long()
+    k = kp[page, :, pos % kp.shape[2]].float()
+    v = vp[page, :, pos % kp.shape[2]].float()
+    sc = torch.einsum("bhd,nhd->bhn", q.float(), k) * q.shape[-1] ** -0.5
+    p = torch.exp(sc - sc.max(-1, keepdim=True).values)
+    l = p.sum(-1, keepdim=True)
+    unnorm = torch.einsum("bhn,nhd->bhd", p.to(torch.bfloat16).float(), v) / l
+    exact = torch.einsum("bhn,nhd->bhd", p, v) / l
+    return unnorm.to(torch.bfloat16), exact.to(torch.bfloat16)
+
+
+def check_paged_bf16(dev):
+    """K6's bf16 entry against its plain version on the same bf16 inputs
+    (within 2 bf16 ulps: ``bf16_gate`` <= 1), two calls bitwise, timed as
+    ``check_paged`` times the float32 rows (graph replays over pool copies
+    past 2 x L2, eager, plain), beside its bound with the pools at 2 bytes
+    a value.  Then the planted row: the kernel within the bar of the plain
+    version, and the three rounding designs more than a bar apart."""
+    import math
+    from importlib import import_module
+
+    import torch
+
+    pa = import_module("ml_trainer_tpu_torch.ops.kernels.paged_attention")
+    rows = []
+    for i, (name, b, h, d, ps, pages, lens, trash) in enumerate(
+            PAGED_BF16_CASES):
+        q, kp, vp, table, lengths = (
+            t.to(torch.bfloat16) if t.is_floating_point() else t
+            for t in paged_case(dev, b, h, d, ps, pages, lens, trash,
+                                SEED + 70 + i))
+        out = pa.paged_attention(q, kp, vp, table, lengths)
+        ref = pa.paged_attention_reference(q, kp, vp, table, lengths)
+        again = pa.paged_attention(q, kp, vp, table, lengths)
+        torch.cuda.synchronize()
+        if out.dtype != torch.bfloat16:
+            raise AssertionError(f"paged_attention bf16 {name}: {out.dtype}")
+        ratio = bf16_gate(out, ref)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"paged_attention bf16 {name}: {ratio} of "
+                                 "the 2-ulp bar")
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged_attention bf16 {name}: two calls "
+                                 "differ")
+        L = pages * ps
+        live = sum(min(max(n, 1), L) for n in lens)
+        live_bytes = 2 * live * h * d * 2
+        copies = [(q.clone(), kp.clone(), vp.clone())
+                  for _ in range(1 + math.ceil(2 * L2_BYTES / live_bytes))]
+
+        def kernel(a, k_, v_):
+            return pa.paged_attention(a, k_, v_, table, lengths)
+
+        def plain_fn(a, k_, v_):
+            return pa.paged_attention_reference(a, k_, v_, table, lengths)
+
+        ms = time_graph_ms(kernel, copies)
+        ms_eager = time_cold_ms(kernel, copies)
+        plain = time_cold_ms(plain_fn, copies, iters=20)
+        nbytes = 2 * b * h * d * 2 + live_bytes + table.numel() * 4 + b * 4
+        b_ms, b_by = bound_ms(nbytes, 4.0 * live * h * d)
+        row = dict(case=name, B=b, H=h, D=d, page=ps, pages=pages,
+                   lengths=lens, split=pa.cluster_split(pages, ps),
+                   max_abs_err=err, gate_ratio=ratio, bitwise_repeat=True,
+                   ms=ms, ms_eager=ms_eager, plain_ms=plain, library_ms=None,
+                   bound_ms=b_ms, bound_by=b_by, pool_copies=len(copies))
+        log("kernel paged_attention bf16 " + json.dumps(row))
+        rows.append(row)
+        del q, kp, vp, copies, out, ref, again
+        torch.cuda.empty_cache()
+
+    case = planted_case(dev)
+    out = pa.paged_attention(*case)
+    ref = pa.paged_attention_reference(*case)
+    unnorm, exact = planted_designs(*case)
+    torch.cuda.synchronize()
+    planted = dict(
+        case="planted", kernel=out[0, 0, 0].item(), plain=ref[0, 0, 0].item(),
+        unnormalised=unnorm[0, 0, 0].item(), unrounded=exact[0, 0, 0].item(),
+        kernel_vs_plain=bf16_gate(out, ref),
+        # The three designs' distances, in bars of the first named.
+        normalised_vs_unnormalised=bf16_gate(unnorm, out),
+        normalised_vs_unrounded=bf16_gate(exact, out),
+        unnormalised_vs_unrounded=bf16_gate(exact, unnorm))
+    log("kernel paged_attention bf16 " + json.dumps(planted))
+    if not planted["kernel_vs_plain"] <= 1.0:
+        raise AssertionError(f"paged_attention bf16 planted row: {planted}")
+    if not min(planted[k] for k in ("normalised_vs_unnormalised",
+                                    "normalised_vs_unrounded",
+                                    "unnormalised_vs_unrounded")) > 1.0:
+        raise AssertionError("the planted row does not tell the rounding "
+                             f"designs apart: {planted}")
+    rows.append(planted)
+    return rows
+
+
+INT8_BF16_CASES = [c for c in INT8_CASES if c[0] in INT8_SWEPT]
+
+
+def check_int8_bf16(dev):
+    """K7's bf16 entry at the four GPT-2 124M decode projections (M = 8,
+    bf16 x and out, the bias fused with JAX's two roundings) against its
+    plain version (``bf16_gate`` <= 1), two calls bitwise, timed by graph
+    replays over weight copies past 2 x L2 beside the plain version and
+    ``torch._weight_int8pack_mm`` on the same bf16 x (scales in bf16;
+    timed only), its bound with x and out at 2 bytes a value."""
+    import math
+    from importlib import import_module
+
+    import torch
+
+    im = import_module("ml_trainer_tpu_torch.ops.kernels.int8_matmul")
+    rows = []
+    for i, (name, m, k, n, _) in enumerate(INT8_BF16_CASES):
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 80 + i)
+        x = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen) * 0.02).to(dev)
+        bias = (torch.randn(n, generator=gen) * 0.02).to(dev)
+        w_q, scale = im.quantize_per_channel(w.T)
+        w_q = w_q.contiguous()
+        got = im.int8_matmul(x, w_q, scale, bias=bias)
+        want = im.int8_matmul(x, w_q, scale, bias=bias,
+                              implementation="reference")
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"int8_matmul bf16 {name}: {got.dtype}")
+        ratio = bf16_gate(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"int8_matmul bf16 {name}: {ratio} of the "
+                                 "2-ulp bar")
+        if not torch.equal(got, im.int8_matmul(x, w_q, scale, bias=bias)):
+            raise AssertionError(f"int8_matmul bf16 {name}: two calls differ")
+        nq = max(1, math.ceil(2 * L2_BYTES / (k * n)))
+        q_copies = [(w_q.clone(), scale, bias) for _ in range(nq)]
+
+        def kernel(a, b, c):
+            return im.int8_matmul(x, a, b, bias=c)
+
+        def plain_fn(a, b, c):
+            return im.int8_matmul(x, a, b, bias=c, implementation="reference")
+
+        ms = time_graph_ms(kernel, q_copies)
+        ms_eager = time_cold_ms(kernel, q_copies)
+        plain = time_graph_ms(plain_fn, q_copies, iters=20)
+        lib, lib_error = int8_library(
+            x, w_q, scale, [(a, b.to(torch.bfloat16), c)
+                            for a, b, c in q_copies])
+        extra = {} if lib_error is None else {"library_error": lib_error}
+        # int8 weights once, x and out at 2 bytes, scale and bias at 4;
+        # 2*M*K*N f32 operations.
+        nbytes = k * n + 2 * m * k + 4 * n + 4 * n + 2 * m * n
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n)
+        row = dict(case=name, M=m, K=k, N=n, slice=im.k_slice(k, n),
+                   max_abs_err=err, gate_ratio=ratio, bitwise_repeat=True,
+                   ms=ms, ms_eager=ms_eager, plain_ms=plain, library_ms=lib,
+                   bound_ms=b_ms, bound_by=b_by, weight_copies=nq, **extra)
+        log("kernel int8_matmul bf16 " + json.dumps(row))
+        rows.append(row)
+        del q_copies
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------- phase 4
 def serve(dev):
     import numpy as np
@@ -1094,7 +1331,295 @@ def serve(dev):
     # Random weights: reported, not gated (see QGATE).
     int8.update(replay_int8(model, prompts, outs_q, new_tokens,
                             gate_quality=False))
-    return {"fp32": fp32, "int8": int8}
+    del model
+    torch.cuda.empty_cache()
+    return {"fp32": fp32, "int8": int8,
+            **serve_bf16(dev, prompts, new_tokens, outs, counts)}
+
+
+def serve_bf16(dev, prompts, new_tokens: int, outs_fp32, counts_fp32):
+    """The same weights at ``precision="bf16"`` (bf16 caches and page
+    pools: K1's bf16 prefill, K6 over bf16 pools, K7 with bf16
+    activations), the same requests, twice: bf16, then bf16 with
+    ``quant_int8``.  Each run: exact launch counts (K6 depth per decode
+    step, K7 4 x depth per decode step in the int8 run and none in the
+    other, K1 the fp32 run's count), the per-call check of one prefill and
+    one decode step (``serve_call_check``), and every served token within
+    max(LOGIT_SLACK, 2 d) of the best logit on a teacher-forced replay
+    through the plain versions, d the largest logit difference between
+    the replay through the kernels and through the plain versions.
+    Reported, not gated: the share of bf16 greedy tokens equal to fp32's,
+    and the int8 run's relative logit error and argmax agreement against
+    bf16 on the int8 run's sequences."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    model = mt.init_gpt2("gpt2", seed=SEED, device=dev, precision="bf16")
+    model.eval()
+    runs = {}
+    for quant_int8 in (False, True):
+        run = run_server(model, prompts, new_tokens, quant_int8=quant_int8)
+        got, counts = run.pop("outs"), run["launches"]
+        steps = run["decode_steps"]
+        want = dict(counts_fp32, paged_attention=model.depth * steps,
+                    int8_matmul=4 * model.depth * steps if quant_int8 else 0)
+        if counts != want:
+            raise AssertionError(f"bf16 serving (quant_int8={quant_int8}) "
+                                 f"launches {counts}, expected {want}")
+        quant = mt.quantize_tree(model) if quant_int8 else None
+        run["call_check"] = serve_call_check(model, prompts, quant_int8)
+        kern = replay_served(model, prompts, got, new_tokens, quant, False)
+        plain = replay_served(model, prompts, got, new_tokens, quant, True)
+        d = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+        gap = 0.0
+        for p, seq, lp in zip(prompts, got, plain):
+            served = torch.as_tensor(np.asarray(seq[len(p):], np.int64),
+                                     device=dev)
+            rows = torch.arange(new_tokens, device=dev)
+            gap = max(gap, (lp.max(-1).values - lp[rows, served]).max().item())
+            if not torch.isfinite(lp).all():
+                raise AssertionError("non-finite logits in the bf16 replay")
+        bar = max(LOGIT_SLACK, 2 * d)
+        run.update(worst_logit_gap=gap, kernel_vs_plain_logit_diff=d,
+                   logit_gap_bar=bar)
+        if not gap <= bar:
+            raise AssertionError(
+                f"a bf16-served token (quant_int8={quant_int8}) is {gap} "
+                f"below the best plain logit (> {bar}, d = {d})")
+        run["tokens_equal_to_fp32_share"] = float(np.mean([
+            np.mean(np.asarray(a[len(p):]) == np.asarray(b[len(p):]))
+            for p, a, b in zip(prompts, got, outs_fp32)]))
+        if quant_int8:  # the int8 decode steps against bf16's
+            ref = replay_served(model, prompts, got, new_tokens, None, True)
+            diff = max((a[1:] - b[1:]).abs().max().item()
+                       for a, b in zip(plain, ref))
+            peak = max(b[1:].abs().max().item() for b in ref)
+            agree = np.mean([(a[1:].argmax(-1) == b[1:].argmax(-1))
+                             .float().mean().item()
+                             for a, b in zip(plain, ref)])
+            run.update(int8_vs_bf16_rel_logit_err=diff / peak,
+                       int8_vs_bf16_argmax_agreement=float(agree))
+        runs["bf16_int8" if quant_int8 else "bf16"] = run
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def replay_served(model, prompts, outs, new_tokens: int, quant, plain: bool):
+    """Teacher-forced logits of served sequences through the serving
+    path's own calls: the prompt's batch-1 prefill into a contiguous
+    cache of its power-of-two bucket (K1 from bucket 128 up), its K/V
+    moved into a batch-1 paged cache of page 16, then the served tokens
+    one at a time through the S == 1 step (K6; with ``quant`` the int8
+    projections, K7).  ``plain``: the same calls through the kernels'
+    plain versions (the flash Function routed as for a CPU tensor, the
+    gather path, the plain int8 matmul).  Per request [new_tokens, V]
+    float32 logits, row j scoring served token j."""
+    import contextlib
+    import importlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    tatt = importlib.import_module("ml_trainer_tpu_torch.ops.attention")
+    dev, ps = model.device, 16
+    pages = model.max_len // ps
+    route = (mock.patch.object(tatt, "_device_kind", lambda q: "cpu")
+             if plain else contextlib.nullcontext())
+    first = torch.zeros(1, dtype=torch.long, device=dev)
+    out = []
+    with torch.no_grad(), route:
+        for p, seq in zip(prompts, outs):
+            n = len(p)
+            ids = torch.as_tensor(np.asarray(seq, np.int64), device=dev)
+            bucket = min(1 << (n - 1).bit_length(), model.max_len)
+            padded = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+            padded[0, :n] = ids[:n]
+            c1 = model.new_cache(1, max_len=bucket)
+            rows = [model(padded, c1, select=first + n - 1)[0]]
+            cache = model.new_paged_cache(1, pages + 1, ps,
+                                          paged_kernel=not plain)
+            cache.table[0] = torch.arange(1, pages + 1, dtype=torch.int32,
+                                          device=dev)
+            pos = torch.arange(bucket, device=dev)
+            for layer in range(model.depth):
+                cache.k[layer][1 + pos // ps, :, pos % ps] = (
+                    c1.k[layer][0].transpose(0, 1))
+                cache.v[layer][1 + pos // ps, :, pos % ps] = (
+                    c1.v[layer][0].transpose(0, 1))
+            cache.index[0] = n
+            for j in range(n, n + new_tokens - 1):
+                rows.append(model(
+                    ids[None, j:j + 1], cache, select=first, quant=quant,
+                    quant_impl="reference" if plain else "auto")[0])
+            out.append(torch.stack(rows).float())
+            del c1, cache
+    return out
+
+
+# The launch functions of the kernels (module, attribute, kernel): the
+# per-call check records their calls.
+CALL_SITES = (
+    ("ml_trainer_tpu_torch.ops.attention", "_flash_kernel", "flash_fwd"),
+    ("ml_trainer_tpu_torch.ops.attention", "flash_bwd_dq", "flash_bwd_dq"),
+    ("ml_trainer_tpu_torch.ops.attention", "flash_bwd_dkv", "flash_bwd_dkv"),
+    ("ml_trainer_tpu_torch.ops.kernels.paged_attention", "_paged_kernel",
+     "paged_attention"),
+    ("ml_trainer_tpu_torch.ops.kernels.int8_matmul", "_int8_kernel",
+     "int8_matmul"),
+)
+
+
+@contextlib.contextmanager
+def capture_calls():
+    """Inside, every call of a kernel's launch function (``CALL_SITES``)
+    runs as it would and is recorded as (kernel, inputs, outputs), the
+    tensors cloned."""
+    import importlib
+    from unittest import mock
+
+    import torch
+
+    def keep(t):
+        return t.detach().clone() if torch.is_tensor(t) else t
+
+    calls = []
+    with contextlib.ExitStack() as stack:
+        for mod, attr, kname in CALL_SITES:
+            module = importlib.import_module(mod)
+
+            def wrapped(*args, _real=getattr(module, attr), _k=kname, **kw):
+                out = _real(*args, **kw)
+                outs = out if isinstance(out, tuple) else (out,)
+                calls.append((_k, [keep(a) for a in args],
+                              [keep(o) for o in outs]))
+                return out
+
+            stack.enter_context(mock.patch.object(module, attr, wrapped))
+        yield calls
+
+
+def exact_outputs(kname: str, args) -> list:
+    """A recorded call's outputs through the JAX function in float64,
+    rounded where the JAX function rounds: the inputs widened; K1 the
+    masked softmax and PV, out rounded once (lse in float32); K2/K3 the
+    gradients from the call's lse and delta, each rounded once; K6 the
+    masked softmax, the weights rounded to the pools' dtype, PV, out
+    rounded once; K7 the scaled sum rounded to x's dtype, then the bias
+    rounded to it and added, rounded once more."""
+    import torch
+
+    from ml_trainer_tpu_torch.ops.attention import (
+        _backward_plain, flash_attention_reference)
+
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+
+    if kname == "flash_fwd":
+        q, k, v, kv_lens, causal, scale = args
+        out, lse = flash_attention_reference(f64(q), f64(k), f64(v), kv_lens,
+                                             causal, scale)
+        return [out.to(q.dtype), lse.float()]
+    if kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        q, k, v, kv_lens, lse, delta, dout, causal, scale = args
+        grads = _backward_plain(f64(q), f64(k), f64(v), kv_lens, f64(lse),
+                                f64(delta), f64(dout), causal, scale)
+        grads = [g.to(q.dtype) for g in grads]
+        return grads[:1] if kname == "flash_bwd_dq" else grads[1:]
+    if kname == "paged_attention":
+        q, kp, vp, table, lengths, scale = args[:6]
+        b, h, d = q.shape
+        L = table.shape[1] * kp.shape[2]
+        tl = table.long()
+
+        def gather(pool):  # [B, P, H, page, D] -> [B, H, L, D]
+            return pool[tl].permute(0, 2, 1, 3, 4).reshape(b, h, L, d).double()
+
+        sc = torch.einsum("bhd,bhld->bhl", q.double(), gather(kp)) * scale
+        live = (torch.arange(L, device=q.device)[None, :]
+                < lengths.long().clamp(1, L)[:, None])
+        sc = sc.masked_fill(~live[:, None, :], -torch.inf)
+        w = torch.softmax(sc, -1).to(vp.dtype).double()
+        return [torch.einsum("bhl,bhld->bhd", w, gather(vp)).to(q.dtype)]
+    if kname == "int8_matmul":
+        x, w_q, scale, bias = args[:4]
+        x2 = x.reshape(-1, x.shape[-1]).double()
+        y = ((x2 @ w_q.double()) * scale.double()).to(x.dtype)
+        if bias is not None:
+            y = (y.double() + bias.to(x.dtype).double()).to(x.dtype)
+        return [y.reshape(*x.shape[:-1], w_q.shape[1])]
+    raise ValueError(kname)
+
+
+def call_check(calls) -> dict:
+    """Every recorded call's outputs (``capture_calls``) against
+    ``exact_outputs`` on its own inputs: each bf16 output within 2 bf16
+    ulps (``bf16_gate`` <= 1), K1's lse within ``TOL``.  Per kernel: the
+    calls checked and the worst gate ratio."""
+    import torch
+
+    rec = {}
+    for i, (kname, args, outs) in enumerate(calls):
+        want = exact_outputs(kname, args)
+        r = rec.setdefault(kname, {"calls": 0, "worst_gate_ratio": 0.0})
+        r["calls"] += 1
+        if kname == "flash_fwd":
+            lse_err = (outs[1] - want[1]).abs().max().item()
+            r["worst_lse_err"] = max(r.get("worst_lse_err", 0.0), lse_err)
+            if not lse_err <= TOL:
+                raise AssertionError(f"call {i} ({kname}): lse {lse_err} from "
+                                     "float64")
+            outs, want = outs[:1], want[:1]
+        for got, w in zip(outs, want):
+            if got.dtype != torch.bfloat16 or got.shape != w.shape:
+                raise AssertionError(f"call {i} ({kname}): {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            ratio = bf16_gate(got, w)
+            r["worst_gate_ratio"] = max(r["worst_gate_ratio"], ratio)
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"call {i} ({kname}): {ratio} of the 2-ulp bar against "
+                    "the float64 JAX function")
+    return rec
+
+
+def serve_call_check(model, prompts, quant_int8: bool) -> dict:
+    """The per-call check in serving: a fresh paged engine as the
+    ``Server``'s (8 slots, page 16, ``paged_kernel``) admits the prompts,
+    the longest (bucket 1024: K1) last under ``capture_calls``; then
+    one decode step of the 8 slots (K6; K7 with ``quant_int8``) under it.
+    Each call's bf16 outputs against the float64 JAX function
+    (``call_check``), with exact call counts."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.serving.scheduler import Request
+
+    engine = mt.SlotDecodeEngine(model, max_batch=8, kv_page_size=16,
+                                 paged_kernel=True, quant_int8=quant_int8,
+                                 device=model.device)
+    last = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    order = [i for i in range(len(prompts)) if i != last] + [last]
+    for slot, i in enumerate(order[:-1]):
+        engine.admit(Request(prompts[i], 4), slot)
+    with capture_calls() as prefill:
+        engine.admit(Request(prompts[last], 4), len(order) - 1)
+    with capture_calls() as step:
+        engine.step()
+    torch.cuda.synchronize()
+    got = {k: sum(1 for c in prefill + step if c[0] == k)
+           for k in ("flash_fwd", "paged_attention", "int8_matmul")}
+    want = dict(flash_fwd=model.depth, paged_attention=model.depth,
+                int8_matmul=4 * model.depth if quant_int8 else 0)
+    if got != want:
+        raise AssertionError(f"per-call check captured {got}, expected {want}")
+    rec = call_check(prefill + step)
+    del engine, prefill, step
+    torch.cuda.empty_cache()
+    return rec
 
 
 def run_server(model, prompts, new_tokens: int, quant_int8: bool) -> dict:
@@ -1570,8 +2095,9 @@ def train(dev, precision=None, fp32_first_loss=None):
 
     # Optimizer-step time: CUDA events around steps on one batch (the
     # run above includes loading, validation and the weights' export).
+    # In bf16 the warm-up step runs under the per-call check.
     n_time = 3
-    trainer._train_step(x, y, 1.0)
+    calls = train_call_check(trainer, x, y, model.depth * c["accum"])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1591,7 +2117,27 @@ def train(dev, precision=None, fp32_first_loss=None):
         fit_s=fit_s, launches=counts, step_ms=step_ms,
         tokens_per_s=c["batch_size"] * c["seq_len"] / (step_ms / 1e3),
         max_memory_allocated_bytes=peak, grad_check=check,
-        loss_scale=scale, profile=profile)
+        call_check=calls, loss_scale=scale, profile=profile)
+
+
+def train_call_check(trainer, x, y, launches: int):
+    """One optimizer step on ``(x, y)``; in bf16 under ``capture_calls``,
+    with every K1, K2 and K3 call (``launches`` of each: the step's
+    microbatches times the layers) held to the float64 JAX function by
+    ``call_check``.  None in float32 (the step runs as it is)."""
+    if not trainer.precision.active:
+        trainer._train_step(x, y, 1.0)
+        return None
+    with capture_calls() as calls:
+        trainer._train_step(x, y, 1.0)
+    got = {k: sum(1 for c in calls if c[0] == k)
+           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if got != dict.fromkeys(got, launches):
+        raise AssertionError(f"per-call check captured {got}, expected "
+                             f"{launches} of each")
+    rec = call_check(calls)
+    del calls
+    return rec
 
 
 # ------------------------------------------------------------- phase 6
@@ -2334,7 +2880,11 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
     scale = loss_scale_record(trainer)
 
     n_time = 3
-    trainer._train_step(x, y, 1.0)
+    calls = None
+    if name == "bert_base":  # in bf16 the warm-up step is checked per call
+        calls = train_call_check(trainer, x, y, model.depth)
+    else:
+        trainer._train_step(x, y, 1.0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2371,7 +2921,8 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
                                       "skipped_steps")},
         launches=counts, step_ms=step_ms,
         samples_per_s=batch / (step_ms / 1e3),
-        max_memory_allocated_bytes=peak, check=check, profile=profile)
+        max_memory_allocated_bytes=peak, check=check, call_check=calls,
+        profile=profile)
 
 
 def models(dev) -> list:
@@ -2419,9 +2970,11 @@ def main(argv=None) -> int:
 
     flash_rows = check_flash(dev)
     paged_rows = check_paged(dev)
+    paged_bf16_rows = check_paged_bf16(dev)
     bwd_rows, padded_err = check_flash_bwd(dev)
     bf16_rows = check_flash_bf16(dev)
     int8_rows = check_int8(dev)
+    int8_bf16_rows = check_int8_bf16(dev)
     check_tickets(dev)
     fused_rows = check_fused_adam(dev)
     launches = {"flash_fwd": None, "paged_attention": None,
@@ -2430,7 +2983,7 @@ def main(argv=None) -> int:
                 "fused_adam": None}
     if args.only in (None, "serve"):
         serving = serve(dev)
-        for run in ("fp32", "int8"):
+        for run in ("fp32", "int8", "bf16", "bf16_int8"):
             for kname, count in serving[run]["launches"].items():
                 launches[kname] = (launches[kname] or 0) + count
             log(f"serving {run} on {smi}: " + json.dumps(serving[run]))
@@ -2500,9 +3053,12 @@ def main(argv=None) -> int:
                  "library_ms", "library_device_ms", "max_abs_err",
                  "gate_ratio")
     bf16 = {}
-    for kname, row in bf16_rows:
-        bf16.setdefault(kname, {})[row["case"]] = {
-            key: row[key] for key in bf16_keys}
+    for kname, row in (bf16_rows + [("paged_attention", r)
+                                    for r in paged_bf16_rows]
+                       + [("int8_matmul", r) for r in int8_bf16_rows]):
+        bf16.setdefault(kname, {})[row["case"]] = (
+            {key: row.get(key) for key in bf16_keys} if "ms" in row
+            else row)  # the planted row: its values and distances
     bwd = {}
     for kname, row in bwd_rows:  # the main row is each kernel's first
         bwd.setdefault(kname, dict(row, max_abs_err=max(
@@ -2526,7 +3082,8 @@ def main(argv=None) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in paged_rows),
          **{k: paged_rows[0][k] for k in ("ms", "ms_eager", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}},
+                                          "library_ms")},
+         "bf16_rows": bf16["paged_attention"]},
     ] + [
         {"name": kname, "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/flash_bwd.cu",
@@ -2546,7 +3103,8 @@ def main(argv=None) -> int:
          "launches": launches["int8_matmul"],
          "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
          **{k: int8_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}},
+                                         "bound_by", "library_ms")},
+         "bf16_rows": bf16["int8_matmul"]},
     ] + [
         {"name": kname, "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/fused_adam.cu",

@@ -1,5 +1,6 @@
 // Int8 weight-quantized matmul (the decode projections) for Hopper
-// (sm_90a): float32 activations, int8 weights, f32 per-column scales.
+// (sm_90a): float32 or bfloat16 activations, int8 weights, f32
+// per-column scales.
 //
 // Replaces: ml_trainer_tpu/ops/kernels/int8_matmul.py::_int8_kernel,
 // launched by _int8_pallas (pl.pallas_call at
@@ -12,7 +13,11 @@
 // full K; the scale multiplies the finished sum and the bias is added
 // after it, each as its own f32 rounding (__fmul_rn / __fadd_rn, so the
 // compiler cannot contract them into one FMA), which is the plain
-// version's order.
+// version's order.  With bfloat16 x and out (int8_matmul_bf16, a bf16
+// model's decode step) x is widened exactly as it is staged, the sum is
+// the same f32 sum, and the epilogue rounds twice as the JAX package's
+// _quant_dense does: out = bf16(bf16(sum * scale) + bf16(bias)), the add
+// taken in f32 on the two bf16 values and rounded once more.
 //
 // What bounds it on this card: bytes.  In decode M is the batch (8), so
 // every weight byte feeds 2 * M = 16 flops: the weights (K * N bytes)
@@ -42,6 +47,7 @@
 // aligned, else 4-byte copies (4 columns when N % 4 == 0, one float of x)
 // or, for the weights, byte loads.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,10 +103,34 @@ __device__ __forceinline__ float lane_of(float4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t h) {
+  return __uint_as_float(h << 16);  // exact
+}
+
+// The epilogue: the finished f32 sum v of output (m, n), scaled, plus the
+// bias, stored in the output's type (see the header for the roundings).
+__device__ __forceinline__ void store_out(float* out, size_t o, float v,
+                                          float sc, const float* bias, int n) {
+  float y = __fmul_rn(v, sc);
+  if (bias != nullptr) y = __fadd_rn(y, bias[n]);
+  out[o] = y;
+}
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* out, size_t o,
+                                          float v, float sc,
+                                          const float* bias, int n) {
+  __nv_bfloat16 y = __float2bfloat16_rn(__fmul_rn(v, sc));
+  if (bias != nullptr)
+    y = __float2bfloat16_rn(__fadd_rn(
+        __bfloat162float(y), __bfloat162float(__float2bfloat16_rn(bias[n]))));
+  out[o] = y;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ scale,
-                   const float* __restrict__ bias, float* __restrict__ out,
+                   const float* __restrict__ bias, T* __restrict__ out,
                    int M, int K, int N, int slice, int vec_w, int vec_x) {
   __shared__ __align__(16) int8_t w_s[kMaxSlice * kTileN];
   __shared__ __align__(16) float x_s[kRows * kMaxSlice];
@@ -152,7 +182,37 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   // -- x rows m0 .. m0+7 of the chunk at c0, zero past M and K -------------
   auto stage_x = [&](int m0, int c0) {
     const int rows = chunk_rows(c0), live = kn - c0;
-    if (vec_x) {
+    if constexpr (sizeof(T) == 2) {
+      // bf16: loads widened into the f32 staging rows (they run while the
+      // weights' copies are in flight), 8 values a load when vec_x.
+      const uint16_t* xh = reinterpret_cast<const uint16_t*>(x);
+      if (vec_x) {
+        for (int i = tid; i < kRows * rows / 8; i += kThreads) {
+          const int r = i / (rows / 8), kk = 8 * (i % (rows / 8));
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (m0 + r < M && kk < live)  // K % 8 == 0: whole chunks
+            v = __ldg(reinterpret_cast<const uint4*>(
+                xh + (size_t)(m0 + r) * K + k0 + c0 + kk));
+          float4* dst = reinterpret_cast<float4*>(x_s + r * kMaxSlice + kk);
+          dst[0] = make_float4(bf16_bits_to_f32(v.x & 0xffffu),
+                               bf16_bits_to_f32(v.x >> 16),
+                               bf16_bits_to_f32(v.y & 0xffffu),
+                               bf16_bits_to_f32(v.y >> 16));
+          dst[1] = make_float4(bf16_bits_to_f32(v.z & 0xffffu),
+                               bf16_bits_to_f32(v.z >> 16),
+                               bf16_bits_to_f32(v.w & 0xffffu),
+                               bf16_bits_to_f32(v.w >> 16));
+        }
+      } else {
+        for (int i = tid; i < kRows * rows; i += kThreads) {
+          const int r = i / rows, kk = i % rows;
+          x_s[r * kMaxSlice + kk] =
+              (m0 + r < M && kk < live)
+                  ? bf16_bits_to_f32(xh[(size_t)(m0 + r) * K + k0 + c0 + kk])
+                  : 0.f;
+        }
+      }
+    } else if (vec_x) {
       for (int i = tid; i < kRows * rows / 4; i += kThreads) {
         const int r = i / (rows / 4), kk = 4 * (i % (rows / 4));
         const bool ok = m0 + r < M && kk < live;   // K % 4 == 0: whole chunks
@@ -233,9 +293,7 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       if (n_slices > 1) {
         cg::this_cluster().map_shared_rank(&parts[blockIdx.y][0], 0)[o] = v;
       } else if (m < M && n < N) {
-        float y = __fmul_rn(v, scale[n]);
-        if (bias != nullptr) y = __fadd_rn(y, bias[n]);
-        out[(size_t)m * N + n] = y;
+        store_out(out, (size_t)m * N + n, v, scale[n], bias, n);
       }
     }
     if (n_slices == 1) continue;
@@ -246,11 +304,8 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
         const int m = m0 + o / kTileN, n = n_base + o % kTileN;
         float v = parts[0][o];
         for (int t = 1; t < n_slices; ++t) v += parts[t][o];
-        if (m < M && n < N) {
-          float y = __fmul_rn(v, scale[n]);
-          if (bias != nullptr) y = __fadd_rn(y, bias[n]);
-          out[(size_t)m * N + n] = y;
-        }
+        if (m < M && n < N)
+          store_out(out, (size_t)m * N + n, v, scale[n], bias, n);
       }
     }
     // Block 0 has read every partial before the next pass stores more.
@@ -258,13 +313,10 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-}  // namespace
-
-// slice: rows of K per block, a multiple of 64, with at most 8 slices (the
-// cluster of a column tile).
-extern "C" int int8_matmul_f32(const void* x, const void* w, const void* scale,
-                               const void* bias, void* out, int m, int k, int n,
-                               int slice, void* stream) {
+template <typename T>
+int int8_matmul(const void* x, const void* w, const void* scale,
+                const void* bias, void* out, int m, int k, int n, int slice,
+                void* stream) {
   if (m <= 0 || n <= 0 || k < 0 || slice < kSliceStep ||
       slice % kSliceStep != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -274,7 +326,9 @@ extern "C" int int8_matmul_f32(const void* x, const void* w, const void* scale,
   const int vec_w = (n % 16 == 0 && wa % 16 == 0) ? 16
                     : (n % 4 == 0 && wa % 4 == 0)  ? 4
                                                    : 1;
-  const int vec_x = (k % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  // 16-byte loads of x: 4 floats or 8 bf16 values, whole rows of them.
+  const int vec_x = (k % (16 / (int)sizeof(T)) == 0) &&
+                    (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + kTileN - 1) / kTileN, n_slices);
   cfg.blockDim = dim3(kThreads);
@@ -287,9 +341,27 @@ extern "C" int int8_matmul_f32(const void* x, const void* w, const void* scale,
   cfg.attrs = &cluster;
   cfg.numAttrs = n_slices > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, int8_matmul_kernel, static_cast<const float*>(x),
+      &cfg, int8_matmul_kernel<T>, static_cast<const T*>(x),
       static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<float*>(out), m, k, n, slice,
+      static_cast<const float*>(bias), static_cast<T*>(out), m, k, n, slice,
       vec_w, vec_x);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace
+
+// slice: rows of K per block, a multiple of 64, with at most 8 slices (the
+// cluster of a column tile).  x and out are float32 (_f32) or bfloat16
+// (_bf16); scale and bias are f32 either way.
+extern "C" int int8_matmul_f32(const void* x, const void* w, const void* scale,
+                               const void* bias, void* out, int m, int k, int n,
+                               int slice, void* stream) {
+  return int8_matmul<float>(x, w, scale, bias, out, m, k, n, slice, stream);
+}
+
+extern "C" int int8_matmul_bf16(const void* x, const void* w,
+                                const void* scale, const void* bias, void* out,
+                                int m, int k, int n, int slice, void* stream) {
+  return int8_matmul<__nv_bfloat16>(x, w, scale, bias, out, m, k, n, slice,
+                                    stream);
 }

@@ -3,8 +3,9 @@
 Pre-LN decoder stack, learned position embeddings, weight-tied LM head
 computed in fp32 (logits = h @ tok_embed^T).  ``dtype`` is the compute
 dtype (``models/layers.py``): the embedding sum is cast to it, the blocks
-and ``ln_final`` compute in it, the parameters stay float32.  Serving
-(the decode caches) is float32 only.  ``forward`` runs a plain
+and ``ln_final`` compute in it, the parameters stay float32, and the
+decode caches hold K/V in it (a bf16 model serves from bf16 caches and
+page pools).  ``forward`` runs a plain
 full forward with ``cache=None``, and the decode semantics of the
 reference's ``decode=True`` mode with a ``ContiguousKVCache`` or
 ``PagedKVCache`` (models/layers.py), whose per-row positions also place
@@ -94,27 +95,23 @@ class GPT2(nn.Module):
         x = self.ln_final(x)
         return x.float() @ self.tok_embed.weight.float().T
 
-    def _refuse_bf16_serving(self) -> None:
-        if compute_dtype(self.dtype) is not None:
-            raise NotImplementedError(
-                f"serving at dtype={self.dtype} is not ported yet (bf16 "
-                "prefill through K1, K6 over bf16 pools, K7 with bf16 "
-                "activations); see ROADMAP.md Queue A")
+    def _cache_dtype(self) -> torch.dtype:
+        """The caches' dtype: the compute dtype, or the parameters' (float32;
+        float64 after ``model.to(torch.float64)``) when that is None."""
+        return compute_dtype(self.dtype) or self.pos_embed.dtype
 
     def new_cache(self, batch: int, max_len: Optional[int] = None
                   ) -> ContiguousKVCache:
-        self._refuse_bf16_serving()
         return ContiguousKVCache(
             self.depth, batch, self.num_heads, max_len or self.max_len,
-            self.head_dim, dtype=self.pos_embed.dtype, device=self.device)
+            self.head_dim, dtype=self._cache_dtype(), device=self.device)
 
     def new_paged_cache(self, batch: int, num_pages: int, page_size: int,
                         paged_kernel: bool = False) -> PagedKVCache:
-        self._refuse_bf16_serving()
         return PagedKVCache(
             self.depth, num_pages, self.num_heads, page_size, self.head_dim,
             batch, self.max_len, paged_kernel=paged_kernel,
-            dtype=self.pos_embed.dtype, device=self.device)
+            dtype=self._cache_dtype(), device=self.device)
 
     def forward(self, input_ids, cache=None, select=None, quant=None,
                 quant_impl: str = "auto"):
@@ -128,8 +125,6 @@ class GPT2(nn.Module):
             x = self._embed_input(input_ids)
         else:
             x = self._embed_input(input_ids, pos_start=cache.index)
-        if quant is not None:
-            self._refuse_bf16_serving()
         q_blocks = None if quant is None else quant["blocks"]
         for i, block in enumerate(self.blocks):
             x = block(x, cache, i, attention_impl=self.attention_impl,

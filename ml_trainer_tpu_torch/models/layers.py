@@ -26,9 +26,13 @@ row's position, then ``advance``).  Two layouts, as in the reference:
 
 Int8 projections.  A layer given its entries of the "quant" collection
 (``ops/kernels/int8_matmul.quantize_tree``) computes qkv / proj / fc_in /
-fc_out as ``int8_matmul(x, w, scale) + b`` instead of its fp32
-``nn.Linear``; ``quant_impl="reference"`` takes the plain version on
-either device.
+fc_out as ``int8_matmul(x, w, scale) + b`` at its compute dtype instead
+of its ``nn.Linear``; ``quant_impl="reference"`` takes the plain version
+on either device.
+
+Both caches hold K/V at the model's compute dtype (float32 when it is
+None), as the JAX package's ``cached_key``/``cached_value``; the writes
+cast to it and the reads attend the cached tensors as they are.
 
 Compute dtype.  A module's ``dtype`` is the dtype it COMPUTES in, as
 flax's ``dtype=``; its parameters stay float32 (flax's ``param_dtype``).
@@ -122,13 +126,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _dense(linear: nn.Linear, name: str, x, quant, quant_impl: str):
+def _dense(linear: "Dense", name: str, x, quant, quant_impl: str):
     """``linear(x)``, or with the layer's quant entries the int8
-    projection ``int8_matmul(x, <name>_w, <name>_scale) + <name>_b`` (the
-    JAX package's ``_quant_dense``; the bias add is fused)."""
+    projection ``int8_matmul(x, <name>_w, <name>_scale) + <name>_b`` at the
+    layer's compute dtype (the JAX package's ``_quant_dense``: the product
+    rounded to that dtype, then the bias added in it; the bias add is
+    fused)."""
     if quant is None:
         return linear(x)
-    return int8_matmul(x, quant[f"{name}_w"], quant[f"{name}_scale"],
+    return int8_matmul(_cast(x, linear.dtype),
+                       quant[f"{name}_w"], quant[f"{name}_scale"],
                        bias=quant[f"{name}_b"], implementation=quant_impl)
 
 

@@ -66,10 +66,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stream
         "paged_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _F, _P],
+        # q, k_pool, v_pool, table, lengths, out, batch, heads, pages,
+        # page_size, d, split, scale, stream
+        "paged_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _F, _P],
     },
     "int8_matmul": {
-        # x, w_q, scale, bias|NULL, out, m, k, n, slice, stream
-        "int8_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, w_q, scale, bias|NULL, out, m, k, n, slice, stream; x and out
+        # float32 (_f32) or bfloat16 (_bf16)
+        f"int8_matmul_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        for t in ("f32", "bf16")
     },
     "fused_adam": {
         # g[], out[], n[], chunk0[], sharded[], n_leaves, chunk,

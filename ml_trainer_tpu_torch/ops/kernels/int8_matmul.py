@@ -18,6 +18,10 @@ math by construction.  What is pinned:
   same function: x and the int8 weights upcast to f32, the full-K f32
   sum, THEN the column scale (not a per-weight dequantize, which rounds
   differently), then the optional bias, each a separate f32 rounding;
+  for a bfloat16 x (a bf16 model's decode step) the scaled sum is
+  rounded to bf16 first and the bias, rounded to bf16, is added in bf16:
+  the JAX package's ``_quant_dense`` (``int8_matmul(x, w, s)`` in x's
+  dtype, then ``+ b.astype(y.dtype)``), two roundings;
 * fp32 quality is gated end to end (argmax agreement and relative logit
   error against the fp32 model).
 
@@ -56,13 +60,15 @@ def quantize_per_channel(w: torch.Tensor
 
 
 def int8_matmul_reference(x, w_q, scale, bias=None) -> torch.Tensor:
-    """Plain version: ``(x_f32 @ f32(w_q)) * scale`` (+ ``bias``), in
-    x.dtype.  x: [..., K]; w_q: [K, N] int8; scale, bias: [N] f32."""
+    """Plain version: ``(x_f32 @ f32(w_q)) * scale`` rounded to x.dtype,
+    then ``+ bias`` rounded to x.dtype, added in x.dtype (float32: one f32
+    sum after another).  x: [..., K]; w_q: [K, N] int8; scale, bias: [N]
+    f32."""
     x2 = x.reshape(-1, x.shape[-1]).float()
-    y = (x2 @ w_q.float()) * scale
+    y = ((x2 @ w_q.float()) * scale).to(x.dtype)
     if bias is not None:
-        y = y + bias
-    return y.reshape(*x.shape[:-1], w_q.shape[-1]).to(x.dtype)
+        y = y + bias.to(x.dtype)
+    return y.reshape(*x.shape[:-1], w_q.shape[-1])
 
 
 # The slice: rows of K per block of the CUDA kernel, a multiple of 64.  The
@@ -84,38 +90,52 @@ def k_slice(k: int, n: int) -> int:
     return max(SLICE_STEP, -(-rows // SLICE_STEP) * SLICE_STEP)
 
 
+# x's dtypes -> the C entry points' suffix (as ops/attention.py's).
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def check_kernel_inputs(x, w_q, scale, bias) -> str:
+    """Refuse what the kernel does not take, before any launch; returns
+    the C entry point's dtype suffix."""
+    n = w_q.shape[1]
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"int8 matmul kernel takes float32 or bfloat16 x, "
+                        f"got {x.dtype}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t is not None and (t.shape != (n,) or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be float32 [{n}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return _KERNEL_DTYPES[x.dtype]
+
+
 def _int8_kernel(x, w_q, scale, bias, slice_k=None):
     from ml_trainer_tpu_torch.ops.kernels._build import check, load
 
     k, n = w_q.shape
     x2 = x.reshape(-1, k)
-    if x2.dtype != torch.float32:
-        raise TypeError(f"int8 matmul kernel takes float32 x, got {x.dtype}")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t is not None and (t.shape != (n,) or t.dtype != torch.float32):
-            raise ValueError(f"{name} must be float32 [{n}], got "
-                             f"{t.dtype} {tuple(t.shape)}")
+    fn = f"int8_matmul_{check_kernel_inputs(x2, w_q, scale, bias)}"
     m = x2.shape[0]
     if slice_k is None:
         slice_k = k_slice(k, n)
     x2, w_q, scale = x2.contiguous(), w_q.contiguous(), scale.contiguous()
     bias = None if bias is None else bias.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x2.dtype, device=x.device)
     lib = load("int8_matmul")
     count_launch("int8_matmul")
-    check(lib.int8_matmul_f32(
+    check(getattr(lib, fn)(
         x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, k, n,
         int(slice_k), torch.cuda.current_stream(x.device).cuda_stream,
-    ), "int8_matmul_f32")
+    ), fn)
     return out.reshape(*x.shape[:-1], n)
 
 
 def int8_matmul(x, w_q, scale, *, bias: Optional[torch.Tensor] = None,
                 implementation: str = "auto") -> torch.Tensor:
     """``x @ dequant(w_q, scale)`` computed as the f32 product of x and
-    the int8 weights, scaled per output column, plus ``bias``; returns
-    x.dtype.  x: [..., K], w_q: [K, N] int8, scale and bias: [N] f32.
+    the int8 weights, scaled per output column and rounded to x.dtype,
+    plus ``bias`` (rounded to x.dtype, added in it); returns x.dtype.
+    x: [..., K], w_q: [K, N] int8, scale and bias: [N] f32.
 
     ``implementation``: "auto" launches the CUDA kernel for a CUDA tensor
     and takes the plain version for a CPU tensor; "reference" takes the

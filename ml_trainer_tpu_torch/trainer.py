@@ -76,6 +76,7 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import logging
 import math
 import os
 import pickle
@@ -149,6 +150,32 @@ def _refuse(knob: str, value, accepted) -> None:
         )
 
 
+# Whether this process has logged the inert knobs' warning.
+_INERT_WARNED = False
+
+
+def _warn_inert_knobs(handle_preemption, desync_every_steps) -> None:
+    """One ``logging`` warning per process naming the knobs the port
+    accepts and ignores that are set so the JAX package would act on
+    them: ``handle_preemption=True`` (its ``fit()`` installs signal
+    handlers) and a ``desync_every_steps`` (its replica-desync check).
+    The other two never qualify here: ``straggler_factor`` acts only under
+    ``telemetry=True``, which is refused, and ``moe_aux_weight`` only on a
+    model that sows auxiliary losses (MoE), of which none is ported."""
+    global _INERT_WARNED
+    knobs = [f"{name}={value!r}" for name, value, acts in (
+        ("handle_preemption", handle_preemption, bool(handle_preemption)),
+        ("desync_every_steps", desync_every_steps,
+         desync_every_steps is not None),
+    ) if acts]
+    if knobs and not _INERT_WARNED:
+        _INERT_WARNED = True
+        logging.getLogger(__name__).warning(
+            "Trainer: %s accepted with no effect: not ported yet (the JAX "
+            "package would act on it); see ROADMAP.md Queue A",
+            ", ".join(knobs))
+
+
 class Trainer:
     def __init__(
         self,
@@ -214,7 +241,9 @@ class Trainer:
         Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
         ported), ``desync_every_steps`` and ``straggler_factor``
         (multi-host and telemetry only), and ``handle_preemption`` (no
-        signal handlers are installed yet).
+        signal handlers are installed yet); the first ``Trainer`` of a
+        process logs one warning naming those that the JAX package would
+        act on as set (``_warn_inert_knobs``).
         Refused unless at their defaults: ``sharding_rules``,
         ``steps_per_execution``, ``ema_decay``, ``telemetry``,
         ``elastic``, ``lora``,
@@ -296,6 +325,8 @@ class Trainer:
                 f"straggler_factor must be > 1, got {straggler_factor}")
         if bucket_mb <= 0:
             raise ValueError(f"bucket_mb must be positive, got {bucket_mb}")
+        _warn_inert_knobs(handle_preemption=handle_preemption,
+                          desync_every_steps=desync_every_steps)
 
         listed = isinstance(device, (list, tuple))
         if listed and not device:

@@ -11,6 +11,11 @@ the JAX package's, on the CPU, plus the reference's quality gate.
   ``model.clone(quant_int8=True)`` within 1e-5; greedy int8 ``Server``
   tokens are identical to the JAX int8 ``Server``'s; two port runs give
   the same bytes; only the S == 1 decode step reads the collection.
+* In bfloat16 (a bf16 model's decode step) the plain version is bitwise
+  the JAX ``int8_matmul`` (Pallas, interpret mode) followed by the JAX
+  layer's ``+ b.astype(bf16)``: the scaled f32 sum rounded to bf16, then
+  the bf16 bias added in bf16.  Fusing the bias in f32 and rounding once
+  differs (pinned, so that the order stays the JAX package's).
 * The CUDA kernel's split of K over blocks, emulated in float32 on the
   CPU (``_split_sum``: per-slice f32 partial sums, their sum in slice
   order, then the scale, then the bias), agrees with the plain version
@@ -43,7 +48,10 @@ from ml_trainer_tpu_torch import (
     quantize_per_channel,
     quantize_tree,
 )
+from ml_trainer_tpu_torch.ops.kernels import _build
 from ml_trainer_tpu_torch.ops.kernels.int8_matmul import (
+    _int8_kernel,
+    check_kernel_inputs,
     int8_matmul_reference,
     k_slice,
 )
@@ -152,6 +160,86 @@ def test_int8_matmul_refusals():
     assert torch.equal(
         int8_matmul(x, w_q, torch.ones(4), implementation="reference"),
         torch.zeros(2, 4))
+
+
+def _bf16_operands(m, k, n):
+    """bf16 x (numpy f32 copy for JAX, torch bf16), the JAX-quantized
+    weights and scales, and an f32 bias, from one seed."""
+    rng = np.random.default_rng(m * k + n + 7)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    w_q, scale = j_quantize_per_channel(jnp.asarray(_weights(m, k, n)))
+    b = (rng.normal(size=(n,)) * 0.1).astype(np.float32)
+    tx = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
+    tw, ts = torch.from_numpy(np.array(w_q)), torch.from_numpy(np.array(scale))
+    return xb, w_q, scale, b, tx, tw, ts
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 32, 48), (13, 130, 100),
+                                   (8, 768, 2304)])
+def test_int8_bf16_plain_is_bitwise_jax_then_bias(m, k, n):
+    """JAX's ``_quant_dense`` in bf16: ``int8_matmul(x, w, s)`` (its Pallas
+    kernel, interpret mode) in x's dtype, then ``+ b.astype(y.dtype)``."""
+    xb, w_q, scale, b, tx, tw, ts = _bf16_operands(m, k, n)
+    y = j_int8_matmul(xb, w_q, scale, implementation="pallas", interpret=True)
+    assert y.dtype == jnp.bfloat16
+    want = np.asarray((y + jnp.asarray(b).astype(y.dtype)).astype(jnp.float32))
+    got = int8_matmul(tx, tw, ts, bias=torch.from_numpy(b))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    no_bias = int8_matmul(tx, tw, ts)
+    np.testing.assert_array_equal(no_bias.float().numpy(),
+                                  np.asarray(y.astype(jnp.float32)))
+
+
+def test_int8_bf16_fused_f32_bias_differs_from_jax():
+    """The old order (bias fused in f32, one rounding to bf16) is another
+    function at the qkv shape: thousands of entries one bf16 ulp off."""
+    xb, w_q, scale, b, tx, tw, ts = _bf16_operands(8, 768, 2304)
+    y = j_int8_matmul(xb, w_q, scale, implementation="pallas", interpret=True)
+    want = np.asarray((y + jnp.asarray(b).astype(y.dtype)).astype(jnp.float32))
+    fused = ((tx.float() @ tw.float()) * ts + torch.from_numpy(b)).to(
+        torch.bfloat16)
+    assert (fused.float().numpy() != want).sum() > 1000
+
+
+def test_int8_kernel_checks_and_no_fallback(monkeypatch):
+    """The CUDA path's checks run before any load: float32 or bf16 x, f32
+    scale and bias; a bf16 x launches ``int8_matmul_bf16`` into a bf16
+    output, and a refused launch raises (no plain fallback)."""
+    _, _, _, b, tx, tw, ts = _bf16_operands(8, 768, 2304)
+    tb = torch.from_numpy(b)
+    assert check_kernel_inputs(tx, tw, ts, tb) == "bf16"
+    assert check_kernel_inputs(tx.float(), tw, ts, tb) == "f32"
+    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+        check_kernel_inputs(tx.half(), tw, ts, tb)
+    with pytest.raises(ValueError, match="bias must be float32"):
+        check_kernel_inputs(tx, tw, ts, tb.to(torch.bfloat16))
+
+    class _Stream:
+        cuda_stream = 0
+
+    calls, status = [], [0]
+
+    class _Lib:
+        def __getattr__(self, fn):
+            return lambda *args: calls.append((fn, args)) or status[0]
+
+    loads = []
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name)
+                        or _Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream)
+    out = _int8_kernel(tx[None], tw, ts, tb)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 8, 2304)
+    (fn, args), = calls
+    assert fn == "int8_matmul_bf16" and args[5:9] == (8, 768, 2304, 256)
+    status[0] = 701
+    with pytest.raises(RuntimeError, match="int8_matmul_bf16"):
+        _int8_kernel(tx, tw, ts, tb)
+    loads.clear()
+    with pytest.raises(TypeError):
+        _int8_kernel(tx.half(), tw, ts, tb)
+    assert loads == []
 
 
 def _split_sum(x, w_q, scale, bias, slice_k):

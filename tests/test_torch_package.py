@@ -1,14 +1,16 @@
 """Guards of the PyTorch/CUDA port (``ml_trainer_tpu_torch``).
 
-* No file of the port, nor ``chip_smoke.py``, imports JAX, flax, optax,
+* No file of the port, nor ``chip_smoke.py`` or
+  ``scripts/torch_call_check_mutations.py``, imports JAX, flax, optax,
   tqdm, msgpack or the JAX package (an AST scan): the card's machine has
   none of them.
 * With no card visible, every entry point raises unless it is given
   ``device="cpu"``: the port never falls back to the CPU on its own.
 * On the CPU the kernels' plain versions run, and the launch counters
   stay at 0.
-* ``test_kernels_match_plain_on_card`` needs an NVIDIA card and ``nvcc``
-  (marker ``cuda``); it skips elsewhere, deciding inside the test.
+* ``test_kernels_match_plain_on_card`` and the bf16 kernel tests need an
+  NVIDIA card and ``nvcc`` (marker ``cuda``); they skip elsewhere,
+  deciding inside the test.
 """
 
 import ast
@@ -38,7 +40,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_trainer_tpu", "tqdm",
 
 def _port_files():
     files = sorted((ROOT / "ml_trainer_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "scripts" / "torch_call_check_mutations.py"]
 
 
 def _imports(path):
@@ -287,3 +290,50 @@ def test_bf16_kernels_match_plain_on_card():
     counts = mt.launch_counts()
     assert (counts["flash_fwd"], counts["flash_bwd_dq"],
             counts["flash_bwd_dkv"]) == (6, 6, 6)
+
+
+@pytest.mark.cuda
+def test_bf16_decode_kernels_match_plain_on_card():
+    """K6 and K7's bf16 entry points against their plain versions on the
+    same bf16 inputs (within 2 bf16 ulps), bf16 outputs, bitwise across
+    two calls: K6 at rows of 1 to 8 and of 16 splits (a thread block
+    cluster per row), with a length-1 row and an all-trash row; K7 at a
+    decode shape and a ragged one, the bias added with two roundings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(2)
+    mt.reset_launch_counts()
+
+    def gate(got, want):
+        assert got.dtype == bf
+        got, want = got.float(), want.float()
+        bar = 2 ** -7 * want.abs() + 1e-3 * want.abs().max()
+        assert bool(((got - want).abs() <= bar).all())
+
+    for b, h, d, ps, P, lens in ((4, 3, 64, 16, 8, [128, 1, 17, 1]),
+                                 (2, 12, 32, 16, 64, [1024, 300]),
+                                 (1, 8, 128, 16, 128, [2048])):
+        n = b * P + 1
+        q = torch.randn(b, h, d, generator=gen).to(dev, bf)
+        kp, vp = (torch.randn(n, h, ps, d, generator=gen).to(dev, bf)
+                  for _ in range(2))
+        table = (1 + torch.randperm(n - 1, generator=gen)).reshape(b, P)
+        if b > 3:
+            table[3] = 0
+        table = table.to(torch.int32).to(dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = paged_attention(q, kp, vp, table, lengths)
+        gate(out, paged_attention_reference(q, kp, vp, table, lengths))
+        assert torch.equal(out, paged_attention(q, kp, vp, table, lengths))
+    for m, k, n in ((8, 768, 2304), (13, 130, 99)):
+        x = torch.randn(m, k, generator=gen).to(dev, bf)
+        w_q, scale = quantize_per_channel(
+            (torch.randn(k, n, generator=gen) * 0.02).to(dev))
+        bias = torch.randn(n, generator=gen).to(dev)
+        got = int8_matmul(x, w_q, scale, bias=bias)
+        gate(got, int8_matmul(x, w_q, scale, bias=bias,
+                              implementation="reference"))
+        assert torch.equal(got, int8_matmul(x, w_q, scale, bias=bias))
+    counts = mt.launch_counts()
+    assert (counts["paged_attention"], counts["int8_matmul"]) == (6, 4)

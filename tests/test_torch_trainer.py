@@ -27,6 +27,8 @@ losses rtol 1e-5, skipped-step counts and Adam's step count equal,
 params atol 1e-5.
 """
 
+import logging
+
 import flax.linen as fnn
 import jax
 import numpy as np
@@ -209,6 +211,29 @@ def test_poisoned_batch_is_skipped_alike(tmp_path):
 def test_unported_knobs_name_the_roadmap(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mt.Trainer("gpt2_tiny", device="cpu", **{knob: value})
+
+
+def test_inert_knobs_log_one_warning_per_process(monkeypatch, caplog):
+    """``handle_preemption=True`` (the default) and a set
+    ``desync_every_steps`` are accepted and ignored: the first Trainer of
+    a process logs one warning naming them and ROADMAP.md; later ones log
+    nothing.  With neither set, nothing is logged."""
+    import ml_trainer_tpu_torch.trainer as trainer_mod
+
+    name = "ml_trainer_tpu_torch.trainer"
+    monkeypatch.setattr(trainer_mod, "_INERT_WARNED", False)
+    with caplog.at_level(logging.WARNING, logger=name):
+        mt.Trainer("gpt2_tiny", device="cpu", handle_preemption=False)
+        assert not [r for r in caplog.records if "no effect" in r.message]
+        mt.Trainer("gpt2_tiny", device="cpu", desync_every_steps=5,
+                   straggler_factor=3.0, moe_aux_weight=0.5)
+        mt.Trainer("gpt2_tiny", device="cpu")
+    warned = [r for r in caplog.records if "no effect" in r.message]
+    assert len(warned) == 1 and warned[0].name == name
+    msg = warned[0].message
+    assert "handle_preemption=True" in msg and "desync_every_steps=5" in msg
+    assert "ROADMAP.md" in msg
+    assert "straggler_factor" not in msg and "moe_aux_weight" not in msg
 
 
 def test_resume_and_unported_optimizer_name_the_roadmap(tmp_path):
