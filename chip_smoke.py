@@ -66,13 +66,18 @@ Phases, one line of output each (or a few):
    beside the CUDA-event times.  Their ``bound_ms``
    is the operations at the 3xTF32 tensor-core rate (494.7 / 3 TFLOP/s),
    ``bound_fp32_core_ms`` the same at the 67 TFLOP/s fp32 CUDA-core rate;
-   K1-K3's bf16 entry points at the main and ``bert`` rows with bf16
-   inputs: each output within 2 bf16 ulps of the plain version on the
-   same inputs (|diff| <= 2^-7 |plain| + 1e-3 max|plain|; lse within
-   1e-4), dK/dV exactly 0 past kv_lens, bitwise across two calls and
-   bitwise the float32 kernels' result on the widened inputs, timed
-   beside SDPA with bf16 inputs, ``bound_ms`` at the 989 TFLOP/s bf16
-   rate with bf16 values at 2 bytes;
+   K1's bf16 entry point at the main and ``bert`` rows with bf16 inputs
+   (out within 2 bf16 ulps of the plain version on the same inputs,
+   |diff| <= 2^-7 |plain| + 1e-3 max|plain|; lse within 1e-4; bitwise
+   across two calls and bitwise the float32 kernel's result on the
+   widened inputs), and K2's and K3's (their own bf16 tensor-core
+   kernels) at the float32 rows' coverage, a ragged S (1000) and
+   ``bert``: dQ, dK, dV within the same 2-ulp gate, dK/dV exactly 0 past
+   kv_lens, bitwise across two calls, and each element equal to the
+   float32 kernels' result rounded to bf16, one bf16 step from it or
+   within 1e-3 x its max (``ulps_from_f32_kernel``); all timed beside
+   SDPA with bf16 inputs, ``bound_ms`` at the 989 TFLOP/s bf16 rate with
+   bf16 values at 2 bytes;
    the int8 matmul (K7) at the four GPT-2 124M decode projections (M=8:
    qkv 768x2304, proj 768x768, fc_in 768x3072, fc_out 3072x768), at M=1,
    ragged M=13 K=130 N=100, the JAX package's bench shape M=8 K=256
@@ -410,8 +415,10 @@ BWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
 BWD_PROFILED = ("main", "bert")
 PADDED_CASE = (2, 4, 1000, 48)  # off-tile S and head_dim
 # K2's and K3's kernel names, as the profiler lists them.
-BWD_MARKS = {"flash_bwd_dq": ("flash_bwd_dq_kernel",),
-             "flash_bwd_dkv": ("flash_bwd_dkv_kernel",)}
+BWD_MARKS = {"flash_bwd_dq": ("flash_bwd_dq_kernel",
+                              "flash_bwd_dq_bf16_kernel"),
+             "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
+                               "flash_bwd_dkv_bf16_kernel")}
 ATTN_MARKS = dict(FWD_MARKS, **BWD_MARKS)  # K1-K3 in a profiled step
 
 
@@ -590,9 +597,14 @@ def check_flash_bwd(dev):
     return rows, err
 
 
-# K1-K3's bf16 entry points at the bf16 training launches: GPT-2 124M's
+# K1's bf16 entry point at the bf16 training launches: GPT-2 124M's
 # microbatch and BERT-base's (the main and ``bert`` rows of FWD_CASES).
 BF16_CASES = [c for c in FWD_CASES if c[0] in ("main", "bert")]
+# K2's and K3's bf16 rows: the float32 rows' coverage (BWD_CASES) and a
+# ragged S; ``bert`` last, as there.
+BF16_BWD_CASES = BWD_CASES[:-1] + [("ragged", 2, 12, 1000, 64, True, None),
+                                   BWD_CASES[-1]]
+F32_KERNEL_SLACK = 1e-3  # of max|result|: bf16 K2/K3 vs the float32 kernels
 
 
 def bf16_gate(got, want) -> float:
@@ -604,15 +616,65 @@ def bf16_gate(got, want) -> float:
     return ((got - want).abs() / bar).max().item()
 
 
+def bf16_ulps(got, want):
+    """Element by element, how many bf16 steps (``torch.nextafter`` in
+    bf16) lie between two bf16 tensors: 0 where equal (+0 and -0 too), 1
+    a step apart."""
+    import torch
+
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def f32_kernel_ulps(got, f32) -> int:
+    """bf16 K2/K3's result ``got`` against the float32 kernels' result on
+    the widened inputs, rounded to bf16: each element must be equal to
+    it, one bf16 step from it, or within ``F32_KERNEL_SLACK`` x max|it|
+    of it (the two designs round P and dS apart: hi + lo bf16 terms
+    against 3xTF32).  Returns the largest distance in bf16 steps over the
+    elements outside that absolute slack; raises past one step."""
+    want = f32.to(got.dtype)
+    far = ((got.float() - want.float()).abs()
+           > F32_KERNEL_SLACK * want.float().abs().max())
+    ulps = bf16_ulps(got, want)[far]
+    worst = int(ulps.max().item()) if ulps.numel() else 0
+    if worst > 1:
+        raise AssertionError(f"{worst} bf16 steps from the float32 kernels")
+    return worst
+
+
+def _sdpa_bwd(q, k, v, kv, dout, causal):
+    """SDPA's backward on the same inputs and mask, timed only: a function
+    returning dQ, dK, dV."""
+    import torch
+    import torch.nn.functional as F
+
+    keep = None
+    if kv is not None:
+        s = k.shape[2]
+        keep = (torch.arange(s, device=q.device)[None, :]
+                < kv.long()[:, None])[:, None, None, :]
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=keep, is_causal=causal and keep is None)
+    return lambda: torch.autograd.grad(o_lib, (qg, kg, vg), dout,
+                                       retain_graph=True)
+
+
 def check_flash_bf16(dev):
-    """K1, K2 and K3's bf16 entry points against their plain versions on
-    the same bf16 inputs (out, dQ, dK, dV within 2 bf16 ulps: the
-    ``bf16_gate`` ratio <= 1; lse within ``TOL``), dK/dV exactly 0 past
-    kv_lens, two calls bitwise; also bitwise what the float32 kernels
-    give on the widened values and rounded to bf16 (the design: a bf16
-    value's TF32 split is exact).  Timed by CUDA events and profiler
-    device time beside the plain versions and SDPA with bf16 inputs (the
-    same boolean mask; timed only)."""
+    """K1's bf16 entry point (``BF16_CASES``) against its plain version on
+    the same bf16 inputs (out within 2 bf16 ulps: the ``bf16_gate`` ratio
+    <= 1; lse within ``TOL``), two calls bitwise, and bitwise the float32
+    kernel's result on the widened values rounded to bf16 (a bf16
+    value's TF32 split is exact); then K2's and K3's (``BF16_BWD_CASES``):
+    dQ, dK, dV within the 2-ulp gate of the plain version, dK/dV exactly
+    0 past kv_lens, two calls bitwise, and within one bf16 step of the
+    float32 kernels' result rounded to bf16 (``f32_kernel_ulps``).  Timed
+    by CUDA events and profiler device time beside the plain versions and
+    SDPA with bf16 inputs (the same boolean mask; timed only)."""
     import torch
     import torch.nn.functional as F
 
@@ -620,12 +682,68 @@ def check_flash_bf16(dev):
         _backward_plain, _row_delta, flash_attention,
         flash_attention_reference, flash_bwd_dkv, flash_bwd_dq)
 
+    def timed(kname, fn, plain, lib, marks):
+        return dict(ms=time_ms(fn), device_ms=profiled_ms(fn, marks[kname]),
+                    plain_ms=time_ms(plain, iters=10),
+                    library_ms=time_ms(lib, iters=10),
+                    library_device_ms=profiled_ms(lib, ("",), iters=10))
+
     rows = []
     for i, (name, b, h, s, d, causal, lens) in enumerate(BF16_CASES):
-        q, k, v, kv, dout = bwd_case(dev, b, h, s, d, lens, SEED + 40 + i)
+        q, k, v, kv, _ = bwd_case(dev, b, h, s, d, lens, SEED + 40 + i)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        out, lse = flash_attention(q, k, v, kv, causal)
+        ref_out, ref_lse = flash_attention_reference(q, k, v, kv, causal)
+        out32, lse32 = flash_attention(q.float(), k.float(), v.float(), kv,
+                                       causal)
+        torch.cuda.synchronize()
+        if not (out.dtype == torch.bfloat16 and lse.dtype == torch.float32):
+            raise AssertionError(f"bf16 {name}: output dtypes "
+                                 f"{out.dtype} {lse.dtype}")
+        gate = bf16_gate(out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not (gate <= 1.0 and lse_err <= TOL):
+            raise AssertionError(f"bf16 flash_fwd {name}: {gate} of the "
+                                 f"2-ulp bar, lse err {lse_err}")
+        if not (torch.equal(out, out32.to(torch.bfloat16))
+                and torch.equal(lse, lse32)):
+            raise AssertionError(f"bf16 {name}: not the float32 kernel's "
+                                 "result on the widened values")
+        if not torch.equal(flash_attention(q, k, v, kv, causal)[0], out):
+            raise AssertionError(f"bf16 flash_fwd {name}: two calls differ")
+        del out32, lse32
+
+        keep = None if kv is None else (
+            torch.arange(s, device=dev)[None, :]
+            < kv.long()[:, None])[:, None, None, :]
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep, is_causal=causal and keep is None)
+
+        row = dict(case=name, dtype="bfloat16", shape=[b, h, s, d],
+                   causal=causal, kv_lens=lens,
+                   max_abs_err=max((out.float() - ref_out.float()).abs()
+                                   .max().item(), lse_err),
+                   gate_ratio=gate, bitwise_repeat=True,
+                   bitwise_f32_kernel_widened=True,
+                   **timed("flash_fwd",
+                           lambda: flash_attention(q, k, v, kv, causal),
+                           lambda: flash_attention_reference(q, k, v, kv,
+                                                             causal),
+                           lib_fwd, FWD_MARKS),
+                   **fwd_bounds(b, h, s, d, causal, lens, bf16=True))
+        log("kernel flash_fwd bf16 " + json.dumps(row))
+        rows.append(("flash_fwd", row))
+        del q, k, v, kv, out, lse, ref_out, ref_lse, keep
+        torch.cuda.empty_cache()
+
+    shared = [c[0] for c in BF16_CASES]  # rows that keep K1's inputs
+    for i, (name, b, h, s, d, causal, lens) in enumerate(BF16_BWD_CASES):
+        seed = SEED + (40 + shared.index(name) if name in shared else 50 + i)
+        q, k, v, kv, dout = bwd_case(dev, b, h, s, d, lens, seed)
         q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
         scale = d ** -0.5
-        out, lse = flash_attention(q, k, v, kv, causal)
         ref_out, ref_lse = flash_attention_reference(q, k, v, kv, causal)
         delta = _row_delta(ref_out, dout)
         args = (q, k, v, kv, ref_lse, delta, dout, causal, scale)
@@ -633,30 +751,18 @@ def check_flash_bf16(dev):
         want = _backward_plain(*args)
         wide = (q.float(), k.float(), v.float(), kv, ref_lse, delta,
                 dout.float(), causal, scale)
-        out32, lse32 = flash_attention(*wide[:4], causal)
         grads32 = (flash_bwd_dq(*wide),) + flash_bwd_dkv(*wide)
         torch.cuda.synchronize()
-        if not (out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-                and all(g.dtype == torch.bfloat16 for g in grads)):
-            raise AssertionError(f"bf16 {name}: output dtypes "
-                                 f"{out.dtype} {[g.dtype for g in grads]}")
-        gates = {"flash_fwd": bf16_gate(out, ref_out)}
-        lse_err = (lse - ref_lse).abs().max().item()
-        if not lse_err <= TOL:
-            raise AssertionError(f"bf16 {name}: lse err {lse_err} > {TOL}")
-        gates["flash_bwd_dq"] = bf16_gate(grads[0], want[0])
-        gates["flash_bwd_dkv"] = max(bf16_gate(grads[1], want[1]),
-                                     bf16_gate(grads[2], want[2]))
-        errs = {"flash_fwd": max((out.float() - ref_out.float()).abs().max()
-                                 .item(), lse_err),
-                "flash_bwd_dq": (grads[0].float() - want[0].float()).abs()
-                .max().item(),
-                "flash_bwd_dkv": max((g.float() - w.float()).abs().max()
-                                     .item() for g, w in zip(grads[1:],
-                                                             want[1:]))}
-        for kname, ratio in gates.items():
+        if not all(g.dtype == torch.bfloat16 for g in grads):
+            raise AssertionError(f"bf16 {name}: gradient dtypes "
+                                 f"{[g.dtype for g in grads]}")
+        gates = [bf16_gate(g, w) for g, w in zip(grads, want)]
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(grads, want)]
+        ulps = [f32_kernel_ulps(g, g32) for g, g32 in zip(grads, grads32)]
+        for nm, ratio in zip(("dq", "dk", "dv"), gates):
             if not ratio <= 1.0:
-                raise AssertionError(f"bf16 {kname} {name}: {ratio} of the "
+                raise AssertionError(f"bf16 {name} {nm}: {ratio} of the "
                                      "2-ulp bar")
         if lens is not None:
             pad = (torch.arange(s, device=dev)[None, None, :, None]
@@ -665,65 +771,27 @@ def check_flash_bf16(dev):
                     and bool((grads[2][pad] == 0).all())):
                 raise AssertionError(f"bf16 {name}: dK/dV past kv_lens "
                                      "not zero")
-        as_f32 = (torch.equal(out, out32.to(torch.bfloat16))
-                  and torch.equal(lse, lse32)
-                  and all(torch.equal(g, g32.to(torch.bfloat16))
-                          for g, g32 in zip(grads, grads32)))
-        if not as_f32:
-            raise AssertionError(f"bf16 {name}: not the float32 kernels' "
-                                 "result on the widened values")
-        again = (flash_attention(q, k, v, kv, causal)[0],
-                 flash_bwd_dq(*args)) + flash_bwd_dkv(*args)
-        if not all(torch.equal(a, b2) for a, b2 in
-                   zip(again, (out,) + grads)):
+        again = (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+        if not all(torch.equal(a, b2) for a, b2 in zip(again, grads)):
             raise AssertionError(f"bf16 {name}: two calls differ")
-        del out32, lse32, grads32, again, wide
-        fns = {"flash_fwd": lambda: flash_attention(q, k, v, kv, causal),
-               "flash_bwd_dq": lambda: flash_bwd_dq(*args),
-               "flash_bwd_dkv": lambda: flash_bwd_dkv(*args)}
-        plain = {"flash_fwd": lambda: flash_attention_reference(
-                     q, k, v, kv, causal),
-                 "flash_bwd_dq": lambda: _backward_plain(*args)}
-        plain["flash_bwd_dkv"] = plain["flash_bwd_dq"]
-        keep = None
-        if kv is not None:
-            keep = (torch.arange(s, device=dev)[None, :]
-                    < kv.long()[:, None])[:, None, None, :]
-        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(
-            qg, kg, vg, attn_mask=keep, is_causal=causal and keep is None)
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=keep, is_causal=causal and keep is None)
-
-        def lib_bwd():
-            return torch.autograd.grad(o_lib, (qg, kg, vg), dout,
-                                       retain_graph=True)
-
-        lib = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
-        bounds = dict(bwd_bounds(b, h, s, d, causal, lens, bf16=True),
-                      flash_fwd=fwd_bounds(b, h, s, d, causal, lens,
-                                           bf16=True))
-        marks = dict(FWD_MARKS, **BWD_MARKS)
-        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        del grads32, again, wide
+        lib = _sdpa_bwd(q, k, v, kv, dout, causal)
+        bounds = bwd_bounds(b, h, s, d, causal, lens, bf16=True)
+        for kname, fn, sl in (
+                ("flash_bwd_dq", lambda: flash_bwd_dq(*args), slice(0, 1)),
+                ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args),
+                 slice(1, 3))):
             row = dict(case=name, dtype="bfloat16", shape=[b, h, s, d],
                        causal=causal, kv_lens=lens,
-                       max_abs_err=errs[kname],
-                       gate_ratio=gates[kname], bitwise_repeat=True,
-                       bitwise_f32_kernel_widened=True,
-                       ms=time_ms(fns[kname]),
-                       device_ms=profiled_ms(fns[kname], marks[kname]),
-                       plain_ms=time_ms(plain[kname], iters=10),
-                       library_ms=time_ms(lib[kname], iters=10),
-                       library_device_ms=profiled_ms(lib[kname], ("",),
-                                                     iters=10),
+                       max_abs_err=max(errs[sl]), gate_ratio=max(gates[sl]),
+                       ulps_from_f32_kernel=max(ulps[sl]),
+                       bitwise_repeat=True,
+                       **timed(kname, fn, lambda: _backward_plain(*args),
+                               lib, BWD_MARKS),
                        **bounds[kname])
             log(f"kernel {kname} bf16 " + json.dumps(row))
             rows.append((kname, row))
-        del q, k, v, kv, dout, out, lse, ref_out, ref_lse, grads, want
-        del qg, kg, vg, o_lib, args
+        del q, k, v, kv, dout, ref_out, ref_lse, grads, want, args, lib
         torch.cuda.empty_cache()
     return rows
 
@@ -3048,10 +3116,10 @@ def main(argv=None) -> int:
             bert_rows[kname] = row
     bert_rows = {k: {key: r.get(key) for key in bert_keys}
                  for k, r in bert_rows.items()}
-    # K1-K3's bf16 rows (main and ``bert``), beside each kernel's entry.
+    # K1-K3's bf16 rows, beside each kernel's entry.
     bf16_keys = ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
                  "library_ms", "library_device_ms", "max_abs_err",
-                 "gate_ratio")
+                 "gate_ratio", "ulps_from_f32_kernel")
     bf16 = {}
     for kname, row in (bf16_rows + [("paged_attention", r)
                                     for r in paged_bf16_rows]

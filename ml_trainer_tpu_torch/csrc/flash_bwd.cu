@@ -1,11 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a), float32 or bfloat16 in
 // and out (the _f32 and _bf16 entry points), on the tensor cores: two
-// kernels.
+// kernels for each element type.
 //
-// K2, flash_bwd_dq_kernel, replaces
-//   ml_trainer_tpu/ops/attention.py::_flash_bwd_dq_kernel
+// K2, flash_bwd_dq_kernel (float32) and flash_bwd_dq_bf16_kernel,
+// replaces ml_trainer_tpu/ops/attention.py::_flash_bwd_dq_kernel
 //   (pl.pallas_call at ops/attention.py:385);
-// K3, flash_bwd_dkv_kernel, replaces
+// K3, flash_bwd_dkv_kernel and flash_bwd_dkv_bf16_kernel, replaces
 //   ml_trainer_tpu/ops/attention.py::_flash_bwd_dkv_kernel
 //   (pl.pallas_call at ops/attention.py:403).
 //
@@ -83,19 +83,60 @@
 // would need transposed copies of the streamed tiles: the next step,
 // with TMA.
 //
-// bfloat16 (flash_bwd_dq_bf16, flash_bwd_dkv_bf16: the JAX kernels' bf16
-// contract, q/k/v/dO in bf16, f32 math inside, lse and delta f32, dQ,
-// dK, dV in bf16).  The same kernels with bf16 streamed tiles in the ring
-// (rows padded to D + 8 elements: conflict-free fragment loads, 16-byte
-// cp.async copies of 8 elements) and bf16 owned operands, widened exactly
-// with __bfloat162float where a fragment is loaded or split.  All three
-// TF32 products are kept: they give what the float32 kernels give on the
-// widened values (a bf16 value's small part is 0).  P and dS stay f32,
-// as in the JAX kernels; each output is rounded once with
-// __float2bfloat16_rn, and K3 still writes exact zeros past kv_lens.
+// bfloat16 (flash_bwd_dq_bf16, flash_bwd_dkv_bf16): kernels of their own
+// on the bf16 tensor cores, for the JAX kernels' bf16 contract: q, k, v
+// and dO bf16, lse and delta f32, P and dS f32, dQ, dK and dV rounded
+// once to bf16 (__float2bfloat16_rn), dK/dV exactly 0 past kv_lens.
+//
+// What bounds them: the same pairs at the bf16 dense rate (989 TFLOP/s)
+// and bf16 bytes; at [2, 12, 1024, 64] causal 0.0049 ms (K2) and 0.0065
+// ms (K3) of operations.
+//
+// The split.  A bf16 x bf16 product is exact in f32, so q.k^T and dO.v^T
+// take one bf16 product each.  P^T.dO, dS.k and dS^T.q have an f32
+// operand: it is split in registers into hi = bf16(x) and lo = bf16(x -
+// hi), and the product is taken as lo.B + hi.B with f32 sums.  Emulated
+// on the CPU (tests/test_torch_flash_backward.py, float64 reference of
+// the same inputs, the 2-ulp gate |d| <= 2^-7 |x| + 1e-3 max|x|) at
+// [2, 12, 512, 64] causal: one term (P and dS rounded to bf16, as
+// FlashAttention and SDPA do) reaches 1.35 of the gate, two terms 0.39,
+// which is the output rounding alone (three terms give the same).  So
+// K2 takes 4 bf16 products per kept pair and K3 6 (the function needs 3
+// and 4: the bound counts those).
+//
+// The design.  One warpgroup (4 warps, 128 threads) a block owns 64 rows
+// (queries in K2, keys in K3): wgmma's M.  S (K3: S^T = K.Q^T) and dP
+// (dP^T = V.dO^T) are wgmma.m64nBNk16 bf16 -> f32 with both operands in
+// shared memory, K-major, over a streamed tile of BN rows (64 at D = 64;
+// 32 at D = 128, for registers).  Their f32 accumulators hold, element
+// for element, wgmma's register A fragment (rows g and g + 8, columns 2t,
+// 2t + 1 of each 8 wide block), so P and dS are split where they are
+// formed and never touch shared memory; dQ, dK and dV accumulate with
+// m64n64k16, A from registers and B the streamed tile read MN-major (the
+// descriptor's transpose bit, which bf16 allows and TF32 does not).
+// Streamed and owned tiles are staged raw, never widened: 16-byte
+// cp.async copies write the 128-byte swizzle that the descriptors read
+// (rows of 64 bf16, chunk c of row r at c ^ (r % 8)), the streamed ones
+// through a 2-stage ring, the next tile's copy under this tile's
+// products, one barrier a tile.  The instructions between the products
+// set the pace, not the tensor cores (scripts/flash_bwd_ab.py on one
+// H100 80GB HBM3 at 700 W, K2 + K3 at [2, 12, 1024, 64]): 0.138 ms with
+// expf and the mask tested on every element; 0.063 with P = 2^(s *
+// scale * log2 e - lse * log2 e) on ex2.approx, the mask tested only on
+// the tiles that it cuts and the scale applied to dQ and dK once at the
+// end; 0.052 with each thread's copies on a fixed column and swizzle
+// phase (the generic copy loop had compiled to division and remainder
+// code) and the descriptors built once a tile.  The causal and kv_lens
+// tile ranges, the grid order and the zero dK/dV of a dead tile are the
+// float32 kernels'; wgmma runs a warpgroup at once, so a warp that a
+// tile's mask drops wholly skips only its elementwise work.  ptxas: 146
+// / 213 registers for K2 / K3 at D = 64, 131 / 213 at D = 128, no
+// spills: 3 and 2 blocks an SM at D = 64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -441,6 +482,542 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ bf16 K2/K3
+// Their own kernels on the bf16 tensor cores (the design note is at the top
+// of this file): wgmma m64nNk16 bf16 -> f32, one warpgroup a block.
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct Bf16Tile {
+  static constexpr int BN = D == 64 ? 64 : 32;  // streamed rows per tile
+  static constexpr int SA = BN / 2;    // S or dP floats a thread (m64nBN)
+  static constexpr int KB = BN / 16;   // k16-steps over the streamed rows
+  static constexpr int KS = D / 16;    // k16-steps over the head dim
+  static constexpr int CB = D / 64;    // 128-byte column blocks
+  static constexpr int OWN = kRows * D * 2;   // bytes of an owned operand
+  static constexpr int STREAM = BN * D * 2;   // bytes of a streamed one
+  static constexpr int STAGE = 2 * STREAM;
+  // Bytes: alignment slack, the owned pair, 2 stages, and (K3) lse/delta
+  // for 2 stages.
+  static constexpr int SMEM = 1024 + 2 * OWN + 2 * STAGE + 2 * 2 * BN * 4;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The 128-byte swizzle repeats every 1024 bytes of shared address.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// A [ROWS, D] bf16 tile is D/64 column blocks of ROWS rows of 128 bytes,
+// in the 128-byte swizzle a wgmma descriptor reads: 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8) of its row.  Byte offset of chunk c
+// (elements 8c .. 8c + 7) of row r:
+template <int ROWS>
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return (c / 8) * ROWS * 128 + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// Copy rows [row0, row0 + ROWS) of an [n, D] operand raw into a swizzled
+// tile; rows at or past n are zero-filled.  A thread copies chunk c of
+// rows r0, r0 + STEP, ...: STEP is a multiple of 8, so its chunks share
+// one swizzle phase and lie STEP rows apart in the tile too.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const bf16* src,
+                                           int row0, int n, int tid) {
+  constexpr int C = D / 8;             // 16-byte chunks a row
+  constexpr int STEP = kThreads / C;   // rows between a thread's chunks
+  static_assert(STEP % 8 == 0 && ROWS % STEP == 0, "tile shape");
+  const int r0 = tid / C, c = tid % C;
+  uint8_t* at = dst + swizzled<ROWS>(r0, c);
+#pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const int r = row0 + r0 + i * STEP;
+    cp_async16(at + i * STEP * 128, src + (r < n ? (size_t)r * D + c * 8 : 0),
+               r < n);
+  }
+}
+
+// wgmma descriptor of a swizzled tile: start address, leading byte offset
+// (between 64-wide column blocks when read MN-major; unused K-major),
+// stride byte offset 1024 (between 8-row groups), 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
+}
+
+// A descriptor moved on by `bytes` (a multiple of 16): the start address
+// is its low field, and shared addresses stay below 2^18.
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, int bytes) {
+  return desc + (bytes >> 4);
+}
+
+// k16-step kk of a [ROWS, D] tile read K-major (as the A operand, or as B
+// = tile^T; desc = sw128_desc(tile, 16)): 32 bytes along the rows of
+// column block kk / 4.
+template <int ROWS>
+__device__ __forceinline__ uint64_t k_major(uint64_t desc, int kk) {
+  return desc_at(desc, (kk / 4) * ROWS * 128 + (kk % 4) * 32);
+}
+
+// Rows [16j, 16j + 16) and columns [64c, 64c + 64) of a [ROWS, D] tile
+// read MN-major (B with the rows as k and the head dim as n; desc =
+// sw128_desc(tile, ROWS * 128)).
+template <int ROWS>
+__device__ __forceinline__ uint64_t mn_major(uint64_t desc, int j, int c) {
+  return desc_at(desc, c * ROWS * 128 + j * 2048);
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A . B, m64n32k16 or m64n64k16: A and B from shared memory, both
+// K-major; accumulate = 0 starts the sum.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A . B, m64n64k16: A from registers (an m16n8k16-style fragment a
+// warp), B from shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// x = hi + lo + (under 2^-16 |x|), hi and lo bf16, two values a register.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                          uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the multi-function unit (ex2.approx, about 2 ulp): P is taken as
+// 2^(s * scale * log2(e) - lse * log2(e)).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// This thread's part of an m64nN accumulator (rows g, g + 8 of its warp's
+// 16; columns 8n + 2t, 8n + 2t + 1 in x[4n .. 4n + 3]) as the register A
+// fragments of the N/16 k16-steps over its N columns, split in hi and lo:
+// wgmma's A fragment holds the same elements, in the same order.
+template <int SA>
+__device__ __forceinline__ void split_as_a(const float (&x)[SA],
+                                           uint32_t (&hi)[SA / 8][4],
+                                           uint32_t (&lo)[SA / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < SA / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(x[8 * j + 2 * r], x[8 * j + 2 * r + 1], hi[j][r], lo[j][r]);
+}
+
+// S = X . Y^T and dP = dX . dY^T (m64nBN) for the owned [64, D] tiles X,
+// dX and the streamed [BN, D] tiles Y, dY: one bf16 product each.
+template <int D, int SA = Bf16Tile<D>::SA, int BN = Bf16Tile<D>::BN>
+__device__ __forceinline__ void scores_bf16(uint32_t x, uint32_t dx,
+                                            uint32_t y, uint32_t dy,
+                                            float (&s)[SA], float (&dp)[SA]) {
+  const uint64_t xd = sw128_desc(x, 16), dxd = sw128_desc(dx, 16);
+  const uint64_t yd = sw128_desc(y, 16), dyd = sw128_desc(dy, 16);
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Bf16Tile<D>::KS; ++kk) {
+    wgmma_ss(s, k_major<kRows>(xd, kk), k_major<BN>(yd, kk), kk > 0);
+    wgmma_ss(dp, k_major<kRows>(dxd, kk), k_major<BN>(dyd, kk), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(s);
+  fence_regs(dp);
+}
+
+// acc += A . Z over one stream tile: A [64, BN] as hi and lo fragments
+// (two products, lo first), Z the streamed [BN, D] tile read MN-major.
+template <int D, typename L = Bf16Tile<D>>
+__device__ __forceinline__ void accumulate_bf16(float (&acc)[L::CB][32],
+                                                const uint32_t (&hi)[L::KB][4],
+                                                const uint32_t (&lo)[L::KB][4],
+                                                uint32_t z) {
+  const uint64_t zd = sw128_desc(z, L::BN * 128);
+#pragma unroll
+  for (int j = 0; j < L::KB; ++j)
+#pragma unroll
+    for (int c = 0; c < L::CB; ++c) {
+      wgmma_rs_n64(acc[c], lo[j], mn_major<L::BN>(zd, j, c));
+      wgmma_rs_n64(acc[c], hi[j], mn_major<L::BN>(zd, j, c));
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void fence_acc(float (&acc)[Bf16Tile<D>::CB][32]) {
+#pragma unroll
+  for (int c = 0; c < Bf16Tile<D>::CB; ++c) fence_regs(acc[c]);
+}
+
+// K2 in bf16: dQ.  The grid, tile ranges and masks of flash_bwd_dq_kernel.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const int* __restrict__ kv_lens,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int heads, int s_q, int s_k,
+                         int causal, float scale) {
+  using L = Bf16Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = align1024(smem_raw);  // q, then dO: [64, D] each
+  uint8_t* ring = own + 2 * L::OWN;    // 2 stages of K, V: [BN, D] each
+
+  const int bh = blockIdx.x;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = q_start + warp * 16;  // this warp's first query
+
+  const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
+  const bf16* kb = k + k_off * D;
+  const bf16* vb = v + k_off * D;
+
+  int live = s_k;
+  if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
+  int kv_end = live;
+  if (causal) kv_end = min(kv_end, q_start + kRows);
+  const int n_tiles = (kv_end + L::BN - 1) / L::BN;
+
+  auto fetch = [&](int it) {
+    uint8_t* st = ring + (it & 1) * L::STAGE;
+    stage_rows<D, L::BN>(st, kb, it * L::BN, s_k, tid);
+    stage_rows<D, L::BN>(st + L::STREAM, vb, it * L::BN, s_k, tid);
+  };
+  stage_rows<D, kRows>(own, q + q_off * D, q_start, s_q, tid);
+  stage_rows<D, kRows>(own + L::OWN, dout + q_off * D, q_start, s_q, tid);
+  if (n_tiles > 0) fetch(0);
+  cp_async_commit();
+  const float scale2 = scale * kLog2e;
+  float row_lse2[2], row_delta[2];  // lse * log2(e), delta of rows g, g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row0 + g + 8 * h;
+    row_lse2[h] = qi < s_q ? lse[q_off + qi] * kLog2e : 0.f;
+    row_delta[h] = qi < s_q ? delta[q_off + qi] : 0.f;
+  }
+
+  float dq_acc[L::CB][32];
+#pragma unroll
+  for (int c = 0; c < L::CB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq_acc[c][e] = 0.f;
+  const uint32_t own_q = smem_u32(own), own_do = own_q + L::OWN;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait0();     // tile it: the one copy in flight
+    fence_proxy_async();  // the copies, before wgmma reads them
+    // Tile it is in; every warp is done with tile it - 1, whose stage
+    // takes tile it + 1.
+    __syncthreads();
+    if (it + 1 < n_tiles) fetch(it + 1);
+    cp_async_commit();
+    const int kv0 = it * L::BN;
+    const uint32_t ks = smem_u32(ring + (it & 1) * L::STAGE);
+    const uint32_t vs = ks + L::STREAM;
+    float s[L::SA], dp[L::SA];
+    scores_bf16<D>(own_q, own_do, ks, vs, s, dp);
+    // Under the causal mask a tile past this warp's last query is dropped.
+    if (causal && kv0 > row0 + 15) {
+#pragma unroll
+      for (int i = 0; i < L::SA; ++i) s[i] = 0.f;
+    } else {
+      // The mask is evaluated only on tiles that it cuts.
+      auto to_ds = [&](auto edge_tag) {
+        constexpr bool edge = decltype(edge_tag)::value;
+#pragma unroll
+        for (int i = 0; i < L::SA; ++i) {
+          const int h = (i / 2) % 2, col = kv0 + (i / 4) * 8 + 2 * t + i % 2;
+          const int qi = row0 + g + 8 * h;
+          const bool keep = !edge || (col < live && (!causal || qi >= col));
+          const float p =
+              keep ? exp2_approx(fmaf(s[i], scale2, -row_lse2[h])) : 0.f;
+          s[i] = p * (dp[i] - row_delta[h]);  // dS / scale
+        }
+      };
+      if (kv0 + L::BN > live || (causal && kv0 + L::BN - 1 > row0))
+        to_ds(std::true_type());
+      else
+        to_ds(std::false_type());
+    }
+    uint32_t hi[L::KB][4], lo[L::KB][4];
+    split_as_a(s, hi, lo);
+    fence_acc<D>(dq_acc);
+    wgmma_fence();
+    accumulate_bf16<D>(dq_acc, hi, lo, ks);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc<D>(dq_acc);
+  }
+
+  bf16* dq_out = dq + q_off * D;
+#pragma unroll
+  for (int c = 0; c < L::CB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq_acc[c][e] *= scale;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + g + 8 * r;
+    if (qi >= s_q) continue;
+#pragma unroll
+    for (int c = 0; c < L::CB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const size_t at = (size_t)qi * D + c * 64 + j * 8 + 2 * t;
+        const int e = 4 * j + 2 * r;
+        store2(dq_out + at, dq_acc[c][e], dq_acc[c][e + 1]);
+      }
+  }
+}
+
+// K3 in bf16: dK and dV.  The grid, tile ranges and masks of
+// flash_bwd_dkv_kernel; S^T = K.Q^T and dP^T = V.dO^T with the keys as
+// rows, so P^T and dS^T are A operands of P^T.dO and dS^T.Q as they stand.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const int* __restrict__ kv_lens,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int heads, int s_q, int s_k, int causal,
+                          float scale) {
+  using L = Bf16Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* own = align1024(smem_raw);  // k, then v: [64, D] each
+  uint8_t* ring = own + 2 * L::OWN;    // 2 stages of Q, dO: [BN, D] each
+  // [stage][lse | delta][BN], after the ring.
+  float* rows = reinterpret_cast<float*>(ring + 2 * L::STAGE);
+
+  const int bh = blockIdx.x;
+  const int kv_start = blockIdx.y * kRows;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = kv_start + warp * 16;  // this warp's first key
+
+  const size_t q_off = (size_t)bh * s_q, k_off = (size_t)bh * s_k;
+  const bf16* qb = q + q_off * D;
+  const bf16* dob = dout + q_off * D;
+
+  int live = s_k;
+  if (kv_lens != nullptr) live = min(max(kv_lens[bh / heads], 1), s_k);
+  const int q_begin = causal ? kv_start : 0;
+  const int q_end = kv_start >= live ? q_begin : s_q;
+  const int n_tiles = max(0, (q_end - q_begin + L::BN - 1) / L::BN);
+
+  auto fetch = [&](int it) {
+    const int q0 = q_begin + it * L::BN;
+    uint8_t* st = ring + (it & 1) * L::STAGE;
+    stage_rows<D, L::BN>(st, qb, q0, s_q, tid);
+    stage_rows<D, L::BN>(st + L::STREAM, dob, q0, s_q, tid);
+    if (tid < 2 * L::BN) {
+      const int r = tid % L::BN, which = tid / L::BN;
+      const bool ok = q0 + r < s_q;
+      cp_async4(rows + (it & 1) * 2 * L::BN + which * L::BN + r,
+                (which == 0 ? lse : delta) + q_off + (ok ? q0 + r : 0), ok);
+    }
+  };
+  if (n_tiles > 0) {  // a tile wholly past kv_len loads nothing
+    stage_rows<D, kRows>(own, k + k_off * D, kv_start, s_k, tid);
+    stage_rows<D, kRows>(own + L::OWN, v + k_off * D, kv_start, s_k, tid);
+    fetch(0);
+  }
+  cp_async_commit();
+
+  float dk_acc[L::CB][32], dv_acc[L::CB][32];
+#pragma unroll
+  for (int c = 0; c < L::CB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+  const uint32_t own_k = smem_u32(own), own_v = own_k + L::OWN;
+  const float scale2 = scale * kLog2e;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait0();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + 1 < n_tiles) fetch(it + 1);
+    cp_async_commit();
+    const int q0 = q_begin + it * L::BN;
+    const uint32_t qs = smem_u32(ring + (it & 1) * L::STAGE);
+    const uint32_t dos = qs + L::STREAM;
+    const float* lses = rows + (it & 1) * 2 * L::BN;
+    const float* deltas = lses + L::BN;
+    float s[L::SA], dp[L::SA];  // S^T and dP^T: keys x queries
+    scores_bf16<D>(own_k, own_v, qs, dos, s, dp);
+    // Under the causal mask a tile wholly before this warp's first key
+    // is dropped.
+    if (causal && q0 + L::BN - 1 < row0) {
+#pragma unroll
+      for (int i = 0; i < L::SA; ++i) s[i] = dp[i] = 0.f;
+    } else {
+      // The mask is evaluated only on tiles that it cuts.
+      auto to_p_ds = [&](auto edge_tag) {
+        constexpr bool edge = decltype(edge_tag)::value;
+#pragma unroll
+        for (int n = 0; n < L::SA / 4; ++n) {  // 8-wide column blocks
+          const int c0 = n * 8 + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(lses + c0);
+          const float2 d2 = *reinterpret_cast<const float2*>(deltas + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * n + e, qi = q0 + c0 + e % 2;
+            const int kj = row0 + g + 8 * (e / 2);
+            const bool keep = !edge || (qi < s_q && kj < live &&
+                                        (!causal || qi >= kj));
+            const float lse2 = -kLog2e * (e % 2 ? l2.y : l2.x);
+            const float p =
+                keep ? exp2_approx(fmaf(s[i], scale2, lse2)) : 0.f;
+            s[i] = p;                                         // P^T
+            dp[i] = p * (dp[i] - (e % 2 ? d2.y : d2.x));  // dS^T / scale
+          }
+        }
+      };
+      if (q0 + L::BN > s_q || row0 + 16 > live || (causal && q0 < row0 + 15))
+        to_p_ds(std::true_type());
+      else
+        to_p_ds(std::false_type());
+    }
+    uint32_t p_hi[L::KB][4], p_lo[L::KB][4], ds_hi[L::KB][4], ds_lo[L::KB][4];
+    split_as_a(s, p_hi, p_lo);
+    split_as_a(dp, ds_hi, ds_lo);
+    fence_acc<D>(dk_acc);
+    fence_acc<D>(dv_acc);
+    wgmma_fence();
+    accumulate_bf16<D>(dv_acc, p_hi, p_lo, dos);
+    accumulate_bf16<D>(dk_acc, ds_hi, ds_lo, qs);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc<D>(dk_acc);
+    fence_acc<D>(dv_acc);
+  }
+
+  bf16* dk_out = dk + k_off * D;
+#pragma unroll
+  for (int c = 0; c < L::CB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk_acc[c][e] *= scale;
+  bf16* dv_out = dv + k_off * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = row0 + g + 8 * r;
+    if (kj >= s_k) continue;
+#pragma unroll
+    for (int c = 0; c < L::CB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const size_t at = (size_t)kj * D + c * 64 + j * 8 + 2 * t;
+        const int e = 4 * j + 2 * r;
+        store2(dk_out + at, dk_acc[c][e], dk_acc[c][e + 1]);
+        store2(dv_out + at, dv_acc[c][e], dv_acc[c][e + 1]);
+      }
+  }
+}
+
+// The kernels of an element type: the 3xTF32 template for float32, the
+// bf16 design for bfloat16.
+template <int D, typename T>
+struct Kernels {
+  static constexpr int kSmem = Tile<D, T>::SMEM;
+  static auto dq() { return flash_bwd_dq_kernel<D, T>; }
+  static auto dkv() { return flash_bwd_dkv_kernel<D, T>; }
+};
+template <int D>
+struct Kernels<D, bf16> {
+  static constexpr int kSmem = Bf16Tile<D>::SMEM;
+  static auto dq() { return flash_bwd_dq_bf16_kernel<D>; }
+  static auto dkv() { return flash_bwd_dkv_bf16_kernel<D>; }
+};
+
 // Allow the kernel its dynamic shared memory (above 48 KB), then launch.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int bytes, dim3 grid, cudaStream_t st,
@@ -468,11 +1045,11 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* kv_lens,
   const float* df = static_cast<const float*>(delta);
   T* out = static_cast<T*>(dq);
   if (d == 64)
-    return launch(flash_bwd_dq_kernel<64, T>, Tile<64, T>::SMEM, grid, st,
-                  qt, kt, vt, lens, dot, lf, df, out, heads, s_q, s_k,
-                  causal, scale);
+    return launch(Kernels<64, T>::dq(), Kernels<64, T>::kSmem, grid, st, qt,
+                  kt, vt, lens, dot, lf, df, out, heads, s_q, s_k, causal,
+                  scale);
   if (d == 128)
-    return launch(flash_bwd_dq_kernel<128, T>, Tile<128, T>::SMEM, grid, st,
+    return launch(Kernels<128, T>::dq(), Kernels<128, T>::kSmem, grid, st,
                   qt, kt, vt, lens, dot, lf, df, out, heads, s_q, s_k,
                   causal, scale);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -495,13 +1072,13 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* kv_lens,
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
   if (d == 64)
-    return launch(flash_bwd_dkv_kernel<64, T>, Tile<64, T>::SMEM, grid, st,
-                  qt, kt, vt, lens, dot, lf, df, dkt, dvt, heads, s_q, s_k,
+    return launch(Kernels<64, T>::dkv(), Kernels<64, T>::kSmem, grid, st, qt,
+                  kt, vt, lens, dot, lf, df, dkt, dvt, heads, s_q, s_k,
                   causal, scale);
   if (d == 128)
-    return launch(flash_bwd_dkv_kernel<128, T>, Tile<128, T>::SMEM, grid,
-                  st, qt, kt, vt, lens, dot, lf, df, dkt, dvt, heads, s_q,
-                  s_k, causal, scale);
+    return launch(Kernels<128, T>::dkv(), Kernels<128, T>::kSmem, grid, st,
+                  qt, kt, vt, lens, dot, lf, df, dkt, dvt, heads, s_q, s_k,
+                  causal, scale);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

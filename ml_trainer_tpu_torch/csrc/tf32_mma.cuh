@@ -1,6 +1,8 @@
 // fp32-accurate products on Hopper's TF32 tensor cores ("3xTF32"), and
 // the cp.async copies that feed them: the helpers shared by the flash
-// forward (csrc/flash_fwd.cu, K1) and backward (csrc/flash_bwd.cu, K2/K3).
+// forward (csrc/flash_fwd.cu, K1) and the float32 backward
+// (csrc/flash_bwd.cu, K2/K3; its bf16 kernels use only the copies and
+// store2).
 //
 // A float32 x is split into big = tf32(x) and small = tf32(x - big); a
 // product a.b is taken as big.small + small.big + big.big, each an
@@ -8,12 +10,13 @@
 // small.small term and the rounding of small leave ~fp32 accuracy, where
 // one TF32 product (10 mantissa bits) does not.
 //
-// bfloat16 operands.  Any bf16 value is exact in float32 and in TF32
-// (8 significant bits), so its split is (value, 0) and the three
-// products give exactly what they give for the same values stored as
-// float32: the kernels stage bf16 tiles raw (half the bytes of a float32
-// tile), widen each element with __bfloat162float where a fragment is
-// loaded, and round each output once with __float2bfloat16_rn.  `Elem`
+// bfloat16 operands (K1's bf16 entry).  Any bf16 value is exact in
+// float32 and in TF32 (8 significant bits), so its split is (value, 0)
+// and the three products give exactly what they give for the same
+// values stored as float32: K1 stages bf16 tiles raw (half the bytes of
+// a float32 tile), widens each element with __bfloat162float where a
+// fragment is loaded, and rounds each output once with
+// __float2bfloat16_rn.  `Elem`
 // holds what differs between the two element types: the elements one
 // 16-byte cp.async moves, and the padding of a shared row that keeps
 // the fragment loads free of bank conflicts (4 floats, 8 bf16: a row of

@@ -5,8 +5,8 @@ directory, scale one bf16 kernel's output by 1 + 2^-6 (2 to 4 bf16
 ulps) there, rebuild the kernels in the copy and run the per-call check
 that the defect should fail: ``serve_call_check`` (K6, K7: one prefill
 and one decode step of GPT-2 124M at bf16, 8 requests) or
-``train_call_check`` (K3: one bf16 GPT-2 124M optimizer step of 4
-microbatches).  Prints one line per defect, ``RESULT failed ...`` when
+``train_call_check`` (K3's dV, K2's dQ: one bf16 GPT-2 124M optimizer
+step of 4 microbatches).  Prints one line per defect, ``RESULT failed ...`` when
 the check caught it, and exits non-zero if a defect passed.  The
 checkout itself is never changed.
 
@@ -35,9 +35,15 @@ MUTATIONS = {
         "serve", True),
     "k3_dv_x1.015625": (
         CSRC + "flash_bwd.cu",
-        "      store2(dv_out + at, dv_acc[nd][2 * h], dv_acc[nd][2 * h + 1]);",
-        "      store2(dv_out + at, dv_acc[nd][2 * h] * 1.015625f, "
-        "dv_acc[nd][2 * h + 1] * 1.015625f);",
+        "        store2(dv_out + at, dv_acc[c][e], dv_acc[c][e + 1]);",
+        "        store2(dv_out + at, dv_acc[c][e] * 1.015625f, "
+        "dv_acc[c][e + 1] * 1.015625f);",
+        "train", None),
+    "k2_dq_x1.015625": (
+        CSRC + "flash_bwd.cu",
+        "        store2(dq_out + at, dq_acc[c][e], dq_acc[c][e + 1]);",
+        "        store2(dq_out + at, dq_acc[c][e] * 1.015625f, "
+        "dq_acc[c][e + 1] * 1.015625f);",
         "train", None),
 }
 SERVE = r'''

@@ -255,31 +255,115 @@ def _bf16_gate(got, want):
     return float(((got - want).abs() - bar).max())
 
 
+def _bf16_terms(x, terms):
+    """float32 x as ``terms`` bf16 values whose sum approaches it: hi =
+    bf16(x), lo = bf16(x - hi), ... (round to nearest even, as
+    ``__float2bfloat16_rn``)."""
+    out = []
+    for _ in range(terms):
+        out.append(x.to(torch.bfloat16))
+        x = x - out[-1].float()
+    return out
+
+
+def _mm_bf16(a, b, terms):
+    """a @ b as the bf16 kernels take it: float32 ``a`` (P or dS) split in
+    ``terms`` bf16 terms, one bf16 product each, the smallest term first,
+    float32 sums; a bf16 x bf16 product is exact in float32."""
+    out = None
+    for part in reversed(_bf16_terms(a, terms)):
+        term = part.float() @ b.float()
+        out = term if out is None else out + term
+    return out
+
+
+def _backward_bf16(q, k, v, kv_lens, lse, delta, dout, causal, scale,
+                   terms):
+    """K2/K3's bf16 arithmetic: one bf16 product for q.k^T and dO.v^T,
+    P and dS split in ``terms`` bf16 terms for P^T.dO, dS.k and dS^T.q,
+    each output rounded once to bf16."""
+    p = torch.exp(q.float() @ k.float().transpose(-1, -2) * scale
+                  - lse[..., None])
+    keep = tatt._keep_mask(q.shape[-2], k.shape[-2], kv_lens, causal,
+                           q.device)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros(()))
+    dp = dout.float() @ v.float().transpose(-1, -2)
+    ds = p * (dp - delta[..., None]) * scale
+    return tuple(x.to(torch.bfloat16) for x in (
+        _mm_bf16(ds, k, terms), _mm_bf16(ds.transpose(-1, -2), q, terms),
+        _mm_bf16(p.transpose(-1, -2), dout, terms)))
+
+
+def _bf16_backward_case(seed, shape, lens, causal):
+    """bf16 q, k, v, dO from numpy, the forward's float32 lse and delta =
+    rowsum(dO * O) on the bf16 O, and kv_lens (or None)."""
+    q, k, v, g = (torch.tensor(x).to(torch.bfloat16)
+                  for x in _arrays(seed, *shape))
+    t_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    scale = shape[-1] ** -0.5
+    out, lse = tatt.flash_attention_reference(q, k, v, t_lens, causal, scale)
+    return (q, k, v, t_lens, lse, tatt._row_delta(out, g), g, causal,
+            scale)
+
+
+def _exact(args):
+    """The kernels' function of their inputs in float64, unrounded."""
+    q, k, v, lens, lse, delta, g, causal, scale = args
+    return tatt._backward_plain(q.double(), k.double(), v.double(), lens,
+                                lse.double(), delta.double(), g.double(),
+                                causal, scale)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 def test_three_tf32_products_keep_the_chip_gate_in_bf16(d, causal):
-    """The backward kernels' arithmetic on bf16 inputs, emulated at
-    [1, 2, 256, d]: a bf16 value widened to float32 is its own TF32
-    big part (its small part is exactly 0, so the products with a bf16
-    small operand add zero), and the 3xTF32 backward on the widened
-    inputs, rounded once to bf16, is within the chip gate (2 bf16 ulps
-    of the plain bf16 backward)."""
-    q, k, v, g = (torch.tensor(x).to(torch.bfloat16)
-                  for x in _arrays(5, 1, 2, 256, d))
-    for t in (q, k, v, g):
+    """The bf16 backward kernels' arithmetic, emulated at [1, 2, 256, d].
+    Of the 3xTF32 split of the float32 kernels only big x big is left for
+    a bf16 x bf16 product (a bf16 value widened to float32 is its own
+    TF32 big part, its small part exactly 0), so q.k^T and dO.v^T take
+    one bf16 product each; P^T.dO, dS.k and dS^T.q take two, P and dS
+    split in hi + lo bf16 terms, with float32 sums.  Each output, rounded
+    once to bf16, is within the chip gate (2 bf16 ulps) of the plain
+    bf16 backward, and within half of it of the float64 function."""
+    args = _bf16_backward_case(5, (1, 2, 256, d), None, causal)
+    for t in (args[0], args[1], args[2], args[6]):
         w = t.float()
         assert torch.equal(_tf32(w), w)
         assert torch.equal(_tf32(w - _tf32(w)), torch.zeros_like(w))
-    scale = d ** -0.5
-    out, lse = tatt.flash_attention_reference(q, k, v, None, causal, scale)
-    want = tatt.flash_attention_backward_reference(q, k, v, None, out, lse,
-                                                   g, causal, scale)
+    want = tatt._backward_plain(*args)
     assert all(w.dtype == torch.bfloat16 for w in want)
-    delta = tatt._row_delta(out, g)
-    got = _backward_tf32(*(t.float() for t in (q, k, v)), lse, delta,
-                         g.float(), causal, scale, 3)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        assert _bf16_gate(a.to(torch.bfloat16), b) <= 0, name
+    got = _backward_bf16(*args, terms=2)
+    for name, a, b, e in zip(("dq", "dk", "dv"), got, want, _exact(args)):
+        assert _bf16_gate(a, b) <= 0, name
+        ratio = float(((a.double() - e).abs()
+                       / (2 ** -7 * e.abs() + 1e-3 * e.abs().max())).max())
+        assert ratio < 0.5, (name, ratio)
+
+
+@pytest.mark.parametrize("shape,causal,lens", [
+    ((2, 12, 512, 64), True, None),
+    ((4, 12, 128, 64), False, [128, 50, 1, 97]),
+])
+def test_one_bf16_term_for_p_and_ds_breaks_the_chip_gate(shape, causal,
+                                                         lens):
+    """Why the bf16 kernels split P and dS in two bf16 terms: with one
+    (P rounded to bf16 before its product, as FlashAttention and SDPA
+    do) some gradient lands beyond the 2-ulp gate of the float64
+    function of the same inputs; with two every gradient stays under
+    half of it."""
+    args = _bf16_backward_case(0, shape, lens, causal)
+    exact = _exact(args)
+
+    def worst(terms):
+        return max(
+            float(((a.double() - e).abs()
+                   / (2 ** -7 * e.abs() + 1e-3 * e.abs().max())).max())
+            for a, e in zip(_backward_bf16(*args, terms=terms), exact))
+
+    one, two = worst(1), worst(2)
+    assert one > 1.0, one
+    assert two < 0.5, two
 
 
 def test_kernel_checks_refuse_mixed_dtypes_and_float16():

@@ -1,9 +1,10 @@
 """Guards of the PyTorch/CUDA port (``ml_trainer_tpu_torch``).
 
-* No file of the port, nor ``chip_smoke.py`` or
-  ``scripts/torch_call_check_mutations.py``, imports JAX, flax, optax,
-  tqdm, msgpack or the JAX package (an AST scan): the card's machine has
-  none of them.
+* No file of the port, nor ``chip_smoke.py``,
+  ``scripts/torch_call_check_mutations.py`` or
+  ``scripts/flash_bwd_ab.py``, imports JAX, flax, optax, tqdm, msgpack
+  or the JAX package (an AST scan): the card's machine has none of
+  them.
 * With no card visible, every entry point raises unless it is given
   ``device="cpu"``: the port never falls back to the CPU on its own.
 * On the CPU the kernels' plain versions run, and the launch counters
@@ -41,7 +42,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_trainer_tpu", "tqdm",
 def _port_files():
     files = sorted((ROOT / "ml_trainer_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "torch_call_check_mutations.py"]
+                    ROOT / "scripts" / "torch_call_check_mutations.py",
+                    ROOT / "scripts" / "flash_bwd_ab.py"]
 
 
 def _imports(path):
@@ -249,8 +251,8 @@ def test_bf16_kernels_match_plain_on_card():
     """K1-K3's bf16 entry points against their plain versions on the same
     bf16 inputs (within 2 bf16 ulps: |diff| <= 2^-7 |plain| + 1e-3
     max|plain|; lse, float32, within 1e-4), bf16 outputs and gradients,
-    exact zeros past kv_lens, bitwise across two calls, and bitwise what
-    the float32 kernels give on the widened values."""
+    exact zeros past kv_lens, bitwise across two calls, and K1's output
+    bitwise what the float32 kernel gives on the widened values."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
     dev = torch.device("cuda")
