@@ -1,8 +1,8 @@
 // fp32-accurate products on Hopper's TF32 tensor cores ("3xTF32"), and
-// the cp.async copies that feed them: the helpers shared by the flash
-// forward (csrc/flash_fwd.cu, K1) and the float32 backward
-// (csrc/flash_bwd.cu, K2/K3; its bf16 kernels use only the copies and
-// store2).
+// the cp.async copies that feed them: the helpers shared by the float32
+// flash forward (csrc/flash_fwd.cu, K1) and backward (csrc/flash_bwd.cu,
+// K2/K3).  The bf16 kernels of both files (csrc/wgmma_bf16.cuh) use only
+// the copies and store2.
 //
 // A float32 x is split into big = tf32(x) and small = tf32(x - big); a
 // product a.b is taken as big.small + small.big + big.big, each an
@@ -10,17 +10,9 @@
 // small.small term and the rounding of small leave ~fp32 accuracy, where
 // one TF32 product (10 mantissa bits) does not.
 //
-// bfloat16 operands (K1's bf16 entry).  Any bf16 value is exact in
-// float32 and in TF32 (8 significant bits), so its split is (value, 0)
-// and the three products give exactly what they give for the same
-// values stored as float32: K1 stages bf16 tiles raw (half the bytes of
-// a float32 tile), widens each element with __bfloat162float where a
-// fragment is loaded, and rounds each output once with
-// __float2bfloat16_rn.  `Elem`
-// holds what differs between the two element types: the elements one
-// 16-byte cp.async moves, and the padding of a shared row that keeps
-// the fragment loads free of bank conflicts (4 floats, 8 bf16: a row of
-// D + pad elements starts 4 words further along each time).
+// `Elem` holds the elements one 16-byte cp.async moves and the padding of
+// a shared row that keeps the fragment loads free of bank conflicts (4
+// floats: a row of D + 4 starts 4 words further along each time).
 //
 // Fragment layouts of m16n8k8 (g = lane / 4, t = lane % 4):
 //   A (16 x 8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
@@ -40,16 +32,8 @@ struct Elem<float> {
   static constexpr int kVec = 4;  // elements per 16-byte copy
   static constexpr int kPad = 4;  // padding of a shared row, elements
 };
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static constexpr int kPad = 8;
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Two adjacent outputs, rounded once to the output type.
 __device__ __forceinline__ void store2(float* p, float a, float b) {

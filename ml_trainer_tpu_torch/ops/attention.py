@@ -13,9 +13,12 @@ routing.
   ``torch.autograd.Function`` (``_FlashAttention``, the JAX package's
   ``custom_vjp``): on CUDA tensors the forward launches
   ``csrc/flash_fwd.cu`` (K1) and the backward ``csrc/flash_bwd.cu``
-  (K2 for dQ, K3 for dK/dV), all three on the tensor cores with every
-  product fp32-accurate (three TF32 products, ``csrc/tf32_mma.cuh``);
-  on CPU tensors they run the plain twins
+  (K2 for dQ, K3 for dK/dV), all three on the tensor cores: on float32
+  inputs every product fp32-accurate (three TF32 products,
+  ``csrc/tf32_mma.cuh``), on bf16 inputs kernels of their own on the
+  bf16 tensor cores (``wgmma``, ``csrc/wgmma_bf16.cuh``) that split
+  the float32 P and dS in two bf16 terms; on CPU tensors they run the
+  plain twins
   ``flash_attention_reference`` and
   ``flash_attention_backward_reference``.  The backward recomputes P
   from the saved ``lse``, so training memory stays O(S).  The dtype
@@ -186,10 +189,10 @@ def _lens_arg(kv_lens, device):
 
 
 def _flash_kernel(q, k, v, kv_lens, causal, scale):
-    """Launch ``csrc/flash_fwd.cu`` (K1: q.k^T and p.v as 3xTF32
-    ``mma.sync`` on the tensor cores; float32 or bfloat16 in and out) on
-    contiguous CUDA tensors; its function is
-    ``flash_attention_reference``'s."""
+    """Launch ``csrc/flash_fwd.cu`` (K1: float32 q.k^T and p.v as 3xTF32
+    ``mma.sync``, bf16 as ``wgmma`` with P split in two bf16 terms, on
+    the tensor cores; out in the input dtype) on contiguous CUDA tensors;
+    its function is ``flash_attention_reference``'s."""
     from ml_trainer_tpu_torch.ops.kernels._build import check, load
 
     _check_kernel_inputs(q, k, v, "flash kernel")

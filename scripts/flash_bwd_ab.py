@@ -10,7 +10,8 @@ with the same ``nvcc`` flags, loads both, and at every bf16 row of
 - bf16 inputs: this build's dQ, dK and dV must sit within 2 bf16 ulps of
   the plain version (``chip_smoke.bf16_gate`` <= 1), two calls must agree
   bit for bit, and dK/dV must be 0 past kv_lens; the other build's gate
-  ratios are reported beside;
+  ratios, and whether the two builds' bf16 gradients are bitwise equal,
+  are reported beside;
 - device ms of each build's bf16 K2 and K3 (profiler events), timed in
   the order other, this, this, other, beside SDPA's bf16 backward on the
   same inputs (timed only) and the bf16 bound.
@@ -34,25 +35,31 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from ml_trainer_tpu_torch.ops.kernels import _build  # noqa: E402
 
-SOURCE = "ml_trainer_tpu_torch/csrc/flash_bwd.cu"
-
-
-def load_other(root: str) -> ctypes.CDLL:
-    """``flash_bwd.cu`` of the checkout at ``root``, built with this
-    checkout's flags into ``build/ab/``."""
-    out = os.path.join(ROOT, "build", "ab", "libflash_bwd_other.so")
+def load_other(root: str, name: str = "flash_bwd") -> ctypes.CDLL:
+    """Kernel source ``name`` (``csrc/<name>.cu``) of the checkout at
+    ``root``, built with this checkout's flags into ``build/ab/``."""
+    source = f"ml_trainer_tpu_torch/csrc/{name}.cu"
+    out = os.path.join(ROOT, "build", "ab", f"lib{name}_other.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     run = subprocess.run([_build.nvcc_path(), *_build.FLAGS, "-o", out,
-                          os.path.join(root, SOURCE)],
+                          os.path.join(root, source)],
                          capture_output=True, text=True)
     if run.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {root}/{SOURCE}:\n"
+        raise RuntimeError(f"nvcc failed for {root}/{source}:\n"
                            f"{run.stdout}{run.stderr}")
     lib = ctypes.CDLL(out)
-    for fn, argtypes in _build.SIGNATURES["flash_bwd"].items():
+    for fn, argtypes in _build.SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def print_ptxas(name: str) -> None:
+    """nvcc's register, shared memory and spill lines for this checkout's
+    build of kernel source ``name``."""
+    for line in _build.BUILD_LOG.get(name, {}).get("ptxas", []):
+        if any(w in line for w in ("registers", "spill", "entry", "arning")):
+            print("  " + line, flush=True)
 
 
 def launchers(lib, args, outs):
@@ -112,9 +119,7 @@ def main() -> int:
           f"{cs.smi_line()} | torch {torch.__version__}", flush=True)
     libs = {"this": _build.load("flash_bwd"), "other": load_other(
         os.path.abspath(opts.parent))}
-    for line in _build.BUILD_LOG.get("flash_bwd", {}).get("ptxas", []):
-        if any(w in line for w in ("registers", "spill", "entry", "arning")):
-            print("  " + line, flush=True)
+    print_ptxas("flash_bwd")
     ok = True
     for i, (name, b, h, s, d, causal, lens) in enumerate(
             cs.BF16_BWD_CASES):
@@ -138,6 +143,8 @@ def main() -> int:
         gates = {n: [cs.bf16_gate(g, w) for g, w in zip(got[n], want)]
                  for n in got}
         repeat = all(torch.equal(a, b2) for a, b2 in zip(again, got["this"]))
+        bf16_equal = all(torch.equal(a, b2)
+                         for a, b2 in zip(got["this"], got["other"]))
         zero = True
         if lens is not None:
             pad = (torch.arange(s, device=dev)[None, None, :, None]
@@ -157,7 +164,8 @@ def main() -> int:
         ok = ok and row_ok
         print("flash_bwd_ab " + json.dumps(dict(
             case=name, shape=[b, h, s, d], causal=causal, kv_lens=lens,
-            ok=row_ok, f32_bitwise_equal=f32_equal, bitwise_repeat=repeat,
+            ok=row_ok, f32_bitwise_equal=f32_equal,
+            bf16_bitwise_equal=bf16_equal, bitwise_repeat=repeat,
             zero_past_kv_lens=zero, gate_ratio=gates,
             device_ms={n: {k: sum(t) / len(t) for k, t in times[n].items()}
                        for n in times},

@@ -3,8 +3,9 @@
 For each planted defect below, copy the checkout into a temporary
 directory, scale one bf16 kernel's output by 1 + 2^-6 (2 to 4 bf16
 ulps) there, rebuild the kernels in the copy and run the per-call check
-that the defect should fail: ``serve_call_check`` (K6, K7: one prefill
-and one decode step of GPT-2 124M at bf16, 8 requests) or
+that the defect should fail: ``serve_call_check`` (K6, K7 and K1's
+bf16 O: one prefill and one decode step of GPT-2 124M at bf16, 8
+requests) or
 ``train_call_check`` (K3's dV, K2's dQ: one bf16 GPT-2 124M optimizer
 step of 4 microbatches).  Prints one line per defect, ``RESULT failed ...`` when
 the check caught it, and exits non-zero if a defect passed.  The
@@ -39,6 +40,12 @@ MUTATIONS = {
         "        store2(dv_out + at, dv_acc[c][e] * 1.015625f, "
         "dv_acc[c][e + 1] * 1.015625f);",
         "train", None),
+    "k1_out_x1.015625": (
+        CSRC + "flash_fwd.cu",
+        "        store2(ob + at, o_acc[c][e] / l[r], o_acc[c][e + 1] / l[r]);",
+        "        store2(ob + at, o_acc[c][e] / l[r] * 1.015625f, "
+        "o_acc[c][e + 1] / l[r] * 1.015625f);",
+        "serve", False),
     "k2_dq_x1.015625": (
         CSRC + "flash_bwd.cu",
         "        store2(dq_out + at, dq_acc[c][e], dq_acc[c][e + 1]);",

@@ -1,10 +1,10 @@
 """Guards of the PyTorch/CUDA port (``ml_trainer_tpu_torch``).
 
 * No file of the port, nor ``chip_smoke.py``,
-  ``scripts/torch_call_check_mutations.py`` or
-  ``scripts/flash_bwd_ab.py``, imports JAX, flax, optax, tqdm, msgpack
-  or the JAX package (an AST scan): the card's machine has none of
-  them.
+  ``scripts/torch_call_check_mutations.py``, ``scripts/flash_bwd_ab.py``
+  or ``scripts/flash_fwd_ab.py``, imports JAX, flax, optax, tqdm,
+  msgpack or the JAX package (an AST scan): the card's machine has none
+  of them.
 * With no card visible, every entry point raises unless it is given
   ``device="cpu"``: the port never falls back to the CPU on its own.
 * On the CPU the kernels' plain versions run, and the launch counters
@@ -43,7 +43,8 @@ def _port_files():
     files = sorted((ROOT / "ml_trainer_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "torch_call_check_mutations.py",
-                    ROOT / "scripts" / "flash_bwd_ab.py"]
+                    ROOT / "scripts" / "flash_bwd_ab.py",
+                    ROOT / "scripts" / "flash_fwd_ab.py"]
 
 
 def _imports(path):
@@ -246,13 +247,25 @@ def test_kernels_match_plain_on_card():
                                   "fused_adam": 0}
 
 
+def bf16_steps(got, want):
+    """Element by element, the bf16 steps between two bf16 tensors (+0
+    and -0 equal)."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
 @pytest.mark.cuda
 def test_bf16_kernels_match_plain_on_card():
     """K1-K3's bf16 entry points against their plain versions on the same
     bf16 inputs (within 2 bf16 ulps: |diff| <= 2^-7 |plain| + 1e-3
     max|plain|; lse, float32, within 1e-4), bf16 outputs and gradients,
     exact zeros past kv_lens, bitwise across two calls, and K1's output
-    bitwise what the float32 kernel gives on the widened values."""
+    within one bf16 step of what the float32 kernel gives on the widened
+    values (or within 1e-3 of its largest entry: the bf16 kernel splits
+    P in two bf16 terms where the float32 kernel takes 3xTF32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA) and nvcc")
     dev = torch.device("cuda")
@@ -281,7 +294,11 @@ def test_bf16_kernels_match_plain_on_card():
         gate(out, ref_out)
         torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
         wide, _ = flash_attention(q.float(), k.float(), v.float(), kv, causal)
-        assert torch.equal(out.detach(), wide.to(torch.bfloat16))
+        wide = wide.to(torch.bfloat16)
+        far = ((out.detach().float() - wide.float()).abs()
+               > 1e-3 * wide.float().abs().max())
+        steps = bf16_steps(out.detach(), wide)[far]
+        assert steps.numel() == 0 or int(steps.max()) <= 1
         for a, b, c in zip(got, want, again):
             assert a.dtype == torch.bfloat16
             gate(a, b)
