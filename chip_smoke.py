@@ -12,6 +12,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # training only
     python3 chip_smoke.py --only models   # kernel checks + the image and
                                           # encoder families
+    python3 chip_smoke.py --only graphs   # kernel checks + every family
+                                          # at steps_per_execution 1 and 4
+                                          # (CUDA graph replays)
 
 Phases, one line of output each (or a few):
 
@@ -192,7 +195,26 @@ Phases, one line of output each (or a few):
    exactly 12 K1, K2 and K3 a training step and 12 K1 an eval batch,
    the others no kernel.  Each family's line has its optimizer-step time
    (CUDA events), samples/s, peak memory and a profiler split of one
-   step; BERT's also K1-K3 device ms per step beside their bounds.
+   step; BERT's also K1-K3 device ms per step beside their bounds;
+8. ``steps_per_execution`` (``GRAPH_RUNS``): GPT-2 124M fp32 and bf16
+   (``TRAIN``'s config), BERT-base bf16, ViT-B/16 bf16, ResNet-50 and
+   MLModel (``MODEL_RUNS``' configs), each through ``Trainer.fit()`` at
+   K = 1 (the eager step) and at K = 4 (each full chunk of 4 batches one
+   replay of a CUDA graph of the 4 steps; 13 steps: three chunks, the
+   first eager before the capture, and a tail of one; 9 validation
+   batches: the eval graph's chunk and a tail) from the same weights and
+   data.  Gates: finite losses, no skipped step, exact launch counts in
+   both runs (K1 12 a microbatch and a validation batch, K2/K3 12 a
+   microbatch, replays counted), the K = 4 run's parameters, buffers
+   and optimizer state bitwise those of K = 1 and its epoch losses and
+   metrics within 1e-6 relative (the sums' order); where they differ, a
+   second K = 1 run must differ from the first too (its first differing
+   leaf is printed) and the graph run must lie within 2x the eager runs'
+   distance.  Printed per family: the optimizer-step time (CUDA events)
+   eager, graph, graph, eager on one chunk, tokens/s or samples/s, peak
+   memory of both fits, the capture's seconds, device-busy ms and idle
+   share of one profiled graph dispatch and of one eager step, the eager
+   step's host enqueue time and the input path's host time per batch.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -2764,15 +2786,17 @@ RESNET_ROWS = 32
 RESNET_LOSS_RTOL, RESNET_GRAD_RTOL, RESNET_STATS_RTOL = 1e-4, 1e-3, 1e-4
 
 
-def model_sets(data: str, batch: int, steps: int):
-    """(train, validation) datasets of ``steps`` and ``VAL_BATCHES``
-    batches, made from ``SEED`` with numpy."""
+def model_sets(data: str, batch: int, steps: int,
+               val_batches: int = VAL_BATCHES):
+    """(train, validation) datasets of ``steps`` and ``val_batches``
+    batches, made from ``SEED`` with numpy (images drawn IMAGES_224 at a
+    time, or as many as a set needs when it needs more)."""
     import numpy as np
 
     import ml_trainer_tpu_torch as mt
     from ml_trainer_tpu_torch.data import Compose, Normalize, ToFloat
 
-    n, n_val = batch * steps, batch * VAL_BATCHES
+    n, n_val = batch * steps, batch * val_batches
     if data == "cifar":
         pre = mt.custom_pre_process_function
         return (mt.SyntheticCIFAR10(size=n, transform=pre(), seed=SEED),
@@ -2781,9 +2805,10 @@ def model_sets(data: str, batch: int, steps: int):
     if data == "imagenet":
         def images(size, seed):
             rng = np.random.default_rng(seed)
-            x = rng.integers(0, 256, size=(IMAGES_224, 224, 224, 3),
+            pool = max(IMAGES_224, size)
+            x = rng.integers(0, 256, size=(pool, 224, 224, 3),
                              dtype=np.uint8)[:size]
-            y = rng.integers(0, 1000, size=IMAGES_224).astype(np.int32)
+            y = rng.integers(0, 1000, size=pool).astype(np.int32)
             return mt.ArrayDataset(x, y[:size], Compose(
                 [ToFloat(), Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
         return images(n, SEED), images(n_val, SEED + 1)
@@ -3024,10 +3049,333 @@ def models(dev) -> list:
     return [model_run(dev, *run) for run in MODEL_RUNS]
 
 
+# ------------------------------------------------------------- phase 8
+# steps_per_execution on the card: each family at K = 1 (the eager step)
+# and at K = GRAPH_K (each full chunk of K batches one replay of a CUDA
+# graph of the K steps), from the same weights and data.  GRAPH_STEPS is
+# three full chunks and a tail of one: the first chunk runs eagerly
+# before the capture, so two replay; GRAPH_VAL validation batches give
+# the eval graph one replay and a tail of one.
+GRAPH_K = 4
+GRAPH_STEPS = 3 * GRAPH_K + 1
+GRAPH_VAL = 2 * GRAPH_K + 1
+GRAPH_LOSS_RTOL = 1e-6  # the epoch sums' order: a chunk's K losses first
+GRAPH_DIR = "build/chip_smoke_graphs"  # each run's model.pth; removed after
+GPT2_OPT = dict(grad_accum_steps=TRAIN["accum"], optimizer="adamw", lr=3e-4,
+                weight_decay=0.01, scheduler="CosineAnnealingWarmRestarts",
+                grad_clip_norm=1.0)
+_MODEL = {(name, opt.get("precision")): (name, kw, opt, data, batch)
+          for name, kw, opt, data, batch, _ in MODEL_RUNS}
+GRAPH_RUNS = [  # (label, model name, model kwargs, trainer kwargs, data, batch)
+    ("gpt2_fp32", "gpt2", {}, GPT2_OPT, "gpt2", TRAIN["batch_size"]),
+    ("gpt2_bf16", "gpt2", {}, dict(GPT2_OPT, precision="bf16"), "gpt2",
+     TRAIN["batch_size"]),
+    ("bert_base_bf16", *_MODEL[("bert_base", "bf16")]),
+    ("vit_b16_bf16", *_MODEL[("vit_b16", "bf16")]),
+    ("resnet50", *_MODEL[("resnet50", None)]),
+    ("mlmodel", *_MODEL[("mlmodel", None)]),
+]
+
+
+def graph_sets(data: str, batch: int):
+    """(train, validation) sets of GRAPH_STEPS and GRAPH_VAL batches."""
+    import ml_trainer_tpu_torch as mt
+
+    if data != "gpt2":
+        return model_sets(data, batch, GRAPH_STEPS, GRAPH_VAL)
+    c = TRAIN
+    return tuple(mt.SyntheticTokens(size=batch * n, seq_len=c["seq_len"],
+                                    vocab_size=c["vocab_size"],
+                                    seed=SEED + i)
+                 for i, n in enumerate((GRAPH_STEPS, GRAPH_VAL)))
+
+
+def _named_state(trainer) -> dict:
+    """The model's parameters and buffers and every state tensor, by name,
+    copied to the host."""
+    out = {f"model.{k}": v for k, v in trainer.model.state_dict().items()}
+
+    def walk(path, t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(f"{path}.{k}", v)
+        elif isinstance(t, (tuple, list)):
+            for i, v in enumerate(t):
+                walk(f"{path}[{i}]", v)
+        else:
+            out[path] = t
+
+    state = trainer.state
+    walk("opt_state", state.opt_state)
+    for field in ("skipped_steps", "bad_streak", "loss_scale", "good_steps"):
+        if getattr(state, field) is not None:
+            out[field] = getattr(state, field)
+    return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+
+def _leaf_distance(got: dict, want: dict):
+    """(the first leaf that differs, the worst leaf, its distance): max
+    |got - want| of a leaf over its largest |want|; (None, None, 0.0)
+    when every leaf is bitwise equal."""
+    import torch
+
+    first = worst_name = None
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if g.dtype == w.dtype and torch.equal(g, w):
+            continue
+        first = first or name
+        g64, w64 = g.double(), w.double()
+        d = ((g64 - w64).abs().max()
+             / w64.abs().max().clamp_min(1e-30)).item()
+        if d >= worst:
+            worst, worst_name = d, name
+    return first, worst_name, worst
+
+
+def _history_distance(got: dict, want: dict) -> float:
+    """Largest difference of the epoch losses (relative) and metrics
+    (absolute: an accuracy may be 0)."""
+    worst = 0.0
+    for key in ("train_loss", "val_loss", "train_metric", "val_metric"):
+        for g, w in zip(got[key], want[key]):
+            worst = max(worst, abs(g - w) / (
+                max(abs(w), 1e-30) if key.endswith("loss") else 1.0))
+    return worst
+
+
+def profile_dispatch(trainer, xs, ys) -> dict:
+    """One chunk, one graph replay, under ``torch.profiler``: device-busy
+    time and idle share of the dispatch, busy ms per optimizer step, and
+    K1-K3's device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._dispatch("train", trainer._train_chunk, xs, ys)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = device_split(prof, wall)
+    if isinstance(split["device_busy_s"], float):
+        split["device_busy_ms_per_step"] = (split["device_busy_s"] * 1e3
+                                            / GRAPH_K)
+    split.update(kernel_device_ms(prof, ATTN_MARKS))
+    return split
+
+
+def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
+    """One family at K = 1 and K = GRAPH_K through ``Trainer.fit()`` from
+    the same seeded weights and data.  Gates: finite losses, no skipped
+    step, the exact launch counts of both runs (replays counted), and the
+    K-step run's parameters, buffers and state bitwise those of K = 1
+    with the epoch losses within GRAPH_LOSS_RTOL (the order of the
+    sums).  Where they differ, a second K = 1 run must differ from the
+    first too (the first leaf named), and the graph run must lie within
+    2x the two eager runs' distance; both are then run again under
+    ``torch.backends.cudnn.deterministic`` (cuDNN's deterministic
+    convolution algorithms), and whether those two agree bit for bit is
+    recorded.  Then, on one chunk of batches, the
+    optimizer-step time of the eager step and of the graph (CUDA events,
+    in the order eager, graph, graph, eager), a profiled dispatch and a
+    profiled eager step, the capture's seconds, the eager step's host
+    enqueue time and the input path's host time per batch."""
+    import math
+    import shutil
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+    from ml_trainer_tpu_torch.trainer import _chunk_batches
+
+    run_dir = f"{GRAPH_DIR}/{label}"
+    attn = name in ("gpt2", "bert_base")
+    launches = {k: 0 for k in mt.launch_counts()}
+
+    def fit(k):
+        shutil.rmtree(run_dir, ignore_errors=True)
+        model = mt.init_model(name, seed=SEED, device=dev, **model_kw)
+        trainer = mt.Trainer(model, datasets=graph_sets(data, batch),
+                             epochs=1, batch_size=batch, metric="accuracy",
+                             model_dir=run_dir, seed=SEED, device=dev,
+                             steps_per_execution=k, **opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = mt.launch_counts()
+        hist = trainer.history
+        if not all(math.isfinite(v)
+                   for v in hist["train_loss"] + hist["val_loss"]):
+            raise AssertionError(f"graphs {label} K={k}: non-finite {hist}")
+        if hist["skipped_steps"] != [0]:
+            raise AssertionError(f"graphs {label} K={k}: skipped steps "
+                                 f"{hist['skipped_steps']}")
+        want = {kname: 0 for kname in counts}
+        if attn:
+            depth = trainer.model.depth
+            micro = GRAPH_STEPS * trainer.grad_accum_steps
+            want.update(flash_fwd=depth * (micro + GRAPH_VAL),
+                        flash_bwd_dq=depth * micro,
+                        flash_bwd_dkv=depth * micro)
+        if counts != want:
+            raise AssertionError(f"graphs {label} K={k}: launches {counts}, "
+                                 f"expected {want}")
+        for kname, n in counts.items():
+            launches[kname] += n
+        rec = dict(fit_s=fit_s, max_memory_allocated_bytes=(
+            torch.cuda.max_memory_allocated()), launches=counts,
+            history={key: hist[key] for key in (
+                "train_loss", "val_loss", "train_metric", "val_metric",
+                "skipped_steps")},
+            loss_scale=loss_scale_record(trainer), step=trainer.state.step)
+        return trainer, rec, _named_state(trainer)
+
+    t0 = time.perf_counter()
+    eager, rec_1, snap_1 = fit(1)
+    del eager
+    torch.cuda.empty_cache()
+    trainer, rec_k, snap_k = fit(GRAPH_K)
+    if rec_k["step"] != rec_1["step"] or rec_k["loss_scale"] != rec_1[
+            "loss_scale"]:
+        raise AssertionError(f"graphs {label}: step / loss scale "
+                             f"{rec_k['step']} {rec_k['loss_scale']} vs "
+                             f"{rec_1['step']} {rec_1['loss_scale']}")
+    first, worst_name, dist = _leaf_distance(snap_k, snap_1)
+    loss_rel = _history_distance(rec_k["history"], rec_1["history"])
+    same = dict(bitwise=first is None, first_leaf=first,
+                worst_leaf=worst_name, distance=dist, loss_rel=loss_rel)
+    if first is not None or loss_rel > GRAPH_LOSS_RTOL:
+        # Does the eager step repeat itself on the card?
+        eager, rec_e, snap_e = fit(1)
+        del eager
+        e_first, e_worst, e_dist = _leaf_distance(snap_e, snap_1)
+        e_loss = _history_distance(rec_e["history"], rec_1["history"])
+        same.update(eager_first_leaf=e_first, eager_worst_leaf=e_worst,
+                    eager_distance=e_dist, eager_loss_rel=e_loss)
+        if e_first is None and e_loss == 0.0:
+            raise AssertionError(
+                f"graphs {label}: the graph run differs from K = 1 (first "
+                f"{first}, worst {worst_name} {dist}, losses {loss_rel}) "
+                "while two K = 1 runs agree bit for bit")
+        if not (dist <= 2 * e_dist
+                and loss_rel <= max(GRAPH_LOSS_RTOL, 2 * e_loss)):
+            raise AssertionError(
+                f"graphs {label}: graph vs eager {worst_name} {dist}, "
+                f"losses {loss_rel}; eager vs eager {e_worst} {e_dist}, "
+                f"losses {e_loss}")
+        # Is it cuDNN's choice of algorithms that moves? (Some of its
+        # backward algorithms add with atomics.)
+        torch.backends.cudnn.deterministic = True
+        try:
+            det = [fit(k)[1:] for k in (1, GRAPH_K)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        d_first, d_worst, d_dist = _leaf_distance(det[1][1], det[0][1])
+        same["cudnn_deterministic"] = dict(
+            bitwise=d_first is None, first_leaf=d_first, worst_leaf=d_worst,
+            distance=d_dist, loss_rel=_history_distance(
+                det[1][0]["history"], det[0][0]["history"]))
+        del det
+    del snap_1, snap_k
+    check_s = time.perf_counter() - t0
+
+    # Step time on one chunk, eager (the K = 1 program, functional: after
+    # it no replay runs on that state) and graph, interleaved.
+    xs, ys = next(iter(prefetch_to_device(
+        _chunk_batches(trainer.train_loader, GRAPH_K, []), size=1,
+        device=dev)))
+    trainer._lr_t.fill_(1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(body, steps):
+        start.record()
+        body()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / steps
+
+    def eager_chunk():
+        for x, y in zip(xs, ys):
+            trainer._train_step(x, y, 1.0)
+
+    def graph_chunks(reps=3):
+        for _ in range(reps):
+            trainer._dispatch("train", trainer._train_chunk, xs, ys)
+
+    eager_ms = [timed(eager_chunk, GRAPH_K)]
+    t1 = time.perf_counter()
+    graph_chunks(1)  # the warm-up chunk and the capture
+    torch.cuda.synchronize()
+    first_dispatch_s = time.perf_counter() - t1
+    capture_s = next(iter(trainer._graphs.values())).capture_s
+    graph_ms = [timed(graph_chunks, 3 * GRAPH_K) for _ in range(2)]
+    prof_graph = profile_dispatch(trainer, xs, ys)
+    eager_ms.append(timed(eager_chunk, GRAPH_K))
+    prof_eager = profile_step(trainer, xs[0], ys[0])
+    if not attn:
+        prof_eager.pop("device_ms")
+        prof_eager.pop("device_calls")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer._train_step(xs[0], ys[0], 1.0)
+    enqueue_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    eager_wall_ms = (time.perf_counter() - t1) * 1e3
+    trainer._graphs.clear()
+    # The input path's host time per batch: the Loader alone (numpy
+    # gathers and transforms), then with the pinned copies to the card.
+    n = len(trainer.train_loader)
+    t1 = time.perf_counter()
+    for _ in trainer.train_loader:
+        pass
+    loader_ms = (time.perf_counter() - t1) * 1e3 / n
+    t1 = time.perf_counter()
+    for _ in prefetch_to_device(trainer.train_loader, size=2, device=dev):
+        pass
+    torch.cuda.synchronize()
+    input_ms = (time.perf_counter() - t1) * 1e3 / n
+    shutil.rmtree(run_dir, ignore_errors=True)
+    per_step = (TRAIN["seq_len"] * batch if name == "gpt2" else batch)
+    unit = "tokens_per_s" if name == "gpt2" else "samples_per_s"
+    label_p = trainer.precision.label()
+    del trainer, xs, ys
+    torch.cuda.empty_cache()
+    return dict(
+        label=label, model=name, precision=label_p, batch=batch,
+        k=GRAPH_K, steps=GRAPH_STEPS, val_batches=GRAPH_VAL,
+        same_as_k1=same, check_s=check_s,
+        eager=rec_1, graph=rec_k, launches_total=launches,
+        eager_step_ms=eager_ms, graph_step_ms=graph_ms,
+        **{f"eager_{unit}": per_step * 1e3 / (sum(eager_ms) / 2),
+           f"graph_{unit}": per_step * 1e3 / (sum(graph_ms) / 2)},
+        peak_ratio=(rec_k["max_memory_allocated_bytes"]
+                    / rec_1["max_memory_allocated_bytes"]),
+        capture_s=capture_s, first_dispatch_s=first_dispatch_s,
+        eager_enqueue_ms=enqueue_ms, eager_step_wall_ms=eager_wall_ms,
+        input_loader_ms_per_batch=loader_ms,
+        input_ms_per_batch=input_ms,
+        profile_graph=prof_graph, profile_eager=prof_eager)
+
+
+def graphs(dev) -> list:
+    """Every ``GRAPH_RUNS`` family through ``graph_run``."""
+    return [graph_run(dev, *run) for run in GRAPH_RUNS]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
-                        choices=["kernels", "serve", "train", "dp", "models"],
+                        choices=["kernels", "serve", "train", "dp", "models",
+                                 "graphs"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -3123,6 +3471,12 @@ def main(argv=None) -> int:
                     step_split[kname].update({
                         f"{pre}bert_step_device_ms": prof["device_ms"][kname],
                         f"{pre}bert_step_bound_ms": prof["bound_ms"][kname]})
+    if args.only in (None, "graphs"):
+        for run in graphs(dev):
+            log(f"graphs {run['label']} on {smi}: " + json.dumps(run))
+            for kname in ATTN_MARKS:
+                launches[kname] = ((launches[kname] or 0)
+                                   + run["launches_total"][kname])
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",

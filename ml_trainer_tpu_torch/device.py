@@ -9,12 +9,15 @@ caller asks for it with ``device="cpu"`` (the parity tests do).
 The launch counters are plain integers, one per hand-written kernel.
 A kernel's wrapper adds one exactly where it launches the kernel, so a
 run can show that its main path went through the kernels and not
-through their plain PyTorch versions.
+through their plain PyTorch versions.  Under a CUDA graph a wrapper runs
+once, at capture, and its kernel on every replay: ``CountedGraph`` moves
+the capture's counts to the replays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import contextlib
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -74,3 +77,39 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+class CountedGraph:
+    """A CUDA graph and what its capture added to the launch counters.
+
+    A capture launches nothing, but the wrappers it runs count their
+    launches.  ``capturing()`` takes back what the capture added to the
+    counters, and to each dict of ``tallies`` (name -> number: the
+    collectives' accounting), and keeps it; ``replay()`` replays the
+    graph and adds it again, so that ``launch_counts()`` stays the number
+    of launches that ran.  ``graph``: a ``torch.cuda.CUDAGraph``, or
+    anything with a ``replay()``."""
+
+    def __init__(self, graph, tallies: Sequence[dict] = ()):
+        self.graph = graph
+        self.tallies = [_LAUNCHES, *tallies]
+        self.added: list = [{} for _ in self.tallies]
+
+    @contextlib.contextmanager
+    def capturing(self):
+        before = [dict(t) for t in self.tallies]
+        try:
+            yield self.graph
+        finally:
+            for tally, old, added in zip(self.tallies, before, self.added):
+                added.clear()
+                added.update({k: v - old.get(k, 0) for k, v in tally.items()
+                              if v != old.get(k, 0)})
+                tally.clear()
+                tally.update(old)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for tally, added in zip(self.tallies, self.added):
+            for k, n in added.items():
+                tally[k] = tally.get(k, 0) + n

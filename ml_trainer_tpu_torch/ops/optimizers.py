@@ -51,6 +51,15 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of nested dicts/tuples/lists, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
 def _count(params: Params) -> torch.Tensor:
     device = next(iter(params.values())).device
     return torch.zeros((), dtype=torch.int32, device=device)

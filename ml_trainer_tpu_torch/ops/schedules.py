@@ -126,8 +126,10 @@ def make_lr_schedule(scheduler_type: Optional[str], base_lr: float,
             epoch = torch.div(torch.as_tensor(count), steps_per_epoch,
                               rounding_mode="floor")
             k = torch.div(epoch, step_size_epochs, rounding_mode="floor")
+            # torch.full, not torch.tensor: no host copy, so that a CUDA
+            # graph can capture the schedule.
             return base_lr * torch.pow(
-                torch.tensor(gamma, dtype=torch.float32, device=k.device),
+                torch.full((), gamma, dtype=torch.float32, device=k.device),
                 k.to(torch.float32))
 
         return step_lr

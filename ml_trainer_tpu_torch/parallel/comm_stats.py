@@ -82,6 +82,13 @@ def comm_bucket_bytes() -> Dict[str, Dict[str, float]]:
         return out
 
 
+def tallies() -> tuple:
+    """The live per-op bytes, per-op calls and per-bucket bytes, for a
+    CUDA graph's capture to take back and its replays to add again
+    (``device.CountedGraph``)."""
+    return _bytes, _calls, _bucket_bytes
+
+
 def reset_comm_stats() -> None:
     with _lock:
         _bytes.clear()

@@ -22,6 +22,14 @@ The train step follows the JAX package's compiled step, written out:
   the skipped/streak counters live on the device;
 * the epoch loops read the device only every ``log_every`` steps and at
   the epoch's end;
+* ``steps_per_execution`` K > 1 (the JAX package's ``lax.scan`` of K
+  steps over batches stacked to [K, B, ...]): each full chunk of K
+  batches runs the step K times, writing the state back into the same
+  tensors (``_train_step_in_place``); on the card the chunk is one
+  replay of a CUDA graph of those K steps (``step_graph.py``), captured
+  after the first chunk ran them for real.  The ragged tail runs batch
+  by batch, and the history is the K = 1 run's up to the order of the
+  epoch sums (a dispatch's K losses are added first, as in JAX);
 * ``precision="bf16"`` (``precision.py``): the loss function runs the
   model on bf16 copies of the float32 master parameters
   (``torch.func.functional_call``; the gradients come home float32
@@ -74,6 +82,7 @@ naming ROADMAP.md otherwise.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import logging
@@ -83,6 +92,7 @@ import pickle
 import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -104,6 +114,7 @@ from ml_trainer_tpu_torch.ops.optimizers import (
     decay_mask_matrices_only,
     get_optimizer,
     identity,
+    tree_leaves,
     tree_map,
 )
 from ml_trainer_tpu_torch.ops.predictions import get_prediction_function
@@ -127,6 +138,7 @@ from ml_trainer_tpu_torch.precision import (
     resolve_loss_scale,
     resolve_precision,
 )
+from ml_trainer_tpu_torch.step_graph import StepGraph
 from ml_trainer_tpu_torch.train_state import TrainState
 from ml_trainer_tpu_torch.utils.logging import get_logger
 from ml_trainer_tpu_torch.utils.utils import LoadedModel
@@ -141,6 +153,48 @@ def _own_storage(t: torch.Tensor) -> torch.Tensor:
     if t.untyped_storage().nbytes() > t.numel() * t.element_size():
         return t.clone()
     return t
+
+
+def _chunk_batches(loader, k: int, tail: list):
+    """Yield [K, B, ...] stacks of full batches; ragged batches (and the
+    final partial chunk) land in ``tail`` once the generator drains (the
+    JAX package's ``_chunk_batches``)."""
+    xs, ys = [], []
+    full = None  # leading dim of a full batch (first seen)
+    for x, y in loader:
+        if full is None:
+            full = x.shape[0]
+        if x.shape[0] != full:
+            # Ragged final batch (drop_last=False): un-stackable, so it
+            # always goes through the per-batch tail path even when it
+            # would land inside a full chunk.
+            tail.append((x, y))
+            continue
+        xs.append(x)
+        ys.append(y)
+        if len(xs) == k:
+            yield np.stack(xs), np.stack(ys)
+            xs, ys = [], []
+    tail.extend(zip(xs, ys))
+
+
+def _summed_steps(step, xs, ys):
+    """``step(x, y)`` over the batches of the stacks ``xs``/``ys``: the
+    summed losses and metrics, added in step order."""
+    loss = metric = None
+    for x, y in zip(xs, ys):
+        lo, me = step(x, y)
+        loss = lo if loss is None else loss + lo
+        metric = me if metric is None else metric + me
+    return loss, metric
+
+
+def _state_tensors(state: TrainState) -> list:
+    """Every tensor of ``state`` that a step replaces: the optimizer
+    state's leaves, the guard's counters and the loss scale's."""
+    return tree_leaves(state.opt_state) + [
+        t for t in (state.skipped_steps, state.bad_streak, state.loss_scale,
+                    state.good_steps) if t is not None]
 
 
 def _refuse(knob: str, value, accepted) -> None:
@@ -232,7 +286,9 @@ class Trainer:
         ``loss_scale`` ('dynamic' | a float | a ``LossScaleConfig`` |
         None; it acts only with bf16, and needs ``nonfinite_guard``),
         ``loader`` ('auto' and 'python' both take the Python ``Loader``),
-        and data parallelism: ``is_parallel``, ``mesh_shape`` (the data
+        ``steps_per_execution`` (K optimizer steps a dispatch: on the
+        card one CUDA graph replay a chunk of K batches), and data
+        parallelism: ``is_parallel``, ``mesh_shape`` (the data
         axis only), ``dp_update`` ('fused' | 'sharded'), ``fused_adam``
         (None: on exactly for the sharded step with plain Adam and no
         weight decay), ``bucket_mb`` and ``shard_opt_state`` (ZeRO-1,
@@ -245,8 +301,7 @@ class Trainer:
         process logs one warning naming those that the JAX package would
         act on as set (``_warn_inert_knobs``).
         Refused unless at their defaults: ``sharding_rules``,
-        ``steps_per_execution``, ``ema_decay``, ``telemetry``,
-        ``elastic``, ``lora``,
+        ``ema_decay``, ``telemetry``, ``elastic``, ``lora``,
         ``pipeline_schedule``, ``save_every_steps``,
         ``rollback_bad_steps``, ``sharded_checkpoint=True`` and
         ``loader='native'``; so are mesh axes other than ``data`` and
@@ -284,12 +339,14 @@ class Trainer:
                     "fused_adam=True needs weight_decay=0: coupled L2 "
                     "prepends add_decayed_weights, which the fused kernels "
                     "do not replicate")
+        if steps_per_execution < 1:
+            raise ValueError(
+                f"steps_per_execution must be >= 1, got {steps_per_execution}")
         if dp_update == "sharded" and steps_per_execution > 1:
             raise ValueError(
                 "dp_update='sharded' requires steps_per_execution=1")
         for knob, value, accepted in (
             ("sharding_rules", sharding_rules, (None,)),
-            ("steps_per_execution", steps_per_execution, (1,)),
             ("ema_decay", ema_decay, (None,)),
             ("telemetry", telemetry, (False,)),
             ("elastic", elastic, (None,)),
@@ -387,6 +444,7 @@ class Trainer:
         self.log_every = 50 if log_every_steps is None else int(
             log_every_steps)
         self.grad_accum_steps = int(grad_accum_steps)
+        self.steps_per_execution = int(steps_per_execution)
         self.grad_clip_norm = grad_clip_norm
         self.early_stop_patience = early_stop_patience
         self.save_best = bool(save_best)
@@ -435,6 +493,11 @@ class Trainer:
         self.val_loader: Optional[Loader] = None
         self._plateau: Optional[PlateauController] = None
         self._lr_scale = 1.0
+        # The chunked steps' lr_scale: a device scalar, filled each epoch
+        # and always multiplied in (a graph cannot branch on a host float).
+        self._lr_t = torch.ones((), dtype=torch.float32, device=self.device)
+        # (train | eval, input shapes) -> StepGraph; freed when fit() ends.
+        self._graphs: dict = {}
 
         if datasets:
             train_set, val_set = datasets
@@ -618,6 +681,53 @@ class Trainer:
             return self._apply_grads(params, grads, loss, metric, lr_scale,
                                      buffers)
 
+    def _train_step_in_place(self, x, y, lr_t: torch.Tensor):
+        """``_train_step`` with ``lr_t`` (a device scalar), its new state
+        written back into the tensors the state held before (``copy_``),
+        so that a CUDA graph captured over it reads and writes the same
+        addresses on every replay.  The parameters and the model's
+        buffers are written in place by the step itself."""
+        kept = dataclasses.replace(self.state)
+        loss, metric = self._train_step(x, y, lr_t)
+        with torch.no_grad():
+            for old, new in zip(_state_tensors(kept),
+                                _state_tensors(self.state)):
+                old.copy_(new)
+        kept.step = self.state.step
+        self.state = kept
+        return loss, metric
+
+    def _train_chunk(self, xs, ys):
+        """K in-place steps over the stacked batches ``xs``/``ys``
+        [K, B, ...] (the JAX package's ``multi_step``)."""
+        return _summed_steps(
+            lambda x, y: self._train_step_in_place(x, y, self._lr_t), xs, ys)
+
+    def _dispatch(self, kind: str, fn, xs, ys):
+        """One chunk through ``fn(xs, ys)``.  On the CPU it runs as it is.
+        On the card the first chunk of each (``kind``, shapes) runs as
+        real steps on a side stream, which builds the kernels, the cuBLAS
+        handles and autograd's state (none of which may happen during a
+        capture); then ``fn`` is captured as one CUDA graph, and every
+        later chunk is one replay of it.  A failed capture or replay
+        raises."""
+        if self.device.type != "cuda":
+            return fn(xs, ys)
+        key = (kind, tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            out = graph.replay(xs, ys)
+            if kind == "train":
+                self.state.step += xs.shape[0]
+            return out
+        graph = StepGraph(self.device)
+        out = graph.warm_up(fn, xs, ys)
+        step = self.state.step
+        graph.capture(fn, xs, ys)
+        self.state.step = step  # the capture ran the steps' Python only
+        self._graphs[key] = graph
+        return out
+
     @torch.no_grad()
     def _sharded_train_step(self, x, y, lr_scale: float):
         """The bucketed reduce-scatter + 1/N-shard update step
@@ -778,7 +888,10 @@ class Trainer:
         state = self.state
         old = {k: p.detach() for k, p in params.items()}
         updates, new_opt = self.tx.update(grads, state.opt_state, old)
-        if lr_scale != 1.0:
+        # A device scalar (the chunked steps') is always multiplied in, as
+        # the JAX step does; a host float only when it is not 1.0 (x 1.0
+        # is exact either way).
+        if isinstance(lr_scale, torch.Tensor) or lr_scale != 1.0:
             updates = {k: u * lr_scale for k, u in updates.items()}
         new_params = {k: old[k] + u for k, u in updates.items()}
         if self.nonfinite_guard:
@@ -860,23 +973,60 @@ class Trainer:
         else:
             logger.info(f"{what} {done}/{n}: loss={float(last_loss):.6f}")
 
+    def _dispatches(self, loader, kind: str, chunk, single):
+        """The epoch's dispatches as ``(loss, metric, steps)``: each batch
+        through ``single`` when ``steps_per_execution`` is 1; else each
+        full chunk of K batches through ``chunk`` (``_dispatch``), then
+        the ragged batches and the final partial chunk batch by batch
+        through ``single`` (the JAX package's ``_train_one_epoch_multi``
+        and its validation twin, ``_eval_multi_step``)."""
+        k = self.steps_per_execution
+        if k == 1:
+            for x, y in prefetch_to_device(loader, size=2,
+                                           device=self.device):
+                yield (*single(x, y), 1)
+            return
+        tail: list = []  # filled once the chunks are drained
+        for xs, ys in prefetch_to_device(_chunk_batches(loader, k, tail),
+                                         size=2, device=self.device):
+            yield (*self._dispatch(kind, chunk, xs, ys), k)
+        for x, y in prefetch_to_device(iter(tail), size=2,
+                                       device=self.device):
+            yield (*single(x, y), 1)
+
+    def _run_epoch(self, what: str, n: int, dispatches):
+        """Sum the dispatches' losses and metrics, each dispatch's sum
+        added to the epoch's (the JAX package's order), logging where a
+        multiple of ``max(log_every, K)`` steps fell inside the last
+        dispatch and at the end: the only host reads of the epoch."""
+        every = max(self.log_every, self.steps_per_execution)
+        loss_sum = torch.zeros((), device=self.device)
+        metric_sum = torch.zeros((), device=self.device)
+        done = 0
+        for loss, metric, steps in dispatches:
+            loss_sum = loss_sum + loss
+            metric_sum = metric_sum + metric
+            done += steps
+            if done % every < steps or done == n:
+                # Without a metric: the last dispatch's mean loss.
+                self._log_progress(what, done, n, loss_sum, metric_sum,
+                                   loss if steps == 1 else loss / steps)
+        return loss_sum, metric_sum
+
     def _train_one_epoch(self, epoch: int) -> None:
         self.train_loader.set_epoch(epoch - 1)
         n = len(self.train_loader)
-        loss_sum = torch.zeros((), device=self.device)
-        metric_sum = torch.zeros((), device=self.device)
         epoch_t0 = time.time()
-        batches = prefetch_to_device(self.train_loader, size=2,
-                                     device=self.device)
-        for i, (x, y) in enumerate(batches):
-            done = i + 1
-            loss, metric = self._train_step(x, y, self._lr_scale)
-            loss_sum = loss_sum + loss
-            metric_sum = metric_sum + metric
-            if done % self.log_every == 0 or done == n:
-                # The only host reads of the epoch besides its end.
-                self._log_progress(f"epoch {epoch} train", done, n,
-                                   loss_sum, metric_sum, loss)
+        self._lr_t.fill_(self._lr_scale)
+        if self.steps_per_execution == 1:
+            def step(x, y):
+                return self._train_step(x, y, self._lr_scale)
+        else:  # the tail keeps the state where the chunks' graph reads it
+            def step(x, y):
+                return self._train_step_in_place(x, y, self._lr_t)
+        loss_sum, metric_sum = self._run_epoch(
+            f"epoch {epoch} train", n, self._dispatches(
+                self.train_loader, "train", self._train_chunk, step))
         self.train_losses.append(float(loss_sum) / n)
         cum = int(self.state.skipped_steps)
         self.skipped_steps.append(cum - self._skipped_base)
@@ -889,24 +1039,26 @@ class Trainer:
             self.train_metrics.append(
                 self._metric_finalize(float(metric_sum) / n))
 
-    def _evaluate(self, model, loader, what: str):
+    def _evaluate(self, model, loader, what: str, dispatches=None):
+        """Mean loss and metric of ``model`` over ``loader``, batch by
+        batch, or through ``dispatches`` (the validation's chunks)."""
         n = len(loader)
-        loss_sum = torch.zeros((), device=self.device)
-        metric_sum = torch.zeros((), device=self.device)
         model.eval()
-        for i, (x, y) in enumerate(
-                prefetch_to_device(loader, size=2, device=self.device)):
-            loss, metric = self._eval_step(model, x, y)
-            loss_sum = loss_sum + loss
-            metric_sum = metric_sum + metric
-            if (i + 1) % self.log_every == 0 or (i + 1) == n:
-                self._log_progress(what, i + 1, n, loss_sum, metric_sum,
-                                   loss)
+        if dispatches is None:
+            dispatches = ((*self._eval_step(model, x, y), 1)
+                          for x, y in prefetch_to_device(
+                              loader, size=2, device=self.device))
+        loss_sum, metric_sum = self._run_epoch(what, n, dispatches)
         return float(loss_sum) / n, float(metric_sum) / n
 
     def _validate_one_epoch(self) -> None:
-        loss, metric = self._evaluate(self.model, self.val_loader,
-                                      "validation")
+        def step(x, y):
+            return self._eval_step(self.model, x, y)
+
+        loss, metric = self._evaluate(
+            self.model, self.val_loader, "validation", self._dispatches(
+                self.val_loader, "eval",
+                lambda xs, ys: _summed_steps(step, xs, ys), step))
         self.val_losses.append(loss)
         if self.metric:
             self.val_metrics.append(self._metric_finalize(metric))
@@ -923,6 +1075,27 @@ class Trainer:
             raise ValueError("fit() needs datasets; this Trainer was built "
                              "for testing only")
         logger.info("Start training..")
+        try:
+            self._fit_epochs()
+        finally:
+            self._graphs.clear()  # their memory pools with them
+            self.clear()
+        self.history = {
+            "epochs": [*range(1, len(self.train_losses) + 1)],
+            "train_loss": self.train_losses,
+            "val_loss": self.val_losses,
+            "train_metric": self.train_metrics,
+            "val_metric": self.val_metrics,
+            "metric_type": self.metric,
+            "skipped_steps": self.skipped_steps,
+            "rollbacks": self.rollbacks,
+            "reshapes": self.reshapes,
+        }
+        if self.save_history:
+            self.save_history_(self.model_dir)
+        logger.info("Training Complete.")
+
+    def _fit_epochs(self) -> None:
         for epoch in range(1, self.epochs + 1):
             if self._out_of_patience():
                 break
@@ -953,20 +1126,6 @@ class Trainer:
                 logger.info(f"valid loss: {self.val_losses[-1]}\n\n")
             if self._out_of_patience():
                 break
-        self.history = {
-            "epochs": [*range(1, len(self.train_losses) + 1)],
-            "train_loss": self.train_losses,
-            "val_loss": self.val_losses,
-            "train_metric": self.train_metrics,
-            "val_metric": self.val_metrics,
-            "metric_type": self.metric,
-            "skipped_steps": self.skipped_steps,
-            "rollbacks": self.rollbacks,
-            "reshapes": self.reshapes,
-        }
-        if self.save_history:
-            self.save_history_(self.model_dir)
-        logger.info("Training Complete.")
 
     def _out_of_patience(self) -> bool:
         stop = (self.early_stop_patience is not None

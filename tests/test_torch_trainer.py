@@ -200,7 +200,7 @@ def test_poisoned_batch_is_skipped_alike(tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("mesh_shape", {"expert": 2}), ("mesh_shape", {"data": 1, "tensor": 2}),
-    ("sharding_rules", [("x", None)]), ("steps_per_execution", 2),
+    ("sharding_rules", [("x", None)]),
     ("mesh_shape", {"fsdp": 2}), ("ema_decay", 0.99),
     ("telemetry", True), ("elastic", 2), ("lora", {"rank": 4}),
     ("pipeline_schedule", "1f1b"), ("mesh_shape", {"sequence": 2}),
