@@ -6,7 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only kernels  # build + kernel checks only
     python3 chip_smoke.py --only serve    # kernel checks + the serving
                                           # runs (fp32, int8, bf16, bf16
-                                          # int8) + the int8 quality gate
+                                          # int8; decode step as a CUDA
+                                          # graph and eagerly) + the int8
+                                          # quality gate
     python3 chip_smoke.py --only train    # kernel checks + training only
     python3 chip_smoke.py --only dp       # kernel checks + data-parallel
                                           # training only
@@ -139,8 +141,22 @@ Phases, one line of output each (or a few):
    and through the plain versions (both printed); reported: the share of
    bf16 greedy tokens equal to fp32's and the int8 run's logit error and
    argmax agreement against bf16;
+   each of the four runs is made twice, with the engine's decode step as
+   one CUDA graph replay (after its warm-up step and its capture, both
+   in the uncounted warm-up request) and eagerly (the baseline): the
+   graph run's tokens must equal the eager run's and the launch counts
+   must be equal (replays counted), every K6 ticket must be back at 0;
+   then a window of decode steps only on an engine of the same shape
+   with all 8 slots live, both ways (step ms on the host clock, busy and
+   idle share and K6/K7 device ms a step from the profiler, which must
+   name K6 under the replays; the capture's seconds and bytes), and the
+   logits gate: from one state the step run eagerly, the state
+   restored, one replay, bitwise equal logits; the gate once more on a
+   contiguous fp32 engine (the plain masked attention); each precision's
+   eager and graph numbers on one line (``eager vs graph``);
    then the JAX package's int8 quality gate at full width (``QGATE``): a
-   GPT-2 124M trained by the port's ``Trainer`` on a successor map, whose
+   GPT-2 124M trained by the port's ``Trainer`` on a successor map (at
+   ``steps_per_execution=4``: its steps as graph replays), whose
    int8 full forward (K7) and int8-served replay must both keep argmax
    agreement >= 0.995 and relative logit error <= 0.02;
 5. training: the same model, fp32, through ``Trainer(...).fit()`` with
@@ -209,8 +225,10 @@ Phases, one line of output each (or a few):
    and optimizer state bitwise those of K = 1 and its epoch losses and
    metrics within 1e-6 relative (the sums' order); where they differ, a
    second K = 1 run must differ from the first too (its first differing
-   leaf is printed) and the graph run must lie within 2x the eager runs'
-   distance.  Printed per family: the optimizer-step time (CUDA events)
+   leaf is printed), the graph run's leaves must lie within 2x the eager
+   runs' distance, and under ``torch.backends.cudnn.deterministic`` the
+   two must again be bitwise equal with losses within 1e-6.  Printed per
+   family: the optimizer-step time (CUDA events)
    eager, graph, graph, eager on one chunk, tokens/s or samples/s, peak
    memory of both fits, the capture's seconds, device-busy ms and idle
    share of one profiled graph dispatch and of one eager step, the eager
@@ -1396,7 +1414,7 @@ def serve(dev):
     prompts[5][:256] = shared
     new_tokens = 32
 
-    fp32 = run_server(model, prompts, new_tokens, quant_int8=False)
+    fp32 = serve_pair(model, prompts, new_tokens, quant_int8=False)
     outs, counts = fp32.pop("outs"), fp32["launches"]
     if counts["int8_matmul"] != 0:
         raise AssertionError(f"the fp32 server launched int8_matmul "
@@ -1425,7 +1443,7 @@ def serve(dev):
     fp32["worst_logit_gap"] = worst
     fp32["prompt_lens"] = lengths
 
-    int8 = run_server(model, prompts, new_tokens, quant_int8=True)
+    int8 = serve_pair(model, prompts, new_tokens, quant_int8=True)
     outs_q, counts_q = int8.pop("outs"), int8["launches"]
     steps = int8["decode_steps"]
     if counts_q["int8_matmul"] != 4 * model.depth * steps:
@@ -1439,10 +1457,53 @@ def serve(dev):
     # Random weights: reported, not gated (see QGATE).
     int8.update(replay_int8(model, prompts, outs_q, new_tokens,
                             gate_quality=False))
+    # The contiguous engine's decode step (the plain masked attention).
+    fp32["contiguous_decode_window"] = decode_window(
+        model, prompts, quant_int8=False, graph=True, paged=False)
     del model
     torch.cuda.empty_cache()
     return {"fp32": fp32, "int8": int8,
             **serve_bf16(dev, prompts, new_tokens, outs, counts)}
+
+
+def graph_summary(run: dict) -> dict:
+    """One serving precision's eager and graph numbers side by side
+    ([eager, graph]): the ``Server`` runs' tokens/s, TTFT p50, decode
+    step ms (host clock, ``ServingMetrics``) and the profiled pass's busy
+    s and idle share; the decode windows' step ms (host clock), busy ms a
+    step, idle share and K6/K7 device ms a step; the capture's seconds
+    and bytes; whether the replayed logits were bitwise the eager step's."""
+    eager, win = run["eager"], run["decode_window"]
+
+    def pair(get):
+        return [get(eager, win["eager"]), get(run, win["graph"])]
+
+    return {
+        "tokens_per_s": pair(lambda r, w: r["tokens_per_s"]),
+        "ttft_p50_s": pair(lambda r, w: r["ttft_p50_s"]),
+        "decode_step_mean_ms": pair(lambda r, w: r["decode_step_mean_ms"]),
+        "pass_busy_s": pair(lambda r, w: r["profile"]["device_busy_s"]),
+        "pass_idle_share": pair(
+            lambda r, w: r["profile"].get("device_idle_share")),
+        "window_step_ms": pair(lambda r, w: w["step_ms"]),
+        "window_busy_ms_a_step": pair(
+            lambda r, w: w["profile"].get("busy_ms_a_step")),
+        "window_idle_share": pair(
+            lambda r, w: w["profile"].get("device_idle_share")),
+        # Busy ms a step (profiled) over step ms (host clock, unprofiled):
+        # the idle share without the profiler's own host cost.
+        "window_idle_share_unprofiled_wall": pair(
+            lambda r, w: 1.0 - w["profile"]["busy_ms_a_step"] / w["step_ms"]
+            if "busy_ms_a_step" in w["profile"] else None),
+        "window_k6_k7_device_ms_a_step": pair(
+            lambda r, w: w["profile"]["step_device_ms"]),
+        "server_capture_s": run["capture_s"],
+        "server_capture_bytes": run["capture_bytes"],
+        "window_capture_s": win["graph"]["capture_s"],
+        "window_capture_bytes": win["graph"]["capture_bytes"],
+        "logits_bitwise": win["graph"]["logits_bitwise"],
+        "tokens_equal": run["tokens_equal_to_eager"],
+    }
 
 
 def serve_bf16(dev, prompts, new_tokens: int, outs_fp32, counts_fp32):
@@ -1468,14 +1529,18 @@ def serve_bf16(dev, prompts, new_tokens: int, outs_fp32, counts_fp32):
     model.eval()
     runs = {}
     for quant_int8 in (False, True):
-        run = run_server(model, prompts, new_tokens, quant_int8=quant_int8)
-        got, counts = run.pop("outs"), run["launches"]
-        steps = run["decode_steps"]
-        want = dict(counts_fp32, paged_attention=model.depth * steps,
-                    int8_matmul=4 * model.depth * steps if quant_int8 else 0)
-        if counts != want:
-            raise AssertionError(f"bf16 serving (quant_int8={quant_int8}) "
-                                 f"launches {counts}, expected {want}")
+        run = serve_pair(model, prompts, new_tokens, quant_int8=quant_int8)
+        got = run.pop("outs")
+        for r in (run, run["eager"]):
+            steps = r["decode_steps"]
+            want = dict(counts_fp32, paged_attention=model.depth * steps,
+                        int8_matmul=(4 * model.depth * steps if quant_int8
+                                     else 0))
+            if r["launches"] != want:
+                raise AssertionError(
+                    f"bf16 serving (quant_int8={quant_int8}, graph="
+                    f"{r['graph']}) launches {r['launches']}, expected "
+                    f"{want}")
         quant = mt.quantize_tree(model) if quant_int8 else None
         run["call_check"] = serve_call_check(model, prompts, quant_int8)
         kern = replay_served(model, prompts, got, new_tokens, quant, False)
@@ -1718,6 +1783,11 @@ def serve_call_check(model, prompts, quant_int8: bool) -> dict:
     with capture_calls() as step:
         engine.step()
     torch.cuda.synchronize()
+    # A fresh engine's first decode step is the graph's warm-up: it runs
+    # for real (the capture comes at the second step), so the hooks saw
+    # launches that ran.
+    if engine._graph is None or engine._graph.capture_s is not None:
+        raise AssertionError("the checked decode step was not the warm-up")
     got = {k: sum(1 for c in prefill + step if c[0] == k)
            for k in ("flash_fwd", "paged_attention", "int8_matmul")}
     want = dict(flash_fwd=model.depth, paged_attention=model.depth,
@@ -1725,30 +1795,196 @@ def serve_call_check(model, prompts, quant_int8: bool) -> dict:
     if got != want:
         raise AssertionError(f"per-call check captured {got}, expected {want}")
     rec = call_check(prefill + step)
+    engine.close()
     del engine, prefill, step
     torch.cuda.empty_cache()
     return rec
 
 
+@contextlib.contextmanager
+def decode_graph(on: bool):
+    """Engines made inside run the decode step as a CUDA graph (``on``)
+    or eagerly (the baseline)."""
+    from ml_trainer_tpu_torch.serving import SlotDecodeEngine
+
+    SlotDecodeEngine._decode_graph = on
+    try:
+        yield
+    finally:
+        SlotDecodeEngine._decode_graph = True
+
+
+def serve_pair(model, prompts, new_tokens: int, quant_int8: bool) -> dict:
+    """``run_server`` with the decode graph, then eagerly (the baseline),
+    then ``decode_window`` both ways.  Gates: the graph run's tokens equal
+    the eager run's, both runs' launch counts are equal (each run gates
+    its own K6 count: depth per decode step), and every K6 ticket is back
+    at 0.  Returns the graph run's record with ``eager`` (the eager run's,
+    without its tokens) and ``decode_window`` ({"graph", "eager"})."""
+    import numpy as np
+
+    from ml_trainer_tpu_torch.ops.kernels import _split
+
+    with decode_graph(True):
+        run = run_server(model, prompts, new_tokens, quant_int8)
+    with decode_graph(False):
+        eager = run_server(model, prompts, new_tokens, quant_int8)
+    for i, (a, b) in enumerate(zip(run["outs"], eager.pop("outs"))):
+        if not np.array_equal(a, b):
+            raise AssertionError(
+                f"request {i} (quant_int8={quant_int8}): the graph run's "
+                f"tokens differ from the eager run's at "
+                f"{np.flatnonzero(a != b)[:5].tolist()}")
+    if run["decode_steps"] != eager["decode_steps"]:
+        raise AssertionError(f"decode steps: graph {run['decode_steps']}, "
+                             f"eager {eager['decode_steps']}")
+    if run["launches"] != eager["launches"]:
+        raise AssertionError(f"launches: graph {run['launches']}, eager "
+                             f"{eager['launches']}")
+    if not _split.all_zero():
+        raise AssertionError("a K6 ticket counter is not back at 0 after "
+                             "serving")
+    run["tokens_equal_to_eager"] = True
+    run["eager"] = eager
+    run["decode_window"] = {
+        "graph": decode_window(model, prompts, quant_int8, graph=True),
+        "eager": decode_window(model, prompts, quant_int8, graph=False)}
+    return run
+
+
+# Decode steps of ``decode_window``: host-clocked, then profiled.
+WINDOW_STEPS = 16
+
+
+def decode_window(model, prompts, quant_int8: bool, graph: bool,
+                  paged: bool = True) -> dict:
+    """A window of decode steps only, on an engine as the ``Server``'s (8
+    slots; paged: page 16 with ``paged_kernel``, else contiguous) with
+    all 8 slots live: the prompts admitted, two steps (with the graph:
+    the warm-up, then the capture and its first replay), then
+    ``WINDOW_STEPS`` steps on the host clock (each ends in the step's
+    host read) and ``WINDOW_STEPS`` under the profiler, which records the
+    device's activity only (recording every host op too, as the serving
+    pass's profile does, lengthens an eager step and costs seconds of
+    processing a window): busy and idle share, K6's and K7's device ms a
+    step by kernel name.  With the
+    graph also the capture's seconds and bytes, and the logits gate:
+    from one state, the step run eagerly (``_decode``), the state
+    restored, then one replay; the two logits must be bitwise equal.
+    The graph window gates that the profiler names K6 (paged) under the
+    replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.serving.scheduler import Request
+
+    with decode_graph(graph):
+        engine = mt.SlotDecodeEngine(
+            model, max_batch=8, kv_page_size=16 if paged else 0,
+            paged_kernel=paged, quant_int8=quant_int8, device=model.device)
+    for slot, p in enumerate(prompts):
+        engine.admit(Request(p, 4 * WINDOW_STEPS), slot)
+    engine.step()
+    engine.step()
+    rec = {"graph": graph, "paged": paged, "quant_int8": quant_int8,
+           "steps": WINDOW_STEPS}
+    if graph:
+        rec.update(capture_s=engine._graph.capture_s,
+                   capture_bytes=engine._graph.capture_bytes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WINDOW_STEPS):
+        engine.step()
+    rec["step_ms"] = 1e3 * (time.perf_counter() - t0) / WINDOW_STEPS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(WINDOW_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if engine.active_count() != len(prompts):
+        raise AssertionError("a slot left the decode window early")
+    split = device_split(prof, wall)
+    if not isinstance(split["device_busy_s"], float):
+        raise AssertionError("the profiler recorded no device time in the "
+                             "decode window")
+    split.pop("top_kernels", None)
+    split.update(kernel_device_ms(prof, DECODE_MARKS))
+    split["step_device_ms"] = {k: v / WINDOW_STEPS
+                               for k, v in split["device_ms"].items()}
+    if isinstance(split["device_busy_s"], float):
+        split["busy_ms_a_step"] = 1e3 * split["device_busy_s"] / WINDOW_STEPS
+    rec["profile"] = split
+    if graph and paged and not split["device_calls"]["paged_attention"]:
+        raise AssertionError("the profiler named no paged_attention kernel "
+                             "under the graph replays")
+    if graph:
+        rec["logits_bitwise"] = logits_gate(engine)
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def logits_gate(engine) -> bool:
+    """From the engine's state (all slots live), ``last`` of the eager
+    step against ``last`` of one replay from the same state: snapshot the
+    tensors the step reads and writes, run ``_decode`` eagerly, restore
+    them, replay.  Raises unless bitwise equal."""
+    import torch
+
+    cache = engine.cache
+    state = [engine.tok, cache.index, *cache.k, *cache.v] + (
+        [cache.table] if cache.paged else [])
+    saved = [t.clone() for t in state]
+    with torch.no_grad():
+        want = engine._decode().clone()
+    for t, v in zip(state, saved):
+        t.copy_(v)
+    got = engine._graph.replay().clone()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        diff = (got - want).abs().max().item()
+        raise AssertionError(f"a replay's logits differ from the eager "
+                             f"step's by up to {diff}")
+    return True
+
+
 def run_server(model, prompts, new_tokens: int, quant_int8: bool) -> dict:
     """Serve ``prompts`` greedily through a fresh paged ``Server`` (after
-    one uncounted warm-up request), check completion, the prefix hit and
-    the attention kernels' counts, and profile a second pass."""
+    one uncounted warm-up request of two decode steps: with the decode
+    graph, its warm-up and its capture), check completion, the prefix hit
+    and the attention kernels' counts, and profile a second pass."""
     import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.serving import SlotDecodeEngine
 
+    graph = SlotDecodeEngine._decode_graph
     with mt.Server(model, max_batch=8, kv_page_size=16, paged_kernel=True,
                    quant_int8=quant_int8, device=model.device) as server:
-        # Warm-up request (cuBLAS handles, allocator): not counted.
-        server.complete(prompts[0][:3], 2, timeout=600)
-        steps_before = server.metrics.snapshot()["decode_steps"]
+        # Warm-up requests, not counted: two decode steps (cuBLAS
+        # handles; with the graph, its warm-up and its capture, which
+        # empties the allocator's cache), then, in both modes, one prefill
+        # as long as each timed prompt and sharing no block with it, so
+        # that the timed pass meets no shape for the first time.
+        server.complete(prompts[0][:3], 3, timeout=600)
+        captured = server.engine._graph
+        if graph != (captured is not None and captured.capture_s is not None):
+            raise AssertionError(f"decode graph {graph}, captured "
+                                 f"{captured is not None}")
+        for p in prompts:
+            server.complete((p + 1) % model.vocab_size, 1, timeout=600)
+        before = server.metrics.snapshot()
+        steps_before = before["decode_steps"]
         mt.reset_launch_counts()
         t0 = time.perf_counter()
         streams = [server.submit(p, new_tokens) for p in prompts]
         outs = [s.result(timeout=900) for s in streams]
         wall = time.perf_counter() - t0
+        snap = settled_snapshot(server, before, len(prompts) * (new_tokens - 1))
         counts = mt.launch_counts()
-        snap = server.metrics.snapshot()
         step_secs = list(server.metrics.step_secs)
+        prefill_ms = [1e3 * t for t in server.metrics.prefill[-len(prompts):]]
         profile = profile_serving(server, prompts)
     reqs = [s.request for s in streams]
     if not all(r.state == "done" and len(r.tokens) == new_tokens
@@ -1775,8 +2011,12 @@ def run_server(model, prompts, new_tokens: int, quant_int8: bool) -> dict:
         prefix_hit_tokens=hits, wall_s=wall,
         tokens_per_s=len(reqs) * new_tokens / wall,
         ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+        prefill_ms=prefill_ms,
         decode_step_mean_ms=1e3 * sum(step_secs[-steps:]) / steps,
         decode_steps=steps, launches=counts, profile=profile, outs=outs,
+        graph=graph,
+        capture_s=captured.capture_s if graph else None,
+        capture_bytes=captured.capture_bytes if graph else None,
     )
 
 
@@ -1895,7 +2135,8 @@ def quality_gate(dev, config="gpt2") -> dict:
         model, datasets=(dataset(c["size"]), dataset(c["val_size"])),
         epochs=c["epochs"], batch_size=c["batch_size"], optimizer="adamw",
         lr=c["lr"], grad_clip_norm=1.0, metric=None, seed=SEED,
-        model_dir=QGATE_DIR, device=dev)
+        model_dir=QGATE_DIR, device=dev,
+        steps_per_execution=4)  # the same steps, 4 a graph replay
     trainer.fit()
     train_s = time.perf_counter() - t0
     shutil.rmtree(QGATE_DIR, ignore_errors=True)
@@ -1952,6 +2193,23 @@ def device_split(prof, wall: float) -> dict:
     }
 
 
+def settled_snapshot(server, before: dict, tokens: int) -> dict:
+    """The server's metrics once its worker has recorded the decode steps
+    that emitted ``tokens`` tokens since the snapshot ``before``: a step
+    hands out its tokens before it records itself, so a client's result
+    can come first."""
+    deadline = time.monotonic() + 60
+    while True:
+        snap = server.metrics.snapshot()
+        if snap["tokens_generated"] - before["tokens_generated"] >= tokens:
+            return snap
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"the server recorded {snap['tokens_generated']} decode "
+                f"tokens, expected {before['tokens_generated'] + tokens}")
+        time.sleep(1e-3)
+
+
 def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
     """Serve the same prompts again under ``torch.profiler`` and split
     the wall time into device-busy time (the serving path runs one
@@ -1960,7 +2218,7 @@ def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = server.metrics.snapshot()["decode_steps"]
+    before = server.metrics.snapshot()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1970,7 +2228,8 @@ def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     split = device_split(prof, wall)
-    steps = server.metrics.snapshot()["decode_steps"] - steps0
+    steps = settled_snapshot(server, before, len(prompts) * (new_tokens - 1))[
+        "decode_steps"] - before["decode_steps"]
     split["decode_steps"] = steps
     split.update(kernel_device_ms(prof, DECODE_MARKS))
     split["decode_step_device_ms"] = {
@@ -3174,11 +3433,12 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
     K-step run's parameters, buffers and state bitwise those of K = 1
     with the epoch losses within GRAPH_LOSS_RTOL (the order of the
     sums).  Where they differ, a second K = 1 run must differ from the
-    first too (the first leaf named), and the graph run must lie within
-    2x the two eager runs' distance; both are then run again under
+    first too (the first leaf named), the graph run's leaves must lie
+    within 2x the two eager runs' distance, and under
     ``torch.backends.cudnn.deterministic`` (cuDNN's deterministic
-    convolution algorithms), and whether those two agree bit for bit is
-    recorded.  Then, on one chunk of batches, the
+    convolution algorithms) the K = GRAPH_K run must again be bitwise
+    the K = 1 run with the losses within GRAPH_LOSS_RTOL.  Then, on one
+    chunk of batches, the
     optimizer-step time of the eager step and of the graph (CUDA events,
     in the order eager, graph, graph, eager), a profiled dispatch and a
     profiled eager step, the capture's seconds, the eager step's host
@@ -3265,25 +3525,32 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
                 f"graphs {label}: the graph run differs from K = 1 (first "
                 f"{first}, worst {worst_name} {dist}, losses {loss_rel}) "
                 "while two K = 1 runs agree bit for bit")
-        if not (dist <= 2 * e_dist
-                and loss_rel <= max(GRAPH_LOSS_RTOL, 2 * e_loss)):
+        if not dist <= 2 * e_dist:
             raise AssertionError(
                 f"graphs {label}: graph vs eager {worst_name} {dist}, "
                 f"losses {loss_rel}; eager vs eager {e_worst} {e_dist}, "
                 f"losses {e_loss}")
-        # Is it cuDNN's choice of algorithms that moves? (Some of its
-        # backward algorithms add with atomics.)
+        # cuDNN's default backward algorithms add with atomics; with its
+        # deterministic ones the two programs must agree as the families
+        # without convolutions do.  (The epoch losses of a random-label
+        # ResNet-50 under the atomics differ by O(1) between any two runs,
+        # so they are held here, not against the eager pair.)
         torch.backends.cudnn.deterministic = True
         try:
             det = [fit(k)[1:] for k in (1, GRAPH_K)]
         finally:
             torch.backends.cudnn.deterministic = False
         d_first, d_worst, d_dist = _leaf_distance(det[1][1], det[0][1])
+        d_loss = _history_distance(det[1][0]["history"], det[0][0]["history"])
         same["cudnn_deterministic"] = dict(
             bitwise=d_first is None, first_leaf=d_first, worst_leaf=d_worst,
-            distance=d_dist, loss_rel=_history_distance(
-                det[1][0]["history"], det[0][0]["history"]))
+            distance=d_dist, loss_rel=d_loss)
         del det
+        if d_first is not None or d_loss > GRAPH_LOSS_RTOL:
+            raise AssertionError(
+                f"graphs {label}: under cudnn.deterministic the graph run "
+                f"differs from K = 1 (first {d_first}, worst {d_worst} "
+                f"{d_dist}, losses {d_loss})")
     del snap_1, snap_k
     check_s = time.perf_counter() - t0
 
@@ -3411,6 +3678,15 @@ def main(argv=None) -> int:
     int8_bf16_rows = check_int8_bf16(dev)
     check_tickets(dev)
     fused_rows = check_fused_adam(dev)
+    log(f"phase kernels: {time.perf_counter() - t0:.1f}s (with the build)")
+    mark = time.perf_counter()
+
+    def lap(name: str, since: float) -> float:
+        now = time.perf_counter()
+        if args.only in (None, name):
+            log(f"phase {name}: {now - since:.1f}s")
+        return now
+
     launches = {"flash_fwd": None, "paged_attention": None,
                 "flash_bwd_dq": None, "flash_bwd_dkv": None,
                 "int8_matmul": None, "unscale_sqsum": None,
@@ -3418,11 +3694,15 @@ def main(argv=None) -> int:
     if args.only in (None, "serve"):
         serving = serve(dev)
         for run in ("fp32", "int8", "bf16", "bf16_int8"):
-            for kname, count in serving[run]["launches"].items():
-                launches[kname] = (launches[kname] or 0) + count
+            for rec in (serving[run], serving[run]["eager"]):
+                for kname, count in rec["launches"].items():
+                    launches[kname] = (launches[kname] or 0) + count
             log(f"serving {run} on {smi}: " + json.dumps(serving[run]))
+            log(f"serving {run} eager vs graph on {smi}: "
+                + json.dumps(graph_summary(serving[run])))
         log(f"int8 quality gate on {smi}: " + json.dumps(quality_gate(dev)))
     step_split = {kname: {} for kname in ATTN_MARKS}  # K1-K3 per step
+    mark = lap("serve", mark)
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))
@@ -3438,6 +3718,7 @@ def main(argv=None) -> int:
                     f"{pre}train_step_device_ms": prof["device_ms"][kname],
                     f"{pre}step_bound_ms": prof["bound_ms"][kname]})
     dp_split = None
+    mark = lap("train", mark)
     if args.only in (None, "dp"):
         dp = dp_train(dev)
         log(f"data-parallel training on {smi}: " + json.dumps(dp))
@@ -3458,6 +3739,7 @@ def main(argv=None) -> int:
                 step_split[kname].update({
                     f"{pre}dp_step_device_ms": prof["device_ms"][kname],
                     f"{pre}step_bound_ms": prof["bound_ms"][kname]})
+    mark = lap("dp", mark)
     if args.only in (None, "models"):
         for run in models(dev):
             log(f"model {run['model']} ({run['precision']}) on {smi}: "
@@ -3471,12 +3753,14 @@ def main(argv=None) -> int:
                     step_split[kname].update({
                         f"{pre}bert_step_device_ms": prof["device_ms"][kname],
                         f"{pre}bert_step_bound_ms": prof["bound_ms"][kname]})
+    mark = lap("models", mark)
     if args.only in (None, "graphs"):
         for run in graphs(dev):
             log(f"graphs {run['label']} on {smi}: " + json.dumps(run))
             for kname in ATTN_MARKS:
                 launches[kname] = ((launches[kname] or 0)
                                    + run["launches_total"][kname])
+    lap("graphs", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",

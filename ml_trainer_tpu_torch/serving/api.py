@@ -11,7 +11,13 @@ driving the admit/step loop:
 * ``complete(...)``: the blocking one-shot;
 * ``health()``: a structured snapshot (queue, slots, pages, metrics);
 * ``close()`` or the context manager: stop the loop and fail whatever
-  is still queued or in flight, so that no client blocks forever.
+  is still queued or in flight, so that no client blocks forever; the
+  engine drops its decode graph (``SlotDecodeEngine.close``), so that
+  the graph's memory goes back to the allocator.
+
+The worker thread owns the engine: on the card it warms up, captures and
+replays the decode step's CUDA graph, while other threads may synchronise
+or profile the card.
 
 An exception inside the loop fails the requests in flight with a
 structured error and the loop keeps serving new ones.
@@ -245,6 +251,7 @@ class Server:
                     self._fail_all(f"{type(e).__name__}: {e}")
         finally:
             self._fail_all("server closed")
+            self.engine.close()  # frees the decode graph's memory
 
     def _iteration(self) -> None:
         engine, sched = self.engine, self.scheduler

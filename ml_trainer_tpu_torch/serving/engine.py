@@ -13,6 +13,19 @@
   1]`` tokens with per-row sampling; requests join and leave at token
   boundaries.  In paged mode with ``paged_kernel`` the S == 1 attention
   is the paged-attention kernel.
+* **The decode program.**  On the card the forward is one CUDA graph
+  (``step_graph.StepGraph``), the counterpart of the JAX engine's
+  ``jax.jit`` decode program with the cache and tokens donated: the first
+  step runs for real on the capture's side stream (the warm-up), the
+  second captures the forward, and it and every later step are one
+  replay.  The graph reads and writes fixed tensors only: the tokens
+  ``tok``, the ``select`` rows, the cache's pools, positions and page
+  table, and the int8 collection; the logits are the graph's own tensor,
+  which the next replay overwrites.  One graph covers every batch of
+  live slots, since free slots decode masked rows nobody reads.
+  Sampling, the host read, page growth, preemption and the table upload
+  run outside it, on the same stream.  On the CPU the forward runs
+  eagerly.  A failed capture raises; nothing falls back to eager.
 * **Int8 decode** (``quant_int8``): the "quant" collection
   (``ops/kernels/int8_matmul.quantize_tree``) is built once from the
   model's weights, and only the S == 1 decode step reads it: its four
@@ -49,6 +62,7 @@ from ml_trainer_tpu_torch.serving.kv_pool import KVPagePool
 from ml_trainer_tpu_torch.serving.metrics import ServingMetrics
 from ml_trainer_tpu_torch.serving.prefix_cache import PrefixCache
 from ml_trainer_tpu_torch.serving.scheduler import Request
+from ml_trainer_tpu_torch.step_graph import StepGraph
 
 
 class SlotDecodeEngine:
@@ -57,6 +71,9 @@ class SlotDecodeEngine:
 
     # Continuation windows bucket to powers of two, floored at 8.
     _MIN_SUFFIX_BUCKET = 8
+    # The decode step as a CUDA graph on the card; False runs it eagerly
+    # there too (the baseline that chip_smoke.py and the tests compare).
+    _decode_graph = True
 
     def __init__(self, model, max_batch: int = 8,
                  metrics: Optional[ServingMetrics] = None,
@@ -135,8 +152,15 @@ class SlotDecodeEngine:
                     "quant_int8 found no quantizable projections in the "
                     "model (expected qkv/proj/fc_in/fc_out nn.Linear "
                     "layers)")
+        # The decode step's inputs, at fixed addresses for its graph: the
+        # tokens (written in place by admissions and by each step's
+        # sampling) and the rows whose logits it returns (all S == 1).
         self.tok = torch.zeros((max_batch, 1), dtype=torch.long,
                                device=self.device)
+        self._select = torch.zeros(max_batch, dtype=torch.long,
+                                   device=self.device)
+        self._graphed = self._decode_graph and self.device.type == "cuda"
+        self._graph: Optional[StepGraph] = None
         self._temps = np.zeros((max_batch,), np.float32)
         self._seeds = np.zeros((max_batch,), np.int64)
         self._steps = np.zeros((max_batch,), np.int64)
@@ -410,6 +434,35 @@ class SlotDecodeEngine:
             del self._active[req.slot]
         return done
 
+    def _decode(self) -> torch.Tensor:
+        """The decode step's forward: every slot's next-token logits
+        [max_batch, V] float32.  It writes its K/V into the cache and
+        advances the positions in place, and reads nothing else that
+        moves, so that a CUDA graph of it stays valid across steps."""
+        return self.model(self.tok, self.cache, select=self._select,
+                          quant=self.quant)
+
+    def _decode_logits(self) -> torch.Tensor:
+        """``_decode()``: eager on the CPU (or with ``_decode_graph``
+        off); on the card the first call is the warm-up on the capture's
+        stream, the second captures, and every call from there is one
+        replay, whose logits stay valid until the next."""
+        if not self._graphed:
+            return self._decode()
+        if self._graph is None:
+            self._graph = StepGraph(self.device)
+            return self._graph.warm_up(self._decode)
+        if self._graph.capture_s is None:
+            self._graph.capture(self._decode)
+        return self._graph.replay()
+
+    def close(self) -> None:
+        """Drop the decode graph, and with it its memory pool (a later
+        step would warm up and capture again)."""
+        if self._graph is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # no replay in flight
+        self._graph = None
+
     def step(self) -> List[int]:
         """One decode step over all slots; returns the slots freed
         (finished, expired or preempted)."""
@@ -423,17 +476,13 @@ class SlotDecodeEngine:
                 return freed
         t0 = time.perf_counter()
         with torch.no_grad():
-            last = self.model(
-                self.tok, self.cache,
-                select=torch.zeros(self.max_batch, dtype=torch.long,
-                                   device=self.device),
-                quant=self.quant)
+            last = self._decode_logits()
             # Free slots decode masked garbage nobody reads: greedy there.
             live = np.zeros(self.max_batch, bool)
             live[list(self._active)] = True
             temps = np.where(live, self._temps, 0.0)
             nxt = sample_rows(last, temps, self._seeds, self._steps)
-            self.tok = nxt[:, None]
+            self.tok.copy_(nxt[:, None])
             toks = nxt.cpu().numpy()  # the step's one host read
         dt = time.perf_counter() - t0
         self._pos = np.minimum(self._pos + 1, self.max_len)

@@ -1,6 +1,8 @@
-"""K training (or evaluation) steps as one CUDA graph: the port's
+"""One CUDA graph of a step: K training (or evaluation) steps, the port's
 counterpart of the JAX package's ``lax.scan`` over batches stacked to
-[K, B, ...] (``steps_per_execution``).
+[K, B, ...] (``steps_per_execution``), or the serving engine's decode
+step, the counterpart of its ``jax.jit`` decode program
+(``serving/engine.py``).
 
 A graph reads and writes fixed addresses.  So it owns input buffers of
 the chunk's shapes, and each replay starts with a ``copy_`` of the chunk
@@ -17,6 +19,10 @@ the trajectory as an eager chunk would.  The capture executes nothing,
 but it runs the steps' Python: the launch counters and the collectives'
 accounting are moved to the replays (``device.CountedGraph``), and the
 caller undoes its own side effects (the host step count).
+
+The capture prohibits unsafe CUDA calls on its own thread only
+(``capture_error_mode="thread_local"``): the serving engine captures on
+its worker thread while other threads may synchronise or profile.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ class StepGraph:
         self.inputs: list = []
         self.out = None
         self.capture_s = None  # host seconds the capture took
+        # Device bytes the capture added: allocated (the outputs the graph
+        # keeps) and reserved (its memory pool).
+        self.capture_bytes = None
 
     def warm_up(self, fn, *args):
         """``fn(*args)``, run for real on the capture's side stream."""
@@ -55,10 +64,18 @@ class StepGraph:
         not read: the capture runs nothing)."""
         t0 = time.perf_counter()
         self.inputs = [torch.empty_like(a) for a in args]
-        with self.graph.capturing(), torch.cuda.graph(self.graph.graph,
-                                                      stream=self.stream):
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()  # as torch.cuda.graph does, before measuring
+        before = (torch.cuda.memory_allocated(self.device),
+                  torch.cuda.memory_reserved(self.device))
+        with self.graph.capturing(), torch.cuda.graph(
+                self.graph.graph, stream=self.stream,
+                capture_error_mode="thread_local"):
             self.out = fn(*self.inputs)
         self.capture_s = time.perf_counter() - t0
+        self.capture_bytes = {
+            "allocated": torch.cuda.memory_allocated(self.device) - before[0],
+            "reserved": torch.cuda.memory_reserved(self.device) - before[1]}
 
     def replay(self, *args):
         """``fn(*args)`` as one replay; the outputs are the graph's own
