@@ -17,6 +17,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only graphs   # kernel checks + every family
                                           # at steps_per_execution 1 and 4
                                           # (CUDA graph replays)
+    python3 chip_smoke.py --only resume   # kernel checks + checkpoints
+                                          # and fit(resume=True)
 
 Phases, one line of output each (or a few):
 
@@ -223,16 +225,30 @@ Phases, one line of output each (or a few):
    both runs (K1 12 a microbatch and a validation batch, K2/K3 12 a
    microbatch, replays counted), the K = 4 run's parameters, buffers
    and optimizer state bitwise those of K = 1 and its epoch losses and
-   metrics within 1e-6 relative (the sums' order); where they differ, a
-   second K = 1 run must differ from the first too (its first differing
-   leaf is printed), the graph run's leaves must lie within 2x the eager
-   runs' distance, and under ``torch.backends.cudnn.deterministic`` the
-   two must again be bitwise equal with losses within 1e-6.  Printed per
-   family: the optimizer-step time (CUDA events)
+   metrics within 1e-6 relative (the sums' order), for every family
+   (cuDNN's deterministic algorithms are the port's default).  Printed
+   per family: the optimizer-step time (CUDA events)
    eager, graph, graph, eager on one chunk, tokens/s or samples/s, peak
    memory of both fits, the capture's seconds, device-busy ms and idle
    share of one profiled graph dispatch and of one eager step, the eager
-   step's host enqueue time and the input path's host time per batch.
+   step's host enqueue time and the input path's host time per batch;
+9. full-state checkpoints and ``fit(resume=True)`` (``RESUME_*``), each
+   against its uninterrupted fit: GPT-2 124M pretraining as
+   examples/04_gpt2_pretrain.py's full-size line sets it (fp32, adamw,
+   wd 0.01, cosine restarts, 8 x 1024 tokens in 4 microbatches, K = 4;
+   2 epochs of 8 steps), a new Trainer resuming from the first run's
+   checkpoint_1 alone (epoch 2 through a fresh capture); ``dp_train``'s
+   configuration in bf16 (2 replicas, K4/K5; 2 epochs of 4 steps) with
+   ``save_every_steps=2`` preempted at step 7 (``preempt`` fault) and
+   resumed from its emergency checkpoint, consuming ``PREEMPTED.json``;
+   ResNet-18 (batch 256, 2 epochs of 3 steps) preempted at step 5 and
+   resumed.  Gates: every parameter, buffer, optimizer-state leaf and
+   counter, the step and every history list bitwise the uninterrupted
+   run's; exact launch counts in every run; one checkpoint of the GPT-2
+   state saved and loaded back leaves it bitwise.  Printed: checkpoint
+   bytes, the host snapshot's seconds, the writer's, the verification's
+   and the restore's.  Every fit of the other phases must end
+   unpreempted (``fit_whole``).
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -247,6 +263,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -276,6 +294,14 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def fit_whole(trainer, what: str) -> None:
+    """``trainer.fit()``, which must end with every epoch trained: a
+    SIGTERM handled as a preemption must not pass for a finished run."""
+    trainer.fit()
+    if trainer.preempted:
+        raise AssertionError(f"{what}: fit() ended preempted")
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -2137,7 +2163,7 @@ def quality_gate(dev, config="gpt2") -> dict:
         lr=c["lr"], grad_clip_norm=1.0, metric=None, seed=SEED,
         model_dir=QGATE_DIR, device=dev,
         steps_per_execution=4)  # the same steps, 4 a graph replay
-    trainer.fit()
+    fit_whole(trainer, "int8 quality gate")
     train_s = time.perf_counter() - t0
     shutil.rmtree(QGATE_DIR, ignore_errors=True)
     model.eval()
@@ -2441,7 +2467,7 @@ def train(dev, precision=None, fp32_first_loss=None):
     torch.cuda.reset_peak_memory_stats()
     mt.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer.fit()
+    fit_whole(trainer, f"train ({precision})")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = mt.launch_counts()
@@ -2927,7 +2953,7 @@ def dp_train(dev, precision=None, steps=None):
     comm_stats.reset_comm_stats()
     mt.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer.fit()
+    fit_whole(trainer, f"dp ({precision})")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = mt.launch_counts()
@@ -3230,7 +3256,7 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
     torch.cuda.reset_peak_memory_stats()
     mt.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer.fit()
+    fit_whole(trainer, name)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = mt.launch_counts()
@@ -3297,14 +3323,18 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
 
 def models(dev) -> list:
     """Every ``MODEL_RUNS`` family through ``model_run``, after the TF32
-    switches are checked off."""
+    switches are checked off and cuDNN's on its deterministic algorithms
+    (``device.resolve_device`` sets all four)."""
     import torch
 
-    tf32 = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-                cuda_matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
-    log("models: " + json.dumps(tf32))
-    if any(tf32.values()):
-        raise AssertionError(f"TF32 is on: {tf32}")
+    flags = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                 cuda_matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                 cudnn_deterministic=torch.backends.cudnn.deterministic,
+                 cudnn_benchmark=torch.backends.cudnn.benchmark)
+    log("models: " + json.dumps(flags))
+    if flags != dict(cudnn_allow_tf32=False, cuda_matmul_allow_tf32=False,
+                     cudnn_deterministic=True, cudnn_benchmark=False):
+        raise AssertionError(f"TF32 or cuDNN flags: {flags}")
     return [model_run(dev, *run) for run in MODEL_RUNS]
 
 
@@ -3432,13 +3462,9 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
     step, the exact launch counts of both runs (replays counted), and the
     K-step run's parameters, buffers and state bitwise those of K = 1
     with the epoch losses within GRAPH_LOSS_RTOL (the order of the
-    sums).  Where they differ, a second K = 1 run must differ from the
-    first too (the first leaf named), the graph run's leaves must lie
-    within 2x the two eager runs' distance, and under
-    ``torch.backends.cudnn.deterministic`` (cuDNN's deterministic
-    convolution algorithms) the K = GRAPH_K run must again be bitwise
-    the K = 1 run with the losses within GRAPH_LOSS_RTOL.  Then, on one
-    chunk of batches, the
+    sums), every family alike (cuDNN's deterministic convolution
+    algorithms, ``device.resolve_device``).  Then, on one chunk of
+    batches, the
     optimizer-step time of the eager step and of the graph (CUDA events,
     in the order eager, graph, graph, eager), a profiled dispatch and a
     profiled eager step, the capture's seconds, the eager step's host
@@ -3467,7 +3493,7 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
         torch.cuda.reset_peak_memory_stats()
         mt.reset_launch_counts()
         t0 = time.perf_counter()
-        trainer.fit()
+        fit_whole(trainer, f"graphs {label} K={k}")
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = mt.launch_counts()
@@ -3512,45 +3538,13 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
     loss_rel = _history_distance(rec_k["history"], rec_1["history"])
     same = dict(bitwise=first is None, first_leaf=first,
                 worst_leaf=worst_name, distance=dist, loss_rel=loss_rel)
+    # Every family repeats bit for bit: the port's kernels add in a fixed
+    # order, and resolve_device puts cuDNN on its deterministic
+    # convolution algorithms (the default backward adds with atomics).
     if first is not None or loss_rel > GRAPH_LOSS_RTOL:
-        # Does the eager step repeat itself on the card?
-        eager, rec_e, snap_e = fit(1)
-        del eager
-        e_first, e_worst, e_dist = _leaf_distance(snap_e, snap_1)
-        e_loss = _history_distance(rec_e["history"], rec_1["history"])
-        same.update(eager_first_leaf=e_first, eager_worst_leaf=e_worst,
-                    eager_distance=e_dist, eager_loss_rel=e_loss)
-        if e_first is None and e_loss == 0.0:
-            raise AssertionError(
-                f"graphs {label}: the graph run differs from K = 1 (first "
-                f"{first}, worst {worst_name} {dist}, losses {loss_rel}) "
-                "while two K = 1 runs agree bit for bit")
-        if not dist <= 2 * e_dist:
-            raise AssertionError(
-                f"graphs {label}: graph vs eager {worst_name} {dist}, "
-                f"losses {loss_rel}; eager vs eager {e_worst} {e_dist}, "
-                f"losses {e_loss}")
-        # cuDNN's default backward algorithms add with atomics; with its
-        # deterministic ones the two programs must agree as the families
-        # without convolutions do.  (The epoch losses of a random-label
-        # ResNet-50 under the atomics differ by O(1) between any two runs,
-        # so they are held here, not against the eager pair.)
-        torch.backends.cudnn.deterministic = True
-        try:
-            det = [fit(k)[1:] for k in (1, GRAPH_K)]
-        finally:
-            torch.backends.cudnn.deterministic = False
-        d_first, d_worst, d_dist = _leaf_distance(det[1][1], det[0][1])
-        d_loss = _history_distance(det[1][0]["history"], det[0][0]["history"])
-        same["cudnn_deterministic"] = dict(
-            bitwise=d_first is None, first_leaf=d_first, worst_leaf=d_worst,
-            distance=d_dist, loss_rel=d_loss)
-        del det
-        if d_first is not None or d_loss > GRAPH_LOSS_RTOL:
-            raise AssertionError(
-                f"graphs {label}: under cudnn.deterministic the graph run "
-                f"differs from K = 1 (first {d_first}, worst {d_worst} "
-                f"{d_dist}, losses {d_loss})")
+        raise AssertionError(
+            f"graphs {label}: the graph run differs from K = 1 (first "
+            f"{first}, worst {worst_name} {dist}, losses {loss_rel})")
     del snap_1, snap_k
     check_s = time.perf_counter() - t0
 
@@ -3638,11 +3632,284 @@ def graphs(dev) -> list:
     return [graph_run(dev, *run) for run in GRAPH_RUNS]
 
 
+# ------------------------------------------------------------- phase 9
+# Full-state checkpoints and fit(resume=True) on the card.  Each run's
+# uninterrupted fit (A) against a fit that resumes from A's
+# checkpoint_1 (pretrain) or from its own preemption (dp, resnet): every
+# parameter, buffer, optimizer-state leaf, counter, the step and every
+# history list bitwise equal.
+RESUME_DIR = "build/chip_smoke_resume"  # each run's checkpoints; removed
+# examples/04_gpt2_pretrain.py's full-size line (BASELINE.json config 4),
+# less REMAT=1 (refused by the port; it changes no number), at K = 4:
+# 2 epochs of 8 steps and 2 validation batches.
+PRETRAIN = dict(steps=8, val_batches=2, k=4, opt=dict(
+    grad_accum_steps=TRAIN["accum"], optimizer="adamw", lr=3e-4,
+    weight_decay=0.01, scheduler="CosineAnnealingWarmRestarts"))
+RESUME_DP_STEPS = 4  # the dp run's steps an epoch (2 epochs)
+RESUME_RESNET = dict(batch=256, steps=3)  # ResNet-18, 2 epochs
+
+
+def _token_sets(steps: int, val_batches: int, batch: int):
+    import ml_trainer_tpu_torch as mt
+
+    c = TRAIN
+    return tuple(mt.SyntheticTokens(size=batch * n, seq_len=c["seq_len"],
+                                    vocab_size=c["vocab_size"],
+                                    seed=SEED + i)
+                 for i, n in enumerate((steps, val_batches)))
+
+
+def _resume_fit(what: str, make, run_dir: str, resume=False, spec=None,
+                preempt=False, **kw):
+    """One fit of ``make(run_dir, **kw)`` with the counters set to 0 just
+    before it (under the fault plan ``spec``, if any); it must end
+    preempted exactly when ``preempt``."""
+    import gc
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.resilience import faults
+
+    gc.collect()  # the previous run's trainer and its card memory
+    torch.cuda.empty_cache()
+    trainer = make(run_dir, **kw)
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    with faults.injected(spec) if spec else contextlib.nullcontext():
+        trainer.fit(resume=resume)
+    torch.cuda.synchronize()
+    rec = dict(fit_s=time.perf_counter() - t0, launches=mt.launch_counts())
+    if trainer.preempted != preempt:
+        raise AssertionError(f"resume {what}: preempted={trainer.preempted}")
+    return trainer, rec
+
+
+def _resume_gate(what: str, got, want_snap: dict, want) -> dict:
+    """``got`` (a resumed trainer) bitwise the uninterrupted run: its
+    state (``_named_state``), step and history."""
+    first, worst, dist = _leaf_distance(_named_state(got), want_snap)
+    hist = [k for k in set(got.history) | set(want["history"])
+            if got.history.get(k) != want["history"].get(k)]
+    out = dict(bitwise=first is None and not hist
+               and got.state.step == want["step"], first_leaf=first,
+               worst_leaf=worst, distance=dist, history_keys_differ=hist,
+               step=got.state.step, history=got.history)
+    if not out["bitwise"]:
+        raise AssertionError(f"resume {what}: not bitwise the uninterrupted "
+                             f"run: {out}")
+    return out
+
+
+def _want_launches(what: str, got: dict, depth: int, micro: int,
+                   val: int, tail: int = 0) -> None:
+    """K1 ``depth`` a microbatch and a validation batch, K2/K3 ``depth`` a
+    microbatch, K4/K5 ``tail`` (the sharded update's, one a replica a
+    step)."""
+    want = {k: 0 for k in got}
+    if depth:
+        want.update(flash_fwd=depth * (micro + val),
+                    flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro)
+    want.update(unscale_sqsum=tail, fused_adam=tail)
+    if got != want:
+        raise AssertionError(f"resume {what}: launches {got}, expected "
+                             f"{want}")
+
+
+def _checkpoint_costs(trainer, run_dir: str) -> dict:
+    """One checkpoint of ``trainer``'s state: its bytes, the host copy
+    (``save_checkpoint`` until it returns, the part a step waits on), the
+    writer thread's seconds (the files and their CRC32s), the
+    verification, the read and the load into the live tensors, which
+    must leave the state bitwise as it was."""
+    import os
+    import shutil
+
+    import torch
+
+    from ml_trainer_tpu_torch.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+        verify_checkpoint,
+        wait_for_checkpoints,
+    )
+    from ml_trainer_tpu_torch.train_state import load_state_tree, state_tree
+
+    before = _named_state(trainer)
+    out_dir = f"{run_dir}/costs"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(out_dir, state_tree(trainer.state, trainer.model),
+                           trainer._partial_history(), 1, block=False)
+    t1 = time.perf_counter()
+    wait_for_checkpoints()
+    t2 = time.perf_counter()
+    verify_checkpoint(path)
+    t3 = time.perf_counter()
+    tree = restore_checkpoint(path)[0]
+    t4 = time.perf_counter()
+    load_state_tree(trainer.state, trainer.model, tree)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    shutil.rmtree(out_dir)
+    first = _leaf_distance(_named_state(trainer), before)[0]
+    if first is not None:
+        raise AssertionError(f"resume: a save and load moved {first}")
+    return dict(checkpoint_bytes=nbytes, snapshot_s=t1 - t0,
+                writer_s=t2 - t1, verify_s=t3 - t2, restore_read_s=t4 - t3,
+                restore_load_s=t5 - t4)
+
+
+def resume_pretrain(dev) -> dict:
+    """GPT-2 124M fp32 at K = 4 (``PRETRAIN``): A uninterrupted; then
+    A's checkpoint costs; then B, a new Trainer, resumes from A's
+    checkpoint_1 alone (checkpoint_2 removed) and trains epoch 2 through
+    a fresh graph capture."""
+    import shutil
+
+    import ml_trainer_tpu_torch as mt
+
+    c = PRETRAIN
+    run_dir = f"{RESUME_DIR}/pretrain"
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    def make(d):
+        return mt.Trainer(TRAIN["model"], datasets=_token_sets(
+            c["steps"], c["val_batches"], TRAIN["batch_size"]), epochs=2,
+            batch_size=TRAIN["batch_size"], model_dir=d, seed=SEED,
+            device=dev, steps_per_execution=c["k"], **c["opt"])
+
+    a, rec_a = _resume_fit("pretrain A", make, run_dir)
+    depth, accum = a.model.depth, a.grad_accum_steps
+    _want_launches("pretrain A", rec_a["launches"], depth,
+                   2 * c["steps"] * accum, 2 * c["val_batches"])
+    want = dict(history=a.history, step=a.state.step)
+    snap = _named_state(a)
+    costs = _checkpoint_costs(a, run_dir)
+    del a
+    shutil.rmtree(f"{run_dir}/checkpoints/checkpoint_2")
+    b, rec_b = _resume_fit("pretrain B", make, run_dir, resume=True)
+    _want_launches("pretrain B", rec_b["launches"], depth,
+                   c["steps"] * accum, c["val_batches"])
+    gate = _resume_gate("pretrain", b, snap, want)
+    del b, snap
+    shutil.rmtree(run_dir)
+    return dict(config=dict(c, model=TRAIN["model"], precision="float32",
+                            batch=TRAIN["batch_size"],
+                            seq_len=TRAIN["seq_len"]),
+                A=rec_a, B=rec_b, gate=gate, **costs)
+
+
+def resume_dp(dev) -> dict:
+    """``dp_train``'s configuration in bf16 (2 replicas, the sharded
+    update with K4/K5), 2 epochs of ``RESUME_DP_STEPS``: A uninterrupted;
+    B with ``save_every_steps=2`` under ``preempt@step=7`` (the emergency
+    checkpoint at epoch 2, batch 3); C resumes and runs batch 4 and the
+    validation, consuming B's ``PREEMPTED.json``."""
+    import json as json_
+    import os
+    import shutil
+
+    import ml_trainer_tpu_torch as mt
+
+    c, steps = DP, RESUME_DP_STEPS
+    run_dir = f"{RESUME_DIR}/dp"
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    def make(d, **kw):
+        return mt.Trainer(
+            c["model"], datasets=_token_sets(steps, c["val_batches"],
+                                             c["batch_size"]),
+            epochs=2, batch_size=c["batch_size"], is_parallel=True,
+            mesh_shape={"data": c["replicas"]}, device=[dev] * c["replicas"],
+            dp_update="sharded", grad_accum_steps=c["accum"],
+            optimizer="adam", lr=3e-4, weight_decay=0.0,
+            scheduler="CosineAnnealingWarmRestarts", grad_clip_norm=1.0,
+            model_dir=d, seed=SEED, precision="bf16", **kw)
+
+    a, rec_a = _resume_fit("dp A", make, f"{run_dir}/a")
+    if not (a.fused_adam and a.dp_update == "sharded"):
+        raise AssertionError("resume dp: not the sharded step with K4/K5")
+    depth, n, accum = a.model.depth, c["replicas"], c["accum"]
+    _want_launches("dp A", rec_a["launches"], depth, 2 * steps * n * accum,
+                   2 * c["val_batches"], 2 * steps * n)
+    want = dict(history=a.history, step=a.state.step)
+    snap = _named_state(a)
+    del a
+    shutil.rmtree(f"{run_dir}/a")
+    d = f"{run_dir}/b"
+    b, rec_b = _resume_fit("dp B", make, d, spec="preempt@step=7",
+                           preempt=True, save_every_steps=2)
+    _want_launches("dp B", rec_b["launches"], depth, 7 * n * accum,
+                   c["val_batches"], 7 * n)
+    marker = f"{d}/checkpoints/PREEMPTED.json"
+    with open(marker) as fp:
+        rec_b["marker"] = json_.load(fp)
+    if (rec_b["marker"]["epoch"], rec_b["marker"]["batches_done"]) != (2, 3):
+        raise AssertionError(f"resume dp: marker {rec_b['marker']}")
+    del b
+    cc, rec_c = _resume_fit("dp C", make, d, resume=True,
+                            save_every_steps=2)
+    if os.path.exists(marker):
+        raise AssertionError("resume dp: PREEMPTED.json not consumed")
+    _want_launches("dp C", rec_c["launches"], depth, n * accum,
+                   c["val_batches"], n)
+    gate = _resume_gate("dp", cc, snap, want)
+    del cc, snap
+    shutil.rmtree(run_dir)
+    return dict(config=dict(model=c["model"], precision="bf16",
+                            replicas=c["replicas"], accum=accum,
+                            batch=c["batch_size"], steps=steps,
+                            val_batches=c["val_batches"]),
+                A=rec_a, B=rec_b, C=rec_c, gate=gate)
+
+
+def resume_resnet(dev) -> dict:
+    """ResNet-18 (CIFAR stem, batch 256, ``SGD_02``) at K = 1, 2 epochs of
+    ``RESUME_RESNET["steps"]``: A uninterrupted; B with
+    ``save_every_steps=2`` under ``preempt@step=5``; C resumes.  Bitwise
+    only because cuDNN runs its deterministic algorithms."""
+    import shutil
+
+    import ml_trainer_tpu_torch as mt
+
+    steps, batch = RESUME_RESNET["steps"], RESUME_RESNET["batch"]
+    run_dir = f"{RESUME_DIR}/resnet"
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    def make(d, **kw):
+        return mt.Trainer(
+            mt.init_model("resnet18", seed=SEED, device=dev,
+                          cifar_stem=True),
+            datasets=model_sets("cifar", batch, steps), epochs=2,
+            batch_size=batch, model_dir=d, seed=SEED, device=dev,
+            **SGD_02, **kw)
+
+    a, rec_a = _resume_fit("resnet A", make, f"{run_dir}/a")
+    want = dict(history=a.history, step=a.state.step)
+    snap = _named_state(a)
+    del a
+    d = f"{run_dir}/b"
+    _, rec_b = _resume_fit("resnet B", make, d, spec="preempt@step=5",
+                           preempt=True, save_every_steps=2)
+    cc, rec_c = _resume_fit("resnet C", make, d, resume=True,
+                            save_every_steps=2)
+    for what, rec in (("A", rec_a), ("B", rec_b), ("C", rec_c)):
+        _want_launches(f"resnet {what}", rec["launches"], 0, 0, 0)
+    gate = _resume_gate("resnet", cc, snap, want)
+    del cc, snap
+    shutil.rmtree(run_dir)
+    return dict(config=dict(model="resnet18", batch=batch, steps=steps),
+                A=rec_a, B=rec_b, C=rec_c, gate=gate)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
-                                 "graphs"],
+                                 "graphs", "resume"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -3660,6 +3927,10 @@ def main(argv=None) -> int:
     smi = smi_line()
     log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    os.makedirs("build", exist_ok=True)
+    disk = shutil.disk_usage("build")
+    log(f"build: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} "
+        "(checkpoints of a GPT-2 124M run take ~1.5 GB each)")
 
     t0 = time.perf_counter()
     build = _build.build_all()
@@ -3684,7 +3955,7 @@ def main(argv=None) -> int:
     def lap(name: str, since: float) -> float:
         now = time.perf_counter()
         if args.only in (None, name):
-            log(f"phase {name}: {now - since:.1f}s")
+            log(f"phase {name} on {smi}: {now - since:.1f}s")
         return now
 
     launches = {"flash_fwd": None, "paged_attention": None,
@@ -3760,7 +4031,17 @@ def main(argv=None) -> int:
             for kname in ATTN_MARKS:
                 launches[kname] = ((launches[kname] or 0)
                                    + run["launches_total"][kname])
-    lap("graphs", mark)
+    mark = lap("graphs", mark)
+    if args.only in (None, "resume"):
+        for label, run in (("pretrain", resume_pretrain),
+                           ("dp", resume_dp), ("resnet", resume_resnet)):
+            rec = run(dev)
+            log(f"resume {label} on {smi}: " + json.dumps(rec))
+            for key in ("A", "B", "C"):
+                for kname, n in rec.get(key, {}).get("launches",
+                                                     {}).items():
+                    launches[kname] = (launches[kname] or 0) + n
+    lap("resume", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",

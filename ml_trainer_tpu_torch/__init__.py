@@ -13,6 +13,9 @@ use; ``launch_counts()`` shows how often each one ran.  Data-parallel
 training runs its replicas on one device (``parallel/``,
 ``create_mesh``).  ``Trainer(precision="bf16")`` trains in bf16 against
 float32 master parameters with dynamic loss scaling (``precision``).
+``fit()`` writes full-state checkpoints in the JAX package's format
+(``checkpoint``) and ``fit(resume=True)`` continues from them bit for
+bit, also after a SIGTERM or an injected fault (``resilience``).
 """
 
 from ml_trainer_tpu_torch import parallel, precision
@@ -22,6 +25,7 @@ from ml_trainer_tpu_torch.convert import (
     init_model,
     params_from_jax,
     quant_from_jax,
+    state_from_jax,
 )
 from ml_trainer_tpu_torch.data import (
     ArrayDataset,
@@ -60,4 +64,5 @@ __all__ = [
     "launch_counts", "load_history", "load_model", "parallel",
     "params_from_jax", "precision", "quant_from_jax", "quantize_per_channel",
     "quantize_tree", "reset_launch_counts", "resolve_device",
+    "state_from_jax",
 ]

@@ -1,0 +1,27 @@
+"""Full-state checkpoints (format v2, the JAX package's layout):
+``checkpoint.py``."""
+
+from ml_trainer_tpu_torch.checkpoint.checkpoint import (
+    CHECKPOINT_PREFIX,
+    CORRUPT_SUFFIX,
+    CheckpointCorrupt,
+    checkpoint_format,
+    latest_checkpoint,
+    latest_valid_checkpoint,
+    prune_checkpoints,
+    quarantine_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+    verify_checkpoint,
+    wait_for_checkpoints,
+    weights_fingerprint,
+    weights_structure_digest,
+)
+
+__all__ = [
+    "CHECKPOINT_PREFIX", "CORRUPT_SUFFIX", "CheckpointCorrupt",
+    "checkpoint_format", "latest_checkpoint", "latest_valid_checkpoint",
+    "prune_checkpoints", "quarantine_checkpoint", "restore_checkpoint",
+    "save_checkpoint", "verify_checkpoint", "wait_for_checkpoints",
+    "weights_fingerprint", "weights_structure_digest",
+]

@@ -18,9 +18,11 @@ package's ``checkpoint/torch_export.py``, copied:
 MLModel's ``fc1`` needs no permutation: the port flattens in H, W, C
 order, as the JAX package does.
 
-``adam_state_from_jax`` carries the JAX trainer's optax Adam state
-(count, moments, schedule count) into the port's optimizer state, the
-moments through the same layout rules.
+``adam_state_from_jax`` carries the JAX trainer's optax state (counts,
+moments, schedule count; any of the five optimizers) into the port's
+optimizer state, the moments through the same layout rules, and
+``state_from_jax`` a whole JAX ``TrainState`` into the port's state tree
+(what a port checkpoint holds).
 
 ``quant_from_jax`` takes the JAX package's int8 "quant" collection
 (``ops/kernels/int8_matmul.quantize_tree``: ``block{i}/attn/{qkv,proj}_*``,
@@ -52,6 +54,7 @@ from torch import nn
 from ml_trainer_tpu_torch.models.gpt2 import GPT2
 from ml_trainer_tpu_torch.models.layers import BatchNorm, Conv
 from ml_trainer_tpu_torch.models.registry import get_model
+from ml_trainer_tpu_torch.train_state import as_tree
 
 # flax module lists: ``block{i}`` / ``layer{i}`` -> ``blocks.{i}`` /
 # ``layers.{i}``.
@@ -118,13 +121,17 @@ def _opt_part(state, device):
     def moments(tree) -> Dict[str, torch.Tensor]:
         return {k: v.to(device) for k, v in params_from_jax(tree).items()}
 
-    if not fields:  # EmptyState: identity, clip, add_decayed_weights
+    if not fields:  # EmptyState: identity, clip, constant learning rate
         return {}
-    if {"count", "mu", "nu"} <= set(fields):  # ScaleByAdamState
+    if fields == ("inner_state",):  # MaskedState: add_decayed_weights
+        return _opt_part(state.inner_state, device)
+    if {"count", "mu", "nu"} <= set(fields):  # scale_by_adam / _adamax
         return {"count": count(state.count), "mu": moments(state.mu),
                 "nu": moments(state.nu)}
     if fields == ("count",):  # ScaleByScheduleState
         return {"count": count(state.count)}
+    if fields in (("trace",), ("sum_of_squares",)):  # momentum, adagrad
+        return {fields[0]: moments(getattr(state, fields[0]))}
     raise ValueError(f"no port counterpart for optimizer state fields "
                      f"{fields}")
 
@@ -134,20 +141,44 @@ def _is_chain(state) -> bool:
 
 
 def adam_state_from_jax(opt_state, device=None):
-    """The JAX trainer's optax state of a GPT-2 (``chain(clip|identity,
-    adam(schedule))``, or adamw's ``(adam, add_decayed_weights,
-    schedule)`` inner chain) as numpy -> the port's optimizer state:
-    ``ScaleByAdamState`` to ``{"count", "mu", "nu"}`` with the moments
-    laid out as ``params_from_jax`` lays out the params (Dense kernels
-    transposed), ``ScaleByScheduleState`` to ``{"count"}``, empty states
-    to ``{}``, each chain a tuple; tensors on ``device`` (the CPU by
-    default)."""
+    """The JAX trainer's optax state (its ``chain(clip|identity, inner)``
+    of any of the five optimizers) as numpy -> the port's optimizer
+    state: ``ScaleByAdamState`` (adam, adamw, adamax) to ``{"count",
+    "mu", "nu"}``, ``TraceState`` to ``{"trace"}``, ``ScaleByRssState``
+    to ``{"sum_of_squares"}``, each tree of moments laid out as
+    ``params_from_jax`` lays out the params (Dense kernels transposed),
+    ``ScaleByScheduleState`` to ``{"count"}``, empty and masked-empty
+    states to ``{}``, each chain a tuple; tensors on ``device`` (the CPU
+    by default)."""
     def convert(state):
         if _is_chain(state):
             return tuple(convert(s) for s in state)
         return _opt_part(state, device)
 
     return convert(opt_state)
+
+
+def state_from_jax(jax_state) -> dict:
+    """A JAX ``TrainState`` whose leaves are numpy arrays (``params``,
+    ``batch_stats``, ``opt_state``, ``step``, the guard's counters and
+    the loss scale's) -> the port's state tree
+    (``train_state.state_tree``'s layout, CPU tensors), ready for
+    ``checkpoint.save_checkpoint`` or ``train_state.load_state_tree``.
+    The JAX ``rng`` has no counterpart; ``ema_params`` is None."""
+    def tensor(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    tree = {
+        "params": params_from_jax({"params": jax_state.params}),
+        "batch_stats": (params_from_jax(jax_state.batch_stats)
+                        if jax_state.batch_stats else {}),
+        "opt_state": as_tree(adam_state_from_jax(jax_state.opt_state)),
+        "step": np.asarray(jax_state.step, np.int32),
+        "ema_params": None,
+    }
+    for key in ("skipped_steps", "bad_streak", "loss_scale", "good_steps"):
+        tree[key] = tensor(getattr(jax_state, key, None))
+    return tree
 
 
 def quant_from_jax(quant: Mapping, device=None) -> dict:

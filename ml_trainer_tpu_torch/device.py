@@ -49,6 +49,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         # the model serves in fp32, as the JAX reference does.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # cuDNN's deterministic convolution algorithms, none picked by
+        # timing: the default backward adds with atomics, so two runs of
+        # a conv model would differ, where the JAX programs repeat bit
+        # for bit (and a resumed run must end where the uninterrupted
+        # one does).
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev

@@ -77,6 +77,19 @@ statistics).  The non-finite guard also reverts the model's buffers
 (BatchNorm's running statistics) on a skipped step.  Knobs not ported
 yet are accepted at their defaults and raise ``NotImplementedError``
 naming ROADMAP.md otherwise.
+
+Full-state checkpoints follow the JAX package's ``fit``: after each
+epoch's ``model.pth`` the whole state (``train_state.state_tree``: the
+parameters, buffers, optimizer state, step and counters) goes to
+``<model_dir>/checkpoints/checkpoint_<epoch>`` (``checkpoint/``, format
+v2, CRC32 per leaf), copied to the host at once and written on a
+background thread.  ``save_every_steps`` adds mid-epoch checkpoints with
+the batch cursor and the epoch's sums; ``fit(resume=True)`` restores the
+newest valid one into the tensors that hold the state (``copy_``, so
+that a CUDA graph's addresses stay valid) and continues bit for bit,
+consuming the batches already trained from the loader.  The fault hooks
+(``resilience/faults.py``: ``preempt``, ``nan_grad``) fire per batch at
+K = 1; a SIGTERM/SIGINT takes the ``preempt`` path.
 """
 
 from __future__ import annotations
@@ -84,11 +97,14 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import logging
 import math
 import os
 import pickle
+import signal
+import threading
 import time
 from typing import Any, Optional
 
@@ -96,6 +112,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ml_trainer_tpu_torch.checkpoint import (
+    latest_valid_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
 from ml_trainer_tpu_torch.config import TrainerConfig, validate_kwargs
 from ml_trainer_tpu_torch.convert import init_model
 from ml_trainer_tpu_torch.data import Loader, prefetch_to_device
@@ -138,14 +160,20 @@ from ml_trainer_tpu_torch.precision import (
     resolve_loss_scale,
     resolve_precision,
 )
+from ml_trainer_tpu_torch.resilience.faults import active_plan
 from ml_trainer_tpu_torch.step_graph import StepGraph
-from ml_trainer_tpu_torch.train_state import TrainState
+from ml_trainer_tpu_torch.train_state import (
+    TrainState,
+    load_state_tree,
+    state_tree,
+)
 from ml_trainer_tpu_torch.utils.logging import get_logger
 from ml_trainer_tpu_torch.utils.utils import LoadedModel
 
 logger = get_logger("ml_trainer_tpu_torch.trainer")
 
 MODEL_FILE = "model.pth"
+PREEMPT_MARKER = "PREEMPTED.json"
 
 
 def _own_storage(t: torch.Tensor) -> torch.Tensor:
@@ -208,26 +236,30 @@ def _refuse(knob: str, value, accepted) -> None:
 _INERT_WARNED = False
 
 
-def _warn_inert_knobs(handle_preemption, desync_every_steps) -> None:
-    """One ``logging`` warning per process naming the knobs the port
-    accepts and ignores that are set so the JAX package would act on
-    them: ``handle_preemption=True`` (its ``fit()`` installs signal
-    handlers) and a ``desync_every_steps`` (its replica-desync check).
+def _warn_inert_knobs(desync_every_steps) -> None:
+    """One ``logging`` warning per process when a knob the port accepts
+    and ignores is set so the JAX package would act on it: a
+    ``desync_every_steps`` (its replica-desync check, multi-host only).
     The other two never qualify here: ``straggler_factor`` acts only under
     ``telemetry=True``, which is refused, and ``moe_aux_weight`` only on a
     model that sows auxiliary losses (MoE), of which none is ported."""
     global _INERT_WARNED
-    knobs = [f"{name}={value!r}" for name, value, acts in (
-        ("handle_preemption", handle_preemption, bool(handle_preemption)),
-        ("desync_every_steps", desync_every_steps,
-         desync_every_steps is not None),
-    ) if acts]
-    if knobs and not _INERT_WARNED:
+    if desync_every_steps is not None and not _INERT_WARNED:
         _INERT_WARNED = True
         logging.getLogger(__name__).warning(
             "Trainer: %s accepted with no effect: not ported yet (the JAX "
             "package would act on it); see ROADMAP.md Queue A",
-            ", ".join(knobs))
+            f"desync_every_steps={desync_every_steps!r}")
+
+
+def _poison_batch(x: torch.Tensor) -> torch.Tensor:
+    """The ``nan_grad`` fault: a floating batch filled with NaN, so the
+    step's loss and gradients are non-finite."""
+    if x.is_floating_point():
+        return x * float("nan")
+    logger.warning(
+        "nan_grad fault ignored: integer input batch cannot carry NaN")
+    return x
 
 
 class Trainer:
@@ -287,23 +319,27 @@ class Trainer:
         None; it acts only with bf16, and needs ``nonfinite_guard``),
         ``loader`` ('auto' and 'python' both take the Python ``Loader``),
         ``steps_per_execution`` (K optimizer steps a dispatch: on the
-        card one CUDA graph replay a chunk of K batches), and data
+        card one CUDA graph replay a chunk of K batches), data
         parallelism: ``is_parallel``, ``mesh_shape`` (the data
         axis only), ``dp_update`` ('fused' | 'sharded'), ``fused_adam``
         (None: on exactly for the sharded step with plain Adam and no
         weight decay), ``bucket_mb`` and ``shard_opt_state`` (ZeRO-1,
         implied by the sharded step; under the fused step a placement
-        with no effect on replicas that share a device).
+        with no effect on replicas that share a device), and the
+        full-state checkpoints: ``save_every_steps`` (a mid-epoch
+        checkpoint every N batches; K = 1 only), ``rollback_bad_steps``
+        and ``rollback_lr_backoff`` (restore the newest valid checkpoint
+        after N consecutive skipped steps, the LR scaled down), and
+        ``handle_preemption`` (SIGTERM/SIGINT end ``fit()`` with an
+        emergency checkpoint; ``fit(resume=True)`` continues).
         Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
         ported), ``desync_every_steps`` and ``straggler_factor``
-        (multi-host and telemetry only), and ``handle_preemption`` (no
-        signal handlers are installed yet); the first ``Trainer`` of a
-        process logs one warning naming those that the JAX package would
-        act on as set (``_warn_inert_knobs``).
+        (multi-host and telemetry only); the first ``Trainer`` of a
+        process logs one warning when the JAX package would act on a
+        ``desync_every_steps`` as set (``_warn_inert_knobs``).
         Refused unless at their defaults: ``sharding_rules``,
         ``ema_decay``, ``telemetry``, ``elastic``, ``lora``,
-        ``pipeline_schedule``, ``save_every_steps``,
-        ``rollback_bad_steps``, ``sharded_checkpoint=True`` and
+        ``pipeline_schedule``, ``sharded_checkpoint=True`` and
         ``loader='native'``; so are mesh axes other than ``data`` and
         replicas on distinct devices.
         """
@@ -352,8 +388,6 @@ class Trainer:
             ("elastic", elastic, (None,)),
             ("lora", lora, (None,)),
             ("pipeline_schedule", pipeline_schedule, (None,)),
-            ("save_every_steps", save_every_steps, (None,)),
-            ("rollback_bad_steps", rollback_bad_steps, (None,)),
             ("sharded_checkpoint", sharded_checkpoint, (None, False)),
             ("loader", loader, ("auto", "python")),
         ):
@@ -370,10 +404,22 @@ class Trainer:
         if early_stop_patience is not None and early_stop_patience < 1:
             raise ValueError(
                 f"early_stop_patience must be >= 1, got {early_stop_patience}")
+        if rollback_bad_steps is not None and rollback_bad_steps < 1:
+            raise ValueError(
+                f"rollback_bad_steps must be >= 1, got {rollback_bad_steps}")
         if not 0.0 < rollback_lr_backoff <= 1.0:
             raise ValueError(
                 f"rollback_lr_backoff must be in (0, 1], got "
                 f"{rollback_lr_backoff}")
+        if save_every_steps is not None:
+            if save_every_steps < 1:
+                raise ValueError(
+                    f"save_every_steps must be >= 1, got {save_every_steps}")
+            if steps_per_execution > 1:
+                raise ValueError(
+                    "save_every_steps (step-granular mid-epoch checkpoints) "
+                    "requires steps_per_execution=1: the multi-step scan "
+                    "dispatch has no per-batch cursor to checkpoint")
         if log_every_steps is not None and log_every_steps < 1:
             raise ValueError(
                 f"log_every_steps must be >= 1, got {log_every_steps}")
@@ -382,8 +428,7 @@ class Trainer:
                 f"straggler_factor must be > 1, got {straggler_factor}")
         if bucket_mb <= 0:
             raise ValueError(f"bucket_mb must be positive, got {bucket_mb}")
-        _warn_inert_knobs(handle_preemption=handle_preemption,
-                          desync_every_steps=desync_every_steps)
+        _warn_inert_knobs(desync_every_steps)
 
         listed = isinstance(device, (list, tuple))
         if listed and not device:
@@ -450,7 +495,15 @@ class Trainer:
         self.save_best = bool(save_best)
         self.decay_exclude_bias_norm = bool(decay_exclude_bias_norm)
         self.nonfinite_guard = bool(nonfinite_guard)
+        self.rollback_bad_steps = rollback_bad_steps
+        self.rollback_lr_backoff = float(rollback_lr_backoff)
+        self.save_every_steps = save_every_steps
         self.handle_preemption = bool(handle_preemption)
+        self.preempted = False
+        self._preempt_requested = False
+        self._preempt_info: Optional[dict] = None
+        # The mid-epoch record of the checkpoint a resume starts from.
+        self._resume_mid: Optional[dict] = None
         self.skipped_steps: list = []
         self.rollbacks = 0
         self.reshapes: list = []
@@ -994,39 +1047,97 @@ class Trainer:
                                        device=self.device):
             yield (*single(x, y), 1)
 
-    def _run_epoch(self, what: str, n: int, dispatches):
+    def _run_epoch(self, what: str, n: int, dispatches, done: int = 0,
+                   sums=None, after=None):
         """Sum the dispatches' losses and metrics, each dispatch's sum
         added to the epoch's (the JAX package's order), logging where a
         multiple of ``max(log_every, K)`` steps fell inside the last
-        dispatch and at the end: the only host reads of the epoch."""
+        dispatch and at the end: the only host reads of the epoch.  A
+        resumed epoch starts at batch ``done`` from the saved ``sums``.
+        ``after(done, synced, loss_sum, metric_sum)`` runs after each
+        dispatch (``synced``: it logged) and ends the epoch there when
+        it returns True."""
         every = max(self.log_every, self.steps_per_execution)
-        loss_sum = torch.zeros((), device=self.device)
-        metric_sum = torch.zeros((), device=self.device)
-        done = 0
+        loss_sum, metric_sum = sums or (
+            torch.zeros((), device=self.device) for _ in range(2))
         for loss, metric, steps in dispatches:
             loss_sum = loss_sum + loss
             metric_sum = metric_sum + metric
             done += steps
-            if done % every < steps or done == n:
+            synced = done % every < steps or done == n
+            if synced:
                 # Without a metric: the last dispatch's mean loss.
                 self._log_progress(what, done, n, loss_sum, metric_sum,
                                    loss if steps == 1 else loss / steps)
+            if after is not None and after(done, synced, loss_sum,
+                                           metric_sum):
+                break
         return loss_sum, metric_sum
 
     def _train_one_epoch(self, epoch: int) -> None:
         self.train_loader.set_epoch(epoch - 1)
         n = len(self.train_loader)
         epoch_t0 = time.time()
+        start, sums = 0, None
+        mid, self._resume_mid = self._resume_mid, None
+        if mid is not None and int(mid["epoch"]) == epoch:
+            # Mid-epoch resume from the record's batch cursor and sums
+            # (float32 -> JSON float64 -> float32 is exact).
+            start = int(mid["batches_done"])
+            sums = tuple(torch.tensor(float(mid[k]), dtype=torch.float32,
+                                      device=self.device)
+                         for k in ("loss_sum", "metric_sum"))
+            self._skipped_base = int(mid.get("skipped_base", 0))
+            logger.info(f"Mid-epoch resume: epoch {epoch} continues at "
+                        f"batch {start + 1}/{n}.")
+        batches = iter(self.train_loader)
+        # Consumed, not skipped: the transforms' rng advances as in the
+        # uninterrupted run, so the remaining batches are its batches.
+        for _ in range(start):
+            next(batches)
         self._lr_t.fill_(self._lr_scale)
         if self.steps_per_execution == 1:
+            plan = active_plan()
+            gsteps = itertools.count((epoch - 1) * n + start + 1)
+
             def step(x, y):
+                gstep = next(gsteps)  # the 1-based global train step
+                if plan is not None:
+                    if plan.fire("preempt", step=gstep) is not None:
+                        self._request_preemption("injected preempt")
+                    if plan.fire("nan_grad", step=gstep) is not None:
+                        x = _poison_batch(x)
                 return self._train_step(x, y, self._lr_scale)
         else:  # the tail keeps the state where the chunks' graph reads it
             def step(x, y):
                 return self._train_step_in_place(x, y, self._lr_t)
+
+        def after(done, synced, loss_sum, metric_sum) -> bool:
+            if self.steps_per_execution > 1:
+                # No batch cursor to save: a resume restarts the epoch
+                # from the last epoch-boundary checkpoint.
+                self.preempted = self._preempt_requested
+                return self.preempted
+            if synced:
+                self._maybe_rollback()
+            if (self.save_every_steps and done % self.save_every_steps == 0
+                    and done < n):
+                self._save_mid_epoch(epoch, done, loss_sum, metric_sum)
+            if self._preempt_requested:
+                # The in-flight step finished: an emergency checkpoint
+                # with the batch cursor, then out.
+                self._save_mid_epoch(epoch, done, loss_sum, metric_sum)
+                wait_for_checkpoints()
+                self._preempt_info = {"epoch": epoch, "batches_done": done}
+                self.preempted = True
+            return self.preempted
+
         loss_sum, metric_sum = self._run_epoch(
             f"epoch {epoch} train", n, self._dispatches(
-                self.train_loader, "train", self._train_chunk, step))
+                batches, "train", self._train_chunk, step), start, sums,
+            after)
+        if self.preempted:
+            return  # a partial epoch: no history entry
         self.train_losses.append(float(loss_sum) / n)
         cum = int(self.state.skipped_steps)
         self.skipped_steps.append(cum - self._skipped_base)
@@ -1065,43 +1176,77 @@ class Trainer:
 
     # ------------------------------------------------------------------- fit
     def fit(self, resume: bool = False) -> None:
-        """Train ``epochs`` epochs, validating and exporting the weights
-        after each.  ``resume`` (full-state checkpoints) is not ported."""
-        if resume:
-            raise NotImplementedError(
-                "fit(resume=True) and full-state checkpoints are not ported "
-                "yet; see ROADMAP.md Queue A")
+        """Train ``epochs`` epochs, validating after each, then exporting
+        the weights (``model.pth``) and writing a full-state checkpoint
+        (``<model_dir>/checkpoints/checkpoint_<epoch>``, on the writer
+        thread).  ``resume=True`` restarts from the newest valid
+        checkpoint (corrupt ones quarantined), mid-epoch where it was
+        written mid-epoch, bit for bit.  With ``handle_preemption`` (the
+        default) SIGTERM/SIGINT finish the in-flight step, write an
+        emergency checkpoint and ``PREEMPTED.json`` and return with
+        ``self.preempted`` True (under ``steps_per_execution`` > 1 at the
+        next dispatch, with no mid-epoch checkpoint)."""
         if self.state is None:
             raise ValueError("fit() needs datasets; this Trainer was built "
                              "for testing only")
-        logger.info("Start training..")
+        self.preempted = False
+        self._preempt_requested = False
+        self._preempt_info = None
+        prev_handlers = self._install_preempt_handlers()
         try:
-            self._fit_epochs()
+            self._fit(resume)
         finally:
+            self._restore_preempt_handlers(prev_handlers)
             self._graphs.clear()  # their memory pools with them
             self.clear()
-        self.history = {
-            "epochs": [*range(1, len(self.train_losses) + 1)],
-            "train_loss": self.train_losses,
-            "val_loss": self.val_losses,
-            "train_metric": self.train_metrics,
-            "val_metric": self.val_metrics,
-            "metric_type": self.metric,
-            "skipped_steps": self.skipped_steps,
-            "rollbacks": self.rollbacks,
-            "reshapes": self.reshapes,
-        }
-        if self.save_history:
-            self.save_history_(self.model_dir)
-        logger.info("Training Complete.")
 
-    def _fit_epochs(self) -> None:
-        for epoch in range(1, self.epochs + 1):
+    def _install_preempt_handlers(self) -> dict:
+        """SIGTERM and SIGINT to ``_on_preempt_signal``; the handlers they
+        replace, by signal.  Python runs handlers on the main thread
+        only, so on any other thread nothing is installed (the injected
+        ``preempt`` fault still works)."""
+        if (not self.handle_preemption
+                or threading.current_thread() is not threading.main_thread()):
+            return {}
+        return {sig: signal.signal(sig, self._on_preempt_signal)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    @staticmethod
+    def _restore_preempt_handlers(prev: dict) -> None:
+        for sig, handler in prev.items():
+            if handler is not None:  # None: installed outside Python
+                signal.signal(sig, handler)
+
+    def _on_preempt_signal(self, signum, frame) -> None:
+        self._request_preemption(f"signal {signum}")
+
+    def _request_preemption(self, reason: str) -> None:
+        if not self._preempt_requested:
+            logger.warning(
+                f"Preemption requested ({reason}): finishing the in-flight "
+                "step, then writing an emergency checkpoint.")
+        self._preempt_requested = True
+
+    def _ckpt_dir(self) -> str:
+        return os.path.join(self.model_dir, "checkpoints")
+
+    def _fit(self, resume: bool) -> None:
+        logger.info("Start training..")
+        start_epoch = self._resume_from_latest() if resume else 1
+        for epoch in range(start_epoch, self.epochs + 1):
+            # Before training, so that a resumed run that is already out
+            # of patience trains (and exports) nothing.
             if self._out_of_patience():
                 break
             logger.info(f"{'-' * 30} EPOCH {epoch} / {self.epochs} "
                         f"{'-' * 30}")
             self._train_one_epoch(epoch)
+            if self.preempted:
+                self._write_preempt_marker()
+                logger.warning(
+                    "Preempted: emergency checkpoint committed; exiting "
+                    "fit() cleanly (resume with fit(resume=True)).")
+                break
             self.clear()
             self._validate_one_epoch()
             self.clear()
@@ -1116,6 +1261,11 @@ class Trainer:
             self.save_model(self.model_dir)
             if improved and self.save_best:
                 self.save_model(os.path.join(self.model_dir, "best"))
+            # The host copy blocks; the write runs while the next epoch
+            # trains, and the end of fit() joins it.
+            save_checkpoint(self._ckpt_dir(),
+                            state_tree(self.state, self.model),
+                            self._partial_history(), epoch, block=False)
             if self.metric:
                 logger.info(f"train loss: {self.train_losses[-1]} - "
                             f"train {self.metric}: {self.train_metrics[-1]}")
@@ -1126,6 +1276,21 @@ class Trainer:
                 logger.info(f"valid loss: {self.val_losses[-1]}\n\n")
             if self._out_of_patience():
                 break
+        self.history = {
+            "epochs": [*range(1, len(self.train_losses) + 1)],
+            "train_loss": self.train_losses,
+            "val_loss": self.val_losses,
+            "train_metric": self.train_metrics,
+            "val_metric": self.val_metrics,
+            "metric_type": self.metric,
+            "skipped_steps": self.skipped_steps,
+            "rollbacks": self.rollbacks,
+            "reshapes": self.reshapes,
+        }
+        if self.save_history:
+            self.save_history_(self.model_dir)
+        wait_for_checkpoints()
+        logger.info("Training Complete.")
 
     def _out_of_patience(self) -> bool:
         stop = (self.early_stop_patience is not None
@@ -1135,6 +1300,168 @@ class Trainer:
                 f"Early stop: no val-loss improvement in {self._bad_epochs} "
                 f"epochs (best {self._best_val:.6f}).")
         return stop
+
+    # ------------------------------------------------------------ resilience
+    def _partial_history(self) -> dict:
+        """The history and the host-side scalars a resume needs, as a
+        checkpoint's manifest records them."""
+        h = {
+            "train_loss": self.train_losses,
+            "val_loss": self.val_losses,
+            "train_metric": self.train_metrics,
+            "val_metric": self.val_metrics,
+            "metric_type": self.metric,
+            "lr_scale": self._lr_scale,
+            "skipped_steps": self.skipped_steps,
+            "rollbacks": self.rollbacks,
+            "reshapes": self.reshapes,
+        }
+        if self._plateau is not None:
+            h["plateau"] = {
+                "best": self._plateau.best,
+                "num_bad_epochs": self._plateau.num_bad_epochs,
+                "scale": self._plateau.scale,
+            }
+        h["early_stop"] = {"best_val": self._best_val,
+                           "bad_epochs": self._bad_epochs}
+        return h
+
+    def _apply_resume_scalars(self, saved: dict) -> None:
+        """Re-install the host-side scalars of ``_partial_history``."""
+        self.train_losses = list(saved.get("train_loss", []))
+        self.val_losses = list(saved.get("val_loss", []))
+        self.train_metrics = list(saved.get("train_metric", []))
+        self.val_metrics = list(saved.get("val_metric", []))
+        self.skipped_steps = list(saved.get("skipped_steps", []))
+        self.rollbacks = int(saved.get("rollbacks", 0))
+        self.reshapes = list(saved.get("reshapes", []))
+        self._lr_scale = float(saved.get("lr_scale", 1.0))
+        plateau = saved.get("plateau", {})
+        if self._plateau is not None:
+            self._plateau.best = float(plateau.get("best", np.inf))
+            self._plateau.num_bad_epochs = int(
+                plateau.get("num_bad_epochs", 0))
+            self._plateau.scale = float(plateau.get("scale", 1.0))
+        early = saved.get("early_stop", {})
+        self._best_val = float(early.get("best_val", np.inf))
+        self._bad_epochs = int(early.get("bad_epochs", 0))
+
+    def _save_mid_epoch(self, epoch: int, batches_done: int, loss_sum,
+                        metric_sum) -> None:
+        """A checkpoint of epoch ``epoch`` in progress, ``batches_done``
+        batches trained: its ``mid_epoch`` record holds the batch cursor
+        and the epoch's sums, so that ``fit(resume=True)`` continues bit
+        for bit; the end-of-epoch save overwrites the same directory.
+        One host read of the two sums."""
+        hist = self._partial_history()
+        hist["mid_epoch"] = {
+            "epoch": int(epoch),
+            "batches_done": int(batches_done),
+            "loss_sum": float(loss_sum),
+            "metric_sum": float(metric_sum),
+            "skipped_base": int(self._skipped_base),
+        }
+        save_checkpoint(self._ckpt_dir(), state_tree(self.state, self.model),
+                        hist, epoch, block=False)
+
+    def _maybe_rollback(self) -> bool:
+        """Rollback to the last good state: after ``rollback_bad_steps``
+        consecutive skipped steps, restore the newest valid checkpoint
+        (corrupt ones quarantined) and scale the LR by
+        ``rollback_lr_backoff``.  Called at the ``log_every`` cadence;
+        one host read of the streak."""
+        if self.rollback_bad_steps is None:
+            return False
+        streak = int(self.state.bad_streak)
+        if streak < self.rollback_bad_steps:
+            return False
+        self._lr_scale *= self.rollback_lr_backoff
+        self.rollbacks += 1
+        wait_for_checkpoints()  # the writes in flight must land first
+        latest = latest_valid_checkpoint(self._ckpt_dir())
+        if latest is None:
+            # The guard reverted every bad update: the live state is the
+            # last good one.
+            logger.warning(
+                f"Rollback: {streak} consecutive non-finite steps and no "
+                f"valid checkpoint; LR scale backed off to "
+                f"{self._lr_scale:.4g}, continuing from current params.")
+            self.state.bad_streak.zero_()
+            return True
+        # The cumulative skipped count survives (diagnostics); the streak
+        # restarts: the restored counters predate the event.
+        skipped_now = self.state.skipped_steps.clone()
+        load_state_tree(self.state, self.model, restore_checkpoint(latest)[0])
+        self.state.skipped_steps.copy_(skipped_now)
+        self.state.bad_streak.zero_()
+        self._reseed_loss_scale()
+        logger.warning(
+            f"Rollback: {streak} consecutive non-finite steps; restored "
+            f"{latest} and backed LR off to scale {self._lr_scale:.4g}.")
+        return True
+
+    def _write_preempt_marker(self) -> None:
+        """``PREEMPTED.json``: the run left through the preemption path
+        (its emergency checkpoint committed), not by a crash;
+        ``fit(resume=True)`` logs and removes it."""
+        ckpt_dir = self._ckpt_dir()
+        os.makedirs(ckpt_dir, exist_ok=True)
+        info = dict(self._preempt_info or {}, time=time.time(), mesh=None)
+        tmp = os.path.join(ckpt_dir, PREEMPT_MARKER + ".tmp")
+        with open(tmp, "w") as fp:
+            json.dump(info, fp)
+        os.replace(tmp, os.path.join(ckpt_dir, PREEMPT_MARKER))
+
+    def _consume_preempt_marker(self) -> None:
+        marker = os.path.join(self._ckpt_dir(), PREEMPT_MARKER)
+        if not os.path.exists(marker):
+            return
+        with open(marker) as fp:
+            info = json.load(fp)
+        logger.info(f"Clean preemption exit detected ({info}); resuming "
+                    "from the emergency checkpoint.")
+        os.remove(marker)
+
+    def _reseed_loss_scale(self) -> None:
+        """After a restore: a checkpoint without a loss scale (an fp32
+        run's) leaves a zero one; start it at the configured scale."""
+        if self.state.loss_scale is None:
+            return
+        if float(self.state.loss_scale) <= 0.0:
+            self.state.loss_scale.fill_(self._loss_scale_cfg.init_scale)
+            self.state.good_steps.zero_()
+
+    def _require_mid_resume_support(self) -> None:
+        if self.steps_per_execution > 1:
+            raise ValueError(
+                "the latest checkpoint is mid-epoch (written by "
+                "save_every_steps or a preemption exit), which resumes "
+                "through the per-batch dispatch path; restart with "
+                "steps_per_execution=1 to continue it")
+
+    def _resume_from_latest(self) -> int:
+        """Restore the newest valid checkpoint into the live state; the
+        epoch to start from (1 when there is none)."""
+        self._consume_preempt_marker()
+        latest = latest_valid_checkpoint(self._ckpt_dir())
+        if latest is None:
+            return 1
+        tree, saved, done_epoch = restore_checkpoint(latest)
+        mid = saved.get("mid_epoch")
+        if mid is not None:
+            self._require_mid_resume_support()
+        load_state_tree(self.state, self.model, tree)
+        self._apply_resume_scalars(saved)
+        self._skipped_base = int(self.state.skipped_steps)
+        self._reseed_loss_scale()
+        if mid is not None:
+            # Re-enter the record's epoch at its batch cursor.
+            self._resume_mid = dict(mid)
+            logger.info(f"Resuming mid-epoch {mid['epoch']} at batch "
+                        f"{mid['batches_done']} ({latest}).")
+            return int(mid["epoch"])
+        logger.info(f"Resuming from epoch {done_epoch + 1} ({latest}).")
+        return done_epoch + 1
 
     # ------------------------------------------------------------------ test
     def test(self, model=None, test_loader=None):

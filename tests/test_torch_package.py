@@ -1,14 +1,15 @@
 """Guards of the PyTorch/CUDA port (``ml_trainer_tpu_torch``).
 
 * No file of the port, nor ``chip_smoke.py``,
-  ``scripts/torch_call_check_mutations.py``, ``scripts/flash_bwd_ab.py``
-  or ``scripts/flash_fwd_ab.py``, imports JAX, flax, optax, tqdm,
+  ``scripts/torch_call_check_mutations.py``, ``scripts/flash_bwd_ab.py``,
+  ``scripts/flash_fwd_ab.py`` or ``scripts/cudnn_deterministic_cost.py``,
+  imports JAX, flax, optax, tqdm,
   msgpack or the JAX package (an AST scan): the card's machine has none
   of them.
 * With no card visible, every entry point raises unless it is given
   ``device="cpu"``: the port never falls back to the CPU on its own.
 * On the CPU the kernels' plain versions run, and the launch counters
-  stay at 0.
+  stay at 0; a checkpoint is written and resumed with the card hidden.
 * ``test_kernels_match_plain_on_card`` and the bf16 kernel tests need an
   NVIDIA card and ``nvcc`` (marker ``cuda``); they skip elsewhere,
   deciding inside the test.
@@ -44,7 +45,8 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "torch_call_check_mutations.py",
                     ROOT / "scripts" / "flash_bwd_ab.py",
-                    ROOT / "scripts" / "flash_fwd_ab.py"]
+                    ROOT / "scripts" / "flash_fwd_ab.py",
+                    ROOT / "scripts" / "cudnn_deterministic_cost.py"]
 
 
 def _imports(path):
@@ -76,7 +78,9 @@ def test_port_never_imports_jax_or_the_jax_package():
 NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "models/vit.py", "models/layers.py", "data/transforms.py",
                "data/datasets.py", "utils/functions.py", "convert.py",
-               "trainer.py"]
+               "trainer.py", "train_state.py", "checkpoint/__init__.py",
+               "checkpoint/checkpoint.py", "resilience/__init__.py",
+               "resilience/faults.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
@@ -132,7 +136,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         mt.SlotDecodeEngine(model, device="cuda")
 
 
-def test_launch_counters_stay_zero_on_cpu(tmp_path):
+def test_launch_counters_stay_zero_on_cpu(monkeypatch, tmp_path):
     mt.reset_launch_counts()
     model = mt.init_gpt2("gpt2_tiny", seed=0, device="cpu", max_len=256)
     with mt.Server(model, kv_page_size=16, paged_kernel=True,
@@ -150,6 +154,13 @@ def test_launch_counters_stay_zero_on_cpu(tmp_path):
                          grad_accum_steps=2, device="cpu",
                          model_dir=str(tmp_path))
     trainer.fit()
+    # A resume, with the card hidden: checkpoints touch no CUDA call.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    resumed = mt.Trainer(model, datasets=sets, epochs=2, batch_size=4,
+                         grad_accum_steps=2, device="cpu",
+                         model_dir=str(tmp_path))
+    resumed.fit(resume=True)
+    assert resumed.history["epochs"] == [1, 2]
     with mt.Server(model, kv_page_size=16, paged_kernel=True,
                    quant_int8=True, device="cpu") as server:
         assert server.complete([1, 2, 3], 4, timeout=120).shape == (7,)

@@ -204,8 +204,7 @@ def test_poisoned_batch_is_skipped_alike(tmp_path):
     ("mesh_shape", {"fsdp": 2}), ("ema_decay", 0.99),
     ("telemetry", True), ("elastic", 2), ("lora", {"rank": 4}),
     ("pipeline_schedule", "1f1b"), ("mesh_shape", {"sequence": 2}),
-    ("mesh_shape", {"stage": 2}), ("save_every_steps", 10),
-    ("rollback_bad_steps", 3), ("sharded_checkpoint", True),
+    ("mesh_shape", {"stage": 2}), ("sharded_checkpoint", True),
     ("loader", "native"),
 ])
 def test_unported_knobs_name_the_roadmap(knob, value):
@@ -214,37 +213,51 @@ def test_unported_knobs_name_the_roadmap(knob, value):
 
 
 def test_inert_knobs_log_one_warning_per_process(monkeypatch, caplog):
-    """``handle_preemption=True`` (the default) and a set
-    ``desync_every_steps`` are accepted and ignored: the first Trainer of
-    a process logs one warning naming them and ROADMAP.md; later ones log
-    nothing.  With neither set, nothing is logged."""
+    """A set ``desync_every_steps`` is accepted and ignored: the first
+    Trainer of a process that sets it logs one warning naming it and
+    ROADMAP.md; later ones log nothing.  ``handle_preemption=True`` (the
+    default) installs real signal handlers now and is not named."""
     import ml_trainer_tpu_torch.trainer as trainer_mod
 
     name = "ml_trainer_tpu_torch.trainer"
     monkeypatch.setattr(trainer_mod, "_INERT_WARNED", False)
     with caplog.at_level(logging.WARNING, logger=name):
-        mt.Trainer("gpt2_tiny", device="cpu", handle_preemption=False)
+        mt.Trainer("gpt2_tiny", device="cpu", handle_preemption=True)
         assert not [r for r in caplog.records if "no effect" in r.message]
         mt.Trainer("gpt2_tiny", device="cpu", desync_every_steps=5,
                    straggler_factor=3.0, moe_aux_weight=0.5)
-        mt.Trainer("gpt2_tiny", device="cpu")
+        mt.Trainer("gpt2_tiny", device="cpu", desync_every_steps=5)
     warned = [r for r in caplog.records if "no effect" in r.message]
     assert len(warned) == 1 and warned[0].name == name
     msg = warned[0].message
-    assert "handle_preemption=True" in msg and "desync_every_steps=5" in msg
-    assert "ROADMAP.md" in msg
+    assert "desync_every_steps=5" in msg and "ROADMAP.md" in msg
+    assert "handle_preemption" not in msg
     assert "straggler_factor" not in msg and "moe_aux_weight" not in msg
 
 
 def test_resume_and_unported_optimizer_name_the_roadmap(tmp_path):
+    """``fit(resume=True)`` with no checkpoint trains from epoch 1; a
+    sharded (format 3) checkpoint of the JAX package is refused with an
+    error naming ROADMAP.md, and left in place."""
+    import json
+
     sets = (mt.SyntheticTokens(size=8, seq_len=16, vocab_size=64),
             mt.SyntheticTokens(size=8, seq_len=16, vocab_size=64, seed=1))
     model = mt.get_model("gpt2_tiny", vocab_size=64, max_len=16,
                          device="cpu")
     tr = mt.Trainer(model, datasets=sets, epochs=1, batch_size=4,
-                    device="cpu", model_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                    device="cpu", model_dir=str(tmp_path / "fresh"))
+    tr.fit(resume=True)
+    assert tr.history["epochs"] == [1]
+    sharded = tmp_path / "v3" / "checkpoints" / "checkpoint_1"
+    sharded.mkdir(parents=True)
+    (sharded / "manifest.json").write_text(json.dumps(
+        {"format": 3, "epoch": 1, "history": {}}))
+    tr = mt.Trainer(model, datasets=sets, epochs=2, batch_size=4,
+                    device="cpu", model_dir=str(tmp_path / "v3"))
+    with pytest.raises(ValueError, match="ROADMAP.md"):
         tr.fit(resume=True)
+    assert (sharded / "manifest.json").exists()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mt.Trainer(model, datasets=sets, epochs=1, batch_size=4,
                    device="cpu", optimizer="lion")
