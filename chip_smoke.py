@@ -19,6 +19,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # (CUDA graph replays)
     python3 chip_smoke.py --only resume   # kernel checks + checkpoints
                                           # and fit(resume=True)
+    python3 chip_smoke.py --only data     # kernel checks + the native
+                                          # loader, image shards, BPE and
+                                          # WordPiece data, loss_chunk
 
 Phases, one line of output each (or a few):
 
@@ -248,7 +251,37 @@ Phases, one line of output each (or a few):
    state saved and loaded back leaves it bitwise.  Printed: checkpoint
    bytes, the host snapshot's seconds, the writer's, the verification's
    and the restore's.  Every fit of the other phases must end
-   unpreempted (``fit_whole``).
+   unpreempted (``fit_whole``);
+10. the data layer and the chunked LM loss (``DATA_*``): the C++ batch
+   worker built with ``g++`` from ``csrc/`` into ``build/native/`` (its
+   seconds; a missing compiler or a failed build fails the phase), its
+   pass on 224 x 224 images with pad 0 and no flip within
+   NATIVE_PLAIN_ATOL of the Python Loader's ``ToFloat + Normalize``, two
+   iterations of one epoch bitwise and a new epoch different; ResNet-50
+   (224, batch 64, fp32, K = 4, 3 epochs of 12 steps) through ``fit()``
+   with ``loader="python"`` and then ``loader="native"`` (asked for
+   explicitly, never taken by default), on seeded uint8 images in memory
+   and as raw shards written by ``write_sharded_dataset``: samples/s of
+   the second epoch, each loader's host ms a batch timed alone, and
+   device-busy ms a step and idle share of the third epoch under the
+   profiler; GPT-2 124M in bf16 (``TRAIN``'s batch, ``GPT2_OPT``, K = 4)
+   on ``PackedLMDataset`` blocks of the fixture byte-level BPE's
+   encoding of synthetic text (``examples/04_gpt2_pretrain.py``'s
+   recipe) with ``loss_chunk=128`` against the dense head: in float32
+   the chunked loss function at [8, 1024, 768] x [50257, 768] and one
+   microbatch of the model (loss within CHUNK_LOSS_RTOL, every gradient
+   within CHUNK_GRAD_RTOL of its largest entry), in bf16 one microbatch
+   through the trainer's loss function (losses within CHUNK_LOSS_RTOL;
+   the chunked gradients no farther from the float32 dense ones than
+   BF16_NOISE_FACTOR times the bf16 dense gradients, or BF16_GRAD_RTOL),
+   then ``fit()`` with loss_chunk at K = 4 and K = 1 (state bitwise,
+   losses within GRAPH_LOSS_RTOL) and the dense head at K = 4, exact
+   K1-K3 launches in each, peak memory of each fit, ms a step of both
+   graphs by CUDA events (dense, chunked, chunked, dense); BERT-base bf16
+   (right_padded, 32 x 128, K = 4, 8 steps) on the fixture WordPiece's
+   encoding of synthetic sentences (``TokenizedDataset.from_texts``):
+   exact launches and ms a step.  The JPEG shard path is not run here:
+   the card's machine has no PIL to encode the images.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -3239,7 +3272,8 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
     model = mt.init_model(name, seed=SEED, device=dev, **model_kw)
     trainer = mt.Trainer(model, datasets=model_sets(data, batch, steps),
                          epochs=1, batch_size=batch, metric="accuracy",
-                         model_dir=run_dir, seed=SEED, device=dev, **opt)
+                         model_dir=run_dir, seed=SEED, device=dev,
+                         loader="python", **opt)
     model = trainer.model  # rebuilt at the policy's compute dtype
     bf16 = trainer.precision.active
     build_s = time.perf_counter() - t0
@@ -3488,7 +3522,7 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
         trainer = mt.Trainer(model, datasets=graph_sets(data, batch),
                              epochs=1, batch_size=batch, metric="accuracy",
                              model_dir=run_dir, seed=SEED, device=dev,
-                             steps_per_execution=k, **opt)
+                             steps_per_execution=k, loader="python", **opt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mt.reset_launch_counts()
@@ -3712,8 +3746,7 @@ def _want_launches(what: str, got: dict, depth: int, micro: int,
                     flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro)
     want.update(unscale_sqsum=tail, fused_adam=tail)
     if got != want:
-        raise AssertionError(f"resume {what}: launches {got}, expected "
-                             f"{want}")
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
 def _checkpoint_costs(trainer, run_dir: str) -> dict:
@@ -3783,7 +3816,7 @@ def resume_pretrain(dev) -> dict:
 
     a, rec_a = _resume_fit("pretrain A", make, run_dir)
     depth, accum = a.model.depth, a.grad_accum_steps
-    _want_launches("pretrain A", rec_a["launches"], depth,
+    _want_launches("resume pretrain A", rec_a["launches"], depth,
                    2 * c["steps"] * accum, 2 * c["val_batches"])
     want = dict(history=a.history, step=a.state.step)
     snap = _named_state(a)
@@ -3791,7 +3824,7 @@ def resume_pretrain(dev) -> dict:
     del a
     shutil.rmtree(f"{run_dir}/checkpoints/checkpoint_2")
     b, rec_b = _resume_fit("pretrain B", make, run_dir, resume=True)
-    _want_launches("pretrain B", rec_b["launches"], depth,
+    _want_launches("resume pretrain B", rec_b["launches"], depth,
                    c["steps"] * accum, c["val_batches"])
     gate = _resume_gate("pretrain", b, snap, want)
     del b, snap
@@ -3833,8 +3866,8 @@ def resume_dp(dev) -> dict:
     if not (a.fused_adam and a.dp_update == "sharded"):
         raise AssertionError("resume dp: not the sharded step with K4/K5")
     depth, n, accum = a.model.depth, c["replicas"], c["accum"]
-    _want_launches("dp A", rec_a["launches"], depth, 2 * steps * n * accum,
-                   2 * c["val_batches"], 2 * steps * n)
+    _want_launches("resume dp A", rec_a["launches"], depth,
+                   2 * steps * n * accum, 2 * c["val_batches"], 2 * steps * n)
     want = dict(history=a.history, step=a.state.step)
     snap = _named_state(a)
     del a
@@ -3842,7 +3875,7 @@ def resume_dp(dev) -> dict:
     d = f"{run_dir}/b"
     b, rec_b = _resume_fit("dp B", make, d, spec="preempt@step=7",
                            preempt=True, save_every_steps=2)
-    _want_launches("dp B", rec_b["launches"], depth, 7 * n * accum,
+    _want_launches("resume dp B", rec_b["launches"], depth, 7 * n * accum,
                    c["val_batches"], 7 * n)
     marker = f"{d}/checkpoints/PREEMPTED.json"
     with open(marker) as fp:
@@ -3854,7 +3887,7 @@ def resume_dp(dev) -> dict:
                             save_every_steps=2)
     if os.path.exists(marker):
         raise AssertionError("resume dp: PREEMPTED.json not consumed")
-    _want_launches("dp C", rec_c["launches"], depth, n * accum,
+    _want_launches("resume dp C", rec_c["launches"], depth, n * accum,
                    c["val_batches"], n)
     gate = _resume_gate("dp", cc, snap, want)
     del cc, snap
@@ -3885,7 +3918,7 @@ def resume_resnet(dev) -> dict:
                           cifar_stem=True),
             datasets=model_sets("cifar", batch, steps), epochs=2,
             batch_size=batch, model_dir=d, seed=SEED, device=dev,
-            **SGD_02, **kw)
+            loader="python", **SGD_02, **kw)
 
     a, rec_a = _resume_fit("resnet A", make, f"{run_dir}/a")
     want = dict(history=a.history, step=a.state.step)
@@ -3897,7 +3930,7 @@ def resume_resnet(dev) -> dict:
     cc, rec_c = _resume_fit("resnet C", make, d, resume=True,
                             save_every_steps=2)
     for what, rec in (("A", rec_a), ("B", rec_b), ("C", rec_c)):
-        _want_launches(f"resnet {what}", rec["launches"], 0, 0, 0)
+        _want_launches(f"resume resnet {what}", rec["launches"], 0, 0, 0)
     gate = _resume_gate("resnet", cc, snap, want)
     del cc, snap
     shutil.rmtree(run_dir)
@@ -3905,11 +3938,550 @@ def resume_resnet(dev) -> dict:
                 A=rec_a, B=rec_b, C=rec_c, gate=gate)
 
 
+# ------------------------------------------------------------- phase 10
+# The data layer and the chunked LM loss on the card.  The C++ batch
+# worker (data/native.py, built with g++ from csrc/ into build/native/)
+# against the Python Loader's transforms; ResNet-50 fed by each loader
+# from memory and from raw shards; GPT-2 124M bf16 on BPE-packed blocks
+# with loss_chunk against the dense head; BERT-base bf16 on WordPiece
+# data.  Every fit runs at K = 4 (graph replays), with exact launches.
+DATA_DIR = "build/chip_smoke_data"  # shards and each run's files; removed
+DATA_K = 4
+NATIVE_PLAIN_ATOL = 1e-5  # the C++ pass x*(1/255) then *(1/std) vs numpy's /
+# ResNet-50 224 b64 fp32, 3 epochs of 20 steps (5 chunks): epoch 2 timed
+# (samples/s of the epoch, and of its steady state: the median interval
+# between consecutive chunks' ends on the device; the graphs captured in
+# epoch 1), epoch 3 profiled (busy / idle).
+DATA_RESNET = dict(batch=64, steps=20, val_batches=1, epochs=3)
+# GPT-2 124M bf16 (TRAIN's config: 8 x 1024 tokens in 4 microbatches,
+# GPT2_OPT), 8 steps and 1 validation batch an epoch, loss_chunk 128.
+DATA_GPT2 = dict(steps=8, val_batches=1, loss_chunk=128)
+# The chunked head against the dense head in float32 (the same products,
+# the sums in another order): the loss, and each gradient against its
+# largest entry.  In bf16 the chunked run's gradients must lie as near
+# the float32 dense gradients as the bf16 dense run's do (within
+# BF16_NOISE_FACTOR, or BF16_GRAD_RTOL), the losses within CHUNK_LOSS_RTOL.
+CHUNK_LOSS_RTOL, CHUNK_GRAD_RTOL = 1e-5, 1e-4
+# BERT-base bf16 32 x 128 (right_padded), 8 steps and 1 validation batch.
+DATA_BERT = dict(batch=32, steps=8, val_batches=1)
+
+
+def native_checks(dev) -> dict:
+    """Build the library (its seconds), then the C++ pass against the
+    Python Loader's ToFloat + Normalize on 224 x 224 images (pad 0, no
+    flip; within NATIVE_PLAIN_ATOL), two iterations of one epoch bitwise,
+    and a new epoch's draws different."""
+    import numpy as np
+
+    from ml_trainer_tpu_torch.data import Loader, NativeLoader, native
+
+    t0 = time.perf_counter()
+    native.load_library()  # raises when g++ or the build fails
+    build_s = time.perf_counter() - t0
+    train, _ = model_sets("imagenet", 16, 4)
+    plain = Loader(train, 16, shuffle=False)
+    fused = NativeLoader(train, 16, shuffle=False, pad=0, flip=False,
+                         normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    err = max(float(np.abs(a - b).max())
+              for (a, _), (b, _) in zip(fused, plain))
+    if not err <= NATIVE_PLAIN_ATOL:
+        raise AssertionError(f"native vs plain transforms: {err}")
+    aug = NativeLoader(train, 16, shuffle=True, pad=4, flip=True, seed=SEED,
+                       normalize=(IMAGENET_MEAN, IMAGENET_STD))
+    first = [x.copy() for x, _ in aug]
+    again = [x.copy() for x, _ in aug]
+    aug.set_epoch(1)
+    other = [x.copy() for x, _ in aug]
+    repeat = all(np.array_equal(a, b) for a, b in zip(first, again))
+    differs = not all(np.array_equal(a, b) for a, b in zip(first, other))
+    if not (repeat and differs):
+        raise AssertionError(f"native epochs: repeat {repeat}, new epoch "
+                             f"differs {differs}")
+    aug.stop()
+    fused.stop()
+    return dict(library=native.BUILD_LOG["path"], build_s=build_s,
+                cached=native.BUILD_LOG["cached"], plain_max_abs_err=err,
+                epoch_repeats_bitwise=repeat, new_epoch_differs=differs)
+
+
+def _epoch_clock(trainer, profile_epoch=None):
+    """Wrap ``trainer._train_one_epoch``: each epoch's wall seconds (it
+    ends with a host read, so the device has finished) and the device
+    clock's intervals between consecutive train chunks' ends (a CUDA
+    event after each dispatch), and epoch ``profile_epoch`` under
+    ``torch.profiler`` (its ``device_split``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    inner, rec = trainer._train_one_epoch, {"epoch_s": [], "profile": None,
+                                            "chunk_ms": []}
+    dispatch, ends = trainer._dispatch, []
+
+    def marked(kind, fn, xs, ys):
+        out = dispatch(kind, fn, xs, ys)
+        if kind == "train":
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+        return out
+
+    def timed(epoch):
+        if epoch != profile_epoch:
+            ends.clear()
+            t0 = time.perf_counter()
+            inner(epoch)
+            rec["epoch_s"].append(time.perf_counter() - t0)
+            rec["chunk_ms"].append([a.elapsed_time(b)
+                                    for a, b in zip(ends, ends[1:])])
+            return
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            inner(epoch)
+            wall = time.perf_counter() - t0
+        rec["epoch_s"].append(wall)
+        split = device_split(prof, wall)
+        split.pop("top_kernels", None)
+        rec["profile"] = split
+
+    trainer._train_one_epoch = timed
+    trainer._dispatch = marked
+    return rec
+
+
+def _data_fit(what: str, trainer, depth: int = 0, micro: int = 0,
+              val: int = 0) -> dict:
+    """``fit_whole`` with the launches counted from 0 (``_want_launches``
+    of ``depth``, ``micro``, ``val``), finite losses and no skipped step;
+    the fit's seconds."""
+    import math
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    torch.cuda.synchronize()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit_whole(trainer, what)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    _want_launches(what, counts, depth, micro, val)
+    hist = trainer.history
+    if not all(math.isfinite(v) for v in hist["train_loss"]
+               + hist["val_loss"]):
+        raise AssertionError(f"{what}: non-finite losses {hist}")
+    if any(hist["skipped_steps"]):
+        raise AssertionError(f"{what}: skipped steps "
+                             f"{hist['skipped_steps']}")
+    return dict(fit_s=fit_s, launches=counts, train_loss=hist["train_loss"],
+                val_loss=hist["val_loss"])
+
+
+def _graph_step_ms(trainers: dict, reps: int = 3,
+                   profile: bool = False) -> dict:
+    """Per trainer, ``step_ms``: ms an optimizer step of its K-step graph
+    (CUDA events on ``reps`` replays of one chunk), after a capture of
+    that chunk, in the order of ``trainers``, then reversed; with
+    ``profile``, also ``profile``: one replay's ``device_split`` (busy
+    ms a step, top kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+    from ml_trainer_tpu_torch.trainer import _chunk_batches
+
+    chunks = {}
+    for label, tr in trainers.items():
+        tr.train_loader.set_epoch(0)
+        xs, ys = next(iter(prefetch_to_device(
+            _chunk_batches(tr.train_loader, DATA_K, []), size=1,
+            device=tr.device)))
+        tr._lr_t.fill_(1.0)
+        tr._dispatch("train", tr._train_chunk, xs, ys)  # warm-up, capture
+        chunks[label] = (xs, ys)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = {label: {"step_ms": []} for label in trainers}
+    for label in list(trainers) + list(trainers)[::-1]:
+        tr, (xs, ys) = trainers[label], chunks[label]
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            tr._dispatch("train", tr._train_chunk, xs, ys)
+        end.record()
+        torch.cuda.synchronize()
+        out[label]["step_ms"].append(start.elapsed_time(end)
+                                     / (reps * DATA_K))
+    for label, tr in trainers.items():
+        if profile:
+            xs, ys = chunks[label]
+            torch.cuda.synchronize()
+            with profiler(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr._dispatch("train", tr._train_chunk, xs, ys)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            split = device_split(prof, wall)
+            if isinstance(split["device_busy_s"], float):
+                split["device_busy_ms_per_step"] = (
+                    split["device_busy_s"] * 1e3 / DATA_K)
+            out[label]["profile"] = split
+        tr._graphs.clear()
+    return out
+
+
+def data_resnet(dev) -> dict:
+    """ResNet-50 224, b 64, K = 4, fp32 through ``fit()`` with
+    ``loader="python"`` and ``loader="native"``, on seeded uint8 images in
+    memory and as raw shards (``write_sharded_dataset`` under
+    DATA_DIR): end-to-end samples/s of the second epoch and of its
+    steady state (after the prefetch's fill: the median interval between
+    chunks' ends), the loader's host ms a batch timed alone, and
+    device-busy ms a step and idle share of the third epoch under the
+    profiler (and of the steady state: busy over the median interval)."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import (
+        NativeLoader,
+        ShardedImageDataset,
+        write_sharded_dataset,
+    )
+
+    c = DATA_RESNET
+    batch, steps = c["batch"], c["steps"]
+    train, val = model_sets("imagenet", batch, steps, c["val_batches"])
+    root = write_sharded_dataset(f"{DATA_DIR}/shards",
+                                 [(train.data, train.targets)],
+                                 samples_per_shard=4 * batch)
+    sources = {"memory": train,
+               "shards": ShardedImageDataset(root, transform=train.transform)}
+    runs = []
+    for source, train_set in sources.items():
+        for loader in ("python", "native"):
+            what = f"data resnet50 {source} {loader}"
+            trainer = mt.Trainer(
+                mt.init_model("resnet50", seed=SEED, device=dev),
+                datasets=(train_set, val), epochs=c["epochs"],
+                batch_size=batch, metric="accuracy", seed=SEED, device=dev,
+                model_dir=f"{DATA_DIR}/resnet50", loader=loader,
+                steps_per_execution=DATA_K, **SGD_02)
+            if isinstance(trainer.train_loader, NativeLoader) != (
+                    loader == "native"):
+                raise AssertionError(f"{what}: {trainer.train_loader}")
+            clock = _epoch_clock(trainer, profile_epoch=c["epochs"])
+            rec = _data_fit(what, trainer)
+            # The loader alone, over one epoch, on the host.
+            trainer.train_loader.set_epoch(0)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in trainer.train_loader)
+            host_ms = (time.perf_counter() - t0) * 1e3 / n
+            prof = clock["profile"]
+            chunk_ms = float(np.median(clock["chunk_ms"][1]))
+            steady = {"chunk_ms": chunk_ms,
+                      "samples_per_s": DATA_K * batch * 1e3 / chunk_ms}
+            if isinstance(prof["device_busy_s"], float):
+                busy = prof["device_busy_s"] * 1e3 / steps
+                prof["device_busy_ms_per_step"] = busy
+                steady["device_idle_share"] = 1.0 - busy * DATA_K / chunk_ms
+            runs.append(dict(
+                source=source, loader=loader, **rec,
+                epoch_s=clock["epoch_s"],
+                samples_per_s=steps * batch / clock["epoch_s"][1],
+                steady=steady, chunk_ms=clock["chunk_ms"][1],
+                loader_host_ms_per_batch=host_ms, profiled_epoch=prof))
+            log(f"data resnet50 {source} {loader}: "
+                f"{runs[-1]['samples_per_s']:.1f} samples/s "
+                f"({steady['samples_per_s']:.1f} steady), loader "
+                f"{host_ms:.1f} ms a batch, idle "
+                f"{prof.get('device_idle_share')} "
+                f"({steady.get('device_idle_share')} steady)")
+            del trainer
+            torch.cuda.empty_cache()
+    shutil.rmtree(f"{DATA_DIR}/shards")
+    shutil.rmtree(f"{DATA_DIR}/resnet50", ignore_errors=True)
+    return dict(config=dict(model="resnet50", batch=batch, steps=steps,
+                            epochs=c["epochs"], k=DATA_K,
+                            images=int(len(train))), runs=runs)
+
+
+def packed_lm_sets(steps: int, val_batches: int, batch: int, seq_len: int):
+    """``examples/04_gpt2_pretrain.py``'s data: the fixture byte-level
+    BPE's encoding of synthetic text, packed into [seq_len] blocks
+    (``PackedLMDataset``; validation from the stream's tail)."""
+    import numpy as np
+
+    from ml_trainer_tpu_torch.data import PackedLMDataset
+    from ml_trainer_tpu_torch.data.tokenizers import (
+        fixture_vocab_dir,
+        load_tokenizer,
+    )
+
+    tok = load_tokenizer(fixture_vocab_dir(), prefer="bpe")
+    n, n_val = steps * batch, val_batches * batch
+    need = (n + n_val) * seq_len + 2
+    stream, i = [], 0
+    while len(stream) < need:
+        stream.extend(tok.encode(
+            f"training step {i}: the tiny gpt model fits the mesh "
+            "and the loss goes down. "))
+        i += 1
+    stream = np.asarray(stream[:need], np.int32)
+    split = n * seq_len + 1
+    return (PackedLMDataset(stream[:split], seq_len),
+            PackedLMDataset(stream[split - 1:], seq_len)), tok.vocab_size
+
+
+def _step_grads(model, fn) -> tuple:
+    """The loss ``fn()`` and every parameter's gradient of it, and the
+    bytes the forward and backward allocated at their peak above what
+    was allocated before."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = fn()
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads, peak
+
+
+def chunked_head_check(dev, x, y) -> dict:
+    """The chunked LM loss against the dense head in float32 on the card:
+    the function alone at [8, 1024, 768] x [50257, 768] (loss, d hidden,
+    d embedding), then GPT-2 124M's loss and every gradient on one
+    microbatch, each within CHUNK_LOSS_RTOL / CHUNK_GRAD_RTOL.  Returns
+    the float32 dense gradients (the bf16 check's reference)."""
+    import torch
+    import torch.nn.functional as F
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.ops.losses import chunked_lm_cross_entropy
+
+    c = TRAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h = torch.randn(c["batch_size"], c["seq_len"], 768, device=dev,
+                    generator=gen)
+    emb = 0.02 * torch.randn(c["vocab_size"], 768, device=dev, generator=gen)
+    t = torch.randint(0, c["vocab_size"], (c["batch_size"], c["seq_len"]),
+                      device=dev, generator=gen)
+    out = {}
+    for name in ("chunked", "dense"):
+        hh = h.clone().requires_grad_()
+        ee = emb.clone().requires_grad_()
+        loss = (chunked_lm_cross_entropy(hh, ee, t, DATA_GPT2["loss_chunk"])
+                if name == "chunked" else
+                F.cross_entropy((hh @ ee.T).reshape(-1, c["vocab_size"]),
+                                t.reshape(-1)))
+        loss.backward()
+        out[name] = (loss.item(), hh.grad, ee.grad)
+        del hh, ee, loss
+    (lc, hc, ec), (ld, hd, ed) = out["chunked"], out["dense"]
+    fn = dict(loss_rel=abs(lc - ld) / abs(ld),
+              d_hidden=((hc - hd).abs().max() / hd.abs().max()).item(),
+              d_embedding=((ec - ed).abs().max() / ed.abs().max()).item())
+    del out, hc, hd, ec, ed, h, emb
+    if not (fn["loss_rel"] <= CHUNK_LOSS_RTOL
+            and max(fn["d_hidden"], fn["d_embedding"]) <= CHUNK_GRAD_RTOL):
+        raise AssertionError(f"chunked vs dense head, float32: {fn}")
+    model = mt.init_model("gpt2", seed=SEED, device=dev,
+                          loss_chunk=DATA_GPT2["loss_chunk"])
+    lc, gc, _ = _step_grads(model, lambda: model(x, targets=y))
+    ld, gd, _ = _step_grads(model, lambda: F.cross_entropy(
+        model(x).reshape(-1, c["vocab_size"]), y.reshape(-1).long()))
+    worst, worst_name = _worst_leaf(gc, gd)
+    step = dict(loss_chunked=lc, loss_dense=ld,
+                loss_rel=abs(lc - ld) / abs(ld), worst_grad_ratio=worst,
+                worst_grad_param=worst_name)
+    if not (step["loss_rel"] <= CHUNK_LOSS_RTOL and worst <= CHUNK_GRAD_RTOL):
+        raise AssertionError(f"chunked vs dense GPT-2 step, float32: {step}")
+    del model, gc
+    torch.cuda.empty_cache()
+    return dict(function=fn, step=step), gd
+
+
+def data_gpt2(dev) -> dict:
+    """GPT-2 124M bf16, [8, 1024] in 4 microbatches, K = 4, on
+    ``PackedLMDataset`` blocks: the float32 checks of
+    ``chunked_head_check``; the bf16 chunked gradients of one microbatch
+    against the float32 dense ones (no farther than the bf16 dense
+    gradients are); ``fit()`` with ``loss_chunk`` at K = 4 and K = 1
+    (bitwise, as the graphs phase holds it) and the dense head at K = 4,
+    each with exact K1-K3 launches and its peak memory; then ms a step of
+    the two K = 4 graphs (dense, chunked, chunked, dense)."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    c, g = TRAIN, DATA_GPT2
+    batch, seq = c["batch_size"], c["seq_len"]
+    (train, val), tok_vocab = packed_lm_sets(g["steps"], g["val_batches"],
+                                             batch, seq)
+    vocab = max(c["vocab_size"], tok_vocab)  # examples/04's rule
+    x, y = next(iter(prefetch_to_device(
+        mt.Loader(train, batch // c["accum"]), size=1, device=dev)))
+    checks, ref = chunked_head_check(dev, x, y)
+    launches = dict(depth=12, micro=g["steps"] * c["accum"],
+                    val=g["val_batches"])
+
+    def make(label, k, chunk):
+        return mt.Trainer(
+            mt.init_model("gpt2", seed=SEED, device=dev, vocab_size=vocab,
+                          loss_chunk=chunk),
+            datasets=(train, val), epochs=1, batch_size=batch, metric=None,
+            seed=SEED, device=dev, precision="bf16",
+            model_dir=f"{DATA_DIR}/{label}", steps_per_execution=k,
+            **GPT2_OPT)
+
+    runs, trainers = {}, {}
+    for label, k, chunk in (("chunked", DATA_K, g["loss_chunk"]),
+                            ("chunked_k1", 1, g["loss_chunk"]),
+                            ("dense", DATA_K, 0)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = make(label, k, chunk)
+        if label == "chunked":
+            # One microbatch through the trainer's bf16 loss function, the
+            # chunked head and the dense head.
+            if not tr._takes_targets:
+                raise AssertionError("loss_chunk model not self-loss")
+            lc, gc, pc = _step_grads(tr.model,
+                                     lambda: tr._forward_loss(x, y)[0])
+            tr._takes_targets = False
+            ld, gd, pd = _step_grads(tr.model,
+                                     lambda: tr._forward_loss(x, y)[0])
+            tr._takes_targets = True
+            d_chunk, n_chunk = _worst_leaf(gc, ref)
+            d_dense, n_dense = _worst_leaf(gd, ref)
+            bar = max(BF16_GRAD_RTOL, BF16_NOISE_FACTOR * d_dense)
+            checks["bf16_step"] = dict(
+                loss_chunked=lc, loss_dense=ld,
+                loss_rel=abs(lc - ld) / abs(ld),
+                chunked_vs_fp32=d_chunk, chunked_vs_fp32_param=n_chunk,
+                dense_vs_fp32=d_dense, dense_vs_fp32_param=n_dense,
+                chunked_vs_dense=_worst_leaf(gc, gd)[0], grad_bar=bar,
+                microbatch_peak_bytes=dict(chunked=pc, dense=pd))
+            del gc, gd
+            if not (abs(lc - ld) <= CHUNK_LOSS_RTOL * abs(ld)
+                    and d_chunk <= bar):
+                raise AssertionError(f"chunked vs dense GPT-2 step, bf16: "
+                                     f"{checks['bf16_step']}")
+            torch.cuda.reset_peak_memory_stats()
+        rec = _data_fit(f"data gpt2 {label}", tr, **launches)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        rec["loss_scale"] = loss_scale_record(tr)
+        runs[label] = rec
+        if label == "chunked_k1":
+            first, worst_name, dist = _leaf_distance(
+                _named_state(tr), _named_state(trainers["chunked"]))
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+                trainers["chunked"].history["train_loss"]
+                + trainers["chunked"].history["val_loss"],
+                tr.history["train_loss"] + tr.history["val_loss"]))
+            runs["k4_vs_k1"] = dict(bitwise=first is None, first_leaf=first,
+                                    worst_leaf=worst_name, distance=dist,
+                                    loss_rel=loss_rel)
+            if first is not None or loss_rel > GRAPH_LOSS_RTOL:
+                raise AssertionError(f"gpt2 loss_chunk K = 4 vs K = 1: "
+                                     f"{runs['k4_vs_k1']}")
+            del tr
+            torch.cuda.empty_cache()
+        else:
+            trainers[label] = tr
+    timed = _graph_step_ms({k: trainers[k] for k in ("dense", "chunked")},
+                           profile=True)
+    runs["step_ms"] = {k: v["step_ms"] for k, v in timed.items()}
+    for k, v in timed.items():
+        runs[k]["profile"] = v["profile"]
+    del ref, trainers
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(config=dict(model="gpt2", precision="bf16", batch=batch,
+                            seq_len=seq, accum=c["accum"], k=DATA_K,
+                            steps=g["steps"], loss_chunk=g["loss_chunk"],
+                            vocab=vocab, tokenizer_vocab=tok_vocab,
+                            blocks=len(train)),
+                checks=checks, runs=runs)
+
+
+def wordpiece_sets(steps: int, val_batches: int, batch: int, seq_len: int):
+    """SST-2-shaped (sentence, label) pairs of seeded synthetic sentences
+    through the fixture WordPiece (``TokenizedDataset.from_texts``):
+    [CLS] ... [SEP] then [PAD] (id 0) to ``seq_len``."""
+    import numpy as np
+
+    from ml_trainer_tpu_torch.data import TokenizedDataset
+    from ml_trainer_tpu_torch.data.tokenizers import fixture_vocab_dir
+
+    words = ("the fox sat on them and you like it over the training "
+             "ended for quick jumping loader tiny model mesh").split()
+    rng = np.random.default_rng(SEED)
+
+    def make(n):
+        texts = [" ".join(rng.choice(words, size=int(rng.integers(3, 70))))
+                 for _ in range(n)]
+        labels = rng.integers(0, BERT_DATA["classes"], size=n)
+        return TokenizedDataset.from_texts(
+            texts, labels, max_len=seq_len, vocab_dir=fixture_vocab_dir(),
+            tokenizer="wordpiece", vocab_size=BERT_DATA["vocab_size"])
+
+    return make(steps * batch), make(val_batches * batch)
+
+
+def data_bert(dev) -> dict:
+    """BERT-base bf16 (right_padded: K1-K3 on the non-causal kv_lens
+    path), 32 x 128, K = 4 on WordPiece data: exact launches and ms a
+    step of the graph."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    c = DATA_BERT
+    batch, seq = c["batch"], BERT_DATA["seq_len"]
+    train, val = wordpiece_sets(c["steps"], c["val_batches"], batch, seq)
+    lens = (train.data != 0).sum(axis=1)
+    tr = mt.Trainer(
+        mt.init_model("bert_base", seed=SEED, device=dev, right_padded=True),
+        datasets=(train, val), epochs=1, batch_size=batch,
+        metric="accuracy", seed=SEED, device=dev,
+        model_dir=f"{DATA_DIR}/bert", steps_per_execution=DATA_K,
+        **dict(BERT_05, precision="bf16"))
+    rec = _data_fit("data bert", tr, depth=12, micro=c["steps"],
+                    val=c["val_batches"])
+    rec["step_ms"] = _graph_step_ms({"bert": tr})["bert"]["step_ms"]
+    del tr
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(config=dict(model="bert_base", precision="bf16", batch=batch,
+                            seq_len=seq, k=DATA_K, steps=c["steps"],
+                            token_lens=[int(lens.min()), int(lens.max()),
+                                        float(np.mean(lens))]), **rec)
+
+
+def data(dev) -> dict:
+    """Phase 10: ``native_checks``, ``data_resnet``, ``data_gpt2`` and
+    ``data_bert``."""
+    return dict(native=native_checks(dev), resnet50=data_resnet(dev),
+                gpt2=data_gpt2(dev), bert=data_bert(dev))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
-                                 "graphs", "resume"],
+                                 "graphs", "resume", "data"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -4041,7 +4613,18 @@ def main(argv=None) -> int:
                 for kname, n in rec.get(key, {}).get("launches",
                                                      {}).items():
                     launches[kname] = (launches[kname] or 0) + n
-    lap("resume", mark)
+    mark = lap("resume", mark)
+    if args.only in (None, "data"):
+        rec = data(dev)
+        for label in ("native", "resnet50", "gpt2", "bert"):
+            log(f"data {label} on {smi}: " + json.dumps(rec[label]))
+        fits = ([r["launches"] for r in rec["resnet50"]["runs"]]
+                + [r["launches"] for key, r in rec["gpt2"]["runs"].items()
+                   if "launches" in r] + [rec["bert"]["launches"]])
+        for counts in fits:
+            for kname, n in counts.items():
+                launches[kname] = (launches[kname] or 0) + n
+    lap("data", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",

@@ -5,8 +5,11 @@ The JAX package beside it stays the reference; this package imports
 ``SlotDecodeEngine``, ``generate``, ``Trainer``, the model constructors)
 run on the CUDA card unless the caller passes ``device="cpu"``, and raise
 when no card is visible.  The model zoo holds MLModel, ResNet-18/50/101/
-152, ViT, BERT and GPT-2 (``models.available_models()``), with the
-CIFAR-10 input path (``data``, ``custom_pre_process_function``).  The
+152, ViT, BERT and GPT-2 (``models.available_models()``; GPT-2's
+``loss_chunk`` never holds the [B, S, V] logits), with the input paths
+of ``data``: the CIFAR-10 transforms (``custom_pre_process_function``),
+the C++ ``NativeLoader`` (built with ``g++`` at first use), memory-mapped
+image shards, and the BPE/WordPiece tokenizers and text datasets.  The
 TPU's Pallas kernels on the serving, int8 decode and training paths are
 hand-written CUDA kernels here (``csrc/``), built with ``nvcc`` at first
 use; ``launch_counts()`` shows how often each one ran.  Data-parallel

@@ -1,5 +1,7 @@
 """Host-side input pipeline: datasets, batch transforms, the sharded
-sampler, the numpy ``Loader`` and a pinned-memory device prefetch."""
+sampler, the numpy ``Loader``, the C++ ``NativeLoader`` (``native``), the
+memory-mapped shard datasets (``sharded``), the tokenizers and text
+datasets (``tokenizers``, ``text``) and a pinned-memory device prefetch."""
 
 from ml_trainer_tpu_torch.data.datasets import (
     CIFAR10,
@@ -10,7 +12,31 @@ from ml_trainer_tpu_torch.data.datasets import (
     as_dataset,
 )
 from ml_trainer_tpu_torch.data.loader import Loader, prefetch_to_device
+from ml_trainer_tpu_torch.data.native import (
+    NativeLoader,
+    native_available,
+    native_plan,
+)
 from ml_trainer_tpu_torch.data.sampler import ShardedSampler
+from ml_trainer_tpu_torch.data.sharded import (
+    ShardedImageDataset,
+    ShardedJpegDataset,
+    ingest_image_folder,
+    write_sharded_dataset,
+    write_sharded_jpeg_dataset,
+)
+from ml_trainer_tpu_torch.data.text import (
+    PackedLMDataset,
+    TokenizedDataset,
+    load_sst2_tsv,
+    pack_texts,
+    tokenize_texts,
+)
+from ml_trainer_tpu_torch.data.tokenizers import (
+    ByteLevelBPETokenizer,
+    WordPieceTokenizer,
+    load_tokenizer,
+)
 from ml_trainer_tpu_torch.data.transforms import (
     Compose,
     ForeignTransform,
@@ -22,8 +48,13 @@ from ml_trainer_tpu_torch.data.transforms import (
 )
 
 __all__ = [
-    "CIFAR10", "ArrayDataset", "Compose", "Dataset", "ForeignTransform",
-    "Loader", "Normalize", "RandomCrop", "RandomHorizontalFlip",
-    "ShardedSampler", "SyntheticCIFAR10", "SyntheticTokens", "ToFloat",
-    "Transform", "as_dataset", "prefetch_to_device",
+    "CIFAR10", "ArrayDataset", "ByteLevelBPETokenizer", "Compose",
+    "Dataset", "ForeignTransform", "Loader", "NativeLoader", "Normalize",
+    "PackedLMDataset", "RandomCrop", "RandomHorizontalFlip",
+    "ShardedImageDataset", "ShardedJpegDataset", "ShardedSampler",
+    "SyntheticCIFAR10", "SyntheticTokens", "ToFloat", "TokenizedDataset",
+    "Transform", "WordPieceTokenizer", "as_dataset", "ingest_image_folder",
+    "load_sst2_tsv", "load_tokenizer", "native_available", "native_plan",
+    "pack_texts", "prefetch_to_device", "tokenize_texts",
+    "write_sharded_dataset", "write_sharded_jpeg_dataset",
 ]

@@ -13,7 +13,11 @@ the position embeddings (clipped at ``max_len``, like the reference's
 ``mode="clip"`` take).  Given the "quant" collection
 (``ops.kernels.quantize_tree``), ``forward`` runs the four projections of
 every block as int8 matmuls, with or without a cache: the JAX package's
-``model.clone(quant_int8=True)`` with its "quant" variables.
+``model.clone(quant_int8=True)`` with its "quant" variables.  With
+``loss_chunk`` > 0, ``forward(input_ids, targets=...)`` returns the mean
+LM loss through the same tied head without ever holding the [B, S, V]
+logits (``ops.losses.chunked_lm_cross_entropy``); the Trainer then feeds
+the labels through the forward.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ml_trainer_tpu_torch.models.layers import (
     compute_dtype,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
+from ml_trainer_tpu_torch.ops.losses import chunked_lm_cross_entropy
 
 
 class GPT2(nn.Module):
@@ -46,11 +51,6 @@ class GPT2(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         _refuse_unported(dropout_rate, moe_experts, lora_rank)
-        if loss_chunk:
-            # The chunked LM head (ops.losses.chunked_lm_cross_entropy).
-            raise NotImplementedError(
-                f"loss_chunk={loss_chunk!r} is not ported yet; see "
-                "ROADMAP.md Queue A")
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.max_len = max_len
@@ -61,6 +61,8 @@ class GPT2(nn.Module):
         # 'auto' | 'xla' | 'flash' for the full (prefill) attention; the
         # plain path is 'xla' (the JAX package's name).
         self.attention_impl = attention_impl
+        # > 0: with targets, the chunked LM loss (a divisor of S).
+        self.loss_chunk = int(loss_chunk)
         self.dtype = dtype
         cdt = compute_dtype(dtype)
         self.tok_embed = nn.Embedding(vocab_size, embed_dim, device=device)
@@ -91,8 +93,18 @@ class GPT2(nn.Module):
         rows = pos_start[:, None] + torch.arange(s, device=x.device)[None, :]
         return _cast(x + pos[torch.clamp(rows, 0, self.max_len - 1)], cdt)
 
-    def _tied_head(self, x):
+    def _tied_head(self, x, targets=None):
+        """Final LayerNorm, then the weight-tied head's float32 logits, or
+        with ``targets`` the chunked LM loss through the same weights."""
         x = self.ln_final(x)
+        if targets is not None:
+            if not self.loss_chunk:
+                raise ValueError(
+                    "targets requires loss_chunk > 0 (set loss_chunk to a "
+                    "divisor of the sequence length to enable the chunked "
+                    "LM loss)")
+            return chunked_lm_cross_entropy(x, self.tok_embed.weight,
+                                            targets, self.loss_chunk)
         return x.float() @ self.tok_embed.weight.float().T
 
     def _cache_dtype(self) -> torch.dtype:
@@ -114,12 +126,14 @@ class GPT2(nn.Module):
             dtype=self._cache_dtype(), device=self.device)
 
     def forward(self, input_ids, cache=None, select=None, quant=None,
-                quant_impl: str = "auto"):
+                quant_impl: str = "auto", targets=None):
         """Logits [B, S, V]; with ``select`` ([B] position per row) only
-        those rows' logits [B, V].  With a cache, the call writes its K/V
-        there and advances the cache's positions by S.  With ``quant``
-        the projections are int8 (``quant_impl``: "auto" or "reference",
-        see ``ops.kernels.int8_matmul``); the embeddings and the tied head
+        those rows' logits [B, V]; with ``targets`` ([B, S] next-token
+        labels; needs ``loss_chunk``) the mean LM loss instead.  With a
+        cache, the call writes its K/V there and advances the cache's
+        positions by S.  With ``quant`` the projections are int8
+        (``quant_impl``: "auto" or "reference", see
+        ``ops.kernels.int8_matmul``); the embeddings and the tied head
         stay fp32."""
         if cache is None:
             x = self._embed_input(input_ids)
@@ -132,6 +146,8 @@ class GPT2(nn.Module):
                       quant_impl=quant_impl)
         if cache is not None:
             cache.advance(input_ids.shape[1])
+        if targets is not None:
+            return self._tied_head(x, targets)
         if select is not None:
             x = x[torch.arange(x.shape[0], device=x.device), select][:, None]
             return self._tied_head(x)[:, 0]

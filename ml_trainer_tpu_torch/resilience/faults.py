@@ -10,10 +10,12 @@
 * ``ckpt_truncate`` — checkpoint writer: the checkpoint of the matching
                       epoch has its largest leaf file truncated after
                       the commit rename, a corruption only the CRC32
-                      check catches.
+                      check catches;
+* ``decode_error``  — ``NativeLoader``: the matching epoch counts one
+                      more failed JPEG decode, so it raises at its end
+                      as a corrupt stream makes it.
 
-The JAX package's other kinds (``decode_wedge``, ``decode_error``,
-``host_kill``, ``host_hang`` and the serving fleet's) have no hook here:
+The JAX package's other kinds (``decode_wedge``, ``host_kill``, ``host_hang`` and the serving fleet's) have no hook here:
 a plan that names one raises ``NotImplementedError`` when it is parsed,
 so no fault is accepted and then never fired.
 
@@ -40,11 +42,10 @@ from typing import List, Optional
 
 ENV_VAR = "ML_TRAINER_TPU_FAULTS"
 
-KINDS = ("nan_grad", "preempt", "ckpt_truncate")
+KINDS = ("nan_grad", "preempt", "ckpt_truncate", "decode_error")
 # The JAX package's kinds that have no hook in the port.
-UNPORTED_KINDS = ("decode_wedge", "decode_error", "host_kill", "host_hang",
-                  "replica_kill", "replica_slow", "healthz_flap",
-                  "migration_corrupt")
+UNPORTED_KINDS = ("decode_wedge", "host_kill", "host_hang", "replica_kill",
+                  "replica_slow", "healthz_flap", "migration_corrupt")
 
 
 @dataclass

@@ -66,6 +66,15 @@ cut from its own rows.
   each one launch per replica over that replica's whole list of leaves,
   and stays bitwise the unfused chain's on the CPU.
 
+The loaders are the C++ ``NativeLoader`` (``data/native.py``) where
+``loader`` asks for it, or where it is 'auto' and ``native_plan`` takes
+the dataset (uint8 images with the reference augmentation), the library
+builds and the batches split evenly; else the Python ``Loader``.  A
+model that computes its own loss (GPT-2 with ``loss_chunk``: the chunked
+LM head, which never holds the [B, S, V] logits) gets the labels through
+its forward (``targets=``) in every step and evaluation, and returns the
+loss; it needs ``metric=None`` and no ``label_smoothing``.
+
 The model runs on the CUDA card unless ``device="cpu"`` (or a CPU
 ``backend``) is asked for.  A model named from the registry is built by
 ``init_model``'s seeded initializer (at the policy's compute dtype); an
@@ -121,6 +130,11 @@ from ml_trainer_tpu_torch.checkpoint import (
 from ml_trainer_tpu_torch.config import TrainerConfig, validate_kwargs
 from ml_trainer_tpu_torch.convert import init_model
 from ml_trainer_tpu_torch.data import Loader, prefetch_to_device
+from ml_trainer_tpu_torch.data.native import (
+    NativeLoader,
+    native_available,
+    native_plan,
+)
 from ml_trainer_tpu_torch.device import resolve_device
 from ml_trainer_tpu_torch.models.layers import BatchNorm
 from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
@@ -225,6 +239,20 @@ def _state_tensors(state: TrainState) -> list:
                     state.good_steps) if t is not None]
 
 
+def _module_takes_targets(module) -> bool:
+    """Whether ``module`` computes its own loss: its forward accepts
+    ``targets`` and it carries an active ``loss_chunk`` (GPT-2 with
+    ``loss_chunk`` > 0).  The Trainer then feeds the labels through the
+    forward instead of applying the criterion to returned logits."""
+    import inspect
+
+    try:
+        params = inspect.signature(module.forward).parameters
+    except (TypeError, ValueError, AttributeError):
+        return False
+    return "targets" in params and bool(getattr(module, "loss_chunk", 0))
+
+
 def _refuse(knob: str, value, accepted) -> None:
     if value not in accepted:
         raise NotImplementedError(
@@ -317,7 +345,12 @@ class Trainer:
         ``precision`` (None | 'fp32' | 'bf16' | a ``Precision``),
         ``loss_scale`` ('dynamic' | a float | a ``LossScaleConfig`` |
         None; it acts only with bf16, and needs ``nonfinite_guard``),
-        ``loader`` ('auto' and 'python' both take the Python ``Loader``),
+        ``loader`` ('auto' | 'native' | 'python': 'auto' takes the C++
+        ``NativeLoader`` where ``data.native_plan`` accepts the dataset,
+        the library builds and the batches split evenly, as the JAX
+        package's 'auto' does), a model that computes its own loss (GPT-2
+        with ``loss_chunk``: the labels go through the forward, ``metric``
+        must be None and ``label_smoothing`` 0),
         ``steps_per_execution`` (K optimizer steps a dispatch: on the
         card one CUDA graph replay a chunk of K batches), data
         parallelism: ``is_parallel``, ``mesh_shape`` (the data
@@ -339,8 +372,8 @@ class Trainer:
         ``desync_every_steps`` as set (``_warn_inert_knobs``).
         Refused unless at their defaults: ``sharding_rules``,
         ``ema_decay``, ``telemetry``, ``elastic``, ``lora``,
-        ``pipeline_schedule``, ``sharded_checkpoint=True`` and
-        ``loader='native'``; so are mesh axes other than ``data`` and
+        ``pipeline_schedule`` and ``sharded_checkpoint=True``; so are
+        mesh axes other than ``data`` and
         replicas on distinct devices.
         """
         logger.info("Config inputs.", config=config)
@@ -389,9 +422,12 @@ class Trainer:
             ("lora", lora, (None,)),
             ("pipeline_schedule", pipeline_schedule, (None,)),
             ("sharded_checkpoint", sharded_checkpoint, (None, False)),
-            ("loader", loader, ("auto", "python")),
         ):
             _refuse(knob, value, accepted)
+        if loader not in ("auto", "native", "python"):
+            raise ValueError(
+                f"loader must be 'auto' | 'native' | 'python', got {loader!r}")
+        self._loader_kind = loader
         if grad_accum_steps < 1:
             raise ValueError(
                 f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -530,8 +566,14 @@ class Trainer:
                 "fused global-batch stats); use the fused step for "
                 "BatchNorm models")
         self.model = model
+        self._takes_targets = _module_takes_targets(model)
         logger.info(f"Training on device: {self.device}.")
 
+        if label_smoothing and self._takes_targets:
+            raise ValueError(
+                "label_smoothing is not supported for models that "
+                "compute their own loss (the chunked LM head applies "
+                "plain cross entropy inside the forward)")
         self.criterion = get_criterion(cfg.criterion,
                                        label_smoothing=label_smoothing)
         self.pred_function = get_prediction_function(cfg.pred_function)
@@ -540,6 +582,11 @@ class Trainer:
         self._metric_finalize = (
             (lambda v: float(fin(torch.tensor(v)))) if fin is not None
             else (lambda v: v))
+        if self._takes_targets and self.metric_fn is not None:
+            raise ValueError(
+                "metric must be None for models that compute their own "
+                "loss (the forward returns a scalar, not logits to score); "
+                f"got metric={cfg.metric!r}")
 
         self.state: Optional[TrainState] = None
         self.train_loader: Optional[Loader] = None
@@ -590,15 +637,41 @@ class Trainer:
                 f"across {d} data-parallel microbatches.")
         drop_last = d > 1  # equal microbatches
         self.global_batch = eff
-        self.train_loader = Loader(train_set, batch_size=eff, shuffle=True,
-                                   drop_last=drop_last, seed=cfg.seed)
-        self.val_loader = Loader(val_set, batch_size=eff, shuffle=True,
-                                 drop_last=drop_last, seed=cfg.seed + 1)
+        self.train_loader = self._make_loader(train_set, eff, drop_last,
+                                              cfg.seed)
+        self.val_loader = self._make_loader(val_set, eff, drop_last,
+                                            cfg.seed + 1)
         if len(self.train_loader) == 0 or len(self.val_loader) == 0:
             raise ValueError(
                 f"Loader yields no batches (train {len(self.train_loader)}, "
                 f"val {len(self.val_loader)}): dataset smaller than the "
                 f"batch {eff} with drop_last={drop_last}.")
+
+    def _make_loader(self, dataset, batch: int, drop_last: bool, seed: int):
+        """A shuffled loader of ``dataset``: the C++ ``NativeLoader`` for
+        ``loader='native'``, and for 'auto' where ``native_plan`` takes
+        the dataset, the library builds and the batches split evenly (a
+        ragged tail would be wrapped, not short: 'auto' never changes
+        the batches' count or size); else the Python ``Loader``."""
+        plan = None
+        if self._loader_kind in ("auto", "native"):
+            plan = native_plan(dataset)
+            if plan is not None and not native_available():
+                plan = None
+            if (plan is not None and self._loader_kind == "auto"
+                    and not drop_last and len(dataset) % batch != 0):
+                plan = None
+            if self._loader_kind == "native" and plan is None:
+                raise ValueError(
+                    "loader='native' requires a uint8 NHWC ArrayDataset "
+                    "with the reference augmentation pipeline (and a "
+                    "working g++); got an unsupported dataset/transform")
+        if plan is not None:
+            logger.info("Using the native (C++) input pipeline.")
+            return NativeLoader(dataset, batch_size=batch, shuffle=True,
+                                drop_last=drop_last, seed=seed, **plan)
+        return Loader(dataset, batch_size=batch, shuffle=True,
+                      drop_last=drop_last, seed=seed)
 
     # ----------------------------------------------------------------- state
     def _params(self) -> dict:
@@ -645,19 +718,25 @@ class Trainer:
                 f"{self._bucket_plan.overlap_fraction:.2f}).")
 
     # ------------------------------------------------------------- the step
-    def _apply_model(self, model: nn.Module, x):
-        """``model(x)``; under an active policy, on compute-dtype copies
-        of its parameters (buffers as they are) and a floating ``x`` cast
+    def _apply_model(self, model: nn.Module, x, targets=None):
+        """``model(x)`` (with ``targets`` for a model that computes its
+        own loss); under an active policy, on compute-dtype copies of its
+        parameters (buffers as they are) and a floating ``x`` cast
         likewise, the output cast back to float32."""
+        kwargs = {} if targets is None else {"targets": targets}
         dt = self._compute_dtype
         if dt is None:
-            return model(x)
+            return model(x, **kwargs)
         params = cast_floating(dict(model.named_parameters()), dt)
         return torch.func.functional_call(
-            model, params, (cast_floating(x, dt),)).float()
+            model, params, (cast_floating(x, dt),), kwargs).float()
 
     def _forward_loss(self, x, y):
         """Loss and metric of one microbatch, the graph kept for backward."""
+        if self._takes_targets:
+            # The forward returns the loss; there are no logits to score.
+            loss = self._apply_model(self.model, x, targets=y)
+            return loss, torch.zeros((), device=loss.device)
         out = self._apply_model(self.model, x)
         loss = self.criterion(out, y)
         with torch.no_grad():
@@ -1002,11 +1081,18 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, model, x, y):
+        if self._computes_own_loss(model):
+            loss = self._apply_model(model, x, targets=y)
+            return loss, torch.zeros((), device=loss.device)
         out = self._apply_model(model, x)
         loss = self.criterion(out, y)
         metric = (self.metric_fn(out, y) if self.metric_fn is not None
                   else torch.zeros((), device=loss.device))
         return loss, metric
+
+    def _computes_own_loss(self, model) -> bool:
+        return (self._takes_targets if model is self.model
+                else _module_takes_targets(model))
 
     # ------------------------------------------------------------------ loops
     def _postfix_metric(self, metric_sum, seen: int, n: int) -> float:
@@ -1154,6 +1240,12 @@ class Trainer:
         """Mean loss and metric of ``model`` over ``loader``, batch by
         batch, or through ``dispatches`` (the validation's chunks)."""
         n = len(loader)
+        if self._computes_own_loss(model) and self.metric_fn is not None:
+            # The constructor's guard covers only the trainer's own model;
+            # a made-up 0.0 metric must not pass for a measurement.
+            raise ValueError(
+                "metric must be None when evaluating a model that computes "
+                "its own loss (its forward returns a scalar, not logits)")
         model.eval()
         if dispatches is None:
             dispatches = ((*self._eval_step(model, x, y), 1)

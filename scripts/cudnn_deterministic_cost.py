@@ -120,7 +120,7 @@ def main() -> int:
             mt.init_model(name, seed=cs.SEED, device=dev, **model_kw),
             datasets=cs.model_sets(data, batch, K), epochs=1,
             batch_size=batch, steps_per_execution=K, model_dir=run_dir,
-            seed=cs.SEED, device=dev, **cs.SGD_02)
+            seed=cs.SEED, device=dev, loader="python", **cs.SGD_02)
         xs, ys = next(iter(prefetch_to_device(
             _chunk_batches(trainer.train_loader, K, []), size=1,
             device=dev)))

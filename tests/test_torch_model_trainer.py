@@ -78,7 +78,7 @@ def _run_pair(j_model, port_name, j_sets, t_sets, tmp_path, port_kw=None,
     else:
         model = port_name
     model.load_state_dict(mt.params_from_jax(_variables(jtr)))
-    ttr = mt.Trainer(model, datasets=t_sets, device="cpu",
+    ttr = mt.Trainer(model, datasets=t_sets, device="cpu", loader="python",
                      model_dir=str(tmp_path / "t"), **kw)
     jtr.fit()
     ttr.fit()

@@ -80,7 +80,8 @@ NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "data/datasets.py", "utils/functions.py", "convert.py",
                "trainer.py", "train_state.py", "checkpoint/__init__.py",
                "checkpoint/checkpoint.py", "resilience/__init__.py",
-               "resilience/faults.py"]
+               "resilience/faults.py", "data/native.py", "data/sharded.py",
+               "data/text.py", "data/tokenizers.py", "ops/losses.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)

@@ -262,7 +262,8 @@ def _fit_pair(j_model, t_model, j_sets, t_sets, tmp_path, jax_devices=None,
     t_model.load_state_dict(mt.params_from_jax(_host(
         {"params": jtr.state.params})))
     ttr = mt.Trainer(t_model, datasets=t_sets, device=t_device,
-                     model_dir=str(tmp_path / "t"), precision="bf16", **kw)
+                     loader="python", model_dir=str(tmp_path / "t"),
+                     precision="bf16", **kw)
     jtr.fit()
     ttr.fit()
     return jtr, ttr

@@ -83,7 +83,7 @@ def make(model_dir, case="mlmodel", epochs=2, size=64, train_set=None,
         mt.init_model("mlmodel", seed=0, device="cpu"),
         datasets=(train_set or _cifar(size, 0), _cifar(32, 1)),
         epochs=epochs, device=device, model_dir=model_dir,
-        **dict(MLP_KW, **kw))
+        **dict(dict(MLP_KW, loader="python"), **kw))
 
 
 def _leaves(tr) -> dict:

@@ -119,7 +119,7 @@ def test_k3_matches_the_jax_trainer_at_k3(run, tmp_path):
     model = mt.get_model(name, device="cpu", **port_kw)
     model.load_state_dict(mt.params_from_jax(
         _host(jx, {"params": jtr.state.params})))
-    ttr = mt.Trainer(model, datasets=t_sets, device="cpu",
+    ttr = mt.Trainer(model, datasets=t_sets, device="cpu", loader="python",
                      model_dir=str(tmp_path / "t"), **kw)
     jtr.fit()
     ttr.fit()

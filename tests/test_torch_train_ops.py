@@ -161,11 +161,19 @@ def test_loss_factory_errors_match_the_reference():
         tloss.get_criterion("hinge")
     with pytest.raises(ValueError, match="label_smoothing only applies"):
         tloss.get_criterion("l2", 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tloss.chunked_lm_cross_entropy(None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        importlib.import_module("ml_trainer_tpu_torch").get_model(
-            "gpt2_tiny", loss_chunk=128, device="cpu")
+    # The chunked LM loss: S must divide by the chunk, as in the JAX
+    # package; a GPT-2 without loss_chunk refuses targets.
+    with pytest.raises(ValueError, match="not divisible by chunk_size 128"):
+        tloss.chunked_lm_cross_entropy(torch.zeros(1, 100, 4),
+                                       torch.zeros(8, 4),
+                                       torch.zeros(1, 100, dtype=torch.long))
+    mt = importlib.import_module("ml_trainer_tpu_torch")
+    assert mt.get_model("gpt2_tiny", loss_chunk=128,
+                        device="cpu").loss_chunk == 128
+    with pytest.raises(ValueError, match="targets requires loss_chunk > 0"):
+        mt.get_model("gpt2_tiny", device="cpu")(
+            torch.zeros(1, 8, dtype=torch.long),
+            targets=torch.zeros(1, 8, dtype=torch.long))
 
 
 @pytest.mark.parametrize("metric", ["accuracy", "top5_accuracy", "f1",

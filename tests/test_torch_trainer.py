@@ -205,7 +205,6 @@ def test_poisoned_batch_is_skipped_alike(tmp_path):
     ("telemetry", True), ("elastic", 2), ("lora", {"rank": 4}),
     ("pipeline_schedule", "1f1b"), ("mesh_shape", {"sequence": 2}),
     ("mesh_shape", {"stage": 2}), ("sharded_checkpoint", True),
-    ("loader", "native"),
 ])
 def test_unported_knobs_name_the_roadmap(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
