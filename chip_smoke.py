@@ -22,6 +22,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only data     # kernel checks + the native
                                           # loader, image shards, BPE and
                                           # WordPiece data, loss_chunk
+    python3 chip_smoke.py --only llama    # kernel checks + Llama 124.7M
+                                          # (train fp32/bf16 at K = 1 and
+                                          # 4, 2 sharded replicas,
+                                          # generate) + gpt2_medium/large
 
 Phases, one line of output each (or a few):
 
@@ -282,6 +286,23 @@ Phases, one line of output each (or a few):
    encoding of synthetic sentences (``TokenizedDataset.from_texts``):
    exact launches and ms a step.  The JPEG shard path is not run here:
    the card's machine has no PIL to encode the images.
+11. llama (``LLAMA``): ``llama`` at full width (124,668,672 parameters,
+   12 query heads over 4 kv heads) on ``SyntheticTokens`` of 2048 x
+   32000, batch 4, 8 steps, through ``fit()`` at K = 1 and K = 4 (one
+   graph replay a chunk) in float32 with the dense head and in bf16 with
+   ``loss_chunk=256``: K = 4 bitwise K = 1, exact K1-K3 launches (12 a
+   forward and 12 a backward, replays counted), finite losses, the
+   graph's ms a step and tokens/s, each fit's peak memory, and in bf16
+   one step under the per-call check; the bf16 chunked fit on 2 sharded
+   replicas, 4 steps (K4/K5 exact, the K4/K5 tail against the plain one
+   from one state); ``generate()`` in float32 and bf16, [4, 128] prompts
+   (K1 prefills), 64 greedy tokens through the kernels and the plain path
+   (``attention_impl="xla"``: prefill logits within the bar, tokens equal
+   up to a near-tie of the plain logits), the cache at [4, 4, L, 64] and
+   its bytes, a seeded sampled run twice; then one bf16 fit each of
+   ``gpt2_medium`` and ``gpt2_large`` at [4, 1024] (exact launches, ms a
+   step).  The kernel checks hold K1-K3 at ``llama_2048`` [4, 12, 2048,
+   64] causal in both dtypes beside SDPA.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -366,6 +387,9 @@ def bound_ms(nbytes: float, flops: float,
 BERT_LENS = [128, 8, 124, 42, 21, 80, 88, 102, 85, 94, 118, 118, 120, 112,
              95, 119, 9, 11, 104, 60, 98, 66, 117, 15, 89, 8, 25, 108, 43,
              126, 50, 102]
+# Llama's training launch: batch 4 at its max_len 2048, 12 query heads
+# (the 4 kv heads repeated to 12 before the call), d 64.
+LLAMA_CASE = ("llama_2048", 4, 12, 2048, 64, True, None)
 FWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
     ("main", 2, 12, 1024, 64, True, None),  # one training microbatch
     ("serve_128", 1, 12, 128, 64, True, None),  # serving prefill buckets
@@ -377,10 +401,11 @@ FWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
     ("d128", 2, 8, 1024, 128, True, None),
     ("bh_over_65535", 5467, 12, 64, 64, True, None),  # B*H = 65,604
     ("bert", 32, 12, 128, 64, False, BERT_LENS),
+    LLAMA_CASE,
 ]
 # Rows with a bitwise two-call check and profiler device times (K1 and
 # SDPA's fp32 forward): at ~0.1 ms an eager loop is host-bound.
-FWD_PROFILED = ("main", "serve_1024", "bert")
+FWD_PROFILED = ("main", "serve_1024", "bert", "llama_2048")
 # K1's kernel names (float32, bf16), as the profiler lists them.
 FWD_MARKS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_bf16_kernel")}
 
@@ -509,9 +534,10 @@ BWD_CASES = [  # (name, b, h, s, d, causal, kv_lens); the first is the main
      [1024, 700, 1, 513, 64, 1000, 257, 900]),
     ("d128", 2, 8, 1024, 128, True, None),
     ("bert", 32, 12, 128, 64, False, BERT_LENS),
+    LLAMA_CASE,
 ]
 # Rows with a bitwise two-call check and profiler device times.
-BWD_PROFILED = ("main", "bert")
+BWD_PROFILED = ("main", "bert", "llama_2048")
 PADDED_CASE = (2, 4, 1000, 48)  # off-tile S and head_dim
 # K2's and K3's kernel names, as the profiler lists them.
 BWD_MARKS = {"flash_bwd_dq": ("flash_bwd_dq_kernel",
@@ -705,14 +731,15 @@ def check_flash_bwd(dev):
 # K1's bf16 entry point at every FWD_CASES row (the bf16 training
 # launches of GPT-2 124M and BERT-base, the bf16 serving prefills, ...)
 # and a ragged S.
-BF16_CASES = FWD_CASES + [("ragged", 2, 12, 1000, 64, True, None)]
+BF16_CASES = FWD_CASES[:-1] + [("ragged", 2, 12, 1000, 64, True, None),
+                               LLAMA_CASE]
 # K1's bf16 rows whose inputs K2's and K3's bf16 rows of the same name
 # reuse (seeds SEED + 40, 41); K1's other rows take SEED + 70 + i.
 BF16_SHARED = ("main", "bert")
 # K2's and K3's bf16 rows: the float32 rows' coverage (BWD_CASES) and a
-# ragged S; ``bert`` last, as there.
-BF16_BWD_CASES = BWD_CASES[:-1] + [("ragged", 2, 12, 1000, 64, True, None),
-                                   BWD_CASES[-1]]
+# ragged S; ``bert`` and ``llama_2048`` last, as there.
+BF16_BWD_CASES = BWD_CASES[:-2] + [("ragged", 2, 12, 1000, 64, True, None),
+                                   *BWD_CASES[-2:]]
 F32_KERNEL_SLACK = 1e-3  # of max|result|: bf16 K1-K3 vs the float32 kernels
 
 
@@ -4477,11 +4504,313 @@ def data(dev) -> dict:
                 gpt2=data_gpt2(dev), bert=data_bert(dev))
 
 
+# ------------------------------------------------------------- phase 11
+# The Llama family (``models/llama.py``) at the full width of ``llama``
+# (ml_trainer_tpu/models/llama.py:182-256): vocab 32000, 768 wide, 12
+# deep, 12 query heads over 4 kv heads of 64, SwiGLU 2048, an untied
+# float32 head, 124,668,672 parameters; at its max_len 2048, batch 4 in
+# one microbatch: K1 at [4, 12, 2048, 64] causal, K2/K3 beside it, K/V
+# repeated from 4 heads to 12 (autograd sums each group's dK/dV).
+LLAMA = dict(seq_len=2048, vocab_size=32000, batch=4, steps=8,
+             val_batches=1, k=DATA_K)  # _graph_step_ms times DATA_K
+LLAMA_OPT = dict(optimizer="adamw", lr=3e-4, weight_decay=0.01,
+                 grad_clip_norm=1.0)
+LLAMA_RUNS = [  # (label, model kwargs, trainer kwargs)
+    ("fp32_dense", {}, {}),
+    ("bf16_chunked", {"loss_chunk": 256}, {"precision": "bf16"}),
+]
+LLAMA_DP_STEPS = 4  # the 2-replica sharded bf16 fit (K4/K5)
+LLAMA_GEN = dict(batch=4, prompt=128, new_tokens=64, temperature=0.8)
+LLAMA_BF16_LOGITS = 3e-2  # of max|plain logits|: bf16 prefill, kernel vs
+#                           plain (the bf16 policy's CPU bar, Queue C 9)
+LLAMA_DIR = "build/chip_smoke_llama"  # each fit's files; removed after
+# The GPT-2 sizes (Queue A 6.2): one bf16 fit each at S = 1024, batch 4.
+GPT2_SIZES = dict(names=("gpt2_medium", "gpt2_large"), seq_len=1024,
+                  vocab_size=50257, batch=4, steps=4, val_batches=1)
+
+
+def _token_fit(dev, what, name, model_kw, opt, c, k=1):
+    """``Trainer.fit()`` of registry model ``name`` (seeded weights) on
+    ``SyntheticTokens`` of ``c``: exact K1-K3 launches (depth a
+    microbatch, replays counted; validation K1 only), finite losses, no
+    skipped step.  Returns (trainer, record)."""
+    import math
+    import shutil
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    run_dir = f"{LLAMA_DIR}/{what}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sets = tuple(mt.SyntheticTokens(size=c["batch"] * n,
+                                    seq_len=c["seq_len"],
+                                    vocab_size=c["vocab_size"],
+                                    seed=SEED + i)
+                 for i, n in enumerate((c["steps"], c["val_batches"])))
+    t0 = time.perf_counter()
+    model = mt.init_model(name, seed=SEED, device=dev, **model_kw)
+    init_s = time.perf_counter() - t0
+    trainer = mt.Trainer(model, datasets=sets, epochs=1,
+                         batch_size=c["batch"], metric=None,
+                         model_dir=run_dir, seed=SEED, loader="python",
+                         steps_per_execution=k, **opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit_whole(trainer, what)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    hist = trainer.history
+    if not all(math.isfinite(v)
+               for v in hist["train_loss"] + hist["val_loss"]):
+        raise AssertionError(f"{what}: non-finite losses {hist}")
+    if hist["skipped_steps"] != [0]:
+        raise AssertionError(f"{what}: skipped steps "
+                             f"{hist['skipped_steps']}")
+    depth, n = trainer.model.depth, trainer.mesh.size
+    micro = c["steps"] * n * trainer.grad_accum_steps
+    want = {kname: 0 for kname in counts}
+    want.update(flash_fwd=depth * (micro + c["val_batches"]),
+                flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro)
+    if trainer.dp_update == "sharded" and trainer.fused_adam:
+        want.update(unscale_sqsum=n * c["steps"], fused_adam=n * c["steps"])
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return trainer, dict(
+        init_s=init_s, fit_s=fit_s, peak_gb=torch.cuda.max_memory_allocated()
+        / 1e9, launches=counts, step=trainer.state.step,
+        loss_scale=loss_scale_record(trainer),
+        history={key: hist[key] for key in ("train_loss", "val_loss",
+                                            "skipped_steps")})
+
+
+def llama_train(dev, label, model_kw, opt) -> dict:
+    """One ``LLAMA_RUNS`` configuration at K = 1 and K = 4 (one CUDA
+    graph replay a chunk) from the same seeded weights and data: the
+    K = 4 run's parameters and optimizer state bitwise the K = 1 run's,
+    the epoch losses within GRAPH_LOSS_RTOL; then the graph's step ms
+    and tokens/s (``_graph_step_ms``, one replay profiled), and in bf16
+    one step under the per-call check (every K1-K3 call within 2 bf16
+    ulps of float64)."""
+    import torch
+
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    c = LLAMA
+    kw = dict(LLAMA_OPT, **opt)
+    eager, rec_1 = _token_fit(dev, f"llama {label} K=1", "llama", model_kw,
+                              kw, c, k=1)
+    snap_1 = _named_state(eager)
+    params = sum(p.numel() for p in eager.model.parameters())
+    del eager
+    torch.cuda.empty_cache()
+    trainer, rec_k = _token_fit(dev, f"llama {label} K={c['k']}", "llama",
+                                model_kw, kw, c, k=c["k"])
+    first, worst_name, dist = _leaf_distance(_named_state(trainer), snap_1)
+    loss_rel = _history_distance(
+        dict(rec_k["history"], train_metric=[], val_metric=[]),
+        dict(rec_1["history"], train_metric=[], val_metric=[]))
+    if (first is not None or loss_rel > GRAPH_LOSS_RTOL
+            or rec_k["step"] != rec_1["step"]
+            or rec_k["loss_scale"] != rec_1["loss_scale"]):
+        raise AssertionError(
+            f"llama {label}: K = {c['k']} differs from K = 1 (first "
+            f"{first}, worst {worst_name} {dist}, losses {loss_rel})")
+    del snap_1
+    timed = _graph_step_ms({label: trainer}, profile=True)[label]
+    ms = timed["step_ms"]
+    x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
+    depth = trainer.model.depth
+    calls = train_call_check(trainer, x, y, depth)
+    rec = dict(label=label, model="llama", parameters=params,
+               precision=trainer.precision.label(),
+               loss_chunk=trainer.model.loss_chunk, batch=c["batch"],
+               seq_len=c["seq_len"], steps=c["steps"], k=c["k"],
+               same_as_k1=dict(bitwise=True, loss_rel=loss_rel),
+               eager=rec_1, graph=rec_k, graph_step_ms=ms,
+               tokens_per_s=c["batch"] * c["seq_len"] * 1e3 / (sum(ms) / 2),
+               profile_graph=timed["profile"], call_check=calls,
+               launches_total={kn: rec_1["launches"][kn]
+                               + rec_k["launches"][kn]
+                               for kn in rec_1["launches"]})
+    del trainer, x, y
+    torch.cuda.empty_cache()
+    return rec
+
+
+def llama_dp(dev) -> dict:
+    """One bf16 ``loss_chunk`` fit of LLAMA_DP_STEPS steps on 2 replicas
+    sharing the card under ``dp_update="sharded"`` (adam, no decay: the
+    fused tail), K4 = K5 = 2 launches a step; first, from one state and
+    one batch, the sharded step with K4/K5 against the plain tail
+    (``dp_step_check``)."""
+    import torch
+
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    c = dict(LLAMA, steps=LLAMA_DP_STEPS)
+    kw = dict(optimizer="adam", lr=3e-4, weight_decay=0.0,
+              grad_clip_norm=1.0, precision="bf16", is_parallel=True,
+              mesh_shape={"data": 2}, device=[dev] * 2,
+              dp_update="sharded")
+    trainer, rec = _token_fit(dev, "llama dp", "llama", {"loss_chunk": 256},
+                              kw, c)
+    if not (trainer.fused_adam and trainer.mesh.size == 2):
+        raise AssertionError("llama dp: not the sharded step with K4/K5")
+    x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
+    rec["step_check"] = dp_step_check(trainer, None, x, y)
+    del trainer, x, y
+    torch.cuda.empty_cache()
+    return rec
+
+
+def llama_generate(dev, precision) -> dict:
+    """``generate()`` of ``llama`` (seeded weights; ``precision``: None or
+    "bf16") on [4, 128] prompts, 64 greedy tokens through the kernels
+    (K1 for each layer's prefill) and through the plain path
+    (``attention_impl="xla"``), then one seeded sampled run, twice.
+    Gates: the prefill's logits from the kernels within the bar of the
+    plain path's (float32 LOGIT_SLACK, bf16 LLAMA_BF16_LOGITS of their
+    largest); the greedy tokens equal to the plain path's up to each
+    row's first step whose top-2 margin (the plain path's logits, teacher
+    forced) is within max(LOGIT_SLACK, 2 d) of a tie, d the prefill's
+    logit difference; the cache at [4, 4, L, 64] per layer and K/V; K1
+    12 launches a prefill; the sampled runs equal."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    g = LLAMA_GEN
+    model = mt.init_model("llama", seed=SEED, device=dev, precision=precision)
+    model.eval()
+    depth, b, p, n = model.depth, g["batch"], g["prompt"], g["new_tokens"]
+    prompts = np.random.default_rng(SEED + 9).integers(
+        0, model.vocab_size, (b, p))
+    ids = torch.as_tensor(prompts, device=dev)
+    cache = model.new_cache(b, max_len=p + n)
+    shape = tuple(cache.k[0].shape)
+    if shape != (b, model.num_kv_heads, p + n, model.head_dim):
+        raise AssertionError(f"llama cache {shape}")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in cache.k + cache.v)
+    logits, outs, ms = {}, {}, {}
+    launches = {}
+    for impl in ("flash", "xla"):
+        model.attention_impl = impl
+        want = depth if impl == "flash" else 0
+        mt.reset_launch_counts()
+        with torch.no_grad():
+            logits[impl] = model(ids, model.new_cache(b, max_len=p + n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[impl] = mt.generate(model, prompts, n, device=dev)
+        torch.cuda.synchronize()
+        ms[impl] = (time.perf_counter() - t0) * 1e3
+        counts = mt.launch_counts()
+        if counts != dict(dict.fromkeys(counts, 0), flash_fwd=2 * want):
+            raise AssertionError(f"llama generate {impl}: launches {counts}")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    model.attention_impl = "auto"
+    d = (logits["flash"] - logits["xla"]).abs().max().item()
+    peak = logits["xla"].abs().max().item()
+    bar = (LLAMA_BF16_LOGITS * peak if precision else LOGIT_SLACK)
+    if not d <= bar:
+        raise AssertionError(f"llama prefill ({precision}): kernel vs plain "
+                             f"logits {d} > {bar}")
+    # The plain path's margins along its own greedy sequences.
+    model.attention_impl = "xla"
+    with torch.no_grad():
+        replay = model(outs["xla"][:, :-1])[:, p - 1:].float()
+    model.attention_impl = "auto"
+    top2 = replay.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    k_tok = outs["flash"][:, p:].cpu().numpy()
+    x_tok = outs["xla"][:, p:].cpu().numpy()
+    slack = max(LOGIT_SLACK, 2 * d)
+    agree = []
+    for row in range(b):
+        diff = np.nonzero(k_tok[row] != x_tok[row])[0]
+        if diff.size and not margin[row, diff[0]] <= slack:
+            raise AssertionError(
+                f"llama greedy ({precision}) row {row}: the kernels' token "
+                f"{diff[0]} differs where the plain margin is "
+                f"{margin[row, diff[0]]} > {slack}")
+        agree.append(int(diff[0]) if diff.size else n)
+    sampled = [mt.generate(model, prompts, n, temperature=g["temperature"],
+                           rng=SEED, device=dev) for _ in range(2)]
+    if not torch.equal(sampled[0], sampled[1]):
+        raise AssertionError(f"llama sampling ({precision}) does not repeat")
+    if not bool((sampled[0] < model.vocab_size).all()):
+        raise AssertionError("llama sampling: token out of the vocabulary")
+    del model, cache, logits, replay
+    torch.cuda.empty_cache()
+    return dict(precision=precision or "float32", prompts=[b, p],
+                new_tokens=n, cache_shape=list(shape),
+                cache_bytes=cache_bytes, prefill_logit_diff=d,
+                prefill_logit_bar=bar, margin_slack=slack,
+                greedy_tokens_equal_before_divergence=agree,
+                generate_ms=ms, tokens_per_s={
+                    k: b * n * 1e3 / v for k, v in ms.items()},
+                sampled_equal=True, launches=launches)
+
+
+def gpt2_sizes(dev) -> list:
+    """``gpt2_medium`` and ``gpt2_large`` (registrations only, the GPT2
+    module at other widths): one bf16 fit each, exact launches, finite
+    losses; step ms from CUDA events over 2 steps after the fit."""
+    import torch
+
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    out = []
+    c = GPT2_SIZES
+    for name in c["names"]:
+        trainer, rec = _token_fit(dev, f"gpt2 size {name}", name, {},
+                                  dict(LLAMA_OPT, precision="bf16"), c)
+        x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
+        trainer._train_step(x, y, 1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            trainer._train_step(x, y, 1.0)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 2
+        out.append(dict(model=name, parameters=sum(
+            p.numel() for p in trainer.model.parameters()),
+            depth=trainer.model.depth, width=trainer.model.embed_dim,
+            step_ms=ms, tokens_per_s=c["batch"] * c["seq_len"] * 1e3 / ms,
+            **rec))
+        del trainer, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def llama(dev) -> dict:
+    """Phase 11: ``llama_train`` of each ``LLAMA_RUNS`` configuration,
+    ``llama_dp``, ``llama_generate`` in float32 and bf16, and
+    ``gpt2_sizes``."""
+    import shutil
+
+    rec = dict(train=[llama_train(dev, *run) for run in LLAMA_RUNS],
+               dp=llama_dp(dev),
+               generate=[llama_generate(dev, p) for p in (None, "bf16")],
+               gpt2_sizes=gpt2_sizes(dev))
+    shutil.rmtree(LLAMA_DIR, ignore_errors=True)
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
-                                 "graphs", "resume", "data"],
+                                 "graphs", "resume", "data", "llama"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -4624,7 +4953,21 @@ def main(argv=None) -> int:
         for counts in fits:
             for kname, n in counts.items():
                 launches[kname] = (launches[kname] or 0) + n
-    lap("data", mark)
+    mark = lap("data", mark)
+    if args.only in (None, "llama"):
+        rec = llama(dev)
+        runs = ([(f"train {r['label']}", r, r["launches_total"])
+                 for r in rec["train"]]
+                + [("dp bf16", rec["dp"], rec["dp"]["launches"])]
+                + [(f"generate {r['precision']}", r, r["launches"])
+                   for r in rec["generate"]]
+                + [(f"gpt2 size {r['model']}", r, r["launches"])
+                   for r in rec["gpt2_sizes"]])
+        for label, run, counts in runs:
+            log(f"llama {label} on {smi}: " + json.dumps(run))
+            for kname, n in counts.items():
+                launches[kname] = (launches[kname] or 0) + n
+    lap("llama", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",
@@ -4636,6 +4979,14 @@ def main(argv=None) -> int:
             bert_rows[kname] = row
     bert_rows = {k: {key: r.get(key) for key in bert_keys}
                  for k, r in bert_rows.items()}
+    # Llama's training launch, [4, 12, 2048, 64] causal, likewise.
+    llama_rows = {"flash_fwd": next(r for r in flash_rows
+                                    if r["case"] == "llama_2048")}
+    for kname, row in bwd_rows:
+        if row["case"] == "llama_2048":
+            llama_rows[kname] = row
+    llama_rows = {k: {key: r.get(key) for key in bert_keys + ("plain_ms",)}
+                  for k, r in llama_rows.items()}
     # K1-K3's bf16 rows, beside each kernel's entry.
     bf16_keys = ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
                  "library_ms", "library_device_ms", "max_abs_err",
@@ -4662,6 +5013,7 @@ def main(argv=None) -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "bound_fp32_core_ms", "device_ms", "library_device_ms")},
          **step_split["flash_fwd"], "bert_row": bert_rows["flash_fwd"],
+         "llama_row": llama_rows["flash_fwd"],
          "bf16_rows": bf16["flash_fwd"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "ml_trainer_tpu_torch/csrc/paged_attention.cu",
@@ -4682,7 +5034,7 @@ def main(argv=None) -> int:
              "library_ms", "bound_fp32_core_ms", "device_ms",
              "library_device_ms")},
          **step_split[kname], "bert_row": bert_rows[kname],
-         "bf16_rows": bf16[kname]}
+         "llama_row": llama_rows[kname], "bf16_rows": bf16[kname]}
         for kname, line in (("flash_bwd_dq", 385), ("flash_bwd_dkv", 403))
     ] + [
         {"name": "int8_matmul", "route": "cuda",

@@ -5,8 +5,9 @@ The JAX package beside it stays the reference; this package imports
 ``SlotDecodeEngine``, ``generate``, ``Trainer``, the model constructors)
 run on the CUDA card unless the caller passes ``device="cpu"``, and raise
 when no card is visible.  The model zoo holds MLModel, ResNet-18/50/101/
-152, ViT, BERT and GPT-2 (``models.available_models()``; GPT-2's
-``loss_chunk`` never holds the [B, S, V] logits), with the input paths
+152, ViT, BERT, GPT-2 and Llama (``models.available_models()``; GPT-2's
+and Llama's ``loss_chunk`` never holds the [B, S, V] logits; Llama
+trains and generates, the serving engine refuses it), with the input paths
 of ``data``: the CIFAR-10 transforms (``custom_pre_process_function``),
 the C++ ``NativeLoader`` (built with ``g++`` at first use), memory-mapped
 image shards, and the BPE/WordPiece tokenizers and text datasets.  The
@@ -42,7 +43,7 @@ from ml_trainer_tpu_torch.device import (
     resolve_device,
 )
 from ml_trainer_tpu_torch.generate import generate
-from ml_trainer_tpu_torch.models import GPT2, MLModel, get_model
+from ml_trainer_tpu_torch.models import GPT2, LlamaLM, MLModel, get_model
 from ml_trainer_tpu_torch.ops.kernels import (
     int8_matmul,
     quantize_per_channel,
@@ -60,7 +61,7 @@ from ml_trainer_tpu_torch.utils import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "ArrayDataset", "GPT2", "Loader", "MLModel", "Server",
+    "ArrayDataset", "GPT2", "LlamaLM", "Loader", "MLModel", "Server",
     "SlotDecodeEngine", "SyntheticCIFAR10", "SyntheticTokens", "Trainer",
     "adam_state_from_jax", "create_mesh", "custom_pre_process_function",
     "generate", "get_model", "init_gpt2", "init_model", "int8_matmul",

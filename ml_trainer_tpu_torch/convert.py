@@ -9,11 +9,13 @@ package's ``checkpoint/torch_export.py``, copied:
 
 * Dense ``kernel`` [in, out] -> ``weight`` [out, in];
 * Conv ``kernel`` HWIO -> ``weight`` OIHW;
-* ``embedding`` -> ``weight``; LayerNorm/BatchNorm ``scale`` -> ``weight``;
+* ``embedding`` -> ``weight``; LayerNorm/RMSNorm/BatchNorm ``scale`` ->
+  ``weight``;
 * ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * ``block{i}`` -> ``blocks.{i}``, ``layer{i}`` -> ``layers.{i}``; every
   other module keeps its flax name (``stage1_block1``, ``tok_embed``),
-  and bare params (``pos_embed``, ``cls_token``) keep theirs.
+  and bare params (``pos_embed``, ``cls_token``, Llama's [E, V]
+  ``lm_head``) keep their names and layouts.
 
 MLModel's ``fc1`` needs no permutation: the port flattens in H, W, C
 order, as the JAX package does.
@@ -37,8 +39,9 @@ token embedding, normal(0.01) for the positions, zero biases and unit
 LayerNorm scales.  Every other family draws flax's defaults, as its JAX
 module does: lecun normal (truncated at two deviations) for Dense and
 Conv kernels, normal(1/sqrt(features)) for embeddings, zero biases, unit
-norm scales, BatchNorm statistics 0 and 1; ViT's ``cls_token`` is zero
-and its ``pos_embed`` normal(0.02).
+norm scales (LayerNorm, RMSNorm, BatchNorm), BatchNorm statistics 0 and
+1; ViT's ``cls_token`` is zero, its ``pos_embed`` normal(0.02), and
+Llama's untied ``lm_head`` normal(0.02).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ import torch
 from torch import nn
 
 from ml_trainer_tpu_torch.models.gpt2 import GPT2
-from ml_trainer_tpu_torch.models.layers import BatchNorm, Conv
+from ml_trainer_tpu_torch.models.layers import BatchNorm, Conv, RMSNorm
 from ml_trainer_tpu_torch.models.registry import get_model
 from ml_trainer_tpu_torch.train_state import as_tree
 
@@ -214,8 +217,8 @@ def _draw_gpt2(model: GPT2, gen: torch.Generator) -> None:
 
 
 # Bare parameters of the flax families and their normal init's deviation
-# (0: zeros): ViT's class token and positions.
-_BARE_STD = {"cls_token": 0.0, "pos_embed": 0.02}
+# (0: zeros): ViT's class token and positions, Llama's untied head.
+_BARE_STD = {"cls_token": 0.0, "pos_embed": 0.02, "lm_head": 0.02}
 
 
 def _draw_flax_defaults(model: nn.Module, gen: torch.Generator) -> None:
@@ -234,6 +237,8 @@ def _draw_flax_defaults(model: nn.Module, gen: torch.Generator) -> None:
             w = mod.weight
             w.copy_(torch.randn(w.shape, generator=gen)
                     * math.sqrt(1.0 / w.shape[1]))
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
         elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

@@ -1,4 +1,4 @@
-"""The port's model zoo: MLModel, ResNet, ViT, BERT and GPT-2."""
+"""The port's model zoo: MLModel, ResNet, ViT, BERT, GPT-2 and Llama."""
 
 from ml_trainer_tpu_torch.models.bert import BertEncoder
 from ml_trainer_tpu_torch.models.gpt2 import GPT2
@@ -9,8 +9,10 @@ from ml_trainer_tpu_torch.models.layers import (
     Conv,
     MultiHeadAttention,
     PagedKVCache,
+    RMSNorm,
     TransformerBlock,
 )
+from ml_trainer_tpu_torch.models.llama import LlamaLM
 from ml_trainer_tpu_torch.models.mlmodel import MLModel
 from ml_trainer_tpu_torch.models.registry import available_models, get_model
 from ml_trainer_tpu_torch.models.resnet import ResNet
@@ -18,7 +20,7 @@ from ml_trainer_tpu_torch.models.vit import VisionTransformer
 
 __all__ = [
     "GPT2", "MLP", "BatchNorm", "BertEncoder", "ContiguousKVCache", "Conv",
-    "MLModel", "MultiHeadAttention", "PagedKVCache", "ResNet",
-    "TransformerBlock", "VisionTransformer", "available_models",
+    "LlamaLM", "MLModel", "MultiHeadAttention", "PagedKVCache", "RMSNorm",
+    "ResNet", "TransformerBlock", "VisionTransformer", "available_models",
     "get_model",
 ]

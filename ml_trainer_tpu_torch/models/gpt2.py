@@ -160,6 +160,24 @@ def gpt2(**kw) -> GPT2:
     return GPT2(**kw)
 
 
+@register_model("gpt2_medium")
+def gpt2_medium(**kw) -> GPT2:
+    """GPT-2 355M: 24 layers, 1024 wide, 16 heads."""
+    kw.setdefault("embed_dim", 1024)
+    kw.setdefault("depth", 24)
+    kw.setdefault("num_heads", 16)
+    return GPT2(**kw)
+
+
+@register_model("gpt2_large")
+def gpt2_large(**kw) -> GPT2:
+    """GPT-2 774M: 36 layers, 1280 wide, 20 heads."""
+    kw.setdefault("embed_dim", 1280)
+    kw.setdefault("depth", 36)
+    kw.setdefault("num_heads", 20)
+    return GPT2(**kw)
+
+
 @register_model("gpt2_tiny")
 def gpt2_tiny(**kw) -> GPT2:
     """Small GPT-2 for tests: 2 layers, 128 wide, 1k vocab."""
@@ -178,5 +196,18 @@ def gpt2_mini(**kw) -> GPT2:
     kw.setdefault("embed_dim", 512)
     kw.setdefault("depth", 4)
     kw.setdefault("num_heads", 8)
+    kw.setdefault("max_len", 512)
+    return GPT2(**kw)
+
+
+@register_model("gpt2_nano")
+def gpt2_nano(**kw) -> GPT2:
+    """Draft-model config paired with ``gpt2_mini``: 1 layer, 128 wide,
+    the same 8k vocabulary (speculative decoding compares token ids, so
+    the vocabulary is the contract between the two)."""
+    kw.setdefault("vocab_size", 8192)
+    kw.setdefault("embed_dim", 128)
+    kw.setdefault("depth", 1)
+    kw.setdefault("num_heads", 4)
     kw.setdefault("max_len", 512)
     return GPT2(**kw)

@@ -37,9 +37,10 @@ cast to it and the reads attend the cached tensors as they are.
 Compute dtype.  A module's ``dtype`` is the dtype it COMPUTES in, as
 flax's ``dtype=``; its parameters stay float32 (flax's ``param_dtype``).
 ``Dense`` casts its input, weight and bias to ``dtype``; ``LayerNorm``
-normalises in float32 and returns ``dtype``, as flax's
-``nn.LayerNorm(dtype=...)``.  ``dtype=None`` casts nothing and computes
-in the dtype the tensors already have: the pre-policy float32 program,
+and ``RMSNorm`` (Llama's) normalise in float32 and return ``dtype``, as
+flax's ``nn.LayerNorm(dtype=...)`` and ``nn.RMSNorm(dtype=...)``.
+``dtype=None`` casts nothing and computes in the dtype the tensors
+already have: the pre-policy float32 program,
 bit for bit (and float64 after ``model.to(torch.float64)``).  The model
 families map their public ``dtype`` knob through ``compute_dtype``:
 float32 -> None.
@@ -119,6 +120,28 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape,
                             self.weight.float(), self.bias.float(),
                             self.eps).to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm(dtype=...)``: a float32 ``weight`` (flax's
+    ``scale``) and flax's order of operations, which ``F.rms_norm`` does
+    not keep: ``var = mean(x^2)`` in at least float32, ``mul = rsqrt(var +
+    eps) * scale``, ``y = x * mul``, then the cast to ``dtype`` (None: to
+    the promoted dtype of ``x`` and the weight, as ``LayerNorm``)."""
+
+    def __init__(self, features: int, eps: float = 1e-6, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * (torch.rsqrt(var + self.eps) * self.weight)
+        out = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return y.to(out)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

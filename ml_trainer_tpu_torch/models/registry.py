@@ -1,5 +1,6 @@
 """Model registry: name -> ``nn.Module`` factory (the JAX package's
-``models/registry.py``; every family but Llama is ported)."""
+``models/registry.py``; every family is ported, the MoE and pipeline
+GPT-2 variants not yet)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from torch import nn
 
 MODELS: Dict[str, Callable[..., nn.Module]] = {}
 
-_FAMILY_MODULES = ("mlmodel", "resnet", "vit", "bert", "gpt2")
+_FAMILY_MODULES = ("mlmodel", "resnet", "vit", "bert", "gpt2", "llama")
 
 
 def register_model(name: str):

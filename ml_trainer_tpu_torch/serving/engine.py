@@ -44,7 +44,8 @@
 Sampling follows ``generate.sample_rows``: greedy argmax, or per request
 a generator seeded from ``(rng, t)`` per token, so a served request
 reproduces the port's ``generate()`` for it.  Speculative decoding, LoRA
-adapters and chunked prefill are not ported yet.
+adapters and chunked prefill are not ported yet, and a model without a
+slot-indexed cache (Llama: no ``new_paged_cache``) is refused.
 """
 
 from __future__ import annotations
@@ -100,6 +101,14 @@ class SlotDecodeEngine:
                     f"{knob}={value!r} is not ported yet; see ROADMAP.md "
                     "Queue A"
                 )
+        if not hasattr(model, "new_paged_cache"):
+            # The engine writes each slot's cache row at its own position;
+            # in the JAX package only MultiHeadAttention has that mode, so
+            # its Server cannot serve a Llama (GQAttention) either.
+            raise NotImplementedError(
+                f"serving {type(model).__name__} is not ported: it has no "
+                "slot-indexed decode cache (the JAX engine's lacks one "
+                "too); see ROADMAP.md Queue A")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if prefix_scope not in ("tenant", "global"):

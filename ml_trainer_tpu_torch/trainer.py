@@ -70,8 +70,8 @@ The loaders are the C++ ``NativeLoader`` (``data/native.py``) where
 ``loader`` asks for it, or where it is 'auto' and ``native_plan`` takes
 the dataset (uint8 images with the reference augmentation), the library
 builds and the batches split evenly; else the Python ``Loader``.  A
-model that computes its own loss (GPT-2 with ``loss_chunk``: the chunked
-LM head, which never holds the [B, S, V] logits) gets the labels through
+model that computes its own loss (GPT-2 or Llama with ``loss_chunk``:
+the chunked LM head, which never holds the [B, S, V] logits) gets the labels through
 its forward (``targets=``) in every step and evaluation, and returns the
 loss; it needs ``metric=None`` and no ``label_smoothing``.
 
@@ -241,8 +241,8 @@ def _state_tensors(state: TrainState) -> list:
 
 def _module_takes_targets(module) -> bool:
     """Whether ``module`` computes its own loss: its forward accepts
-    ``targets`` and it carries an active ``loss_chunk`` (GPT-2 with
-    ``loss_chunk`` > 0).  The Trainer then feeds the labels through the
+    ``targets`` and it carries an active ``loss_chunk`` (GPT-2 or Llama
+    with ``loss_chunk`` > 0).  The Trainer then feeds the labels through the
     forward instead of applying the criterion to returned logits."""
     import inspect
 

@@ -334,7 +334,8 @@ def test_registry_lists_every_ported_family():
     names = set(available_models())
     assert {"mlmodel", "resnet18", "resnet50", "resnet101", "resnet152",
             "bert_base", "bert_large", "bert_tiny", "vit_b16", "vit_tiny",
-            "gpt2", "gpt2_tiny", "gpt2_mini"} <= names
+            "gpt2", "gpt2_tiny", "gpt2_mini", "gpt2_medium", "gpt2_large",
+            "gpt2_nano", "llama", "llama_tiny"} <= names
 
 
 @pytest.mark.parametrize("name,kw", [

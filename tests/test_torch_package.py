@@ -81,7 +81,8 @@ NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "trainer.py", "train_state.py", "checkpoint/__init__.py",
                "checkpoint/checkpoint.py", "resilience/__init__.py",
                "resilience/faults.py", "data/native.py", "data/sharded.py",
-               "data/text.py", "data/tokenizers.py", "ops/losses.py"]
+               "data/text.py", "data/tokenizers.py", "ops/losses.py",
+               "models/llama.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
@@ -96,6 +97,7 @@ def test_family_modules_never_import_jax(rel):
 @pytest.mark.parametrize("name,kw", [
     ("mlmodel", {}), ("resnet18", {}), ("resnet50", {}), ("bert_tiny", {}),
     ("vit_tiny", {}), ("vit_b16", {"dtype": torch.float32, "depth": 1}),
+    ("llama_tiny", {}),
 ])
 def test_family_constructors_raise_without_a_card(monkeypatch, name, kw):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
