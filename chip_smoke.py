@@ -26,6 +26,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # (train fp32/bf16 at K = 1 and
                                           # 4, 2 sharded replicas,
                                           # generate) + gpt2_medium/large
+    python3 chip_smoke.py --only cli      # kernel checks + the training
+                                          # CLI (resumed bit for bit),
+                                          # remat, dropout, the EMA and
+                                          # predict()
 
 Phases, one line of output each (or a few):
 
@@ -225,7 +229,7 @@ Phases, one line of output each (or a few):
    (``TRAIN``'s config), BERT-base bf16, ViT-B/16 bf16, ResNet-50 and
    MLModel (``MODEL_RUNS``' configs), each through ``Trainer.fit()`` at
    K = 1 (the eager step) and at K = 4 (each full chunk of 4 batches one
-   replay of a CUDA graph of the 4 steps; 13 steps: three chunks, the
+   replay of a CUDA graph of the 4 steps; 9 steps: two chunks, the
    first eager before the capture, and a tail of one; 9 validation
    batches: the eval graph's chunk and a tail) from the same weights and
    data.  Gates: finite losses, no skipped step, exact launch counts in
@@ -303,6 +307,32 @@ Phases, one line of output each (or a few):
    ``gpt2_medium`` and ``gpt2_large`` at [4, 1024] (exact launches, ms a
    step).  The kernel checks hold K1-K3 at ``llama_2048`` [4, 12, 2048,
    64] causal in both dtypes beside SDPA.
+12. cli (``CLI_*``): ``python -m ml_trainer_tpu_torch`` with
+   ``CLI_ARGV`` (GPT-2 124M bf16 at [8, 1024], ``--remat --remat_policy
+   dots --ema_decay 0.999 --steps_per_execution 4``, adamw, clip 1.0) for
+   2 epochs in a subprocess beside the same for 3 epochs through
+   ``cli.main`` in this process (K1-K3 launches exact), then the first
+   continued with ``--resume --epochs 3``: each exits 0, the resumed
+   checkpoint_3 (params, ``ema_params``, optimizer state, step,
+   counters) and history bitwise the uninterrupted run's; while the
+   subprocesses run: one dropout site's mask on the card bitwise the
+   CPU's and its kept share within 4 sigma of 0.9; Llama 124.7M bf16
+   ``loss_chunk=256`` with 'dots' at K = 1 and 4, bitwise; dropout 0.1
+   at K = 1 and K = 4 bitwise for GPT-2 124M bf16 with the EMA,
+   BERT-base bf16 (the SST-2 recipe) and ViT-B/16 bf16 with the EMA
+   (one epoch each, ``_train_one_epoch``); BERT ``test()`` bitwise the
+   same weights without dropout and ``predict()`` bitwise the test
+   path's softmax; the EMA after a step within 8 float32 ulps of its
+   float64 recompute, kept on a ViT step with a NaN batch; dropout and
+   the EMA on 2 sharded replicas against one card (``dp_step_check``)
+   and one sharded step with K4 = K5 = 2; then, alone on the card,
+   GPT-2 124M bf16 in ``CLI_VARIANTS`` (plain, remat 'none' and 'dots',
+   dropout 0.1, the EMA) from one seeded init: one step's gradients,
+   remat bitwise plain and dropout under 'dots' bitwise dropout alone,
+   K1 2 x 12 a microbatch under remat (K2/K3 12), the step's peak, then
+   each variant's K = 4 graph in turns (ms a step: remat's, the masks'
+   and the EMA's cost); ``gpt2_large`` bf16 [4, 1024] at K = 1 with
+   remat off and 'none' (the step's peak, ms a step).
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -3403,11 +3433,11 @@ def models(dev) -> list:
 # steps_per_execution on the card: each family at K = 1 (the eager step)
 # and at K = GRAPH_K (each full chunk of K batches one replay of a CUDA
 # graph of the K steps), from the same weights and data.  GRAPH_STEPS is
-# three full chunks and a tail of one: the first chunk runs eagerly
-# before the capture, so two replay; GRAPH_VAL validation batches give
-# the eval graph one replay and a tail of one.
+# two full chunks and a tail of one: the first chunk runs eagerly before
+# the capture, the second replays; GRAPH_VAL validation batches give the
+# eval graph one replay and a tail of one.
 GRAPH_K = 4
-GRAPH_STEPS = 3 * GRAPH_K + 1
+GRAPH_STEPS = 2 * GRAPH_K + 1
 GRAPH_VAL = 2 * GRAPH_K + 1
 GRAPH_LOSS_RTOL = 1e-6  # the epoch sums' order: a chunk's K losses first
 GRAPH_DIR = "build/chip_smoke_graphs"  # each run's model.pth; removed after
@@ -3460,6 +3490,8 @@ def _named_state(trainer) -> dict:
     for field in ("skipped_steps", "bad_streak", "loss_scale", "good_steps"):
         if getattr(state, field) is not None:
             out[field] = getattr(state, field)
+    for k, v in (state.ema_params or {}).items():
+        out[f"ema_params.{k}"] = v
     return {k: v.detach().cpu().clone() for k, v in out.items()}
 
 
@@ -3629,17 +3661,16 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
         for x, y in zip(xs, ys):
             trainer._train_step(x, y, 1.0)
 
-    def graph_chunks(reps=3):
-        for _ in range(reps):
-            trainer._dispatch("train", trainer._train_chunk, xs, ys)
+    def graph_chunks():
+        trainer._dispatch("train", trainer._train_chunk, xs, ys)
 
     eager_ms = [timed(eager_chunk, GRAPH_K)]
     t1 = time.perf_counter()
-    graph_chunks(1)  # the warm-up chunk and the capture
+    graph_chunks()  # the warm-up chunk and the capture
     torch.cuda.synchronize()
     first_dispatch_s = time.perf_counter() - t1
     capture_s = next(iter(trainer._graphs.values())).capture_s
-    graph_ms = [timed(graph_chunks, 3 * GRAPH_K) for _ in range(2)]
+    graph_ms = [timed(graph_chunks, GRAPH_K) for _ in range(2)]
     prof_graph = profile_dispatch(trainer, xs, ys)
     eager_ms.append(timed(eager_chunk, GRAPH_K))
     prof_eager = profile_step(trainer, xs[0], ys[0])
@@ -3975,11 +4006,11 @@ def resume_resnet(dev) -> dict:
 DATA_DIR = "build/chip_smoke_data"  # shards and each run's files; removed
 DATA_K = 4
 NATIVE_PLAIN_ATOL = 1e-5  # the C++ pass x*(1/255) then *(1/std) vs numpy's /
-# ResNet-50 224 b64 fp32, 3 epochs of 20 steps (5 chunks): epoch 2 timed
+# ResNet-50 224 b64 fp32, 3 epochs of 12 steps (3 chunks): epoch 2 timed
 # (samples/s of the epoch, and of its steady state: the median interval
 # between consecutive chunks' ends on the device; the graphs captured in
 # epoch 1), epoch 3 profiled (busy / idle).
-DATA_RESNET = dict(batch=64, steps=20, val_batches=1, epochs=3)
+DATA_RESNET = dict(batch=64, steps=12, val_batches=1, epochs=3)
 # GPT-2 124M bf16 (TRAIN's config: 8 x 1024 tokens in 4 microbatches,
 # GPT2_OPT), 8 steps and 1 validation batch an epoch, loss_chunk 128.
 DATA_GPT2 = dict(steps=8, val_batches=1, loss_chunk=128)
@@ -4806,11 +4837,664 @@ def llama(dev) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 12
+# The training CLI, remat, dropout, the EMA and predict() at the JAX
+# package's full widths.
+CLI_DIR = "build/chip_smoke_cli"  # the CLI runs' files
+# BASELINE config 5 from a shell: GPT-2 124M bf16 with remat 'dots' and
+# an EMA in a CUDA graph of 4 steps; 4 steps and 2 validation batches an
+# epoch (32 and 16 synthetic sequences of 1024).
+CLI_ARGV = ["--model", "gpt2", "--synthetic_tokens", "--seq_len", "1024",
+            "--vocab_size", "50257", "--dtype", "bf16", "--remat",
+            "--remat_policy", "dots", "--ema_decay", "0.999",
+            "--steps_per_execution", "4", "--optimizer", "adamw",
+            "--grad_clip_norm", "1.0", "--batch_size", "8",
+            "--synthetic_train_size", "32", "--synthetic_val_size", "16"]
+CLI_TIMEOUT_S = 400
+RATE = 0.1  # the BERT SST-2 recipe's dropout, used for every family here
+EMA_DECAY = 0.999
+# GPT-2 124M bf16 [8, 1024] in TRAIN's 4 microbatches, GPT2_OPT: 8 steps,
+# two chunks of K = 4 (a warm-up with the capture, then a replay).
+CLI_GPT2 = dict(seq_len=TRAIN["seq_len"], vocab_size=TRAIN["vocab_size"],
+                batch=TRAIN["batch_size"], steps=8, val_batches=1)
+# The variants timed as K = 4 graphs, each against the plain model.
+CLI_VARIANTS = [  # (label, model kwargs, trainer kwargs)
+    ("plain", {}, {}),
+    ("remat_none", {"remat": True}, {}),
+    ("remat_dots", {"remat": True, "remat_policy": "dots"}, {}),
+    ("dropout", {"dropout_rate": RATE}, {}),
+    ("ema", {}, {"ema_decay": EMA_DECAY}),
+]
+# gpt2_large bf16 [4, 1024] at K = 1, remat off then 'none' (the llama
+# phase's gpt2_large fit, remat off, peaks near 35.6 GB): 2 steps timed
+# after one.
+CLI_LARGE = dict(seq_len=1024, vocab_size=50257, batch=4, steps=2)
+# The EMA against its float64 recompute from the recorded params: d e
+# rounds to float32, (1 - d) p too, and their sum.
+EMA_F64_RTOL = 8 * 2.0 ** -24
+# Dropout RATE at K = 1 and 4, one epoch of 8 steps each: GPT-2 124M
+# bf16 with the EMA, BERT-base bf16 (SST-2 recipe, 32 x 128 right
+# padded) and ViT-B/16 bf16 (b 32) with the EMA.
+CLI_FAMILIES = [  # (label, name, model kwargs, trainer kwargs, data, batch)
+    ("gpt2", "gpt2", {"dropout_rate": RATE},
+     dict(GPT2_OPT, precision="bf16", ema_decay=EMA_DECAY), "gpt2",
+     TRAIN["batch_size"]),
+    ("bert_base", "bert_base", {"right_padded": True, "dropout_rate": RATE},
+     dict(BERT_05, precision="bf16"), "tokens", 32),
+    ("vit_b16", "vit_b16", {"dropout_rate": RATE},
+     dict(optimizer="adamw", lr=3e-4, weight_decay=0.1, precision="bf16",
+          ema_decay=EMA_DECAY), "imagenet", 32),
+]
+CLI_STEPS = 8
+
+
+def _cli_process(argv, model_dir):
+    """``python -m ml_trainer_tpu_torch`` with ``argv`` and ``model_dir``,
+    started from the checkout's root."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "ml_trainer_tpu_torch", *argv,
+         "--model_dir", model_dir], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _cli_wait(what: str, proc, t0: float) -> float:
+    """Wait for a CLI run; it must exit 0 and finish training.  Its
+    seconds since ``t0``."""
+    try:
+        out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"cli {what}: no exit in {CLI_TIMEOUT_S} s")
+    if proc.returncode != 0 or "Training Complete." not in out:
+        raise AssertionError(f"cli {what}: exit {proc.returncode}\n"
+                             + out[-4000:])
+    return time.perf_counter() - t0
+
+
+def _checkpoint_leaves(path: str) -> dict:
+    """A checkpoint's leaves by path, as numpy (None stays None)."""
+    from ml_trainer_tpu_torch.checkpoint import restore_checkpoint
+
+    def walk(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from walk(tree[k], f"{prefix}/{k}")
+        else:
+            yield prefix, tree
+
+    return dict(walk(restore_checkpoint(path)[0]))
+
+
+def _cli_in_process(argv, model_dir) -> dict:
+    """``cli.main`` in this process, its K1-K5 launches counted."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(cli.parse_args(argv + ["--model_dir", model_dir]))
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0,
+                launches=mt.launch_counts())
+
+
+def cli_compare(a_dir: str, c_dir: str, counts: dict) -> dict:
+    """The resumed run (``a_dir``) against the uninterrupted one
+    (``c_dir``): checkpoint_3's every leaf (params, EMA, optimizer state,
+    step, counters) and the history bitwise; the in-process run's K1-K3
+    launches exact (K1 twice a microbatch under remat, once a
+    validation batch)."""
+    import pickle
+
+    import numpy as np
+
+    got = _checkpoint_leaves(f"{a_dir}/checkpoints/checkpoint_3")
+    want = _checkpoint_leaves(f"{c_dir}/checkpoints/checkpoint_3")
+    differ = [k for k in want if k not in got or not (
+        (got[k] is None and want[k] is None)
+        or np.array_equal(np.asarray(got[k]), np.asarray(want[k])))]
+    ema = [k for k in want if k.startswith("/ema_params/")]
+    hist = []
+    for d in (a_dir, c_dir):
+        with open(f"{d}/history.pkl", "rb") as fp:
+            hist.append(pickle.load(fp))
+    keys = [k for k in hist[1] if hist[0].get(k) != hist[1][k]]
+    if differ or not ema or keys or set(got) != set(want):
+        raise AssertionError(f"cli: the resumed run differs: leaves "
+                             f"{differ[:5]}, history {keys}, ema leaves "
+                             f"{len(ema)}")
+    # 3 epochs of 4 steps, each one microbatch of [8, 1024] (CLI_ARGV sets
+    # no --grad_accum_steps), and 2 validation batches an epoch.
+    epochs, steps, val, depth = 3, 4, 2, 12
+    micro = epochs * steps
+    want_counts = dict({k: 0 for k in counts},
+                       flash_fwd=depth * (2 * micro + epochs * val),
+                       flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro)
+    if counts != want_counts:
+        raise AssertionError(f"cli in process: launches {counts}, expected "
+                             f"{want_counts}")
+    return dict(bitwise=True, leaves=len(want), ema_leaves=len(ema),
+                step=int(np.asarray(want["/step"])), history=hist[1])
+
+
+def _seeded_pair(dev, name, model_kw):
+    """Two models of ``name`` with one seeded init's weights."""
+    import ml_trainer_tpu_torch as mt
+
+    first = mt.init_model(name, seed=SEED, device=dev, **model_kw)
+    second = mt.get_model(name, device=dev, **model_kw)
+    second.load_state_dict(first.state_dict())
+    return first, second
+
+
+def _cli_trainer(dev, model, sets, batch, opt, k, metric=None):
+    import ml_trainer_tpu_torch as mt
+
+    return mt.Trainer(model, datasets=sets, epochs=1, batch_size=batch,
+                      metric=metric, model_dir=f"{CLI_DIR}/fit", seed=SEED,
+                      device=dev, loader="python", steps_per_execution=k,
+                      **opt)
+
+
+def _epoch_run(what: str, trainer) -> dict:
+    """One training epoch through ``_train_one_epoch``, the loop ``fit()``
+    runs (K = 1 batch by batch, K = 4 as graph replays), without the
+    validation and checkpoint around it, the counters from 0: exact
+    K1-K3 launches (the model's depth a forward, twice under remat, and
+    a backward, each microbatch), finite losses, no skipped step."""
+    import math
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    torch.cuda.synchronize()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer._train_one_epoch(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    trainer._graphs.clear()
+    counts = mt.launch_counts()
+    want = {k: 0 for k in counts}
+    depth = getattr(trainer.model, "depth", 0)
+    if trainer.model.__class__.__name__ == "VisionTransformer":
+        depth = 0  # 197 tokens: the plain attention path
+    micro = (len(trainer.train_loader) * trainer.grad_accum_steps
+             * trainer.mesh.size)
+    fwd = micro * (2 if getattr(trainer.model, "remat", False) else 1)
+    if depth:
+        want.update(flash_fwd=depth * fwd, flash_bwd_dq=depth * micro,
+                    flash_bwd_dkv=depth * micro)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    losses = trainer.train_losses
+    if not all(math.isfinite(v) for v in losses) or (
+            trainer.skipped_steps != [0]):
+        raise AssertionError(f"{what}: losses {losses}, skipped "
+                             f"{trainer.skipped_steps}")
+    return dict(epoch_s=epoch_s, launches=counts, step=trainer.state.step,
+                history=dict(train_loss=list(losses), val_loss=[],
+                             train_metric=list(trainer.train_metrics),
+                             val_metric=[]))
+
+
+def _k_gate(what: str, rec_1: dict, snap_1: dict, trainer,
+            rec_k: dict) -> dict:
+    """The K = 4 run's state (``_named_state``: params, buffers, optimizer
+    state, counters, EMA) bitwise the K = 1 run's, the losses within
+    GRAPH_LOSS_RTOL (the epoch sums' order)."""
+    first, worst, dist = _leaf_distance(_named_state(trainer), snap_1)
+    loss_rel = _history_distance(rec_k["history"], rec_1["history"])
+    if first is not None or loss_rel > GRAPH_LOSS_RTOL or (
+            rec_k["step"] != rec_1["step"]):
+        raise AssertionError(f"{what}: K = 4 differs from K = 1 (first "
+                             f"{first}, worst {worst} {dist}, losses "
+                             f"{loss_rel})")
+    return dict(bitwise=True, loss_rel=loss_rel)
+
+
+def _ema_f64_gate(what: str, trainer, before_ema: dict) -> float:
+    """The EMA after one step against ``d e + (1 - d) p`` in float64 from
+    the EMA before it and the params after it: each leaf within
+    EMA_F64_RTOL of its largest entry.  The worst ratio."""
+    d = trainer.ema_decay
+    params = dict(trainer.model.named_parameters())
+    worst = 0.0
+    for k, e in trainer.state.ema_params.items():
+        want = d * before_ema[k] + (1 - d) * params[k].detach().double().cpu()
+        err = ((e.double().cpu() - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, err)
+        if not err <= EMA_F64_RTOL:
+            raise AssertionError(f"{what}: EMA {k} {err} from its float64 "
+                                 f"recompute")
+    return worst
+
+
+def _family_sets(data: str, batch: int):
+    if data == "gpt2":
+        return _token_sets(CLI_STEPS, 1, batch)
+    return model_sets(data, batch, CLI_STEPS)
+
+
+def dropout_mask(dev) -> dict:
+    """One dropout site of a GPT-2 step ([8, 1024, 768], site 7 of 25,
+    step 5): the card's mask bitwise the CPU's, its kept share within 4
+    sigma of 1 - RATE."""
+    import torch
+
+    from ml_trainer_tpu_torch.models.layers import DropoutStream
+
+    shape, masks = (8, 1024, 768), []
+    for device in (dev, "cpu"):
+        stream = DropoutStream(sites=25, seed=SEED)
+        stream.begin_step(torch.tensor(5, device=device))
+        masks.append(stream.keep(7, shape, RATE, device).cpu())
+    kept = masks[0].float().mean().item()
+    sigma = (RATE * (1 - RATE) / masks[0].numel()) ** 0.5
+    if not torch.equal(*masks) or abs(kept - (1 - RATE)) > 4 * sigma:
+        raise AssertionError(f"cli mask: card vs CPU equal "
+                             f"{torch.equal(*masks)}, kept {kept}")
+    return dict(shape=list(shape), card_equals_cpu=True, kept=kept,
+                sigmas=(kept - (1 - RATE)) / sigma)
+
+
+def dropout_ema_fits(dev) -> dict:
+    """Each CLI_FAMILIES run at K = 1 and K = 4 (``_epoch_run``) from one
+    seeded init: bitwise (``_k_gate``).  Then on the K = 1 trainer:
+    GPT-2's EMA after one more step against its float64 recompute;
+    BERT's ``test()`` bitwise the same weights without dropout, and
+    ``predict()`` bitwise the test path's softmax; ViT's EMA (and params)
+    kept on a step whose batch is NaN (the ``nan_grad`` fault's
+    ``_poison_batch``)."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+    from ml_trainer_tpu_torch.trainer import _poison_batch
+
+    out = {}
+    launches = {k: 0 for k in mt.launch_counts()}
+    for label, name, model_kw, opt, data, batch in CLI_FAMILIES:
+        sets = _family_sets(data, batch)
+        metric = None if name == "gpt2" else "accuracy"
+        m1, m4 = _seeded_pair(dev, name, model_kw)
+        eager = _cli_trainer(dev, m1, sets, batch, opt, 1, metric)
+        rec_1 = _epoch_run(f"cli {label} K=1", eager)
+        snap_1 = _named_state(eager)
+        graph = _cli_trainer(dev, m4, sets, batch, opt, DATA_K, metric)
+        rec_k = _epoch_run(f"cli {label} K=4", graph)
+        rec = dict(k1=rec_1, k4=rec_k, same_as_k1=_k_gate(
+            f"cli {label}", rec_1, snap_1, graph, rec_k))
+        for r in (rec_1, rec_k):
+            for kname, n in r["launches"].items():
+                launches[kname] += n
+        del graph, snap_1, m4
+        torch.cuda.empty_cache()
+        x, y = next(iter(prefetch_to_device(eager.train_loader, 1, dev)))
+        if label == "gpt2":
+            before = {k: v.double().cpu()
+                      for k, v in eager.state.ema_params.items()}
+            eager._train_step(x, y, 1.0)
+            rec["ema_f64_worst"] = _ema_f64_gate("cli gpt2 ema", eager,
+                                                 before)
+        elif label == "bert_base":
+            # Eval: bitwise the same weights without dropout; predict()
+            # bitwise the test path's softmax.
+            _, built = eager.model.registry_config  # at the compute dtype
+            plain = mt.get_model(name, **dict(built, dropout_rate=0.0))
+            plain.load_state_dict(eager.model.state_dict())
+            mt.reset_launch_counts()
+            got = eager.test(None, eager.val_loader)
+            want = eager.test(plain, eager.val_loader)
+            if got != want:
+                raise AssertionError(f"cli bert test(): {got} vs {want}")
+            batches = [x for x, _ in prefetch_to_device(eager.val_loader,
+                                                         1, dev)]
+            pred = eager.predict(batches)
+            with torch.no_grad():
+                eager.model.eval()
+                ref = np.concatenate([eager.pred_function(
+                    eager._apply_model(eager.model, b)).cpu().numpy()
+                    for b in batches])
+            if not np.array_equal(pred, ref):
+                raise AssertionError("cli bert predict() differs from the "
+                                     "test path")
+            counts = mt.launch_counts()
+            for kname, n in counts.items():
+                launches[kname] += n
+            rec.update(test_bitwise_no_dropout=got, predict=dict(
+                bitwise=True, shape=list(pred.shape), launches=counts))
+            del plain
+        else:
+            # A NaN batch: the step is skipped, the EMA and params kept.
+            ema = {k: v.clone() for k, v in eager.state.ema_params.items()}
+            params = {k: v.detach().clone()
+                      for k, v in eager.model.named_parameters()}
+            skipped = int(eager.state.skipped_steps)
+            eager._train_step(_poison_batch(x), y, 1.0)
+            kept = all(torch.equal(v, ema[k]) for k, v in
+                       eager.state.ema_params.items()) and all(
+                torch.equal(v, params[k]) for k, v in
+                eager.model.named_parameters())
+            if not kept or int(eager.state.skipped_steps) != skipped + 1:
+                raise AssertionError(f"cli {label}: a NaN step moved the "
+                                     "EMA or was not skipped")
+            rec["nan_step_keeps_ema"] = True
+        out[label] = rec
+        del eager, m1, x, y
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def dropout_ema_dp(dev) -> dict:
+    """GPT-2 124M bf16 with dropout RATE and the EMA on 2 sharded replicas
+    (adam, no decay: K4/K5) against one card, from one state and batch
+    (``dp_step_check``: the single-vs-sharded bar DP_SINGLE_ATOL, the
+    masks of the whole batch on both); then one sharded step with K4 =
+    K5 = 2 launches and its EMA against the float64 recompute."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    opt = dict(optimizer="adam", lr=3e-4, grad_clip_norm=1.0,
+               grad_accum_steps=2, precision="bf16", ema_decay=EMA_DECAY)
+    sets = _token_sets(2, 1, CLI_GPT2["batch"])
+    one, two = _seeded_pair(dev, "gpt2", {"dropout_rate": RATE})
+    single = _cli_trainer(dev, one, sets, CLI_GPT2["batch"], opt, 1)
+    sharded = mt.Trainer(two, datasets=sets, epochs=1,
+                         batch_size=CLI_GPT2["batch"], metric=None,
+                         model_dir=f"{CLI_DIR}/dp", seed=SEED,
+                         is_parallel=True, mesh_shape={"data": 2},
+                         device=[dev, dev], dp_update="sharded",
+                         loader="python", **opt)
+    if not sharded.fused_adam:
+        raise AssertionError("cli dp: the sharded step is not on K4/K5")
+    x, y = next(iter(prefetch_to_device(sharded.train_loader, 1, dev)))
+    check = dp_step_check(sharded, single, x, y)
+    del single, one
+    torch.cuda.empty_cache()
+    before = {k: v.double().cpu() for k, v in sharded.state.ema_params.items()}
+    mt.reset_launch_counts()
+    sharded._train_step(x, y, 1.0)
+    torch.cuda.synchronize()
+    counts = mt.launch_counts()
+    depth, micro = sharded.model.depth, 2 * sharded.grad_accum_steps
+    want = dict({k: 0 for k in counts}, flash_fwd=depth * micro,
+                flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro,
+                unscale_sqsum=2, fused_adam=2)
+    if counts != want:
+        raise AssertionError(f"cli dp: launches {counts}, expected {want}")
+    err = _ema_f64_gate("cli dp ema", sharded, before)
+    del sharded, two, x, y
+    torch.cuda.empty_cache()
+    return dict(step_check=check, launches=counts, ema_f64_worst=err)
+
+
+def llama_remat(dev) -> dict:
+    """Llama 124.7M bf16 ``loss_chunk=256`` [4, 2048] with remat 'dots',
+    one epoch of LLAMA's 8 steps at K = 1 and K = 4 (``_epoch_run``: 2 x
+    depth K1 a microbatch) from one seeded init: bitwise."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    c = LLAMA
+    sets = tuple(mt.SyntheticTokens(size=c["batch"] * n,
+                                    seq_len=c["seq_len"],
+                                    vocab_size=c["vocab_size"],
+                                    seed=SEED + i)
+                 for i, n in enumerate((c["steps"], 1)))
+    opt = dict(LLAMA_OPT, precision="bf16")
+    m1, m4 = _seeded_pair(dev, "llama", {"loss_chunk": 256, "remat": True,
+                                         "remat_policy": "dots"})
+    eager = _cli_trainer(dev, m1, sets, c["batch"], opt, 1)
+    rec_1 = _epoch_run("cli llama dots K=1", eager)
+    snap_1 = _named_state(eager)
+    del eager, m1
+    torch.cuda.empty_cache()
+    graph = _cli_trainer(dev, m4, sets, c["batch"], opt, c["k"])
+    torch.cuda.reset_peak_memory_stats()
+    rec_k = _epoch_run("cli llama dots K=4", graph)
+    rec_k["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    same = _k_gate("cli llama dots", rec_1, snap_1, graph, rec_k)
+    del graph, m4, snap_1
+    torch.cuda.empty_cache()
+    return dict(k1=rec_1, k4=rec_k, same_as_k1=same,
+                launches={k: rec_1["launches"][k] + rec_k["launches"][k]
+                          for k in rec_1["launches"]})
+
+
+def _one_step_grads(trainer, x, y):
+    """The summed gradients of one step's microbatches (``_local_grads``,
+    the dropout keys of the trainer's step first) and its K1-K3
+    launches; the card's peak over the state's bytes."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    if trainer._dropout is not None:
+        trainer._step_t.fill_(trainer.state.step)
+        trainer._dropout.begin_step(trainer._step_t)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    grads, _, _ = trainer._local_grads(trainer._params(), x, y,
+                                       trainer.state.loss_scale)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return ({k: v.detach().clone() for k, v in grads.items()},
+            mt.launch_counts(),
+            dict(peak_gb=peak / 1e9, above_state_gb=(peak - base) / 1e9))
+
+
+def remat_dropout_ema_steps(dev) -> dict:
+    """GPT-2 124M bf16 [8, 1024], CLI_VARIANTS from one seeded init.  One
+    step's gradients: remat 'none' and 'dots' bitwise plain, dropout
+    under 'dots' (the dropout model's own remat switched on) bitwise
+    dropout alone, K1 launches 2 x depth a microbatch under remat (K2/K3
+    depth), the peak of the step; then each variant's K = 4 graph, ms a
+    step in turns (``_graph_step_ms``): remat's, the masks' and the
+    EMA's cost beside the plain step."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    opt = dict(GPT2_OPT, precision="bf16")
+    sets = _token_sets(CLI_GPT2["steps"], CLI_GPT2["val_batches"],
+                       CLI_GPT2["batch"])
+    weights = None
+    trainers, recs, grads = {}, {}, {}
+    launches = {k: 0 for k in mt.launch_counts()}
+
+    def step_grads(label, tr, x, y):
+        g, counts, mem = _one_step_grads(tr, x, y)
+        depth, micro = tr.model.depth, tr.grad_accum_steps
+        fwd = micro * (2 if tr.model.remat else 1)
+        want = dict({k: 0 for k in counts}, flash_fwd=depth * fwd,
+                    flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro)
+        if counts != want:
+            raise AssertionError(f"cli step {label}: launches {counts}, "
+                                 f"expected {want}")
+        for kname, n in counts.items():
+            launches[kname] += n
+        grads[label] = g
+        return dict(launches=counts, step=mem)
+
+    for label, model_kw, trainer_kw in CLI_VARIANTS:
+        if weights is None:
+            model = mt.init_model("gpt2", seed=SEED, device=dev, **model_kw)
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model = mt.get_model("gpt2", device=dev, **model_kw)
+            model.load_state_dict(weights)
+        tr = _cli_trainer(dev, model, sets, CLI_GPT2["batch"],
+                          dict(opt, **trainer_kw), DATA_K)
+        x, y = next(iter(prefetch_to_device(tr.train_loader, 1, dev)))
+        recs[label] = dict(model_kw=model_kw, trainer_kw=trainer_kw,
+                           **step_grads(label, tr, x, y))
+        if label == "dropout":
+            tr.model.remat, tr.model.remat_policy = True, "dots"
+            recs["dropout_dots"] = step_grads("dropout_dots", tr, x, y)
+            tr.model.remat = False
+        trainers[label] = tr
+        del x, y
+    del weights
+    same = {}
+    for got, ref in (("remat_none", "plain"), ("remat_dots", "plain"),
+                     ("dropout_dots", "dropout")):
+        first = next((k for k in grads[ref]
+                      if not torch.equal(grads[got][k], grads[ref][k])), None)
+        if first is not None:
+            raise AssertionError(f"cli step: {got} gradients differ from "
+                                 f"{ref} at {first}")
+        same[f"{got}_vs_{ref}"] = "bitwise"
+    if all(torch.equal(grads["dropout"][k], grads["plain"][k])
+           for k in grads["plain"]):
+        raise AssertionError("cli step: dropout did not change a gradient")
+    del grads
+    mt.reset_launch_counts()
+    timed = _graph_step_ms(trainers, reps=2)
+    for kname, n in mt.launch_counts().items():
+        launches[kname] += n
+    for label, t in timed.items():
+        recs[label]["graph_step_ms"] = t["step_ms"]
+    mean = {label: sum(t["step_ms"]) / len(t["step_ms"])
+            for label, t in timed.items()}
+    cost = {label: mean[label] - mean["plain"] for label in mean
+            if label != "plain"}
+    del trainers
+    torch.cuda.empty_cache()
+    return dict(config=dict(CLI_GPT2, k=DATA_K, accum=TRAIN["accum"],
+                            precision="bf16"),
+                variants=recs, gradients=same, ms_over_plain=cost,
+                launches=launches)
+
+
+def gpt2_large_remat(dev) -> dict:
+    """gpt2_large bf16 [4, 1024], K = 1, remat off then 'none' on the same
+    weights (``torch.manual_seed(SEED)``, the module's own init on the
+    card): the peak of a training step and its ms (CUDA events over
+    CLI_LARGE["steps"] steps after one)."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    c = CLI_LARGE
+    sets = tuple(mt.SyntheticTokens(size=c["batch"] * n,
+                                    seq_len=c["seq_len"],
+                                    vocab_size=c["vocab_size"],
+                                    seed=SEED + i)
+                 for i, n in enumerate((c["steps"] + 1, 1)))
+    out, weights = {}, None
+    launches = {k: 0 for k in mt.launch_counts()}
+    torch.manual_seed(SEED)
+    for label, kw in (("off", {}), ("none", {"remat": True})):
+        model = mt.get_model("gpt2_large", device=dev, **kw)
+        if weights is not None:
+            model.load_state_dict(weights)
+            weights = None
+        tr = _cli_trainer(dev, model, sets, c["batch"],
+                          dict(GPT2_OPT, precision="bf16"), 1)
+        batches = list(prefetch_to_device(tr.train_loader, 1, dev))
+        mt.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr._train_step(*batches[0], 1.0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for x, y in batches[1:]:
+            tr._train_step(x, y, 1.0)
+        end.record()
+        torch.cuda.synchronize()
+        counts = mt.launch_counts()
+        depth, micro = tr.model.depth, (c["steps"] + 1) * tr.grad_accum_steps
+        fwd = micro * (2 if kw else 1)
+        want = dict({k: 0 for k in counts}, flash_fwd=depth * fwd,
+                    flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro)
+        if counts != want:
+            raise AssertionError(f"cli gpt2_large {label}: launches "
+                                 f"{counts}, expected {want}")
+        for kname, n in counts.items():
+            launches[kname] += n
+        out[label] = dict(peak_gb=peak / 1e9,
+                          step_ms=start.elapsed_time(end) / c["steps"],
+                          loss_scale=loss_scale_record(tr))
+        if label == "off":
+            weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        del tr, model, batches
+        torch.cuda.empty_cache()
+    return dict(config=dict(c, model="gpt2_large", precision="bf16", k=1),
+                runs=out, peak_ratio=out["none"]["peak_gb"]
+                / out["off"]["peak_gb"], launches=launches)
+
+
+def cli_phase(dev, smi: str) -> dict:
+    """Phase 12.  The CLI as a user runs it, CLI_ARGV: a 2-epoch run in a
+    subprocess beside a 3-epoch run through ``cli.main`` in this process
+    (its launches counted), then the first continued with ``--resume
+    --epochs 3`` in a subprocess (``cli_compare``).  While the
+    subprocesses run, the parts that time nothing: ``dropout_mask``,
+    ``llama_remat``, ``dropout_ema_fits``, ``dropout_ema_dp``; then,
+    alone on the card, the timed parts: ``remat_dropout_ema_steps`` and
+    ``gpt2_large_remat``.  Each part is printed as it ends."""
+    import torch
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    a_dir, c_dir = f"{CLI_DIR}/cli_a", f"{CLI_DIR}/cli_c"
+    rec = {}
+
+    def part(label, fn):
+        t0 = time.perf_counter()
+        rec[label] = fn(dev)
+        rec[label]["part_s"] = time.perf_counter() - t0
+        log(f"cli {label} on {smi}: " + json.dumps(rec[label]))
+
+    t0 = time.perf_counter()
+    a = _cli_process(CLI_ARGV + ["--epochs", "2"], a_dir)
+    inproc = _cli_in_process(CLI_ARGV + ["--epochs", "3"], c_dir)
+    torch.cuda.empty_cache()
+    seconds = {"in_process_3_epochs": inproc["seconds"],
+               "subprocess_2_epochs": _cli_wait("2 epochs", a, t0)}
+    t1 = time.perf_counter()
+    b = _cli_process(CLI_ARGV + ["--epochs", "3", "--resume"], a_dir)
+    for label, fn in (("mask", dropout_mask), ("llama", llama_remat),
+                      ("fits", dropout_ema_fits), ("dp", dropout_ema_dp)):
+        part(label, fn)
+    seconds["subprocess_resumed"] = _cli_wait("--resume --epochs 3", b, t1)
+    rec["cli"] = dict(argv=CLI_ARGV, seconds=seconds,
+                      launches=inproc["launches"],
+                      resume=cli_compare(a_dir, c_dir, inproc["launches"]),
+                      part_s=time.perf_counter() - t0)
+    log(f"cli cli on {smi}: " + json.dumps(rec["cli"]))
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    for label, fn in (("steps", remat_dropout_ema_steps),
+                      ("gpt2_large", gpt2_large_remat)):
+        part(label, fn)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
-                                 "graphs", "resume", "data", "llama"],
+                                 "graphs", "resume", "data", "llama", "cli"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -4967,7 +5651,16 @@ def main(argv=None) -> int:
             log(f"llama {label} on {smi}: " + json.dumps(run))
             for kname, n in counts.items():
                 launches[kname] = (launches[kname] or 0) + n
-    lap("llama", mark)
+    mark = lap("llama", mark)
+    if args.only in (None, "cli"):
+        import torch
+
+        torch.cuda.empty_cache()  # room for the CLI's processes
+        rec = cli_phase(dev, smi)
+        for label in ("cli", "steps", "gpt2_large", "llama", "fits", "dp"):
+            for kname, n in rec[label]["launches"].items():
+                launches[kname] = (launches[kname] or 0) + n
+    lap("cli", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",

@@ -164,10 +164,11 @@ def adam_state_from_jax(opt_state, device=None):
 def state_from_jax(jax_state) -> dict:
     """A JAX ``TrainState`` whose leaves are numpy arrays (``params``,
     ``batch_stats``, ``opt_state``, ``step``, the guard's counters and
-    the loss scale's) -> the port's state tree
+    the loss scale's, ``ema_params``) -> the port's state tree
     (``train_state.state_tree``'s layout, CPU tensors), ready for
-    ``checkpoint.save_checkpoint`` or ``train_state.load_state_tree``.
-    The JAX ``rng`` has no counterpart; ``ema_params`` is None."""
+    ``checkpoint.save_checkpoint`` or ``train_state.load_state_tree``;
+    ``ema_params`` laid out as the params (None stays None).  The JAX
+    ``rng`` has no counterpart."""
     def tensor(x):
         return None if x is None else torch.from_numpy(np.array(x))
 
@@ -177,7 +178,9 @@ def state_from_jax(jax_state) -> dict:
                         if jax_state.batch_stats else {}),
         "opt_state": as_tree(adam_state_from_jax(jax_state.opt_state)),
         "step": np.asarray(jax_state.step, np.int32),
-        "ema_params": None,
+        "ema_params": (None if getattr(jax_state, "ema_params", None) is None
+                       else params_from_jax({"params":
+                                             jax_state.ema_params})),
     }
     for key in ("skipped_steps", "bad_streak", "loss_scale", "good_steps"):
         tree[key] = tensor(getattr(jax_state, key, None))

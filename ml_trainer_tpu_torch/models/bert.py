@@ -18,7 +18,10 @@ as in the JAX package, so the default is False.
 ``dtype`` is the compute dtype (``models/layers.py``): the embedding sum
 is cast to it and the encoder computes in it; the ``pooler`` and the
 ``classifier`` compute in float32, as in the JAX package.  Parameters
-stay float32.
+stay float32.  ``dropout_rate`` drops the embeddings after ``embed_ln``
+and each layer's attention and MLP outputs in training mode; ``remat``
+runs each layer under ``layers.remat_call`` (``remat_policy`` 'none' or
+'dots').
 """
 
 from __future__ import annotations
@@ -27,16 +30,20 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ml_trainer_tpu_torch.device import resolve_device
 from ml_trainer_tpu_torch.models.layers import (
     LN_EPS,
     Dense,
+    Dropout,
     LayerNorm,
     TransformerBlock,
     _cast,
-    _refuse_unported,
+    attach_dropout,
+    check_remat_policy,
     compute_dtype,
+    remat_call,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
 
@@ -48,13 +55,12 @@ class BertEncoder(nn.Module):
                  dropout_rate: float = 0.0,
                  num_classes: Optional[int] = 2, pad_token_id: int = 0,
                  attention_impl: str = "auto", remat: bool = False,
-                 right_padded: bool = False, device=None,
-                 dtype=torch.float32):
+                 remat_policy: str = "none", right_padded: bool = False,
+                 device=None, dtype=torch.float32):
         super().__init__()
-        _refuse_unported(dropout_rate)
         if remat:
-            raise NotImplementedError(
-                "remat=True is not ported yet; see ROADMAP.md Queue A")
+            check_remat_policy(remat_policy)
+        self.remat, self.remat_policy = bool(remat), remat_policy
         device = resolve_device(device)
         self.dtype = dtype
         cdt = compute_dtype(dtype)
@@ -73,15 +79,26 @@ class BertEncoder(nn.Module):
         self.seg_embed = nn.Embedding(type_vocab_size, embed_dim,
                                       device=device)
         self.embed_ln = LayerNorm(embed_dim, eps=LN_EPS, **kw)
+        self.embed_drop = Dropout(dropout_rate)
         self.layers = nn.ModuleList(
             TransformerBlock(embed_dim, num_heads, mlp_dim, post_norm=True,
-                             **kw)
+                             dropout_rate=dropout_rate, **kw)
             for _ in range(depth))
         if num_classes is not None:
             self.pooler = Dense(embed_dim, embed_dim, device=device,
                                 dtype=head)
             self.classifier = Dense(embed_dim, num_classes, device=device,
                                     dtype=head)
+        attach_dropout(self)
+
+    def _segments(self, token_type_ids):
+        """``seg_embed(token_type_ids)`` as a one-hot product: the same
+        rows, exactly, and a backward that is one matmul.  The embedding's
+        own backward on CUDA adds every position into this table's two
+        rows in an order that changes from run to run (measured on the
+        H100), which would break bit-for-bit repeats of a step."""
+        w = self.seg_embed.weight
+        return F.one_hot(token_type_ids.long(), w.shape[0]).to(w.dtype) @ w
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         s = input_ids.shape[1]
@@ -91,16 +108,17 @@ class BertEncoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         pos_ids = torch.arange(s, device=input_ids.device)[None, :]
         x = _cast(self.tok_embed(input_ids) + self.pos_embed(pos_ids)
-                  + self.seg_embed(token_type_ids), compute_dtype(self.dtype))
-        x = self.embed_ln(x)
+                  + self._segments(token_type_ids), compute_dtype(self.dtype))
+        x = self.embed_drop(self.embed_ln(x))
         mask = attention_mask[:, None, None, :].to(torch.bool)
         kv_lens = None
         if self.right_padded:
             kv_lens = torch.clamp(
                 attention_mask.to(torch.int32).sum(dim=-1), min=1)
         for layer in self.layers:
-            x = layer(x, mask=mask, kv_lens=kv_lens,
-                      attention_impl=self.attention_impl)
+            x = remat_call(layer, self.remat, self.remat_policy, x,
+                           mask=mask, kv_lens=kv_lens,
+                           attention_impl=self.attention_impl)
         if self.num_classes is None:
             return x  # the sequence output
         return self.classifier(torch.tanh(self.pooler(x[:, 0])))

@@ -17,7 +17,10 @@ every block as int8 matmuls, with or without a cache: the JAX package's
 ``loss_chunk`` > 0, ``forward(input_ids, targets=...)`` returns the mean
 LM loss through the same tied head without ever holding the [B, S, V]
 logits (``ops.losses.chunked_lm_cross_entropy``); the Trainer then feeds
-the labels through the forward.
+the labels through the forward.  ``dropout_rate`` drops the embedding sum
+(after the cast to the compute dtype) and each block's attention and MLP
+outputs in training mode, never with a cache; ``remat`` runs each block
+under ``layers.remat_call`` with ``remat_policy`` 'none' or 'dots'.
 """
 
 from __future__ import annotations
@@ -31,12 +34,16 @@ from ml_trainer_tpu_torch.device import resolve_device
 from ml_trainer_tpu_torch.models.layers import (
     LN_EPS,
     ContiguousKVCache,
+    Dropout,
     LayerNorm,
     PagedKVCache,
     TransformerBlock,
     _cast,
     _refuse_unported,
+    attach_dropout,
+    check_remat_policy,
     compute_dtype,
+    remat_call,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
 from ml_trainer_tpu_torch.ops.losses import chunked_lm_cross_entropy
@@ -47,10 +54,14 @@ class GPT2(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  attention_impl: str = "auto",
                  dropout_rate: float = 0.0, moe_experts: int = 0,
-                 lora_rank: int = 0, loss_chunk: int = 0, device=None,
-                 dtype=torch.float32):
+                 lora_rank: int = 0, loss_chunk: int = 0,
+                 remat: bool = False, remat_policy: str = "none",
+                 device=None, dtype=torch.float32):
         super().__init__()
-        _refuse_unported(dropout_rate, moe_experts, lora_rank)
+        _refuse_unported(moe_experts, lora_rank)
+        if remat:
+            check_remat_policy(remat_policy)
+        self.remat, self.remat_policy = bool(remat), remat_policy
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.max_len = max_len
@@ -68,13 +79,16 @@ class GPT2(nn.Module):
         self.tok_embed = nn.Embedding(vocab_size, embed_dim, device=device)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, max_len, embed_dim, device=device))
+        self.embed_drop = Dropout(dropout_rate)
         self.blocks = nn.ModuleList(
             TransformerBlock(embed_dim, num_heads, 4 * embed_dim, causal=True,
-                             device=device, dtype=cdt)
+                             device=device, dtype=cdt,
+                             dropout_rate=dropout_rate)
             for _ in range(depth)
         )
         self.ln_final = LayerNorm(embed_dim, eps=LN_EPS, device=device,
                                   dtype=cdt)
+        attach_dropout(self)
 
     @property
     def device(self) -> torch.device:
@@ -136,14 +150,17 @@ class GPT2(nn.Module):
         ``ops.kernels.int8_matmul``); the embeddings and the tied head
         stay fp32."""
         if cache is None:
-            x = self._embed_input(input_ids)
+            x = self.embed_drop(self._embed_input(input_ids))
         else:
             x = self._embed_input(input_ids, pos_start=cache.index)
         q_blocks = None if quant is None else quant["blocks"]
+        remat = self.remat and cache is None
         for i, block in enumerate(self.blocks):
-            x = block(x, cache, i, attention_impl=self.attention_impl,
-                      quant=None if q_blocks is None else q_blocks[str(i)],
-                      quant_impl=quant_impl)
+            x = remat_call(
+                block, remat, self.remat_policy, x, cache, i,
+                attention_impl=self.attention_impl,
+                quant=None if q_blocks is None else q_blocks[str(i)],
+                quant_impl=quant_impl)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         if targets is not None:

@@ -56,15 +56,36 @@ with the unbiased one), epsilon 1e-5.  With a compute dtype, ``Conv``
 casts like ``Dense`` and ``BatchNorm`` normalises in float32 (batch
 statistics included) and returns ``dtype``; the running statistics stay
 float32.
+
+Dropout.  ``Dropout`` is flax's ``nn.Dropout``: ``where(keep, x /
+(1 - rate), 0)``, only in training mode and never in decode mode (the
+JAX package's decode modules run ``train=False``).  Its mask is no draw
+from a generator but a counter-based integer hash (``DropoutStream``) of
+the seed, the step, the site (the module's place among the model's
+dropout modules) and the element's index in the step's global batch:
+the same key gives the same bits on every device, a replayed CUDA graph
+reads the step from a device tensor, a recompute under remat redraws the
+same mask, and the microbatches and replicas of a step see the masks of
+the whole batch at once.  ``jax.random`` is not reproduced.
+
+Rematerialisation.  ``remat_call`` runs a block under
+``torch.utils.checkpoint`` (non-reentrant): policy 'none' recomputes
+everything in the backward, 'dots' keeps the 2-D matmul outputs (the
+``Dense`` projections, the JAX package's ``dots_with_no_batch_dims``)
+and recomputes the rest, attention included.  The flash kernels are
+launched outside PyTorch's dispatcher, so under either policy the
+forward kernel K1 runs again in the backward.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils import checkpoint as _checkpoint
 
 from ml_trainer_tpu_torch.ops.attention import attention
 from ml_trainer_tpu_torch.ops.kernels.int8_matmul import int8_matmul
@@ -359,9 +380,8 @@ class MLP(nn.Module):
         return _dense(self.fc_out, "fc_out", h, quant, quant_impl)
 
 
-def _refuse_unported(dropout_rate=0.0, moe_experts=0, lora_rank=0) -> None:
-    for knob, value in (("dropout_rate", dropout_rate),
-                        ("moe_experts", moe_experts),
+def _refuse_unported(moe_experts=0, lora_rank=0) -> None:
+    for knob, value in (("moe_experts", moe_experts),
                         ("lora_rank", lora_rank)):
         if value:
             raise NotImplementedError(
@@ -370,11 +390,173 @@ def _refuse_unported(dropout_rate=0.0, moe_experts=0, lora_rank=0) -> None:
             )
 
 
+# The hash works on 32-bit words held in int64 tensors.
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A bijective 32-bit mixer (xor-shift, multiply; the shape of
+    lowbias32) on int64 tensors or ints holding 32-bit words.  Both
+    multipliers are below 2**31, so no product of a 32-bit word reaches
+    2**63: the int64 arithmetic is exact on every device."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+class DropoutStream:
+    """Where one model's dropout masks come from: a counter-based hash,
+    no generator state.
+
+    An element is kept when ``mix32(index ^ key) >= rate * 2**32``, with
+    ``index`` its place in the step's global batch (``row0`` rows before
+    the microbatch, row-major within it) and ``key`` the site's word of
+    the step: ``mix32((step mod 2**32) ^ mix32(mix32(seed) ^ site))``.
+    ``begin_step(step)`` computes every site's key from ``step``, a
+    device tensor (int64), in a few device ops, so a CUDA graph of the
+    step reads the step it replays; the keys stay until the next
+    ``begin_step``.  The Trainer sets ``seed`` (the config's), calls
+    ``begin_step`` at each step and sets ``row0`` before each
+    microbatch's forward; a model used outside a Trainer drops with the
+    keys of step 0.
+
+    ``forced`` (a test hook): site -> a bool keep mask that replaces the
+    hash's for that site."""
+
+    def __init__(self, sites: int, seed: int = 0):
+        self.sites = sites
+        self.seed = seed
+        self.row0 = 0
+        self.keys: Optional[torch.Tensor] = None
+        self._site_words: Dict[torch.device, torch.Tensor] = {}
+        self.forced: Dict[int, torch.Tensor] = {}
+
+    def reseed(self, seed: int) -> None:
+        self.seed = int(seed)
+        self._site_words.clear()
+        self.keys = None
+
+    def begin_step(self, step: torch.Tensor) -> None:
+        words = self._site_words.get(step.device)
+        if words is None:
+            base = _mix32(self.seed & _M32)
+            words = torch.tensor([_mix32(base ^ s) for s in range(self.sites)],
+                                 dtype=torch.int64, device=step.device)
+            self._site_words[step.device] = words
+        self.keys = _mix32((step.to(torch.int64) & _M32) ^ words)
+
+    def keep(self, site: int, shape, rate: float, device) -> torch.Tensor:
+        """The bool keep mask of ``site`` for a tensor of ``shape``."""
+        if site in self.forced:
+            return self.forced[site].to(device)
+        if (self.keys is None
+                or self.keys.device.type != torch.device(device).type):
+            self.begin_step(torch.zeros((), dtype=torch.int64,
+                                        device=device))
+        n = 1
+        for d in shape:
+            n *= int(d)
+        start = self.row0 * (n // int(shape[0]))
+        if start + n > 2 ** 32:
+            raise ValueError(
+                f"dropout indexes a step's elements in 32 bits; this one "
+                f"reaches {start + n}")
+        idx = torch.arange(start, start + n, dtype=torch.int64,
+                           device=device)
+        h = _mix32(idx ^ self.keys[site])
+        return (h >= int(rate * 2 ** 32)).reshape(shape)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: ``where(keep, x / (1 - rate), 0)`` in
+    training mode, the identity in eval mode; the mask from the model's
+    ``DropoutStream`` at this module's ``site`` (``attach_dropout``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.site = 0
+        self.stream: Optional[DropoutStream] = None
+
+    def forward(self, x):
+        if not (self.training and self.rate):
+            return x
+        keep = self.stream.keep(self.site, x.shape, self.rate, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+def attach_dropout(model: nn.Module) -> Optional[DropoutStream]:
+    """Number the model's ``Dropout`` modules in registration order (the
+    forward's order in every family) and give them one shared
+    ``DropoutStream``; None when the model has none that drops."""
+    drops = [m for m in model.modules()
+             if isinstance(m, Dropout) and m.rate]
+    if not drops:
+        return None
+    stream = DropoutStream(len(drops))
+    for site, m in enumerate(drops):
+        m.site, m.stream = site, stream
+    return stream
+
+
+def dropout_stream(model: nn.Module) -> Optional[DropoutStream]:
+    """The model's ``DropoutStream`` (``attach_dropout``), or None."""
+    for m in model.modules():
+        if isinstance(m, Dropout) and m.stream is not None:
+            return m.stream
+    return None
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The 'dots' policy: keep the 2-D matmuls' outputs."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _checkpoint.CheckpointPolicy.MUST_SAVE
+    return _checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat_policy(name: str) -> None:
+    """Raise for a policy that is neither 'none' nor 'dots'."""
+    if name not in ("none", "dots"):
+        raise ValueError(
+            f"Unknown remat_policy {name!r}; expected 'none' or 'dots'")
+
+
+def remat_call(block: nn.Module, remat: bool, policy: str, *args,
+               **kwargs):
+    """``block(*args, **kwargs)``, under ``torch.utils.checkpoint`` when
+    ``remat`` and autograd records (no checkpoint in eval or decode).
+    The masks are a hash of device state, so no RNG state is kept for
+    the recompute (a captured CUDA graph could not read it).  The
+    recompute runs in the backward, after a ``functional_call`` (the
+    precision policy's bf16 copies) has put the float32 parameters back:
+    so the block runs on the parameters it holds now, passed in by name,
+    and the recompute repeats the forward's ops on the same tensors."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(*args, **kwargs)
+    params = dict(block.named_parameters())
+
+    def run(*a, **k):
+        return torch.func.functional_call(block, params, a, k)
+
+    extra = {}
+    if policy == "dots":
+        extra["context_fn"] = functools.partial(
+            _checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    return _checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                  preserve_rng_state=False, **extra,
+                                  **kwargs)
+
+
 class TransformerBlock(nn.Module):
     """Pre-LN transformer block (GPT-2); ``post_norm`` is the BERT
-    arrangement.  Dropout, MoE and LoRA are not ported yet and are
-    refused.  ``quant`` is the block's entry of the "quant" collection
-    (``{"attn": ..., "mlp": ...}``), threaded to its projections."""
+    arrangement.  ``dropout_rate`` drops the attention's and the MLP's
+    outputs (after ``proj`` and ``fc_out``, as the JAX package's
+    ``MultiHeadAttention`` and ``MLP`` do) in training mode, never with a
+    cache.  MoE and LoRA are not ported yet and are refused.  ``quant``
+    is the block's entry of the "quant" collection (``{"attn": ...,
+    "mlp": ...}``), threaded to its projections."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
                  causal: bool = False, post_norm: bool = False, device=None,
@@ -382,7 +564,7 @@ class TransformerBlock(nn.Module):
                  dropout_rate: float = 0.0, moe_experts: int = 0,
                  lora_rank: int = 0):
         super().__init__()
-        _refuse_unported(dropout_rate, moe_experts, lora_rank)
+        _refuse_unported(moe_experts, lora_rank)
         self.post_norm = post_norm
         self.ln1 = LayerNorm(embed_dim, eps=LN_EPS, device=device,
                              dtype=dtype)
@@ -391,6 +573,9 @@ class TransformerBlock(nn.Module):
         self.attn = MultiHeadAttention(embed_dim, num_heads, causal=causal,
                                        device=device, dtype=dtype)
         self.mlp = MLP(embed_dim, mlp_dim, device=device, dtype=dtype)
+        # Registered after attn and mlp: sites in the forward's order.
+        self.attn_drop = Dropout(dropout_rate)
+        self.mlp_drop = Dropout(dropout_rate)
 
     def forward(self, x, cache=None, layer: int = 0, mask=None, kv_lens=None,
                 attention_impl: str = "auto", quant=None,
@@ -399,13 +584,18 @@ class TransformerBlock(nn.Module):
         if quant is not None:
             q_attn, q_mlp = quant["attn"], quant["mlp"]
 
+        def drop(module, y):
+            return y if cache is not None else module(y)
+
         def attn(y):
-            return self.attn(y, cache, layer, mask=mask, kv_lens=kv_lens,
-                             attention_impl=attention_impl, quant=q_attn,
-                             quant_impl=quant_impl)
+            return drop(self.attn_drop, self.attn(
+                y, cache, layer, mask=mask, kv_lens=kv_lens,
+                attention_impl=attention_impl, quant=q_attn,
+                quant_impl=quant_impl))
 
         def mlp(y):
-            return self.mlp(y, quant=q_mlp, quant_impl=quant_impl)
+            return drop(self.mlp_drop,
+                        self.mlp(y, quant=q_mlp, quant_impl=quant_impl))
 
         if self.post_norm:
             x = self.ln1(x + attn(x))

@@ -40,8 +40,9 @@ stay float32, and the caches hold K/V in it.  The logits are
 ``x.float() @ lm_head.float()``; with ``loss_chunk`` > 0,
 ``forward(ids, targets=...)`` returns the mean LM loss through
 ``ops.losses.chunked_lm_cross_entropy(x, lm_head.T, ...)`` without the
-[B, S, V] logits.  ``remat``, ``remat_policy`` and ``mesh`` are not
-ported and are refused.
+[B, S, V] logits.  ``remat`` runs each block under
+``layers.remat_call`` (``remat_policy`` 'none' or 'dots'); ``mesh`` is
+not ported and is refused.  Llama has no dropout.
 """
 
 from __future__ import annotations
@@ -58,7 +59,9 @@ from ml_trainer_tpu_torch.models.layers import (
     Dense,
     RMSNorm,
     _cast,
+    check_remat_policy,
     compute_dtype,
+    remat_call,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
 from ml_trainer_tpu_torch.ops.attention import attention
@@ -195,13 +198,12 @@ class LlamaLM(nn.Module):
                  loss_chunk: int = 0, mesh=None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        for knob, value, off in (("remat", remat, False),
-                                 ("remat_policy", remat_policy, "none"),
-                                 ("mesh", mesh, None)):
-            if value != off:
-                raise NotImplementedError(
-                    f"{knob}={value!r} is not ported yet; see ROADMAP.md "
-                    "Queue A")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh={mesh!r} is not ported yet; see ROADMAP.md Queue A")
+        if remat:
+            check_remat_policy(remat_policy)
+        self.remat, self.remat_policy = bool(remat), remat_policy
         device = resolve_device(device)
         # The Llama default: ~8/3 of the width, rounded up to 128.
         hidden = hidden_dim or ((8 * embed_dim // 3) + 127) // 128 * 128
@@ -271,8 +273,10 @@ class LlamaLM(nn.Module):
                                  f"length {cache.max_len}")
             positions = cache.index[:, None] + steps[None, :]
         rope = rope_tables(positions, self.head_dim // 2, self.rope_theta)
+        remat = self.remat and cache is None
         for i, block in enumerate(self.blocks):
-            x = block(x, rope, cache, i, self.attention_impl)
+            x = remat_call(block, remat, self.remat_policy, x, rope, cache, i,
+                           self.attention_impl)
         if cache is not None:
             cache.advance(s)
         if targets is not None:

@@ -17,6 +17,9 @@ the plain path under "auto", as the JAX package does.
 embedding, the blocks and ``ln_final`` compute in it, the ``head`` in
 float32, as in the JAX package; parameters stay float32.  ``vit_b16``
 computes in bf16 by default, as the JAX ``vit_b16`` does.
+``dropout_rate`` drops the patch and position embedding sum and each
+block's attention and MLP outputs in training mode; ``remat`` runs each
+block under ``layers.remat_call`` (``remat_policy`` 'none' or 'dots').
 """
 
 from __future__ import annotations
@@ -29,10 +32,13 @@ from ml_trainer_tpu_torch.models.layers import (
     LN_EPS,
     Conv,
     Dense,
+    Dropout,
     LayerNorm,
     TransformerBlock,
-    _refuse_unported,
+    attach_dropout,
+    check_remat_policy,
     compute_dtype,
+    remat_call,
 )
 from ml_trainer_tpu_torch.models.registry import register_model
 
@@ -42,12 +48,12 @@ class VisionTransformer(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, dropout_rate: float = 0.0,
                  dtype=torch.float32, attention_impl: str = "auto",
-                 remat: bool = False, image_size: int = 224, device=None):
+                 remat: bool = False, remat_policy: str = "none",
+                 image_size: int = 224, device=None):
         super().__init__()
-        _refuse_unported(dropout_rate)
         if remat:
-            raise NotImplementedError(
-                "remat=True is not ported yet; see ROADMAP.md Queue A")
+            check_remat_policy(remat_policy)
+        self.remat, self.remat_policy = bool(remat), remat_policy
         device = resolve_device(device)
         self.dtype = dtype
         cdt = compute_dtype(dtype)
@@ -63,13 +69,16 @@ class VisionTransformer(nn.Module):
                                                   device=device))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + patches, embed_dim,
                                                   device=device))
+        self.embed_drop = Dropout(dropout_rate)
         self.blocks = nn.ModuleList(
-            TransformerBlock(embed_dim, num_heads, mlp_dim, **kw)
+            TransformerBlock(embed_dim, num_heads, mlp_dim,
+                             dropout_rate=dropout_rate, **kw)
             for _ in range(depth))
         self.ln_final = LayerNorm(embed_dim, eps=LN_EPS, **kw)
         # flax's Dense(dtype=float32); with no policy it casts nothing.
         self.head = Dense(embed_dim, num_classes, device=device,
                           dtype=None if cdt is None else torch.float32)
+        attach_dropout(self)
 
     def forward(self, x):
         b = x.shape[0]
@@ -82,9 +91,10 @@ class VisionTransformer(nn.Module):
                 "inputs' image_size")
         x = torch.cat([self.cls_token.expand(b, 1, self.embed_dim).to(x.dtype),
                        x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
+        x = self.embed_drop(x + self.pos_embed.to(x.dtype))
         for block in self.blocks:
-            x = block(x, attention_impl=self.attention_impl)
+            x = remat_call(block, self.remat, self.remat_policy, x,
+                           attention_impl=self.attention_impl)
         return self.head(self.ln_final(x[:, 0]))  # LayerNorm is per token
 
 

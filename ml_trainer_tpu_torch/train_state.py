@@ -9,7 +9,9 @@ device, maintained by the non-finite guard without a host sync and read
 once per epoch.  With loss scaling (``precision.py``), ``loss_scale``
 (float32) and ``good_steps`` (int32, the finite steps since the scale
 last moved) are device scalars too; None whenever scaling is off, so an
-fp32 run's state is the pre-policy one.
+fp32 run's state is the pre-policy one.  With ``ema_decay``,
+``ema_params`` holds the float32 moving average of the parameters, by
+their module names; None otherwise.
 
 ``state_tree`` gives the whole state, the model's parameters and buffers
 included, as one tree with the JAX package's ``TrainState`` names (what
@@ -34,6 +36,7 @@ class TrainState:
     bad_streak: torch.Tensor
     loss_scale: Optional[torch.Tensor] = None
     good_steps: Optional[torch.Tensor] = None
+    ema_params: Optional[dict] = None
 
     @classmethod
     def create(cls, opt_state, device,
@@ -52,7 +55,7 @@ class TrainState:
 
 # The top-level names of the state as one tree: the JAX package's
 # ``TrainState`` fields that have a counterpart here (its ``rng`` has
-# none; ``ema_params`` is always None while ``ema_decay`` is refused).
+# none).
 _COUNTERS = ("skipped_steps", "bad_streak", "loss_scale", "good_steps")
 TREE_KEYS = ("params", "batch_stats", "opt_state", "step", *_COUNTERS,
              "ema_params")
@@ -73,13 +76,15 @@ def state_tree(state: TrainState, model: torch.nn.Module) -> dict:
     it now: ``params`` and ``batch_stats`` are the model's parameters and
     buffers by their module names, ``opt_state`` the optimizer's state,
     then ``step``, the guard's counters, the loss scale's (None when
-    scaling is off) and ``ema_params`` (None)."""
+    scaling is off) and ``ema_params`` (by the parameters' names; None
+    without an EMA)."""
     tree = {
         "params": {k: p.detach() for k, p in model.named_parameters()},
         "batch_stats": dict(model.named_buffers()),
         "opt_state": as_tree(state.opt_state),
         "step": np.asarray(state.step, np.int32),
-        "ema_params": None,
+        "ema_params": (None if state.ema_params is None
+                       else dict(state.ema_params)),
     }
     tree.update({key: getattr(state, key) for key in _COUNTERS})
     return tree
@@ -127,8 +132,10 @@ def load_state_tree(state: TrainState, model: torch.nn.Module,
 
     Counters (the JAX package's ``_reconcile_guard_counters``): one the
     checkpoint lacks starts at 0 (a zero ``loss_scale`` is re-seeded by
-    the trainer), and one this run does not keep is dropped; a saved
-    ``ema_params`` is dropped too."""
+    the trainer), and one this run does not keep is dropped.  The EMA
+    (its ``_reconcile_ema``): a run with one restores the saved
+    ``ema_params``, or, from a checkpoint without them, starts them at
+    the restored parameters; a run without one drops them."""
     odd = sorted(set(tree) - set(TREE_KEYS))
     if odd:
         raise ValueError(f"checkpoint does not fit the state at {odd[0]}: "
@@ -148,6 +155,10 @@ def load_state_tree(state: TrainState, model: torch.nn.Module,
         if saved is None:
             saved = torch.zeros((), dtype=live.dtype).numpy()
         _match((key,), live, saved, plan)
+    if state.ema_params is not None:
+        saved = tree.get("ema_params")
+        _match(("ema_params",), state.ema_params,
+               tree["params"] if saved is None else saved, plan)
     for live, src in plan:
         live.copy_(src)
     state.step = int(tree["step"])

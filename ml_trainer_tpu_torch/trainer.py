@@ -99,6 +99,16 @@ that a CUDA graph's addresses stay valid) and continues bit for bit,
 consuming the batches already trained from the loader.  The fault hooks
 (``resilience/faults.py``: ``preempt``, ``nan_grad``) fire per batch at
 K = 1; a SIGTERM/SIGINT takes the ``preempt`` path.
+
+A model with dropout (``models/layers.py``'s ``DropoutStream``) draws
+its masks from a hash of the config's ``seed``, the step, the site and
+the element's row in the global batch: each step sets the stream's keys
+from a device step counter and each microbatch its first row, so
+``grad_accum_steps``, the replicas and the K-step graph all see the
+masks of one single-card step, and a resumed run needs no RNG state.
+``ema_decay`` keeps ``state.ema_params`` (``e = d * e + (1 - d) * p``
+after each update, the old value kept on a skipped step); the
+evaluations, ``test()``, ``predict()`` and the saved weights use it.
 """
 
 from __future__ import annotations
@@ -136,7 +146,7 @@ from ml_trainer_tpu_torch.data.native import (
     native_plan,
 )
 from ml_trainer_tpu_torch.device import resolve_device
-from ml_trainer_tpu_torch.models.layers import BatchNorm
+from ml_trainer_tpu_torch.models.layers import BatchNorm, dropout_stream
 from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
     adam_scalars,
     fused_adam_update_list,
@@ -233,10 +243,12 @@ def _summed_steps(step, xs, ys):
 
 def _state_tensors(state: TrainState) -> list:
     """Every tensor of ``state`` that a step replaces: the optimizer
-    state's leaves, the guard's counters and the loss scale's."""
+    state's leaves, the guard's counters, the loss scale's and the EMA's
+    leaves."""
     return tree_leaves(state.opt_state) + [
         t for t in (state.skipped_steps, state.bad_streak, state.loss_scale,
-                    state.good_steps) if t is not None]
+                    state.good_steps) if t is not None] + list(
+        (state.ema_params or {}).values())
 
 
 def _module_takes_targets(module) -> bool:
@@ -364,14 +376,17 @@ class Trainer:
         and ``rollback_lr_backoff`` (restore the newest valid checkpoint
         after N consecutive skipped steps, the LR scaled down), and
         ``handle_preemption`` (SIGTERM/SIGINT end ``fit()`` with an
-        emergency checkpoint; ``fit(resume=True)`` continues).
-        Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
+        emergency checkpoint; ``fit(resume=True)`` continues), and
+        ``ema_decay`` (a float32 moving average of the parameters, kept
+        by every step flavour and reverted with a skipped step; eval,
+        ``test()``, ``predict()``, ``save_model`` and ``save_best`` use
+        it).  Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
         ported), ``desync_every_steps`` and ``straggler_factor``
         (multi-host and telemetry only); the first ``Trainer`` of a
         process logs one warning when the JAX package would act on a
         ``desync_every_steps`` as set (``_warn_inert_knobs``).
         Refused unless at their defaults: ``sharding_rules``,
-        ``ema_decay``, ``telemetry``, ``elastic``, ``lora``,
+        ``telemetry``, ``elastic``, ``lora``,
         ``pipeline_schedule`` and ``sharded_checkpoint=True``; so are
         mesh axes other than ``data`` and
         replicas on distinct devices.
@@ -416,7 +431,6 @@ class Trainer:
                 "dp_update='sharded' requires steps_per_execution=1")
         for knob, value, accepted in (
             ("sharding_rules", sharding_rules, (None,)),
-            ("ema_decay", ema_decay, (None,)),
             ("telemetry", telemetry, (False,)),
             ("elastic", elastic, (None,)),
             ("lora", lora, (None,)),
@@ -434,6 +448,9 @@ class Trainer:
         if grad_clip_norm is not None and grad_clip_norm <= 0:
             raise ValueError(
                 f"grad_clip_norm must be positive, got {grad_clip_norm}")
+        if ema_decay is not None and not 0.0 < ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+        self.ema_decay = ema_decay
         if moe_aux_weight < 0:
             raise ValueError(
                 f"moe_aux_weight must be >= 0, got {moe_aux_weight}")
@@ -567,6 +584,14 @@ class Trainer:
                 "BatchNorm models")
         self.model = model
         self._takes_targets = _module_takes_targets(model)
+        # Dropout: the masks hash (seed, step, site, element), the step
+        # read from a device counter that a CUDA graph of K steps advances.
+        self._dropout = dropout_stream(model)
+        self._step_t = None
+        if self._dropout is not None:
+            self._dropout.reseed(cfg.seed)
+            self._step_t = torch.zeros((), dtype=torch.int64,
+                                       device=self.device)
         logger.info(f"Training on device: {self.device}.")
 
         if label_smoothing and self._takes_targets:
@@ -704,6 +729,10 @@ class Trainer:
             self.state = TrainState.create(
                 self.tx.init(params), self.device,
                 init_scale=None if scale_cfg is None else scale_cfg.init_scale)
+            if self.ema_decay is not None:
+                # Float32 copies of the (float32) masters.
+                self.state.ema_params = {k: p.clone()
+                                         for k, p in params.items()}
         n = self.mesh.size
         self._zero1 = self._bucket_plan = None
         if self.dp_update == "sharded":
@@ -718,18 +747,33 @@ class Trainer:
                 f"{self._bucket_plan.overlap_fraction:.2f}).")
 
     # ------------------------------------------------------------- the step
-    def _apply_model(self, model: nn.Module, x, targets=None):
+    def _apply_model(self, model: nn.Module, x, targets=None, params=None):
         """``model(x)`` (with ``targets`` for a model that computes its
-        own loss); under an active policy, on compute-dtype copies of its
-        parameters (buffers as they are) and a floating ``x`` cast
-        likewise, the output cast back to float32."""
+        own loss), on ``params`` (a dict of its parameters, e.g. the EMA's)
+        in place of its own when given; under an active policy, on
+        compute-dtype copies of the parameters (buffers as they are) and
+        a floating ``x`` cast likewise, the output cast back to float32."""
         kwargs = {} if targets is None else {"targets": targets}
         dt = self._compute_dtype
-        if dt is None:
+        if dt is None and params is None:
             return model(x, **kwargs)
-        params = cast_floating(dict(model.named_parameters()), dt)
+        if params is None:
+            params = dict(model.named_parameters())
+        if dt is None:
+            return torch.func.functional_call(model, params, (x,), kwargs)
         return torch.func.functional_call(
-            model, params, (cast_floating(x, dt),), kwargs).float()
+            model, cast_floating(params, dt), (cast_floating(x, dt),),
+            kwargs).float()
+
+    def _eval_params(self, model):
+        """The EMA weights when ``model`` is the trainer's own and
+        ``ema_decay`` is set (the JAX package's ``_state_variables``:
+        eval, ``test()``, ``predict()`` and the saved weights use them),
+        else None (the model's own)."""
+        if (model is self.model and self.state is not None
+                and self.state.ema_params is not None):
+            return self.state.ema_params
+        return None
 
     def _forward_loss(self, x, y):
         """Loss and metric of one microbatch, the graph kept for backward."""
@@ -745,11 +789,12 @@ class Trainer:
                       else torch.zeros((), device=loss.device))
         return loss, metric
 
-    def _local_grads(self, params, x, y, scale=None):
+    def _local_grads(self, params, x, y, scale=None, row0: int = 0):
         """Forward and backward over the ``grad_accum_steps`` microbatches
-        of rows ``(x, y)``: the summed gradients (taken out of ``.grad``;
-        of ``loss * scale`` with a loss scale) and the summed, unscaled
-        loss and metric."""
+        of rows ``(x, y)``, which start at row ``row0`` of the global
+        batch (the dropout masks' place): the summed gradients (taken out
+        of ``.grad``; of ``loss * scale`` with a loss scale) and the
+        summed, unscaled loss and metric."""
         accum = self.grad_accum_steps
         self.model.train()
         for p in params.values():
@@ -758,6 +803,8 @@ class Trainer:
         loss_sum = metric_sum = None
         for i in range(accum):
             sl = slice(i * micro, (i + 1) * micro)
+            if self._dropout is not None:
+                self._dropout.row0 = row0 + i * micro
             loss, metric = self._forward_loss(x[sl], y[sl])
             (loss if scale is None else loss * scale).backward()
             loss = loss.detach()
@@ -779,14 +826,32 @@ class Trainer:
             return [self._local_grads(params, x, y, scale)]
         rows = x.shape[0] // self.mesh.size
         return [self._local_grads(params, x[j * rows:(j + 1) * rows],
-                                  y[j * rows:(j + 1) * rows], scale)
+                                  y[j * rows:(j + 1) * rows], scale,
+                                  row0=j * rows)
                 for j in range(self.mesh.size)]
 
     def _train_step(self, x, y, lr_scale: float):
         """One optimizer step on the global batch ``(x, y)``; returns the
-        (guarded) loss and metric as device scalars."""
+        (guarded) loss and metric as device scalars.  With dropout, the
+        masks' keys come from the device step counter, which the step
+        then advances (a CUDA graph of K steps replays the advance; an
+        eager step first sets the counter from ``state.step``)."""
+        if self._dropout is not None:
+            if (self.device.type != "cuda"
+                    or not torch.cuda.is_current_stream_capturing()):
+                self._step_t.fill_(self.state.step)
+            self._dropout.begin_step(self._step_t)
         if self.dp_update == "sharded":
-            return self._sharded_train_step(x, y, lr_scale)
+            out = self._sharded_train_step(x, y, lr_scale)
+        else:
+            out = self._fused_train_step(x, y, lr_scale)
+        if self._dropout is not None:
+            self._step_t.add_(1)
+        return out
+
+    def _fused_train_step(self, x, y, lr_scale: float):
+        """``_train_step`` of the single-card and the fused data-parallel
+        update."""
         accum = self.grad_accum_steps
         params = self._params()
         scale = self.state.loss_scale
@@ -848,6 +913,8 @@ class Trainer:
         key = (kind, tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype)
         graph = self._graphs.get(key)
         if graph is not None:
+            if kind == "train" and self._step_t is not None:
+                self._step_t.fill_(self.state.step)
             out = graph.replay(xs, ys)
             if kind == "train":
                 self.state.step += xs.shape[0]
@@ -984,6 +1051,12 @@ class Trainer:
         # The replicas share the model: replica 0's copy is everyone's.
         for k, leaf in zip(names, gathered[0]):
             params[k].copy_(leaf)
+        if state.ema_params is not None:
+            # From the gathered weights; a skipped step keeps the old EMA.
+            new_ema = self._ema_update(state.ema_params, full)
+            if self.nonfinite_guard:
+                new_ema = tree_map(sel, new_ema, state.ema_params)
+            state.ema_params = new_ema
         state.opt_state = join_replica_views(new_opt, self._zero1)
         if self.fused_adam and not self.nonfinite_guard:
             # K5's moments are views of one buffer per replica, and a
@@ -1026,6 +1099,8 @@ class Trainer:
         if isinstance(lr_scale, torch.Tensor) or lr_scale != 1.0:
             updates = {k: u * lr_scale for k, u in updates.items()}
         new_params = {k: old[k] + u for k, u in updates.items()}
+        new_ema = (None if state.ema_params is None
+                   else self._ema_update(state.ema_params, new_params))
         if self.nonfinite_guard:
             ok = torch.isfinite(loss)
             for g in grads.values():
@@ -1036,6 +1111,8 @@ class Trainer:
 
             new_params = tree_map(sel, new_params, old)
             new_opt = tree_map(sel, new_opt, state.opt_state)
+            if new_ema is not None:
+                new_ema = tree_map(sel, new_ema, state.ema_params)
             live = dict(self.model.named_buffers())
             for k, before in buffers.items():
                 live[k].copy_(sel(live[k], before))
@@ -1047,8 +1124,15 @@ class Trainer:
             p.copy_(new_params[k])
             p.grad = None
         state.opt_state = new_opt
+        state.ema_params = new_ema
         state.step += 1
         return loss, metric
+
+    def _ema_update(self, ema: dict, params: dict) -> dict:
+        """``d * e + (1 - d) * p`` per leaf, in the JAX package's order
+        (a multiply, then the add of ``(1 - d) * p``; no ``lerp``)."""
+        d = self.ema_decay
+        return {k: d * e + (1.0 - d) * params[k] for k, e in ema.items()}
 
     def _count_skip(self, ok: torch.Tensor) -> None:
         """The guard's counters after a step whose finiteness is ``ok``,
@@ -1081,10 +1165,11 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, model, x, y):
+        params = self._eval_params(model)
         if self._computes_own_loss(model):
-            loss = self._apply_model(model, x, targets=y)
+            loss = self._apply_model(model, x, targets=y, params=params)
             return loss, torch.zeros((), device=loss.device)
-        out = self._apply_model(model, x)
+        out = self._apply_model(model, x, params=params)
         loss = self.criterion(out, y)
         metric = (self.metric_fn(out, y) if self.metric_fn is not None
                   else torch.zeros((), device=loss.device))
@@ -1556,15 +1641,15 @@ class Trainer:
         return done_epoch + 1
 
     # ------------------------------------------------------------------ test
-    def test(self, model=None, test_loader=None):
-        """Loss (and metric) of ``model`` over ``test_loader`` with this
-        trainer's criterion and metric.  ``model``: None (the trained
-        model), a ``LoadedModel`` from ``load_model``, an ``nn.Module``,
-        or a ``state_dict`` for a copy of this trainer's model."""
-        logger.info("Testing..")
+    def _resolve_model(self, model) -> nn.Module:
+        """``test()``'s and ``predict()``'s ``model``: None (the trained
+        model, served with the EMA weights when ``ema_decay`` is set), a
+        ``LoadedModel`` from ``load_model``, an ``nn.Module``, or a
+        ``state_dict`` for a copy of this trainer's model; on the
+        trainer's device."""
         if model is None:
-            module = self.model
-        elif isinstance(model, LoadedModel):
+            return self.model
+        if isinstance(model, LoadedModel):
             module = model.module
         elif isinstance(model, nn.Module):
             module = model
@@ -1574,21 +1659,63 @@ class Trainer:
         else:
             raise TypeError(
                 f"Cannot interpret model argument of type {type(model)}")
+        return module.to(self.device)
+
+    def test(self, model=None, test_loader=None):
+        """Loss (and metric) of ``model`` over ``test_loader`` with this
+        trainer's criterion and metric; ``model`` as ``_resolve_model``
+        takes it."""
+        logger.info("Testing..")
+        module = self._resolve_model(model)
         if len(test_loader) == 0:
             raise ValueError("test_loader yields no batches")
-        module = module.to(self.device)
         loss, metric = self._evaluate(module, test_loader, "test")
         if self.metric:
             return loss, self._metric_finalize(metric)
         return loss
 
+    @torch.no_grad()
+    def predict(self, loader, model=None, apply_pred_function: bool = True):
+        """The model's outputs for every batch of ``loader``, in order, as
+        one numpy array [N, ...] (the JAX package's ``predict``).
+        ``model`` resolves as in ``test()`` (None: the trained model, with
+        the EMA weights when ``ema_decay`` is set).  With
+        ``apply_pred_function`` the trainer's prediction function
+        (softmax, logsoftmax or None) maps the logits, as the metric sees
+        them.  Batches may be ``(x, y)`` pairs or bare ``x``; labels are
+        ignored.  A model that computes its own loss has no outputs to
+        return and is refused."""
+        module = self._resolve_model(model)
+        if self._computes_own_loss(module):
+            raise ValueError(
+                "predict() needs model outputs; this model computes its "
+                "own loss (build it with loss_chunk=0 for inference)")
+        params = self._eval_params(module)
+        pred_fn = self.pred_function if apply_pred_function else None
+        module.eval()
+        outs = []
+        for batch in loader:
+            x = batch[0] if isinstance(batch, (tuple, list)) else batch
+            if not isinstance(x, torch.Tensor):
+                x = torch.as_tensor(np.asarray(x))
+            x = x.to(self.device)
+            out = self._apply_model(module, x, params=params)
+            if pred_fn is not None:
+                out = pred_fn(out)
+            outs.append(out.cpu().numpy())
+        if not outs:
+            raise ValueError("loader yields no batches")
+        return np.concatenate(outs, axis=0)
+
     # ----------------------------------------------------------- persistence
     def save_model(self, model_dir: str) -> None:
         """The weights as a torch ``state_dict`` in
-        ``<model_dir>/model.pth`` (the reference's own format)."""
+        ``<model_dir>/model.pth`` (the reference's own format); the EMA
+        weights in place of the parameters when ``ema_decay`` is set."""
         logger.info("Saving the model.")
         os.makedirs(model_dir, exist_ok=True)
-        state = {k: v.detach().cpu() for k, v in
+        served = self._eval_params(self.model) or {}
+        state = {k: served.get(k, v).detach().cpu() for k, v in
                  self.model.state_dict().items()}
         tmp = os.path.join(model_dir, MODEL_FILE + ".tmp")
         torch.save(state, tmp)

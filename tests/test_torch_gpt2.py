@@ -115,8 +115,10 @@ def test_init_gpt2_is_seeded_and_refusals():
         assert torch.equal(va, vb), k
     assert not torch.equal(a.tok_embed.weight, c.tok_embed.weight)
     assert torch.equal(a.blocks[0].ln1.weight, torch.ones(128))
-    for knob in ("dropout_rate", "moe_experts", "lora_rank"):
+    for knob in ("moe_experts", "lora_rank"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model("gpt2_tiny", device="cpu", **{knob: 1})
+    assert get_model("gpt2_tiny", device="cpu",
+                     dropout_rate=0.1).embed_drop.rate == 0.1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         generate(a, _ids(0, 1, 4), 2, top_k=5, device="cpu")

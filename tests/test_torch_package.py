@@ -82,7 +82,8 @@ NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "checkpoint/checkpoint.py", "resilience/__init__.py",
                "resilience/faults.py", "data/native.py", "data/sharded.py",
                "data/text.py", "data/tokenizers.py", "ops/losses.py",
-               "models/llama.py"]
+               "models/llama.py", "cli.py", "__main__.py",
+               "utils/profiler.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
