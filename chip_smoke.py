@@ -30,6 +30,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # CLI (resumed bit for bit),
                                           # remat, dropout, the EMA and
                                           # predict()
+    python3 chip_smoke.py --only lora     # kernel checks + LoRA: train
+                                          # (fp32, bf16 K = 1 and 4),
+                                          # export, serve from the adapter
+                                          # pool in the decode graph;
+                                          # export_torch card vs CPU
 
 Phases, one line of output each (or a few):
 
@@ -304,8 +309,8 @@ Phases, one line of output each (or a few):
    (``attention_impl="xla"``: prefill logits within the bar, tokens equal
    up to a near-tie of the plain logits), the cache at [4, 4, L, 64] and
    its bytes, a seeded sampled run twice; then one bf16 fit each of
-   ``gpt2_medium`` and ``gpt2_large`` at [4, 1024] (exact launches, ms a
-   step).  The kernel checks hold K1-K3 at ``llama_2048`` [4, 12, 2048,
+   ``gpt2_medium`` and ``gpt2_large`` at [4, 1024], 8 blocks deep
+   (exact launches, ms a step).  The kernel checks hold K1-K3 at ``llama_2048`` [4, 12, 2048,
    64] causal in both dtypes beside SDPA.
 12. cli (``CLI_*``): ``python -m ml_trainer_tpu_torch`` with
    ``CLI_ARGV`` (GPT-2 124M bf16 at [8, 1024], ``--remat --remat_policy
@@ -333,6 +338,31 @@ Phases, one line of output each (or a few):
    each variant's K = 4 graph in turns (ms a step: remat's, the masks'
    and the EMA's cost); ``gpt2_large`` bf16 [4, 1024] at K = 1 with
    remat off and 'none' (the step's peak, ms a step).
+13. lora (``LORA_*``): GPT-2 124M with a rank-8 adapter on qkv/proj
+   (alpha 16) over the frozen seeded base, the training phase's shape
+   ([8, 1024] in 4 microbatches, adamw, clip 1.0; 8 steps): fp32 at
+   K = 1, bf16 at K = 1 and 4 (the K = 4 state bitwise K = 1's); each
+   fit's K1-K3 launches exact, K4/K5/K7 none, the base bitwise the
+   seeded weights, every adapter leaf moved; ``export_lora`` (the meta's
+   base fingerprint the base's); a LoRA step against a full fine-tune
+   at the same shape in fp32 and bf16 (an eager step's peak over what
+   the trainer holds, ms a step of the K = 4 graph in turns); then a
+   paged server (8 slots, ``paged_kernel``) with a pool of 4 rank-16
+   slots over qkv/proj/fc_in/fc_out serving six prompts of 130-300
+   tokens (K1 in every prefill), two with no adapter, two with the
+   trained one, two with a second of rank 16 on all four projections,
+   16 tokens each, in fp32 and bf16, through three engines (adapters
+   with the decode graph, none with the graph, adapters eagerly):
+   the base rows' logits bitwise the adapter-free engine's at every
+   decode step, the graph's bitwise the eager engine's, the adapter rows
+   against ``generate()`` of their train-mode models (fp32: greedy
+   tokens equal, or a near-tie within LOGIT_SLACK; bf16: logits within
+   3e-2 of the largest), K1/K6 launches exact; a third adapter hot-loaded
+   after the capture, served with no second capture, bitwise the eager
+   engine; the decode step's replay ms with and without adapters in
+   turns, one hot-load's prepare and upload ms; ``export_torch`` of an
+   MLModel trained on the card with an EMA bitwise the CPU's export of
+   the same state, with and without ``ddp_prefix``.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -4556,8 +4586,13 @@ LLAMA_BF16_LOGITS = 3e-2  # of max|plain logits|: bf16 prefill, kernel vs
 #                           plain (the bf16 policy's CPU bar, Queue C 9)
 LLAMA_DIR = "build/chip_smoke_llama"  # each fit's files; removed after
 # The GPT-2 sizes (Queue A 6.2): one bf16 fit each at S = 1024, batch 4.
+# The GPT-2 sizes at their published widths and heads, depth cut to 8
+# blocks (24 and 36 published): the registrations' widths are what the
+# fits check, and the epoch-end checkpoints of the full depths took most
+# of the phase.
 GPT2_SIZES = dict(names=("gpt2_medium", "gpt2_large"), seq_len=1024,
-                  vocab_size=50257, batch=4, steps=4, val_batches=1)
+                  vocab_size=50257, batch=4, steps=4, val_batches=1,
+                  depth=8)
 
 
 def _token_fit(dev, what, name, model_kw, opt, c, k=1):
@@ -4792,8 +4827,9 @@ def llama_generate(dev, precision) -> dict:
 
 def gpt2_sizes(dev) -> list:
     """``gpt2_medium`` and ``gpt2_large`` (registrations only, the GPT2
-    module at other widths): one bf16 fit each, exact launches, finite
-    losses; step ms from CUDA events over 2 steps after the fit."""
+    module at other widths) at ``GPT2_SIZES["depth"]`` blocks: one bf16
+    fit each, exact launches, finite losses; step ms from CUDA events
+    over 2 steps after the fit."""
     import torch
 
     from ml_trainer_tpu_torch.data import prefetch_to_device
@@ -4801,7 +4837,8 @@ def gpt2_sizes(dev) -> list:
     out = []
     c = GPT2_SIZES
     for name in c["names"]:
-        trainer, rec = _token_fit(dev, f"gpt2 size {name}", name, {},
+        trainer, rec = _token_fit(dev, f"gpt2 size {name}", name,
+                                  {"depth": c["depth"]},
                                   dict(LLAMA_OPT, precision="bf16"), c)
         x, y = next(iter(prefetch_to_device(trainer.train_loader, 1, dev)))
         trainer._train_step(x, y, 1.0)
@@ -4865,9 +4902,8 @@ CLI_VARIANTS = [  # (label, model kwargs, trainer kwargs)
     ("dropout", {"dropout_rate": RATE}, {}),
     ("ema", {}, {"ema_decay": EMA_DECAY}),
 ]
-# gpt2_large bf16 [4, 1024] at K = 1, remat off then 'none' (the llama
-# phase's gpt2_large fit, remat off, peaks near 35.6 GB): 2 steps timed
-# after one.
+# gpt2_large bf16 [4, 1024] at K = 1, remat off then 'none' (full depth;
+# remat off, it peaked near 35.6 GB): 2 steps timed after one.
 CLI_LARGE = dict(seq_len=1024, vocab_size=50257, batch=4, steps=2)
 # The EMA against its float64 recompute from the recorded params: d e
 # rounds to float32, (1 - d) p too, and their sum.
@@ -5490,11 +5526,501 @@ def cli_phase(dev, smi: str) -> dict:
     return rec
 
 
+# LoRA (``--only lora``): GPT-2 124M trains a rank-8 adapter on qkv/proj
+# over a frozen base at the training phase's shape, fp32 at K = 1 and
+# bf16 at K = 1 and 4 (the gate: K = 4 bitwise K = 1), exports it, and a
+# paged server with a pool of 4 rank-16 slots over all four projections
+# serves it beside a second adapter and base rows.
+LORA_TRAIN = dict(rank=8, alpha=16.0, targets=("qkv", "proj"))
+LORA_POOL = dict(slots=4, rank=16,
+                 targets=("qkv", "proj", "fc_in", "fc_out"))
+LORA_STEPS, LORA_VAL, LORA_K = 8, 1, 4
+LORA_DIR = "build/chip_smoke_lora"  # the runs' files; removed after
+# The mixed batch: prompt lengths (each >= 128: K1 in every prefill) and
+# adapters; two slots of the 8 stay free (they decode slot 0's zeros).
+LORA_JOBS = [(130, None), (200, "trained"), (257, "second"), (140, None),
+             (300, "second"), (180, "trained")]
+LORA_NEW = 16
+LORA_BF16_REL = 3e-2  # Queue C 9's bf16 logit bar: of the largest logit
+
+
+def _lora_trainer(dev, model, precision, k, run_dir, lora=True):
+    import ml_trainer_tpu_torch as mt
+
+    c = TRAIN
+    sets = _token_sets(LORA_STEPS, LORA_VAL, c["batch_size"])
+    return mt.Trainer(
+        model, datasets=sets, epochs=1, batch_size=c["batch_size"],
+        grad_accum_steps=c["accum"], optimizer="adamw", lr=3e-4,
+        weight_decay=0.01, scheduler="CosineAnnealingWarmRestarts",
+        grad_clip_norm=1.0, metric=None, model_dir=run_dir, seed=SEED,
+        loader="python", steps_per_execution=k, precision=precision,
+        lora=mt.LoraConfig(**LORA_TRAIN) if lora else None, device=dev)
+
+
+def lora_fit(dev, base, precision, k) -> tuple:
+    """One LoRA fit over ``base`` (left untouched): exact K1-K3
+    launches, none of K4-K7; finite losses, no skipped step; the frozen
+    base bitwise ``base``'s weights, every adapter leaf moved."""
+    import math
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    what = f"lora {precision or 'fp32'} K={k}"
+    run_dir = f"{LORA_DIR}/{what.replace(' ', '_')}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    trainer = _lora_trainer(dev, base, precision, k, run_dir)
+    init = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+            if "_lora_" in n}
+    torch.cuda.synchronize()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit_whole(trainer, what)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    hist = trainer.history
+    if not all(math.isfinite(v) for v in hist["train_loss"]
+               + hist["val_loss"]) or hist["skipped_steps"] != [0]:
+        raise AssertionError(f"{what}: history {hist}")
+    _want_launches(what, counts, trainer.model.depth,
+                   LORA_STEPS * trainer.grad_accum_steps, LORA_VAL)
+    own = dict(base.named_parameters())
+    moved = 0
+    for n, p in trainer.model.named_parameters():
+        if "_lora_" in n:
+            moved += int(not torch.equal(p, init[n]))
+        elif not torch.equal(p, own[n]) or p.requires_grad:
+            raise AssertionError(f"{what}: base leaf {n} moved")
+    if moved != len(init):
+        raise AssertionError(f"{what}: {len(init) - moved} adapter leaves "
+                             "did not move")
+    opt_bytes = sum(t.numel() * t.element_size() for t in
+                    mt.ops.optimizers.tree_leaves(trainer.state.opt_state))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return trainer, dict(
+        fit_s=fit_s, launches=counts, step=trainer.state.step,
+        adapter_leaves=len(init), adapter_params=sum(
+            t.numel() for t in init.values()),
+        opt_state_bytes=opt_bytes, base_bitwise=True,
+        history={key: hist[key] for key in ("train_loss", "val_loss",
+                                            "skipped_steps")})
+
+
+def lora_step_costs(dev, trainers: dict) -> dict:
+    """Each trainer's eager step peak over what it holds before the step
+    (CUDA allocator), then ms a step of its K = 4 graph, in turns
+    (``_graph_step_ms``)."""
+    import torch
+
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+
+    out = {}
+    for label, tr in trainers.items():
+        x, y = next(iter(prefetch_to_device(tr.train_loader, 1, dev)))
+        tr._train_step(x, y, 1.0)  # warm
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr._train_step(x, y, 1.0)
+        torch.cuda.synchronize()
+        out[label] = dict(step_peak_over_held_gb=(
+            torch.cuda.max_memory_allocated() - held) / 1e9)
+        del x, y
+    timed = _graph_step_ms(trainers)
+    for label in trainers:
+        out[label]["graph_step_ms"] = timed[label]["step_ms"]
+    return out
+
+
+def _served_drive(engine, jobs, new_tokens: int) -> tuple:
+    """Admit ``jobs`` (prompt, adapter) into slots 0.. of ``engine``,
+    then step until every request finished; returns the tokens and the
+    decode steps' logits of the jobs' rows [len(jobs), V] (each step's,
+    copied; every job has the same budget, so each row is live at every
+    step).  The free rows are left out: they decode stale state whose
+    writes all land in the trash page, in an order no run fixes."""
+    from ml_trainer_tpu_torch.serving.scheduler import Request
+
+    reqs = [Request(prompt=p, max_new_tokens=new_tokens, adapter=a)
+            for p, a in jobs]
+    for slot, req in enumerate(reqs):
+        if engine.admit(req, slot) != "active":
+            raise AssertionError(f"lora serving: request {slot} not admitted"
+                                 f" ({req.state}: {req.error})")
+    logits = []
+    step = engine._decode_logits
+
+    def recorded():
+        out = step()
+        logits.append(out[:len(jobs)].clone())
+        return out
+
+    engine._decode_logits = recorded
+    try:
+        while engine.active_count():
+            engine.step()
+    finally:
+        del engine._decode_logits
+    return [list(r.tokens) for r in reqs], logits
+
+
+def _train_mode_logits(model, prompt, tokens) -> "torch.Tensor":
+    """The train-mode model's logits scoring ``tokens`` after ``prompt``
+    (eager, one contiguous cache: the prompt's prefill, then one token a
+    step): [len(tokens), V] float32."""
+    import torch
+
+    dev = model.device
+    ids = torch.as_tensor(list(prompt) + list(tokens), device=dev)[None]
+    n, p = len(tokens), len(prompt)
+    with torch.no_grad():
+        cache = model.new_cache(1, max_len=p + n)
+        rows = [model(ids[:, :p], cache,
+                      select=torch.tensor([p - 1], device=dev))[0]]
+        for j in range(p, p + n - 1):
+            rows.append(model(ids[:, j:j + 1], cache,
+                              select=torch.zeros(1, dtype=torch.long,
+                                                 device=dev))[0])
+    return torch.stack(rows).float()
+
+
+def lora_serve(dev, base, refs: dict, paths: dict, precision) -> dict:
+    """The mixed batch through three paged engines (``paged_kernel``):
+    with adapters and the decode graph, without adapters (graph), and
+    with adapters eagerly.  Gates: the base rows' tokens equal and their
+    logits bitwise the adapter-free engine's at every decode step; the
+    graph's tokens and logits bitwise the eager engine's; each adapter
+    row against its train-mode model ``refs[name]`` teacher-forced on
+    the served tokens (fp32: greedy ``generate()``'s tokens, or a near-
+    tie within LOGIT_SLACK at the first difference; bf16: logits within
+    LORA_BF16_REL of the largest, each served token within that of the
+    best); exact launches (K1 depth a prefill, K6 depth a decode step);
+    then a hot-load after the capture, served with no second capture,
+    bitwise the eager engine's.  Measured: the decode step's replay ms
+    with adapters and without, in turns; one hot-load's upload ms."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.ops.kernels import _split
+    from ml_trainer_tpu_torch.serving import (
+        AdapterConfig,
+        SlotDecodeEngine,
+    )
+    from ml_trainer_tpu_torch.serving.adapter_pool import prepare_upload
+
+    rng = np.random.default_rng(SEED + 7)
+    jobs = [(rng.integers(0, base.vocab_size, n).astype(np.int32), a)
+            for n, a in LORA_JOBS]
+    depth = base.depth
+    kw = dict(max_batch=8, kv_page_size=16, paged_kernel=True, device=dev)
+
+    def engine(adapters: bool, graph: bool):
+        with decode_graph(graph):
+            eng = SlotDecodeEngine(
+                base, adapters=AdapterConfig(**LORA_POOL) if adapters
+                else None, **kw)
+        if adapters:
+            for name in ("trained", "second"):
+                eng.adapters.register(name, paths[name])
+        return eng
+
+    runs = {}
+    for label, adapters, graph in (("lora", True, True),
+                                   ("plain", False, True),
+                                   ("lora_eager", True, False)):
+        eng = engine(adapters, graph)
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            toks, logits = _served_drive(
+                eng, [(p, a if adapters else None) for p, a in jobs],
+                LORA_NEW)
+        torch.cuda.synchronize()
+        counts = mt.launch_counts()
+        want = {k: 0 for k in counts}
+        want.update(flash_fwd=depth * len(jobs),
+                    paged_attention=depth * len(logits))
+        if counts != want:
+            raise AssertionError(f"lora serving {label} ({precision}): "
+                                 f"launches {counts}, expected {want}")
+        runs[label] = dict(engine=eng, tokens=toks, logits=logits,
+                           launches=counts, s=time.perf_counter() - t0)
+    if not _split.all_zero():
+        raise AssertionError("a K6 ticket counter is not back at 0")
+    lora, plain, eager = runs["lora"], runs["plain"], runs["lora_eager"]
+    for step, (a, b, c) in enumerate(zip(lora["logits"], plain["logits"],
+                                         eager["logits"])):
+        if not torch.equal(a, c):
+            raise AssertionError(f"lora serving ({precision}): graph logits "
+                                 f"differ from eager at decode step {step}")
+        for slot, (_, name) in enumerate(jobs):
+            if name is None and not torch.equal(a[slot], b[slot]):
+                raise AssertionError(
+                    f"lora serving ({precision}): base row {slot} differs "
+                    f"from the adapter-free engine at decode step {step}")
+    for slot, (_, name) in enumerate(jobs):
+        if lora["tokens"][slot] != eager["tokens"][slot] or (
+                name is None and lora["tokens"][slot]
+                != plain["tokens"][slot]):
+            raise AssertionError(f"lora serving ({precision}): row {slot} "
+                                 "tokens differ")
+    # Adapter rows against the train-mode models.
+    rows = {}
+    for slot, (prompt, name) in enumerate(jobs):
+        if name is None:
+            continue
+        toks = lora["tokens"][slot]
+        ref = _train_mode_logits(refs[name], prompt, toks)
+        served = torch.stack([lg[slot] for lg in lora["logits"]]).float()
+        peak = ref.abs().max().item()
+        diff = (served - ref[1:]).abs().max().item() / peak
+        best = ref.max(-1).values
+        got = ref[torch.arange(len(toks), device=dev),
+                  torch.as_tensor(toks, device=dev)]
+        gap = (best - got).max().item()
+        rec = dict(adapter=name, logit_rel_diff=diff, worst_token_gap=gap)
+        if precision is None:
+            greedy = mt.generate(refs[name], prompt[None], LORA_NEW,
+                                 device=dev)[0, len(prompt):].tolist()
+            first = next((i for i, (a, b) in enumerate(zip(toks, greedy))
+                          if a != b), None)
+            rec["greedy_equal"] = first is None
+            if first is not None and not (
+                    (best[first] - got[first]).item() <= LOGIT_SLACK):
+                raise AssertionError(
+                    f"lora serving fp32: row {slot} ({name}) differs from "
+                    f"generate() at token {first}: {rec}")
+        elif not (diff <= LORA_BF16_REL and gap <= LORA_BF16_REL * peak):
+            raise AssertionError(f"lora serving bf16: row {slot} ({name}) "
+                                 f"off its train-mode model: {rec}")
+        rows[slot] = rec
+    # Base rows against adapter rows of the same engine: the adapters act.
+    acted = sum(lora["tokens"][s] != plain["tokens"][s]
+                for s, (_, a) in enumerate(jobs) if a == "second")
+    # Hot-load after the capture: no second capture; the next replays
+    # serve the new adapter, bitwise the eager engine's.
+    graph = lora["engine"]._graph
+    cap_s = graph.capture_s
+    late_jobs = [(jobs[0][0], "late"), (jobs[1][0], None)]
+    late = {}
+    for label in ("lora", "lora_eager"):
+        eng = runs[label]["engine"]
+        t0 = time.perf_counter()
+        meta = eng.adapters.register("late", paths["late"])
+        reg_s = time.perf_counter() - t0
+        with torch.no_grad():
+            late[label] = _served_drive(eng, late_jobs, LORA_NEW)
+        late[label + "_register_s"] = reg_s
+    if lora["engine"]._graph is not graph or graph.capture_s != cap_s:
+        raise AssertionError("lora serving: the hot-load recaptured")
+    diffs = [(a - b).abs().max().item()
+             for a, b in zip(late["lora"][1], late["lora_eager"][1])]
+    if late["lora"][0] != late["lora_eager"][0] or any(diffs):
+        raise AssertionError(
+            f"lora serving ({precision}): the hot-loaded adapter's replay "
+            f"differs from the eager engine: tokens equal "
+            f"{late['lora'][0] == late['lora_eager'][0]}, logit diff by "
+            f"step {diffs}")
+    # One hot-load's cost: the host's prepare_upload, then the copies
+    # into a slot (host clock around a synchronize).
+    # ("late" again, into its own slot: the same bytes as any adapter.)
+    eng = lora["engine"]
+    art = eng.adapters.artifact("late")
+    t0 = time.perf_counter()
+    prepared = prepare_upload(*art, eng._stack_shapes, eng.adapters.rank)
+    prep_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._upload(prepared, eng.adapters._slot_of["late"])
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    # The decode step's replay with adapters and without, in turns: all
+    # eight slots live (six requests and two free rows), 20 replays each.
+    step_ms = {"lora": [], "plain": []}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for label in ("plain", "lora", "lora", "plain"):
+        g = runs[label]["engine"]._graph
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(20):
+            g.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms[label].append(ev[0].elapsed_time(ev[1]) / 20)
+    stacks = sum(b.numel() * b.element_size() for b in eng._stacks.values())
+    out = dict(
+        precision=precision or "fp32", rows=rows,
+        second_adapter_rows_changed=int(acted),
+        launches={label: r["launches"] for label, r in runs.items()},
+        decode_steps=len(lora["logits"]), serve_s={
+            label: r["s"] for label, r in runs.items()},
+        base_rows_bitwise=True, graph_bitwise_eager=True,
+        hot_load=dict(recaptured=False, register_s=late["lora_register_s"],
+                      prepare_ms=prep_s * 1e3, upload_ms=upload_s * 1e3,
+                      meta_rank=meta["rank"]),
+        decode_replay_ms=step_ms, adapter_stack_bytes=stacks,
+        adapters_resident=eng.adapters.resident())
+    for r in runs.values():
+        r["engine"].close()
+    return out
+
+
+def lora_export_torch(dev) -> dict:
+    """``export_torch`` of an MLModel trained on the card (2 steps, an
+    EMA) against the export of the same state on the CPU, with and
+    without ``ddp_prefix``: the same keys, bitwise the same arrays."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.train_state import load_state_tree, state_tree
+
+    out = {}
+    t = mt.custom_pre_process_function()
+    sets = (mt.SyntheticCIFAR10(size=64, transform=t, seed=SEED),
+            mt.SyntheticCIFAR10(size=32, transform=t, seed=SEED + 1))
+    made = []
+    for device in (dev, "cpu"):
+        run_dir = f"{LORA_DIR}/export_{torch.device(device).type}"
+        made.append(mt.Trainer(
+            mt.init_model("mlmodel", seed=SEED, device=device),
+            datasets=sets, epochs=1, batch_size=32, lr=0.01, ema_decay=0.9,
+            loader="python", model_dir=run_dir, device=device))
+    card, cpu = made
+    fit_whole(card, "export_torch MLModel")
+    tree = state_tree(card.state, card.model)
+
+    def host(x):
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return None if x is None else np.asarray(
+            x.cpu() if isinstance(x, torch.Tensor) else x)
+
+    load_state_tree(cpu.state, cpu.model, host(tree))
+    for ddp in (False, True):
+        a = torch.load(card.export_torch(f"{LORA_DIR}/card.pth",
+                                         ddp_prefix=ddp))
+        b = torch.load(cpu.export_torch(f"{LORA_DIR}/cpu.pth",
+                                        ddp_prefix=ddp))
+        if list(a) != list(b) or not all(
+                a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                for k in a):
+            raise AssertionError(f"export_torch (ddp_prefix={ddp}): the "
+                                 "card's file differs from the CPU's")
+        out["ddp" if ddp else "plain"] = dict(keys=len(a), bitwise=True)
+    return out
+
+
+def lora_phase(dev) -> dict:
+    import gc
+
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.lora import (
+        LoraConfig,
+        base_fingerprint,
+        export_lora_artifact,
+    )
+    from ml_trainer_tpu_torch.models.layers import init_lora
+
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    os.makedirs(LORA_DIR, exist_ok=True)
+    rec = {}
+    base = mt.init_model("gpt2", seed=SEED, device=dev)
+    fp32, rec["train_fp32"] = lora_fit(dev, base, None, 1)
+    bf16_1, rec["train_bf16_k1"] = lora_fit(dev, base, "bf16", 1)
+    snap_1 = _named_state(bf16_1)
+    del bf16_1
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_k, rec["train_bf16_k4"] = lora_fit(dev, base, "bf16", LORA_K)
+    first, worst, dist = _leaf_distance(_named_state(bf16_k), snap_1)
+    if first is not None or rec["train_bf16_k4"]["step"] != LORA_STEPS:
+        raise AssertionError(f"lora bf16: K = {LORA_K} differs from K = 1 "
+                             f"(first {first}, worst {worst} {dist})")
+    rec["k4_bitwise_k1"] = True
+    del snap_1
+    # The adapters: the trained one, a second of rank 16 over all four
+    # projections (A as the train-mode init, B with real mass), and one
+    # more of rank 4 for the hot-load after the capture.
+    paths = {"trained": f"{LORA_DIR}/trained.npz"}
+    meta = fp32.export_lora(paths["trained"], name="trained")
+    fp = base_fingerprint(base)
+    if meta["base_fingerprint"] != fp:
+        raise AssertionError(f"lora: exported fingerprint "
+                             f"{meta['base_fingerprint']} != base's {fp}")
+    # The train-mode reference as exported (the step costs below take
+    # more steps on the trainer).
+    refs = {"trained": fp32.model.clone(share=False)}
+    for name, rank, seed in (("second", 16, 1), ("late", 4, 2)):
+        m = base.clone(lora_rank=rank, lora_alpha=2.0 * rank,
+                       lora_targets=LORA_POOL["targets"])
+        init_lora(m, SEED + seed)
+        gen = torch.Generator().manual_seed(SEED + seed)
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                if n.endswith("_lora_B"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        paths[name] = f"{LORA_DIR}/{name}.npz"
+        export_lora_artifact(m, LoraConfig(rank, 2.0 * rank,
+                                           LORA_POOL["targets"]),
+                             paths[name], name=name)
+        refs[name] = m
+    rec["artifact"] = dict(meta, fingerprint_equal=True)
+    # What a LoRA step costs against a full fine-tune at the same shape.
+    fulls = {}
+    for precision in (None, "bf16"):
+        model = mt.init_model("gpt2", seed=SEED, device=dev)
+        fulls[precision] = _lora_trainer(dev, model, precision, 1,
+                                         f"{LORA_DIR}/full", lora=False)
+    rec["step_costs"] = lora_step_costs(dev, {
+        "lora_fp32": fp32, "full_fp32": fulls[None],
+        "lora_bf16": bf16_k, "full_bf16": fulls["bf16"]})
+    rec["opt_state_bytes"] = {
+        "lora": rec["train_fp32"]["opt_state_bytes"],
+        "full": sum(t.numel() * t.element_size() for t in
+                    mt.ops.optimizers.tree_leaves(
+                        fulls[None].state.opt_state))}
+    del fulls, bf16_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    base.eval()
+    rec["serve_fp32"] = lora_serve(dev, base, refs, paths, None)
+    base16 = base.clone(dtype=torch.bfloat16)
+    refs16 = {n: m.clone(dtype=torch.bfloat16) for n, m in refs.items()}
+    rec["serve_bf16"] = lora_serve(dev, base16, refs16, paths, "bf16")
+    del base16, refs16, refs, fp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["export_torch"] = lora_export_torch(dev)
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    total = {}
+    for key in ("train_fp32", "train_bf16_k1", "train_bf16_k4"):
+        for kname, n in rec[key]["launches"].items():
+            total[kname] = total.get(kname, 0) + n
+    for key in ("serve_fp32", "serve_bf16"):
+        for counts in rec[key]["launches"].values():
+            for kname, n in counts.items():
+                total[kname] = total.get(kname, 0) + n
+    rec["launches"] = total
+    if any(total[k] for k in ("unscale_sqsum", "fused_adam",
+                              "int8_matmul")):
+        raise AssertionError(f"lora: K4/K5/K7 launched: {total}")
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
-                                 "graphs", "resume", "data", "llama", "cli"],
+                                 "graphs", "resume", "data", "llama", "cli",
+                                 "lora"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -5660,7 +6186,16 @@ def main(argv=None) -> int:
         for label in ("cli", "steps", "gpt2_large", "llama", "fits", "dp"):
             for kname, n in rec[label]["launches"].items():
                 launches[kname] = (launches[kname] or 0) + n
-    lap("cli", mark)
+    mark = lap("cli", mark)
+    if args.only in (None, "lora"):
+        rec = lora_phase(dev)
+        for key in ("train_fp32", "train_bf16_k1", "train_bf16_k4",
+                    "step_costs", "opt_state_bytes", "serve_fp32",
+                    "serve_bf16", "export_torch", "launches"):
+            log(f"lora {key} on {smi}: " + json.dumps(rec[key]))
+        for kname, n in rec["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
+    lap("lora", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",

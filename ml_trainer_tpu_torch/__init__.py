@@ -20,6 +20,11 @@ float32 master parameters with dynamic loss scaling (``precision``).
 ``fit()`` writes full-state checkpoints in the JAX package's format
 (``checkpoint``) and ``fit(resume=True)`` continues from them bit for
 bit, also after a SIGTERM or an injected fault (``resilience``).
+``Trainer(lora=LoraConfig(...))`` trains a LoRA adapter on a frozen
+GPT-2 base; ``export_lora`` writes it in the JAX package's artifact
+format (``lora``) and ``Server(adapters=AdapterConfig(...))`` serves it
+from a pool of adapter slots (``serving/adapter_pool.py``);
+``export_torch`` writes the reference's ``model.pth``.
 """
 
 from ml_trainer_tpu_torch import parallel, precision
@@ -30,6 +35,7 @@ from ml_trainer_tpu_torch.convert import (
     params_from_jax,
     quant_from_jax,
     state_from_jax,
+    variables_to_jax,
 )
 from ml_trainer_tpu_torch.data import (
     ArrayDataset,
@@ -43,6 +49,7 @@ from ml_trainer_tpu_torch.device import (
     resolve_device,
 )
 from ml_trainer_tpu_torch.generate import generate
+from ml_trainer_tpu_torch.lora import LoraConfig
 from ml_trainer_tpu_torch.models import GPT2, LlamaLM, MLModel, get_model
 from ml_trainer_tpu_torch.ops.kernels import (
     int8_matmul,
@@ -50,7 +57,14 @@ from ml_trainer_tpu_torch.ops.kernels import (
     quantize_tree,
 )
 from ml_trainer_tpu_torch.parallel import create_mesh
-from ml_trainer_tpu_torch.serving import Server, SlotDecodeEngine
+from ml_trainer_tpu_torch.serving import (
+    AdapterConfig,
+    AdapterPool,
+    AdapterPoolExhausted,
+    Server,
+    SlotDecodeEngine,
+    UnknownAdapter,
+)
 from ml_trainer_tpu_torch.trainer import Trainer
 from ml_trainer_tpu_torch.utils import (
     custom_pre_process_function,
@@ -61,12 +75,14 @@ from ml_trainer_tpu_torch.utils import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "ArrayDataset", "GPT2", "LlamaLM", "Loader", "MLModel", "Server",
+    "AdapterConfig", "AdapterPool", "AdapterPoolExhausted",
+    "ArrayDataset", "GPT2", "LlamaLM", "Loader", "LoraConfig", "MLModel",
+    "Server",
     "SlotDecodeEngine", "SyntheticCIFAR10", "SyntheticTokens", "Trainer",
     "adam_state_from_jax", "create_mesh", "custom_pre_process_function",
     "generate", "get_model", "init_gpt2", "init_model", "int8_matmul",
     "launch_counts", "load_history", "load_model", "parallel",
     "params_from_jax", "precision", "quant_from_jax", "quantize_per_channel",
     "quantize_tree", "reset_launch_counts", "resolve_device",
-    "state_from_jax",
+    "state_from_jax", "UnknownAdapter", "variables_to_jax",
 ]

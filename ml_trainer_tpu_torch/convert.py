@@ -32,6 +32,13 @@ optimizer state, the moments through the same layout rules, and
 the same [K, N] int8 layout: ``{"blocks": {"{i}": {"attn": ..., "mlp":
 ...}}}``.
 
+``variables_to_jax`` is the inverse of ``params_from_jax``: the port's
+model (or other tensors by its parameters' names, such as the EMA's) as
+flax variables of numpy arrays, the flax layouts and names restored
+(``blocks.{i}`` -> ``block{i}``; ``weight`` -> ``kernel`` transposed,
+``embedding`` or ``scale`` by its module's kind).  The LoRA fingerprint
+and ``export_torch`` read it.
+
 ``init_model`` builds a registered model with weights drawn from a seeded
 CPU ``torch.Generator`` (the same numbers on every device).  The GPT-2
 family (``init_gpt2``) draws normal(0.02) for the projections and the
@@ -114,6 +121,82 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+_FLAX_LIST = re.compile(r"^(block|layer)s\.(\d+)$")
+
+
+def flax_path(module_name: str) -> list:
+    """``blocks.0.attn.qkv`` -> ``["block0", "attn", "qkv"]``."""
+    parts = module_name.split(".") if module_name else []
+    out: list = []
+    for part in parts:
+        if out and part.isdigit() and _FLAX_LIST.match(f"{out[-1]}.{part}"):
+            out[-1] = f"{out[-1][:-1]}{part}"
+        else:
+            out.append(part)
+    return out
+
+
+def _put(tree: dict, path: list, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def variables_to_jax(model: nn.Module,
+                     params: Mapping[str, torch.Tensor] = None) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` of numpy arrays in flax's
+    names and layouts from ``model`` (``params``: tensors by parameter
+    name in place of the model's own).  Non-persistent buffers (the
+    serving stacks) are left out."""
+    modules = dict(model.named_modules())
+    out = {"params": {}, "batch_stats": {}}
+    for name, p in model.named_parameters():
+        t = (p if params is None else params[name]).detach()
+        arr = t.cpu().numpy()
+        prefix, _, leaf = name.rpartition(".")
+        mod = modules[prefix]
+        if leaf == "weight":
+            if isinstance(mod, (nn.Linear, Conv)):
+                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+                leaf = "kernel"
+            elif isinstance(mod, nn.Embedding):
+                leaf = "embedding"
+            else:  # LayerNorm, RMSNorm, BatchNorm
+                leaf = "scale"
+        _put(out["params"], flax_path(prefix) + [leaf],
+             np.ascontiguousarray(arr))
+    persistent = set(model.state_dict())
+    for name, b in model.named_buffers():
+        if name not in persistent:
+            continue
+        prefix, _, leaf = name.rpartition(".")
+        leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+        _put(out["batch_stats"], flax_path(prefix) + [leaf],
+             np.ascontiguousarray(b.detach().cpu().numpy()))
+    return _sorted(out)
+
+
+def _sorted(tree):
+    """Keys sorted at every level, the order of a tree that went through
+    ``jax.tree`` (the JAX package's host copies)."""
+    return {k: _sorted(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def _unmasked(tree):
+    """A moments tree without optax's ``MaskedNode`` leaves (the leaves
+    a masked transform keeps no state for) and the dicts they emptied."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            v = _unmasked(v)
+            if v:
+                out[k] = v
+        elif type(v).__name__ != "MaskedNode":
+            out[k] = v
+    return out
+
+
 def _opt_part(state, device):
     """One optax state (a NamedTuple) of a chain -> the port's dict."""
     fields = tuple(state._fields)
@@ -122,12 +205,19 @@ def _opt_part(state, device):
         return torch.tensor(np.asarray(c, np.int32)).to(device)
 
     def moments(tree) -> Dict[str, torch.Tensor]:
-        return {k: v.to(device) for k, v in params_from_jax(tree).items()}
+        return {k: v.to(device)
+                for k, v in params_from_jax(_unmasked(tree)).items()}
 
     if not fields:  # EmptyState: identity, clip, constant learning rate
         return {}
-    if fields == ("inner_state",):  # MaskedState: add_decayed_weights
-        return _opt_part(state.inner_state, device)
+    if fields == ("inner_state",):
+        # MaskedState (add_decayed_weights' mask, a multi_transform
+        # branch): the port keeps no wrapper.
+        return _opt_state(state.inner_state, device)
+    if fields == ("inner_states",):  # multi_transform (PartitionState)
+        return {"inner_states": {
+            label: _opt_state(inner, device)
+            for label, inner in sorted(state.inner_states.items())}}
     if {"count", "mu", "nu"} <= set(fields):  # scale_by_adam / _adamax
         return {"count": count(state.count), "mu": moments(state.mu),
                 "nu": moments(state.nu)}
@@ -143,6 +233,12 @@ def _is_chain(state) -> bool:
     return isinstance(state, tuple) and not hasattr(state, "_fields")
 
 
+def _opt_state(state, device):
+    if _is_chain(state):
+        return tuple(_opt_state(s, device) for s in state)
+    return _opt_part(state, device)
+
+
 def adam_state_from_jax(opt_state, device=None):
     """The JAX trainer's optax state (its ``chain(clip|identity, inner)``
     of any of the five optimizers) as numpy -> the port's optimizer
@@ -151,14 +247,11 @@ def adam_state_from_jax(opt_state, device=None):
     to ``{"sum_of_squares"}``, each tree of moments laid out as
     ``params_from_jax`` lays out the params (Dense kernels transposed),
     ``ScaleByScheduleState`` to ``{"count"}``, empty and masked-empty
-    states to ``{}``, each chain a tuple; tensors on ``device`` (the CPU
-    by default)."""
-    def convert(state):
-        if _is_chain(state):
-            return tuple(convert(s) for s in state)
-        return _opt_part(state, device)
-
-    return convert(opt_state)
+    states to ``{}``, each chain a tuple, and LoRA's ``multi_transform``
+    state to ``{"inner_states": {label: ...}}`` (the masked moments hold
+    the adapters' leaves only); tensors on ``device`` (the CPU by
+    default)."""
+    return _opt_state(opt_state, device)
 
 
 def state_from_jax(jax_state) -> dict:

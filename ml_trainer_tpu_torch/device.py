@@ -31,7 +31,8 @@ _LAUNCHES: Dict[str, int] = {
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means the CUDA card; anything else is taken as given.
+    """``None`` means the CUDA card; anything else is taken as given
+    ("meta" too: a model built without storage, ``GPT2.clone``'s).
 
     Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
     default) and no card is visible: the port never falls back to the
@@ -56,7 +57,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         # one does).
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
 

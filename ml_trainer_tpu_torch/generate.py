@@ -3,7 +3,10 @@
 
 The prompt prefills a ``ContiguousKVCache`` in one causal forward (the
 flash kernel's route for tile-aligned prompts), then the loop decodes one
-token per step.  PyTorch runs eagerly, so there is no compiled-program
+token per step.  A train-mode LoRA model (``Trainer(lora=...)``'s, its
+adapters as parameters) decodes the same way: its deltas act with the
+cache as without, and its greedy tokens are what the serving engine's
+adapter pool is held to.  PyTorch runs eagerly, so there is no compiled-program
 cache; capturing the step as a CUDA graph is later work.
 
 Sampling.  ``temperature == 0`` is greedy argmax.  Otherwise every row

@@ -21,11 +21,20 @@ the labels through the forward.  ``dropout_rate`` drops the embedding sum
 (after the cast to the compute dtype) and each block's attention and MLP
 outputs in training mode, never with a cache; ``remat`` runs each block
 under ``layers.remat_call`` with ``remat_policy`` 'none' or 'dots'.
+
+LoRA (``models/layers.py`` ``lora_delta``): ``lora_rank`` > 0 adds
+adapters on ``lora_targets`` of every block, trainable parameters with
+``lora_slots == 0`` (``Trainer(lora=...)``), the serving engine's stacks
+with ``lora_slots`` > 0, each row gathering the adapter that
+``forward(..., adapter_idx=...)`` names.  ``clone(**knobs)`` is flax's
+``model.clone``: the same configuration with some knobs changed, over
+the SAME base tensors (``share=False``: copies of them); what the base
+lacks (adapters, stacks) starts at zero.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -54,11 +63,23 @@ class GPT2(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  attention_impl: str = "auto",
                  dropout_rate: float = 0.0, moe_experts: int = 0,
-                 lora_rank: int = 0, loss_chunk: int = 0,
+                 lora_rank: int = 0, lora_alpha: float = 1.0,
+                 lora_slots: int = 0, lora_targets: Sequence[str] = (),
+                 loss_chunk: int = 0,
                  remat: bool = False, remat_policy: str = "none",
                  device=None, dtype=torch.float32):
         super().__init__()
-        _refuse_unported(moe_experts, lora_rank)
+        _refuse_unported(moe_experts)
+        # The constructor's arguments, for ``clone``.
+        self._config = dict(
+            vocab_size=vocab_size, max_len=max_len, embed_dim=embed_dim,
+            depth=depth, num_heads=num_heads, attention_impl=attention_impl,
+            dropout_rate=dropout_rate, lora_rank=int(lora_rank),
+            lora_alpha=float(lora_alpha), lora_slots=int(lora_slots),
+            lora_targets=tuple(lora_targets), loss_chunk=loss_chunk,
+            remat=remat, remat_policy=remat_policy, dtype=dtype)
+        self.lora_rank, self.lora_slots = int(lora_rank), int(lora_slots)
+        self.lora_targets = tuple(lora_targets)
         if remat:
             check_remat_policy(remat_policy)
         self.remat, self.remat_policy = bool(remat), remat_policy
@@ -83,7 +104,9 @@ class GPT2(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(embed_dim, num_heads, 4 * embed_dim, causal=True,
                              device=device, dtype=cdt,
-                             dropout_rate=dropout_rate)
+                             dropout_rate=dropout_rate, lora_rank=lora_rank,
+                             lora_alpha=lora_alpha, lora_slots=lora_slots,
+                             lora_targets=lora_targets)
             for _ in range(depth)
         )
         self.ln_final = LayerNorm(embed_dim, eps=LN_EPS, device=device,
@@ -93,6 +116,29 @@ class GPT2(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.pos_embed.device
+
+    def clone(self, share: bool = True, **knobs) -> "GPT2":
+        """This model's configuration with ``knobs`` changed, on the same
+        device, over this model's parameters (``share``: the same tensors;
+        else copies).  Its parameters and buffers that this model lacks
+        (a LoRA adapter, a serving stack) are zeros."""
+        cfg = {**self._config, **knobs}
+        new = GPT2(**cfg, device="meta")
+        own = {k: v if share else v.detach().clone()
+               for k, v in self.state_dict().items()}
+        new.load_state_dict(own, strict=False, assign=True)
+        dev = self.device
+        for mod in new.modules():
+            for table in (mod._parameters, mod._buffers):
+                for key, t in table.items():
+                    if t is not None and t.is_meta:
+                        z = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                        table[key] = (nn.Parameter(z) if isinstance(
+                            t, nn.Parameter) else z)
+        cfg_reg = getattr(self, "registry_config", None)
+        if cfg_reg is not None:
+            new.registry_config = (cfg_reg[0], {**cfg_reg[1], **knobs})
+        return new
 
     def _embed_input(self, input_ids, pos_start=None):
         """Token embedding plus learned positions.  ``pos_start`` ([B]
@@ -140,7 +186,7 @@ class GPT2(nn.Module):
             dtype=self._cache_dtype(), device=self.device)
 
     def forward(self, input_ids, cache=None, select=None, quant=None,
-                quant_impl: str = "auto", targets=None):
+                quant_impl: str = "auto", targets=None, adapter_idx=None):
         """Logits [B, S, V]; with ``select`` ([B] position per row) only
         those rows' logits [B, V]; with ``targets`` ([B, S] next-token
         labels; needs ``loss_chunk``) the mean LM loss instead.  With a
@@ -148,7 +194,8 @@ class GPT2(nn.Module):
         positions by S.  With ``quant`` the projections are int8
         (``quant_impl``: "auto" or "reference", see
         ``ops.kernels.int8_matmul``); the embeddings and the tied head
-        stay fp32."""
+        stay fp32.  ``adapter_idx`` ([B] int64): each row's slot in the
+        serve-mode adapter stacks (None: slot 0, no adapter)."""
         if cache is None:
             x = self.embed_drop(self._embed_input(input_ids))
         else:
@@ -160,7 +207,7 @@ class GPT2(nn.Module):
                 block, remat, self.remat_policy, x, cache, i,
                 attention_impl=self.attention_impl,
                 quant=None if q_blocks is None else q_blocks[str(i)],
-                quant_impl=quant_impl)
+                quant_impl=quant_impl, adapter_idx=adapter_idx)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         if targets is not None:

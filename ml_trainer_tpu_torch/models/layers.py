@@ -45,6 +45,23 @@ bit for bit (and float64 after ``model.to(torch.float64)``).  The model
 families map their public ``dtype`` knob through ``compute_dtype``:
 float32 -> None.
 
+LoRA (the JAX package's ``lora_delta``).  A ``MultiHeadAttention`` or
+``MLP`` built with ``lora_rank`` > 0 adds a low-rank delta AFTER the base
+projection of each of its ``lora_targets`` (``LORA_TARGETS``), so the
+base product is the same op on the same shapes as without LoRA.  Train
+mode (``lora_slots == 0``): float32 parameters ``<target>_lora_A`` [in,
+r] and ``<target>_lora_B`` [r, out] (flax's layout; ``init_lora`` draws
+A from N(0, 0.01^2) and zeroes B) and the delta ``(x A B) * alpha / r``
+with x, A and B cast to the compute dtype.  Serve mode (``lora_slots``
+S > 0): buffers of stacks ``A`` [S, in, r] and ``B`` [S, r, out] at the
+compute dtype (float32 when it is None), written in place by the
+serving engine's adapter pool with ``alpha / r`` folded into B, and
+each row's delta ``(x A[idx]) B[idx]`` from the per-row
+``adapter_idx`` ([B] int64, a device tensor; None reads slot 0): a
+gather on the device, so that a CUDA graph of the decode step serves
+whatever the rows point at when it is replayed.  Slot 0 stays zero, so
+a row with no adapter adds an exact zero.
+
 Convolutions and BatchNorm (the image families).  ``Conv`` is flax's
 ``nn.Conv`` over an NCHW-shaped tensor, with flax's "SAME" padding for
 any stride (the odd pixel of an uneven split goes to the high side, which
@@ -97,6 +114,10 @@ LN_EPS = 1e-6
 # image families pass it (the weight of the old running value).
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
+
+# Dense targets a LoRA adapter may attach to: the attention and MLP
+# projections.  Embeddings and the tied LM head stay base-only.
+LORA_TARGETS = ("qkv", "proj", "fc_in", "fc_out")
 
 
 def compute_dtype(dtype: torch.dtype) -> Optional[torch.dtype]:
@@ -168,6 +189,70 @@ class RMSNorm(nn.Module):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.gelu`` (approximate=True): the tanh form."""
     return F.gelu(x, approximate="tanh")
+
+
+def _add_lora(mdl: nn.Module, dims: Dict[str, Tuple[int, int]],
+              lora_rank: int, lora_alpha: float, lora_slots: int,
+              lora_targets: Sequence[str], device, dtype) -> None:
+    """Give ``mdl`` the LoRA fields and, for each of its projections
+    ``dims`` (name -> (in, out)) among ``lora_targets``, the train-mode
+    parameters or the serve-mode stack buffers (zeros)."""
+    mdl.lora_rank, mdl.lora_alpha = int(lora_rank), float(lora_alpha)
+    mdl.lora_slots = int(lora_slots)
+    mdl.lora_targets = tuple(lora_targets)
+    if not mdl.lora_rank:
+        return
+    r, s = mdl.lora_rank, mdl.lora_slots
+    for name, (n_in, n_out) in dims.items():
+        if name not in mdl.lora_targets:
+            continue
+        if s:
+            stack = dtype or torch.float32
+            mdl.register_buffer(f"{name}_lora_A", torch.zeros(
+                (s, n_in, r), dtype=stack, device=device), persistent=False)
+            mdl.register_buffer(f"{name}_lora_B", torch.zeros(
+                (s, r, n_out), dtype=stack, device=device), persistent=False)
+        else:
+            setattr(mdl, f"{name}_lora_A", nn.Parameter(
+                torch.zeros((n_in, r), device=device)))
+            setattr(mdl, f"{name}_lora_B", nn.Parameter(
+                torch.zeros((r, n_out), device=device)))
+
+
+def lora_delta(mdl: nn.Module, name: str, x, adapter_idx=None):
+    """The low-rank delta of target ``name`` on the projection input
+    ``x`` [B, S, in], or None when ``name`` carries no adapter."""
+    if not (mdl.lora_rank and name in mdl.lora_targets):
+        return None
+    A = getattr(mdl, f"{name}_lora_A")
+    B = getattr(mdl, f"{name}_lora_B")
+    if mdl.lora_slots:
+        if adapter_idx is None:
+            adapter_idx = torch.zeros(x.shape[0], dtype=torch.long,
+                                      device=x.device)
+        a = A.index_select(0, adapter_idx)           # [B, in, r]
+        b = B.index_select(0, adapter_idx)           # [B, r, out]
+        return torch.bmm(torch.bmm(x.to(a.dtype), a), b)
+    dt = mdl.dtype
+    return (_cast(x, dt) @ _cast(A, dt) @ _cast(B, dt)) * (
+        mdl.lora_alpha / mdl.lora_rank)
+
+
+def _plus(y, delta):
+    return y if delta is None else y + delta
+
+
+@torch.no_grad()
+def init_lora(model: nn.Module, seed: int = 0) -> None:
+    """Draw every train-mode adapter of ``model``: A from N(0, 0.01^2)
+    by a seeded CPU generator (in the parameters' order), B zero, so
+    that the model starts as its base."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, p in model.named_parameters():
+        if name.endswith("_lora_A"):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.01)
+        elif name.endswith("_lora_B"):
+            p.zero_()
 
 
 def _dense(linear: "Dense", name: str, x, quant, quant_impl: str):
@@ -257,7 +342,9 @@ class MultiHeadAttention(nn.Module):
     """Self-attention over [B, S, E] with a fused QKV projection."""
 
     def __init__(self, embed_dim: int, num_heads: int, causal: bool = False,
-                 device=None, dtype: Optional[torch.dtype] = None):
+                 device=None, dtype: Optional[torch.dtype] = None,
+                 lora_rank: int = 0, lora_alpha: float = 1.0,
+                 lora_slots: int = 0, lora_targets: Sequence[str] = ()):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
@@ -265,14 +352,20 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.causal = causal
+        self.dtype = dtype
         self.qkv = Dense(embed_dim, 3 * embed_dim, device=device, dtype=dtype)
         self.proj = Dense(embed_dim, embed_dim, device=device, dtype=dtype)
+        _add_lora(self, {"qkv": (embed_dim, 3 * embed_dim),
+                         "proj": (embed_dim, embed_dim)},
+                  lora_rank, lora_alpha, lora_slots, lora_targets, device,
+                  dtype)
 
     def forward(self, x, cache=None, layer: int = 0, mask=None,
                 kv_lens=None, attention_impl: str = "auto", quant=None,
-                quant_impl: str = "auto"):
+                quant_impl: str = "auto", adapter_idx=None):
         b, s, e = x.shape
-        qkv = _dense(self.qkv, "qkv", x, quant, quant_impl)
+        qkv = _plus(_dense(self.qkv, "qkv", x, quant, quant_impl),
+                    lora_delta(self, "qkv", x, adapter_idx))
         q, k, v = qkv.split(e, dim=-1)
 
         def heads(t):  # [B, S, E] -> [B, H, S, D]
@@ -294,7 +387,8 @@ class MultiHeadAttention(nn.Module):
                 out = self._contiguous_step(q, k, v, cache, layer,
                                             attention_impl)
         out = out.transpose(1, 2).reshape(b, s, e)
-        return _dense(self.proj, "proj", out, quant, quant_impl)
+        return _plus(_dense(self.proj, "proj", out, quant, quant_impl),
+                     lora_delta(self, "proj", out, adapter_idx))
 
     def _contiguous_step(self, q, k, v, cache, layer, attention_impl):
         b, h, s, d = q.shape
@@ -370,24 +464,32 @@ class MLP(nn.Module):
     """Transformer feed-forward block (tanh GELU, as flax's nn.gelu)."""
 
     def __init__(self, embed_dim: int, hidden_dim: int, device=None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, lora_rank: int = 0,
+                 lora_alpha: float = 1.0, lora_slots: int = 0,
+                 lora_targets: Sequence[str] = ()):
         super().__init__()
+        self.dtype = dtype
         self.fc_in = Dense(embed_dim, hidden_dim, device=device, dtype=dtype)
         self.fc_out = Dense(hidden_dim, embed_dim, device=device, dtype=dtype)
+        _add_lora(self, {"fc_in": (embed_dim, hidden_dim),
+                         "fc_out": (hidden_dim, embed_dim)},
+                  lora_rank, lora_alpha, lora_slots, lora_targets, device,
+                  dtype)
 
-    def forward(self, x, quant=None, quant_impl: str = "auto"):
-        h = gelu(_dense(self.fc_in, "fc_in", x, quant, quant_impl))
-        return _dense(self.fc_out, "fc_out", h, quant, quant_impl)
+    def forward(self, x, quant=None, quant_impl: str = "auto",
+                adapter_idx=None):
+        h = gelu(_plus(_dense(self.fc_in, "fc_in", x, quant, quant_impl),
+                       lora_delta(self, "fc_in", x, adapter_idx)))
+        return _plus(_dense(self.fc_out, "fc_out", h, quant, quant_impl),
+                     lora_delta(self, "fc_out", h, adapter_idx))
 
 
-def _refuse_unported(moe_experts=0, lora_rank=0) -> None:
-    for knob, value in (("moe_experts", moe_experts),
-                        ("lora_rank", lora_rank)):
-        if value:
-            raise NotImplementedError(
-                f"{knob}={value!r} is not ported yet; see ROADMAP.md "
-                "Queue A"
-            )
+def _refuse_unported(moe_experts=0) -> None:
+    if moe_experts:
+        raise NotImplementedError(
+            f"moe_experts={moe_experts!r} is not ported yet; see ROADMAP.md "
+            "Queue A"
+        )
 
 
 # The hash works on 32-bit words held in int64 tensors.
@@ -554,32 +656,38 @@ class TransformerBlock(nn.Module):
     arrangement.  ``dropout_rate`` drops the attention's and the MLP's
     outputs (after ``proj`` and ``fc_out``, as the JAX package's
     ``MultiHeadAttention`` and ``MLP`` do) in training mode, never with a
-    cache.  MoE and LoRA are not ported yet and are refused.  ``quant``
-    is the block's entry of the "quant" collection (``{"attn": ...,
-    "mlp": ...}``), threaded to its projections."""
+    cache.  MoE is not ported yet and is refused.  The ``lora_*`` knobs
+    go to the attention and the MLP (``lora_delta``), ``adapter_idx`` to
+    their serve-mode gathers.  ``quant`` is the block's entry of the
+    "quant" collection (``{"attn": ..., "mlp": ...}``), threaded to its
+    projections."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_dim: int,
                  causal: bool = False, post_norm: bool = False, device=None,
                  dtype: Optional[torch.dtype] = None,
                  dropout_rate: float = 0.0, moe_experts: int = 0,
-                 lora_rank: int = 0):
+                 lora_rank: int = 0, lora_alpha: float = 1.0,
+                 lora_slots: int = 0, lora_targets: Sequence[str] = ()):
         super().__init__()
-        _refuse_unported(moe_experts, lora_rank)
+        _refuse_unported(moe_experts)
+        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha,
+                    lora_slots=lora_slots, lora_targets=lora_targets)
         self.post_norm = post_norm
         self.ln1 = LayerNorm(embed_dim, eps=LN_EPS, device=device,
                              dtype=dtype)
         self.ln2 = LayerNorm(embed_dim, eps=LN_EPS, device=device,
                              dtype=dtype)
         self.attn = MultiHeadAttention(embed_dim, num_heads, causal=causal,
-                                       device=device, dtype=dtype)
-        self.mlp = MLP(embed_dim, mlp_dim, device=device, dtype=dtype)
+                                       device=device, dtype=dtype, **lora)
+        self.mlp = MLP(embed_dim, mlp_dim, device=device, dtype=dtype,
+                       **lora)
         # Registered after attn and mlp: sites in the forward's order.
         self.attn_drop = Dropout(dropout_rate)
         self.mlp_drop = Dropout(dropout_rate)
 
     def forward(self, x, cache=None, layer: int = 0, mask=None, kv_lens=None,
                 attention_impl: str = "auto", quant=None,
-                quant_impl: str = "auto"):
+                quant_impl: str = "auto", adapter_idx=None):
         q_attn = q_mlp = None
         if quant is not None:
             q_attn, q_mlp = quant["attn"], quant["mlp"]
@@ -591,11 +699,12 @@ class TransformerBlock(nn.Module):
             return drop(self.attn_drop, self.attn(
                 y, cache, layer, mask=mask, kv_lens=kv_lens,
                 attention_impl=attention_impl, quant=q_attn,
-                quant_impl=quant_impl))
+                quant_impl=quant_impl, adapter_idx=adapter_idx))
 
         def mlp(y):
             return drop(self.mlp_drop,
-                        self.mlp(y, quant=q_mlp, quant_impl=quant_impl))
+                        self.mlp(y, quant=q_mlp, quant_impl=quant_impl,
+                                 adapter_idx=adapter_idx))
 
         if self.post_norm:
             x = self.ln1(x + attn(x))

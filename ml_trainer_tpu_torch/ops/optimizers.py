@@ -21,7 +21,17 @@ The reference's five names:
   ``scale_by_learning_rate`` (decoupled decay).
 
 The decay mask is always present (default: decay everything;
-``decay_mask_matrices_only`` skips 1-D leaves).  ``lamb``, ``lion`` and
+``decay_mask_matrices_only`` skips 1-D leaves).
+
+``multi_transform(transforms, labels)`` and ``set_to_zero()`` are
+optax's (LoRA's frozen base): each leaf goes through the transform its
+label names, the others' leaves masked out, so a ``set_to_zero`` leaf
+gets a zero update and NO optimizer state, and a transform's global
+norm (clipping) covers its own leaves only.  The state is
+``{"inner_states": {label: state}}``, optax's ``MultiTransformState``
+without the ``MaskedState`` wrappers (``convert.adam_state_from_jax``
+drops them).  A leaf that ``update`` is not given (a parameter that
+takes no gradient) is treated as masked: it gets no update at all.  ``lamb``, ``lion`` and
 ``adafactor`` are not ported yet.
 """
 
@@ -219,6 +229,42 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
                 for k, t in updates.items()}, state
 
     return GradientTransformation(lambda params: {}, update)
+
+
+def set_to_zero() -> GradientTransformation:
+    """Zero updates and no state."""
+    return GradientTransformation(
+        lambda params: {},
+        lambda g, state, params=None: (
+            {k: torch.zeros_like(u) for k, u in g.items()}, state))
+
+
+def multi_transform(transforms: Dict[str, GradientTransformation],
+                    labels: Dict[str, str]) -> GradientTransformation:
+    """Route each leaf (by name) to ``transforms[labels[name]]``; every
+    transform sees only its own leaves (optax's ``masked``)."""
+    bad = sorted(set(labels.values()) - set(transforms))
+    if bad:
+        raise ValueError(f"labels {bad} name no transform")
+
+    def part(tree, label):
+        return {k: v for k, v in tree.items() if labels[k] == label}
+
+    def init(params):
+        return {"inner_states": {label: tx.init(part(params, label))
+                                 for label, tx in transforms.items()}}
+
+    def update(updates, state, params=None):
+        out, new = {}, {}
+        for label, tx in transforms.items():
+            u, new[label] = tx.update(
+                part(updates, label), state["inner_states"][label],
+                None if params is None else
+                {k: params[k] for k in part(updates, label)})
+            out.update(u)
+        return {k: out[k] for k in updates}, {"inner_states": new}
+
+    return GradientTransformation(init, update)
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

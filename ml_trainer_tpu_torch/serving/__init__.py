@@ -1,5 +1,12 @@
-"""Serving: the slot/paged decode engine and the threaded ``Server``."""
+"""Serving: the slot/paged decode engine, the threaded ``Server`` and
+the LoRA adapter pool."""
 
+from ml_trainer_tpu_torch.serving.adapter_pool import (
+    AdapterConfig,
+    AdapterPool,
+    AdapterPoolExhausted,
+    UnknownAdapter,
+)
 from ml_trainer_tpu_torch.serving.api import Server, TokenStream
 from ml_trainer_tpu_torch.serving.engine import SlotDecodeEngine
 from ml_trainer_tpu_torch.serving.kv_pool import KVPagePool
@@ -13,7 +20,8 @@ from ml_trainer_tpu_torch.serving.scheduler import (
 )
 
 __all__ = [
+    "AdapterConfig", "AdapterPool", "AdapterPoolExhausted",
     "AdmissionError", "DeadlineExceeded", "FifoScheduler", "KVPagePool",
     "PrefixCache", "Request", "Server", "ServingMetrics", "SlotDecodeEngine",
-    "TokenStream",
+    "TokenStream", "UnknownAdapter",
 ]

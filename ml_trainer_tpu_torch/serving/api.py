@@ -9,7 +9,12 @@ driving the admit/step loop:
   the stream iterates tokens as they decode, and ``result()`` blocks for
   the whole sequence (prompt + continuation, ``generate()``'s layout);
 * ``complete(...)``: the blocking one-shot;
-* ``health()``: a structured snapshot (queue, slots, pages, metrics);
+* ``health()``: a structured snapshot (queue, slots, pages, resident
+  adapters, metrics);
+* ``load_adapter(name, source)``: hot-load (or replace) a LoRA adapter
+  artifact (``Server(adapters=AdapterConfig(...))``); registration is
+  host-only, and the upload runs in the engine loop at the adapter's
+  next admission;
 * ``close()`` or the context manager: stop the loop and fail whatever
   is still queued or in flight, so that no client blocks forever; the
   engine drops its decode graph (``SlotDecodeEngine.close``), so that
@@ -111,7 +116,11 @@ class Server:
     (``ops/kernels/int8_matmul.py``; the prefill stays fp32).  It is
     opt-in and quality-gated (argmax agreement and relative logit error
     against fp32), NOT bit-identical to fp32, and refused with
-    ``spec_k > 0`` or ``adapters``."""
+    ``spec_k > 0`` or ``adapters``.
+
+    ``adapters`` (an ``AdapterConfig`` or its kwargs; the GPT-2 family)
+    serves LoRA adapters from a pool of slots beside the base
+    (``serving/adapter_pool.py``): ``submit(..., adapter=name)``."""
 
     # Seconds the idle loop waits for a submission before looking again.
     _IDLE_POLL = 0.02
@@ -150,10 +159,14 @@ class Server:
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
                rng: Optional[int] = None, eos_token_id: Optional[int] = None,
                deadline: Optional[float] = None,
-               tenant: str = "default") -> TokenStream:
+               tenant: str = "default",
+               adapter: Optional[str] = None) -> TokenStream:
         """Enqueue one request (thread-safe).  Raises ``AdmissionError``
         past the queue watermark and ``ValueError`` for a request the
-        engine could never serve."""
+        engine could never serve.  ``adapter`` names the LoRA adapter to
+        decode with (needs ``Server(adapters=...)``; None: the base
+        model); an unknown adapter or a full pool fails the stream with
+        a structured error."""
         if self._stopping:
             raise RuntimeError("server is closed")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -174,10 +187,19 @@ class Server:
         if not isinstance(tenant, str) or not tenant:
             raise ValueError(f"tenant must be a non-empty string, got "
                              f"{tenant!r}")
+        if adapter is not None:
+            if not isinstance(adapter, str) or not adapter:
+                raise ValueError(f"adapter must be a non-empty string or "
+                                 f"None, got {adapter!r}")
+            if self.engine.adapters is None:
+                raise ValueError(
+                    f"request names adapter '{adapter}' but this server "
+                    "has no adapter pool (construct with "
+                    "Server(adapters=AdapterConfig(...)))")
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), rng=rng,
                       eos_token_id=eos_token_id, deadline=deadline,
-                      tenant=tenant)
+                      tenant=tenant, adapter=adapter)
         self.scheduler.submit(req)
         self._wake.set()
         return TokenStream(req, prompt)
@@ -187,6 +209,17 @@ class Server:
         """Blocking one-shot: submit and wait for the full sequence."""
         return self.submit(prompt, max_new_tokens, **kwargs).result(
             timeout=timeout)
+
+    def load_adapter(self, name: str, source) -> dict:
+        """Hot-load (or replace) a LoRA adapter artifact (a path, bytes or
+        a ``(meta, leaves)`` pair) under live traffic; thread-safe.
+        Returns the artifact's meta.  Raises ``ValueError`` without a
+        pool or for an artifact that does not fit its rank or targets."""
+        if self.engine.adapters is None:
+            raise ValueError(
+                "this server has no adapter pool (construct with "
+                "Server(adapters=AdapterConfig(...)))")
+        return self.engine.adapters.register(name, source)
 
     def health(self) -> dict:
         engine = self.engine
@@ -199,6 +232,8 @@ class Server:
             "queue_depth": self.scheduler.queue_depth(),
             "kv_pages_free": engine.pool.free_count() if engine.paged else None,
             "kv_pages_total": engine.kv_pages - 1 if engine.paged else None,
+            "adapters_resident": (engine.adapters.resident()
+                                  if engine.adapters is not None else None),
             "metrics": self.metrics.snapshot(),
         }
 

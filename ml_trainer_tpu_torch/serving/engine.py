@@ -41,11 +41,27 @@
   preempts a victim, which re-queues with its generated tokens as a
   resumable prefix.
 
+* **LoRA adapters** (``adapters=AdapterConfig(...)``, the GPT-2
+  family): the engine serves a clone of the model in serve mode
+  (``GPT2.clone(lora_slots=S, ...)``, over the same base tensors) whose
+  stack buffers ``A [S, in, r]``/``B [S, r, out]`` per targeted
+  projection are allocated once, with one ``[max_batch]`` int64
+  ``adapter_idx``.  ``serving/adapter_pool.py`` decides which slot holds
+  which adapter; an admission pins the request's adapter (a miss
+  copies the prepared rows into its slot, ``copy_`` in place) and the
+  prefill gathers it at batch 1; each decode step's rows gather theirs
+  from ``adapter_idx``, filled with ``copy_`` before the replay after a
+  change.  So a hot-load or an eviction after the capture rebuilds
+  nothing and the next replay serves the new weights.  Slot 0 is zero:
+  rows with no adapter decode bitwise like an engine without adapters.
+  An unknown adapter or a full pool fails the request with a structured
+  error.  The prefix cache's namespace always carries the adapter.
+
 Sampling follows ``generate.sample_rows``: greedy argmax, or per request
 a generator seeded from ``(rng, t)`` per token, so a served request
-reproduces the port's ``generate()`` for it.  Speculative decoding, LoRA
-adapters and chunked prefill are not ported yet, and a model without a
-slot-indexed cache (Llama: no ``new_paged_cache``) is refused.
+reproduces the port's ``generate()`` for it.  Speculative decoding and
+chunked prefill are not ported yet, and a model without a slot-indexed
+cache (Llama: no ``new_paged_cache``) is refused.
 """
 
 from __future__ import annotations
@@ -56,9 +72,17 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ml_trainer_tpu_torch.convert import flax_path
 from ml_trainer_tpu_torch.device import check_model_device
 from ml_trainer_tpu_torch.generate import sample_rows
 from ml_trainer_tpu_torch.ops.kernels.int8_matmul import quantize_tree
+from ml_trainer_tpu_torch.serving.adapter_pool import (
+    AdapterConfig,
+    AdapterPool,
+    AdapterPoolExhausted,
+    UnknownAdapter,
+    prepare_upload,
+)
 from ml_trainer_tpu_torch.serving.kv_pool import KVPagePool
 from ml_trainer_tpu_torch.serving.metrics import ServingMetrics
 from ml_trainer_tpu_torch.serving.prefix_cache import PrefixCache
@@ -94,7 +118,7 @@ class SlotDecodeEngine:
                 "quant_int8 with adapters is not supported: LoRA deltas "
                 "attach to the fp32 projections the quantized program does "
                 "not read (serve quantized without adapters)")
-        for knob, value in (("spec_k", spec_k), ("adapters", adapters),
+        for knob, value in (("spec_k", spec_k),
                             ("prefill_chunk", prefill_chunk)):
             if value:
                 raise NotImplementedError(
@@ -168,6 +192,14 @@ class SlotDecodeEngine:
                                device=self.device)
         self._select = torch.zeros(max_batch, dtype=torch.long,
                                    device=self.device)
+        # The adapter pool and the serve-mode model over the same base.
+        self.adapters: Optional[AdapterPool] = None
+        self._serve_model = model
+        self._adapter_rows = np.zeros((max_batch,), np.int64)
+        self._adapter_idx = None
+        self._rows_dirty = False
+        if adapters is not None:
+            self._init_adapters(adapters)
         self._graphed = self._decode_graph and self.device.type == "cuda"
         self._graph: Optional[StepGraph] = None
         self._temps = np.zeros((max_batch,), np.float32)
@@ -176,6 +208,100 @@ class SlotDecodeEngine:
         # Host mirror of each slot's consumed-token count.
         self._pos = np.zeros((max_batch,), np.int64)
         self._active: Dict[int, Request] = {}
+
+    # -- LoRA adapters (serving/adapter_pool.py) -------------------------
+
+    def _init_adapters(self, adapters) -> None:
+        if isinstance(adapters, dict):
+            adapters = AdapterConfig(**adapters)
+        if not isinstance(adapters, AdapterConfig):
+            raise ValueError(
+                "adapters must be an AdapterConfig (or its kwargs dict), "
+                f"got {type(adapters).__name__}")
+        if not (hasattr(self.model, "lora_rank")
+                and hasattr(self.model, "clone")):
+            raise ValueError(
+                f"{type(self.model).__name__} does not carry the lora_* "
+                "knobs (only the GPT-2 family serves adapters)")
+        self._serve_model = self.model.clone(
+            lora_rank=int(adapters.rank), lora_slots=int(adapters.slots),
+            lora_targets=tuple(adapters.targets))
+        self.adapters = AdapterPool(adapters)  # registers the sources
+        # Stack buffers by the flax path prepare_upload keys them with
+        # (``blocks.0.attn.qkv_lora_A`` -> ``block0/attn/qkv_lora_A``).
+        self._stacks = {
+            "/".join(flax_path(name.rpartition(".")[0])
+                     + [name.rpartition(".")[2]]): buf
+            for name, buf in self._serve_model.named_buffers()
+            if "_lora_" in name}
+        self._stack_shapes = {k: tuple(v.shape)
+                              for k, v in self._stacks.items()}
+        self._adapter_idx = torch.zeros(self.max_batch, dtype=torch.long,
+                                        device=self.device)
+
+    def _upload(self, rows: Dict[str, np.ndarray], slot: int) -> None:
+        """Write one adapter's prepared rows into ``slot`` of every stack
+        in place (cast on the host to the stacks' dtype)."""
+        for path, buf in self._stacks.items():
+            buf[slot].copy_(torch.from_numpy(rows[path]).to(buf.dtype))
+
+    def _bind_adapter(self, req: Request, slot: int) -> None:
+        """Pin ``req``'s adapter for its slot's lifetime: a resident one
+        repoints the row, a miss uploads the registered artifact into a
+        (possibly evicted) slot.  Raises ``UnknownAdapter`` /
+        ``AdapterPoolExhausted``."""
+        if not req.adapter:
+            self._set_row(slot, 0)
+            return
+        aslot, upload = self.adapters.acquire(req.adapter)
+        if upload is not None:
+            meta, leaves = upload
+            self._upload(prepare_upload(meta, leaves, self._stack_shapes,
+                                        self.adapters.rank), aslot)
+        self._set_row(slot, aslot)
+        self._push_adapter_metrics()
+
+    def _set_row(self, slot: int, aslot: int) -> None:
+        if self._adapter_rows[slot] != aslot:
+            self._adapter_rows[slot] = aslot
+            self._rows_dirty = True
+
+    def _release_adapter(self, slot: int) -> None:
+        """Drop the slot's adapter pin (idempotent: the row returns to
+        the unpinned slot 0)."""
+        if self.adapters is None:
+            return
+        idx = int(self._adapter_rows[slot])
+        if idx:
+            self._set_row(slot, 0)
+            self.adapters.release(idx)
+            self._push_adapter_metrics()
+
+    def _adapter_bytes_per_slot(self) -> int:
+        """Device bytes one adapter slot takes over every stack."""
+        total = sum(b.numel() * b.element_size()
+                    for b in self._stacks.values())
+        return total // max(self.adapters.slots, 1)
+
+    def _push_adapter_metrics(self) -> None:
+        if self.adapters is None:
+            return
+        pool = self.adapters
+        counters = pool.counters()
+        self.metrics.record_adapters(
+            free=pool.free_count(), used=pool.used_count(),
+            total=pool.slots - 1, resident=pool.resident(),
+            hits=counters["hits"], loads=counters["loads"],
+            evictions=counters["evictions"],
+            bytes_per_slot=self._adapter_bytes_per_slot())
+
+    def _row_idx(self, slot: int):
+        """The batch-1 prefill's ``adapter_idx`` for ``slot`` (None
+        without adapters)."""
+        if self.adapters is None:
+            return None
+        return torch.tensor([int(self._adapter_rows[slot])],
+                            dtype=torch.long, device=self.device)
 
     # -- paged memory management ----------------------------------------
 
@@ -188,7 +314,14 @@ class SlotDecodeEngine:
         self.pool.dirty = False
 
     def _prefix_ns(self, req: Request) -> str:
-        return req.tenant if self.prefix_scope == "tenant" else ""
+        """The prefix cache's namespace: the tenant (``prefix_scope=
+        "global"``: one shared trie), and with adapters ALWAYS also the
+        request's adapter, since cached K/V depend on the adapter that
+        prefilled them."""
+        ns = req.tenant if self.prefix_scope == "tenant" else ""
+        if self.adapters is not None:
+            ns = f"{ns}\x1fadapter={req.adapter or ''}"
+        return ns
 
     def _page_row(self, slot: int) -> np.ndarray:
         row = np.zeros((self.pool.pages_per_slot,), np.int32)
@@ -199,7 +332,10 @@ class SlotDecodeEngine:
     def _release_slot_pages(self, slot: int, req: Optional[Request] = None,
                             donate: bool = True) -> None:
         """Return a slot's pages (idempotent); with ``donate``, its
-        written full blocks go to the prefix cache first."""
+        written full blocks go to the prefix cache first.  Drops the
+        slot's adapter pin too (every path that frees a slot comes here,
+        paged or not)."""
+        self._release_adapter(slot)
         if not self.paged:
             return
         chain = self.pool.slot_pages[slot]
@@ -345,6 +481,18 @@ class SlotDecodeEngine:
             self.pool.bind_slot(slot, shared + pages)
             req.kv_blocked = False
 
+        if self.adapters is not None:
+            try:
+                self._bind_adapter(req, slot)
+            except (UnknownAdapter, AdapterPoolExhausted) as e:
+                # A structured error naming the adapter, never a hang;
+                # the pages bound above go back with the slot.
+                if self.paged:
+                    self.pool.reset_slot(slot)
+                    self._push_kv_metrics()
+                req.finish("error", str(e))
+                return "finished"
+
         req.slot = slot
         req.state = "active"
         seed = int(req.rng or 0)
@@ -389,8 +537,9 @@ class SlotDecodeEngine:
         padded = torch.zeros((1, bucket), dtype=torch.long, device=self.device)
         padded[0, :p] = torch.from_numpy(prompt.astype(np.int64))
         c1 = self.model.new_cache(1, max_len=bucket)
-        last = self.model(padded, c1,
-                          select=torch.tensor([p - 1], device=self.device))
+        last = self._serve_model(
+            padded, c1, select=torch.tensor([p - 1], device=self.device),
+            adapter_idx=self._row_idx(slot))
         tok0 = sample_rows(last, [req.temperature], [seed], [done_tokens])
         cache = self.cache
         if self.paged:
@@ -424,8 +573,9 @@ class SlotDecodeEngine:
         view = self.cache.view(
             row[None, :], torch.tensor([c], dtype=torch.long,
                                        device=self.device))
-        last = self.model(window, view,
-                          select=torch.tensor([su - 1], device=self.device))
+        last = self._serve_model(
+            window, view, select=torch.tensor([su - 1], device=self.device),
+            adapter_idx=self._row_idx(slot))
         tok0 = sample_rows(last, [req.temperature], [seed], [done_tokens])
         self.cache.index[slot] = p
         self.tok[slot, 0] = tok0[0]
@@ -447,9 +597,11 @@ class SlotDecodeEngine:
         """The decode step's forward: every slot's next-token logits
         [max_batch, V] float32.  It writes its K/V into the cache and
         advances the positions in place, and reads nothing else that
-        moves, so that a CUDA graph of it stays valid across steps."""
-        return self.model(self.tok, self.cache, select=self._select,
-                          quant=self.quant)
+        moves, so that a CUDA graph of it stays valid across steps (with
+        adapters: the stacks and ``adapter_idx``, written in place)."""
+        return self._serve_model(self.tok, self.cache, select=self._select,
+                                 quant=self.quant,
+                                 adapter_idx=self._adapter_idx)
 
     def _decode_logits(self) -> torch.Tensor:
         """``_decode()``: eager on the CPU (or with ``_decode_graph``
@@ -483,6 +635,9 @@ class SlotDecodeEngine:
             self._sync_table()
             if not self._active:
                 return freed
+        if self._rows_dirty:
+            self._adapter_idx.copy_(torch.from_numpy(self._adapter_rows))
+            self._rows_dirty = False
         t0 = time.perf_counter()
         with torch.no_grad():
             last = self._decode_logits()

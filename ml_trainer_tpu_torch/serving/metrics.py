@@ -35,6 +35,11 @@ class ServingMetrics:
         self.step_secs: List[float] = []
         self.kv: Dict[str, int] = {}
         self.prefix: Dict[str, int] = {}
+        # The LoRA adapter pool (serving/adapter_pool.py): slots free,
+        # used and in all (the trash slot 0 not counted), the adapters
+        # resident, the hit/load/eviction counters and the device bytes
+        # one slot takes over every stack.
+        self.adapters: Dict[str, int] = {}
 
     def _inc(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -85,6 +90,21 @@ class ServingMetrics:
                            "hit_tokens": hit_tokens,
                            "lookup_tokens": lookup_tokens}
 
+    def record_adapters(self, free: int, used: int, total: int, resident,
+                        hits: int, loads: int, evictions: int,
+                        bytes_per_slot: Optional[int] = None) -> None:
+        """The adapter pool's occupancy, counters and per-slot bytes."""
+        with self._lock:
+            self.adapters = {
+                "free": int(free), "used": int(used), "total": int(total),
+                "resident": (int(resident) if isinstance(resident, int)
+                             else len(resident)),
+                "hits": int(hits), "loads": int(loads),
+                "evictions": int(evictions),
+                "slot_bytes": int(bytes_per_slot or
+                                  self.adapters.get("slot_bytes", 0)),
+            }
+
     def snapshot(self) -> dict:
         with self._lock:
             steps = list(self.step_secs)
@@ -98,4 +118,25 @@ class ServingMetrics:
                 "decode_step_p50_s": _pct(steps, 0.5),
                 "kv": dict(self.kv),
                 "prefix": dict(self.prefix),
+                **self._adapter_snapshot(),
             }
+
+    def _adapter_snapshot(self) -> dict:
+        """The JAX snapshot's adapter keys (zeros without a pool); the
+        pool's bytes priced per state from the slot counts."""
+        a = self.adapters
+        per = a.get("slot_bytes", 0)
+        return {
+            "adapter_slots_free": a.get("free", 0),
+            "adapter_slots_used": a.get("used", 0),
+            "adapter_slots_total": a.get("total", 0),
+            "adapters_resident": a.get("resident", 0),
+            "adapter_hits_total": a.get("hits", 0),
+            "adapter_loads_total": a.get("loads", 0),
+            "adapter_evictions_total": a.get("evictions", 0),
+            "adapter_pool_bytes": {
+                "free": a.get("free", 0) * per,
+                "used": a.get("used", 0) * per,
+                "total": a.get("total", 0) * per,
+            },
+        }

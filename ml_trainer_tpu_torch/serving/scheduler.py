@@ -56,6 +56,10 @@ class Request:
     eos_token_id: Optional[int] = None
     deadline: Optional[float] = None
     tenant: str = DEFAULT_TENANT
+    # The LoRA adapter this request decodes with (``serving/
+    # adapter_pool.py``); None is the base model (slot 0, the trash
+    # adapter: bitwise an engine without adapters).
+    adapter: Optional[str] = None
 
     id: int = field(default_factory=lambda: next(_ids))
     submitted_at: float = field(default_factory=time.monotonic)

@@ -109,6 +109,23 @@ masks of one single-card step, and a resumed run needs no RNG state.
 ``ema_decay`` keeps ``state.ema_params`` (``e = d * e + (1 - d) * p``
 after each update, the old value kept on a skipped step); the
 evaluations, ``test()``, ``predict()`` and the saved weights use it.
+
+``lora`` (``lora.LoraConfig`` or its kwargs; the GPT-2 family only, as
+in the JAX package): the model is cloned with train-mode adapters
+(``GPT2.clone``, copies of the base weights; A drawn from the config's
+``seed``, B zero), the base parameters are frozen (``requires_grad=
+False``: their gradient products are never computed) and the optimizer
+is ``multi_transform({"lora": chain(clip, optimizer), "frozen":
+set_to_zero()})``, so the clip's norm is the adapters' and the base
+carries no optimizer state.  The step and its guard run over the
+adapters' gradients, with the loss: a non-finite gradient of a base
+leaf reaches an adapter's through the residual stream below it (the
+lowest targeted projection's gradient sums every later block's), so the
+guard decides as the JAX guard, which also reads the base's gradients,
+but for an overflow of a product whose inputs are finite.  The EMA
+covers every parameter, as the JAX package's.  ``export_lora(path)``
+writes the adapter artifact; ``export_torch(path)`` the weights as a
+reference-style ``model.pth`` (``checkpoint/torch_export.py``).
 """
 
 from __future__ import annotations
@@ -146,7 +163,11 @@ from ml_trainer_tpu_torch.data.native import (
     native_plan,
 )
 from ml_trainer_tpu_torch.device import resolve_device
-from ml_trainer_tpu_torch.models.layers import BatchNorm, dropout_stream
+from ml_trainer_tpu_torch.models.layers import (
+    BatchNorm,
+    dropout_stream,
+    init_lora,
+)
 from ml_trainer_tpu_torch.ops.kernels.fused_adam import (
     adam_scalars,
     fused_adam_update_list,
@@ -160,6 +181,8 @@ from ml_trainer_tpu_torch.ops.optimizers import (
     decay_mask_matrices_only,
     get_optimizer,
     identity,
+    multi_transform,
+    set_to_zero,
     tree_leaves,
     tree_map,
 )
@@ -380,13 +403,15 @@ class Trainer:
         ``ema_decay`` (a float32 moving average of the parameters, kept
         by every step flavour and reverted with a skipped step; eval,
         ``test()``, ``predict()``, ``save_model`` and ``save_best`` use
-        it).  Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
+        it), and ``lora`` (a ``LoraConfig`` or its kwargs dict: a
+        frozen base and trainable adapters, GPT-2 family, the fused
+        update only).  Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
         ported), ``desync_every_steps`` and ``straggler_factor``
         (multi-host and telemetry only); the first ``Trainer`` of a
         process logs one warning when the JAX package would act on a
         ``desync_every_steps`` as set (``_warn_inert_knobs``).
         Refused unless at their defaults: ``sharding_rules``,
-        ``telemetry``, ``elastic``, ``lora``,
+        ``telemetry``, ``elastic``,
         ``pipeline_schedule`` and ``sharded_checkpoint=True``; so are
         mesh axes other than ``data`` and
         replicas on distinct devices.
@@ -433,11 +458,25 @@ class Trainer:
             ("sharding_rules", sharding_rules, (None,)),
             ("telemetry", telemetry, (False,)),
             ("elastic", elastic, (None,)),
-            ("lora", lora, (None,)),
             ("pipeline_schedule", pipeline_schedule, (None,)),
             ("sharded_checkpoint", sharded_checkpoint, (None, False)),
         ):
             _refuse(knob, value, accepted)
+        if lora is not None:
+            from ml_trainer_tpu_torch.lora import LoraConfig
+
+            if isinstance(lora, dict):
+                lora = LoraConfig(**lora)
+            if not isinstance(lora, LoraConfig):
+                raise ValueError(
+                    f"lora must be a LoraConfig (or its kwargs dict), "
+                    f"got {type(lora).__name__}")
+            if dp_update == "sharded":
+                raise ValueError(
+                    "lora training uses the fused update: the sharded "
+                    "path's dim-0 partition rule does not cover the "
+                    "masked optimizer state (dp_update='fused')")
+        self.lora = lora
         if loader not in ("auto", "native", "python"):
             raise ValueError(
                 f"loader must be 'auto' | 'native' | 'python', got {loader!r}")
@@ -504,7 +543,7 @@ class Trainer:
         self.dp_update = dp_update
         self.fused_adam = (
             dp_update == "sharded" and cfg.optimizer == "adam"
-            and not cfg.weight_decay
+            and not cfg.weight_decay and lora is None
         ) if fused_adam is None else bool(fused_adam)
         self.bucket_mb = float(bucket_mb)
         if dp_update == "sharded":
@@ -573,6 +612,9 @@ class Trainer:
             raise TypeError(
                 f"model must be a registry name or an nn.Module, got "
                 f"{type(model).__name__}")
+        self._trainable = None
+        if lora is not None:
+            model = self._with_lora(model, lora, cfg.seed)
         self._has_batch_norm = any(
             isinstance(m, (BatchNorm, nn.modules.batchnorm._BatchNorm))
             for m in model.modules())
@@ -630,6 +672,36 @@ class Trainer:
             self._build_state(cfg)
         else:
             logger.warning("Testing only available. No datasets in arguments.")
+
+    def _with_lora(self, model: nn.Module, lora, seed: int) -> nn.Module:
+        """The JAX package's ``model.clone(lora_rank=...)``: a train-mode
+        LoRA copy of ``model`` (adapters drawn from ``seed``), its base
+        frozen; ``_trainable`` names the adapters."""
+        if not (hasattr(model, "lora_rank") and hasattr(model, "clone")):
+            raise ValueError(
+                "lora requires a model carrying the lora_* knobs "
+                f"(the GPT-2 family); got {type(model).__name__}")
+        from ml_trainer_tpu_torch.lora import lora_param_labels
+
+        model = model.clone(share=False, lora_rank=int(lora.rank),
+                            lora_alpha=float(lora.alpha),
+                            lora_targets=tuple(lora.targets), lora_slots=0)
+        init_lora(model, seed)
+        self._labels = lora_param_labels(dict(model.named_parameters()))
+        self._trainable = [k for k, v in self._labels.items() if v == "lora"]
+        if not self._trainable:
+            raise ValueError(
+                "Trainer(lora=...) found no *_lora_A/*_lora_B params — do "
+                "the configured targets exist on this model?")
+        for k, p in model.named_parameters():
+            p.requires_grad_(k in self._trainable)
+        n = len(list(model.parameters()))
+        logger.info(
+            f"LoRA: training {len(self._trainable)} adapter leaves (rank "
+            f"{lora.rank}, targets {lora.targets}); "
+            f"{n - len(self._trainable)} base leaves frozen with no "
+            "optimizer state.")
+        return model
 
     def _at_compute_dtype(self, model: nn.Module) -> nn.Module:
         """A registry-built model whose ``dtype`` disagrees with an active
@@ -700,7 +772,12 @@ class Trainer:
 
     # ----------------------------------------------------------------- state
     def _params(self) -> dict:
-        return dict(self.model.named_parameters())
+        """The parameters a step updates: all of them, or with ``lora``
+        the adapters."""
+        params = dict(self.model.named_parameters())
+        if self._trainable is None:
+            return params
+        return {k: params[k] for k in self._trainable}
 
     def _build_state(self, cfg) -> None:
         self.steps_per_epoch = len(self.train_loader)
@@ -721,10 +798,16 @@ class Trainer:
                 decay_mask=(decay_mask_matrices_only
                             if self.decay_exclude_bias_norm else None)),
         )
+        if self.lora is not None:
+            # Only the adapters reach the optimizer, the clip included;
+            # the base gets zero updates and no optimizer state.
+            self.tx = multi_transform(
+                {"lora": self.tx, "frozen": set_to_zero()}, self._labels)
         if cfg.scheduler == "ReduceLROnPlateau":
             self._plateau = PlateauController(cfg.lr)
         with torch.no_grad():
-            params = {k: p.detach() for k, p in self._params().items()}
+            params = {k: p.detach()
+                      for k, p in self.model.named_parameters()}
             scale_cfg = self._loss_scale_cfg
             self.state = TrainState.create(
                 self.tx.init(params), self.device,
@@ -1099,8 +1182,12 @@ class Trainer:
         if isinstance(lr_scale, torch.Tensor) or lr_scale != 1.0:
             updates = {k: u * lr_scale for k, u in updates.items()}
         new_params = {k: old[k] + u for k, u in updates.items()}
-        new_ema = (None if state.ema_params is None
-                   else self._ema_update(state.ema_params, new_params))
+        new_ema = None
+        if state.ema_params is not None:
+            # Over every parameter, the frozen ones too (as in JAX).
+            new_ema = self._ema_update(state.ema_params, {
+                **{k: p.detach() for k, p in self.model.named_parameters()},
+                **new_params})
         if self.nonfinite_guard:
             ok = torch.isfinite(loss)
             for g in grads.values():
@@ -1720,6 +1807,46 @@ class Trainer:
         tmp = os.path.join(model_dir, MODEL_FILE + ".tmp")
         torch.save(state, tmp)
         os.replace(tmp, os.path.join(model_dir, MODEL_FILE))
+
+    def export_lora(self, path: str, name: Optional[str] = None) -> dict:
+        """Write the trained adapter as one ``.npz`` artifact, the unit
+        ``Server.load_adapter`` hot-loads: every ``*_lora_A``/``_B`` leaf
+        plus the meta (rank, alpha, targets, the frozen base's
+        fingerprint).  Requires ``Trainer(lora=...)``; returns the meta."""
+        if self.lora is None:
+            raise ValueError(
+                "export_lora requires Trainer(lora=LoraConfig(...))")
+        if self.state is None:
+            raise ValueError("trainer has no state (datasets were not given)")
+        from ml_trainer_tpu_torch.convert import variables_to_jax
+        from ml_trainer_tpu_torch.lora import export_lora_artifact
+
+        meta = export_lora_artifact(variables_to_jax(self.model)["params"],
+                                    self.lora, path, name=name)
+        logger.info(f"LoRA adapter exported -> {path} ({meta['n_leaves']} "
+                    f"leaves, rank {meta['rank']}).")
+        return meta
+
+    def export_torch(self, path: str, ddp_prefix: bool = False,
+                     spatial_inputs=None) -> str:
+        """Write the weights as the reference's torch ``model.pth``, the
+        file the JAX package's ``export_torch`` writes for the same
+        weights (``checkpoint/torch_export.py``): ``ddp_prefix=True``
+        writes DDP's ``module.`` keys; ``spatial_inputs`` maps a dense
+        layer after a conv stack to its (C, H, W) input (default:
+        MLModel's ``fc1``; ``{}`` for none).  With ``ema_decay`` set, the
+        EMA weights.  A transformer's or a ResNet's nested tree raises
+        ``ValueError``, as in the JAX package."""
+        from ml_trainer_tpu_torch.checkpoint.torch_export import (
+            save_torch_checkpoint,
+        )
+        from ml_trainer_tpu_torch.convert import variables_to_jax
+
+        variables = variables_to_jax(self.model,
+                                     self._eval_params(self.model))
+        return save_torch_checkpoint(path, variables,
+                                     spatial_inputs=spatial_inputs,
+                                     ddp_prefix=ddp_prefix)
 
     def save_history_(self, model_dir: str) -> None:
         """``history.pkl`` (the reference's name, so ``load_history``

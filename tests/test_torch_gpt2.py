@@ -115,9 +115,13 @@ def test_init_gpt2_is_seeded_and_refusals():
         assert torch.equal(va, vb), k
     assert not torch.equal(a.tok_embed.weight, c.tok_embed.weight)
     assert torch.equal(a.blocks[0].ln1.weight, torch.ones(128))
-    for knob in ("moe_experts", "lora_rank"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model("gpt2_tiny", device="cpu", **{knob: 1})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("gpt2_tiny", device="cpu", moe_experts=1)
+    # LoRA is ported: train-mode adapters on the targets asked for.
+    lora = get_model("gpt2_tiny", device="cpu", lora_rank=1,
+                     lora_targets=("qkv",))
+    assert lora.blocks[0].attn.qkv_lora_A.shape == (128, 1)
+    assert not hasattr(lora.blocks[0].attn, "proj_lora_A")
     assert get_model("gpt2_tiny", device="cpu",
                      dropout_rate=0.1).embed_drop.rate == 0.1
     with pytest.raises(NotImplementedError, match="ROADMAP"):

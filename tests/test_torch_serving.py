@@ -120,10 +120,13 @@ def test_preemption_under_page_pressure_changes_no_token(models):
 
 def test_server_refusals_and_failures(models):
     _, _, t_model = models
-    for kw in (dict(spec_k=2), dict(adapters={"rank": 4}),
-               dict(prefill_chunk=16), dict(http_port=0)):
+    for kw in (dict(spec_k=2), dict(prefill_chunk=16), dict(http_port=0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Server(t_model, device="cpu", kv_page_size=16, **kw)
+    # Adapters are ported (tests/test_torch_lora_serving.py).
+    with Server(t_model, device="cpu", kv_page_size=16,
+                adapters={"rank": 4}) as s:
+        assert s.health()["adapters_resident"] == []
     with pytest.raises(ValueError, match="paged_kernel needs paged KV"):
         SlotDecodeEngine(t_model, paged_kernel=True, device="cpu")
     with Server(t_model, max_batch=1, max_queue=0, device="cpu") as s:

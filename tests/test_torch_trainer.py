@@ -202,7 +202,7 @@ def test_poisoned_batch_is_skipped_alike(tmp_path):
     ("mesh_shape", {"expert": 2}), ("mesh_shape", {"data": 1, "tensor": 2}),
     ("sharding_rules", [("x", None)]),
     ("mesh_shape", {"fsdp": 2}), ("mesh_shape", {"tensor": 2}),
-    ("telemetry", True), ("elastic", 2), ("lora", {"rank": 4}),
+    ("telemetry", True), ("elastic", 2), ("pipeline_schedule", "gpipe"),
     ("pipeline_schedule", "1f1b"), ("mesh_shape", {"sequence": 2}),
     ("mesh_shape", {"stage": 2}), ("sharded_checkpoint", True),
 ])
