@@ -35,6 +35,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # export, serve from the adapter
                                           # pool in the decode graph;
                                           # export_torch card vs CPU
+    python3 chip_smoke.py --only examples # kernel checks + the notebook
+                                          # flows (examples/torch_port
+                                          # 01-05) and lamb, lion and
+                                          # adafactor at K = 4
 
 Phases, one line of output each (or a few):
 
@@ -252,7 +256,7 @@ Phases, one line of output each (or a few):
    against its uninterrupted fit: GPT-2 124M pretraining as
    examples/04_gpt2_pretrain.py's full-size line sets it (fp32, adamw,
    wd 0.01, cosine restarts, 8 x 1024 tokens in 4 microbatches, K = 4;
-   2 epochs of 8 steps), a new Trainer resuming from the first run's
+   2 epochs of 4 steps: epoch 2 a replay), a new Trainer resuming from the first run's
    checkpoint_1 alone (epoch 2 through a fresh capture); ``dp_train``'s
    configuration in bf16 (2 replicas, K4/K5; 2 epochs of 4 steps) with
    ``save_every_steps=2`` preempted at step 7 (``preempt`` fault) and
@@ -271,7 +275,7 @@ Phases, one line of output each (or a few):
    pass on 224 x 224 images with pad 0 and no flip within
    NATIVE_PLAIN_ATOL of the Python Loader's ``ToFloat + Normalize``, two
    iterations of one epoch bitwise and a new epoch different; ResNet-50
-   (224, batch 64, fp32, K = 4, 3 epochs of 12 steps) through ``fit()``
+   (224, batch 64, fp32, K = 4, 3 epochs of 8 steps) through ``fit()``
    with ``loader="python"`` and then ``loader="native"`` (asked for
    explicitly, never taken by default), on seeded uint8 images in memory
    and as raw shards written by ``write_sharded_dataset``: samples/s of
@@ -305,7 +309,7 @@ Phases, one line of output each (or a few):
    one step under the per-call check; the bf16 chunked fit on 2 sharded
    replicas, 4 steps (K4/K5 exact, the K4/K5 tail against the plain one
    from one state); ``generate()`` in float32 and bf16, [4, 128] prompts
-   (K1 prefills), 64 greedy tokens through the kernels and the plain path
+   (K1 prefills), 32 greedy tokens through the kernels and the plain path
    (``attention_impl="xla"``: prefill logits within the bar, tokens equal
    up to a near-tie of the plain logits), the cache at [4, 4, L, 64] and
    its bytes, a seeded sampled run twice; then one bf16 fit each of
@@ -315,10 +319,10 @@ Phases, one line of output each (or a few):
 12. cli (``CLI_*``): ``python -m ml_trainer_tpu_torch`` with
    ``CLI_ARGV`` (GPT-2 124M bf16 at [8, 1024], ``--remat --remat_policy
    dots --ema_decay 0.999 --steps_per_execution 4``, adamw, clip 1.0) for
-   2 epochs in a subprocess beside the same for 3 epochs through
+   1 epoch in a subprocess beside the same for 2 epochs through
    ``cli.main`` in this process (K1-K3 launches exact), then the first
-   continued with ``--resume --epochs 3``: each exits 0, the resumed
-   checkpoint_3 (params, ``ema_params``, optimizer state, step,
+   continued with ``--resume --epochs 2``: each exits 0, the resumed
+   checkpoint_2 (params, ``ema_params``, optimizer state, step,
    counters) and history bitwise the uninterrupted run's; while the
    subprocesses run: one dropout site's mask on the card bitwise the
    CPU's and its kept share within 4 sigma of 0.9; Llama 124.7M bf16
@@ -363,6 +367,24 @@ Phases, one line of output each (or a few):
    turns, one hot-load's prepare and upload ms; ``export_torch`` of an
    MLModel trained on the card with an EMA bitwise the CPU's export of
    the same state, with and without ``ddp_prefix``.
+14. examples (``EX_*``): the notebook flows of ``examples/torch_port/``
+   as a user runs them, each script's ``main()`` through ``runpy`` in
+   this process (its launches counted): 01 at its defaults (MLModel, 6
+   epochs of 2048 synthetic images; wall, samples/s, history, test
+   metrics), then 03 on 01's directory and on the same trainer's
+   ``export_torch`` file (the loaded weights bitwise the trained ones,
+   leaf for leaf; loss and accuracy within EX_METRIC_ATOL of
+   ``trainer.test`` of the in-memory model); 02 at its defaults
+   (ResNet-18 b 256, 2 epochs of 4096, 2 replicas on the card); 04 at
+   BASELINE config 5's widths (EX_04: GPT-2 124M [8, 1024] in 4
+   microbatches, remat, K = 4, 8 steps), then ``RESUME=1 EPOCHS=2``,
+   each with its sampled continuation (K1-K3 exact: K1 twice a
+   microbatch under remat); 05 at EX_05 (BERT-base [32, 128],
+   right-padded: K1-K3's kv_lens path, exact); then GPT-2 124M bf16 at
+   TRAIN's shape under adamw, lamb, lion and adafactor at K = 4: one
+   replay of the captured chunk bitwise 4 eager steps from one state
+   (every parameter and state leaf), the replay's ms a step (CUDA
+   events), the optimizer state's bytes, exact launches.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -376,6 +398,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -408,6 +431,53 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# Seeded weights by (config, seed, kwargs): a model's draw on the host
+# generator takes ~0.8 s for GPT-2 124M, and the phases build the same
+# seeded models many times.
+_SEEDED: dict = {}
+
+
+def _seeded_model(config, seed: int, device, **kwargs):
+    """``mt.init_model(config, seed, device, **kwargs)``: drawn once, then
+    the same weights (bitwise) copied into each new model."""
+    import ml_trainer_tpu_torch as mt
+
+    key = (config, seed, tuple(sorted((k, repr(v))
+                                      for k, v in kwargs.items())))
+    state = _SEEDED.get(key)
+    if state is None:
+        model = mt.init_model(config, seed=seed, device=device, **kwargs)
+        _SEEDED[key] = {k: v.detach().to("cpu", copy=True)
+                        for k, v in model.state_dict().items()}
+        return model
+    model = mt.get_model(config, device=device, **kwargs)
+    model.load_state_dict(state)
+    return model
+
+
+_DISCARDS = []  # the threads removing discarded directories
+
+
+def _discard(path: str) -> None:
+    """Remove a run's directory off the critical path: renamed at once
+    (the path is free for the next run), deleted by a background thread;
+    ``_discards_done`` joins them before the script ends."""
+    import threading
+
+    if not os.path.exists(path):
+        return
+    trash = f"{path}.discard{len(_DISCARDS)}"
+    os.rename(path, trash)
+    worker = threading.Thread(target=shutil.rmtree, args=(trash, True))
+    worker.start()
+    _DISCARDS.append(worker)
+
+
+def _discards_done() -> None:
+    for worker in _DISCARDS:
+        worker.join()
 
 
 def fit_whole(trainer, what: str) -> None:
@@ -646,6 +716,16 @@ def attn_step_bounds(launches: int, bf16: bool = False) -> dict:
     return {k: launches * v["bound_ms"] for k, v in bounds.items()}
 
 
+def _averages(prof):
+    """``prof.key_averages()``, computed once a profile: it walks every
+    event, and ``device_split`` and ``kernel_device_ms`` read the same
+    window."""
+    avg = getattr(prof, "_smoke_averages", None)
+    if avg is None:
+        avg = prof._smoke_averages = prof.key_averages()
+    return avg
+
+
 def kernel_device_ms(prof, marks: dict) -> dict:
     """Device ms and calls in a profiled window per kernel, by name:
     ``marks`` maps a kernel to substrings of its device events' names."""
@@ -653,7 +733,7 @@ def kernel_device_ms(prof, marks: dict) -> dict:
 
     ms = {k: 0.0 for k in marks}
     calls = {k: 0 for k in marks}
-    for evt in prof.key_averages():
+    for evt in _averages(prof):
         if evt.device_type != DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total",
@@ -1543,7 +1623,7 @@ def serve(dev):
     import ml_trainer_tpu_torch as mt
 
     t0 = time.perf_counter()
-    model = mt.init_gpt2("gpt2", seed=SEED, device=dev)
+    model = _seeded_model("gpt2", seed=SEED, device=dev)
     model.eval()
     log(f"model gpt2 124M: {sum(p.numel() for p in model.parameters())} "
         f"params, built in {time.perf_counter() - t0:.2f}s")
@@ -1671,7 +1751,7 @@ def serve_bf16(dev, prompts, new_tokens: int, outs_fp32, counts_fp32):
 
     import ml_trainer_tpu_torch as mt
 
-    model = mt.init_gpt2("gpt2", seed=SEED, device=dev, precision="bf16")
+    model = _seeded_model("gpt2", seed=SEED, device=dev, precision="bf16")
     model.eval()
     runs = {}
     for quant_int8 in (False, True):
@@ -2259,7 +2339,7 @@ def quality_gate(dev, config="gpt2") -> dict:
 
     c = QGATE
     rng = np.random.default_rng(SEED + 40)
-    model = mt.init_gpt2(config, seed=SEED + 40, device=dev)
+    model = _seeded_model(config, seed=SEED + 40, device=dev)
     vocab = rng.choice(model.vocab_size, c["tokens"], replace=False)
     succ = np.zeros(model.vocab_size, np.int64)
     succ[vocab] = vocab[rng.permutation(c["tokens"])]
@@ -2275,7 +2355,7 @@ def quality_gate(dev, config="gpt2") -> dict:
         data = chains(n, c["seq_len"]).astype(np.int32)
         return ArrayDataset(data, np.roll(data, -1, axis=1))
 
-    shutil.rmtree(QGATE_DIR, ignore_errors=True)
+    _discard(QGATE_DIR)
     t0 = time.perf_counter()
     trainer = mt.Trainer(
         model, datasets=(dataset(c["size"]), dataset(c["val_size"])),
@@ -2285,7 +2365,7 @@ def quality_gate(dev, config="gpt2") -> dict:
         steps_per_execution=4)  # the same steps, 4 a graph replay
     fit_whole(trainer, "int8 quality gate")
     train_s = time.perf_counter() - t0
-    shutil.rmtree(QGATE_DIR, ignore_errors=True)
+    _discard(QGATE_DIR)
     model.eval()
 
     toks = torch.as_tensor(chains(8, c["seq_len"]), device=dev)
@@ -2319,7 +2399,7 @@ def device_split(prof, wall: float) -> dict:
     from torch.autograd import DeviceType
 
     rows = []
-    for evt in prof.key_averages():
+    for evt in _averages(prof):
         if evt.device_type != DeviceType.CUDA:
             continue
         dev_us = getattr(evt, "self_device_time_total",
@@ -2552,7 +2632,7 @@ def train(dev, precision=None, fp32_first_loss=None):
     from ml_trainer_tpu_torch.data import prefetch_to_device
 
     c = TRAIN
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    _discard(TRAIN_DIR)
     sets = (
         mt.SyntheticTokens(size=c["batch_size"] * c["steps"],
                            seq_len=c["seq_len"], vocab_size=c["vocab_size"],
@@ -2621,7 +2701,7 @@ def train(dev, precision=None, fp32_first_loss=None):
     step_ms = start.elapsed_time(end) / n_time
     profile = profile_step(trainer, x, y)
     profile["bound_ms"] = attn_step_bounds(model.depth * c["accum"], bf16)
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    _discard(TRAIN_DIR)
     return dict(
         precision=trainer.precision.label(),
         history={k: hist[k] for k in ("train_loss", "val_loss",
@@ -3030,7 +3110,7 @@ def dp_train(dev, precision=None, steps=None):
     from ml_trainer_tpu_torch.parallel import comm_stats
 
     c = dict(DP, steps=steps or DP["steps"])
-    shutil.rmtree(DP_DIR, ignore_errors=True)
+    _discard(DP_DIR)
     sets = (
         mt.SyntheticTokens(size=c["batch_size"] * c["steps"],
                            seq_len=c["seq_len"], vocab_size=c["vocab_size"],
@@ -3121,7 +3201,7 @@ def dp_train(dev, precision=None, steps=None):
         "unscale_sqsum": bound_ms(8.0 * elems, 2.0 * elems)[0],
         "fused_adam": bound_ms(32.0 * elems, 15.0 * elems)[0],
         **attn_step_bounds(model.depth * n * c["accum"], bf16)}
-    shutil.rmtree(DP_DIR, ignore_errors=True)
+    _discard(DP_DIR)
     return dict(
         precision=trainer.precision.label(), steps=c["steps"],
         loss_scale=scale,
@@ -3147,22 +3227,23 @@ def dp_train(dev, precision=None, steps=None):
 # (registry name, model kwargs, optimizer config, data, global batch,
 # optimizer steps).  ResNet-18, ResNet-50 and BERT-base take examples 02
 # and 05's configs, MLModel example 01's; ViT-B/16 (no example) adamw.
+# The examples phase runs those configs end to end: 3-4 steps here.
 # BERT-base runs fp32 and bf16 (``precision="bf16"``: the bf16 K1-K3);
 # ViT-B/16 computes in bf16, its default, under the bf16 policy.
 SGD_02 = dict(optimizer="sgd", momentum=0.9, lr=0.01)
 BERT_05 = dict(optimizer="adamw", lr=2e-4, weight_decay=0.01)
 MODEL_RUNS = [
-    ("resnet18", {"cifar_stem": True}, SGD_02, "cifar", 256, 6),
+    ("resnet18", {"cifar_stem": True}, SGD_02, "cifar", 256, 3),
     ("resnet50", {}, SGD_02, "imagenet", 64, 4),
-    ("bert_base", {"right_padded": True}, BERT_05, "tokens", 32, 6),
+    ("bert_base", {"right_padded": True}, BERT_05, "tokens", 32, 3),
     ("bert_base", {"right_padded": True}, dict(BERT_05, precision="bf16"),
-     "tokens", 32, 6),
+     "tokens", 32, 3),
     ("vit_b16", {},
      dict(optimizer="adamw", lr=3e-4, weight_decay=0.1, precision="bf16"),
      "imagenet", 32, 4),
     ("mlmodel", {}, dict(optimizer="sgd", momentum=0.9, lr=0.001,
                          scheduler="CosineAnnealingWarmRestarts"),
-     "cifar", 32, 8),
+     "cifar", 32, 4),
 ]
 VAL_BATCHES = 1
 IMAGES_224 = 256  # seeded uint8 224x224x3 images, 1000 classes
@@ -3354,9 +3435,9 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
     from ml_trainer_tpu_torch.data import prefetch_to_device
 
     run_dir = f"{MODELS_DIR}/{name}"
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
     t0 = time.perf_counter()
-    model = mt.init_model(name, seed=SEED, device=dev, **model_kw)
+    model = _seeded_model(name, seed=SEED, device=dev, **model_kw)
     trainer = mt.Trainer(model, datasets=model_sets(data, batch, steps),
                          epochs=1, batch_size=batch, metric="accuracy",
                          model_dir=run_dir, seed=SEED, device=dev,
@@ -3425,7 +3506,7 @@ def model_run(dev, name, model_kw, opt, data, batch, steps) -> dict:
     else:
         for k in ("device_ms", "device_calls"):
             profile.pop(k)
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
     label, cdt = trainer.precision.label(), str(getattr(model, "dtype", None))
     del trainer, model, x, y
     torch.cuda.empty_cache()
@@ -3500,9 +3581,10 @@ def graph_sets(data: str, batch: int):
                  for i, n in enumerate((GRAPH_STEPS, GRAPH_VAL)))
 
 
-def _named_state(trainer) -> dict:
+def _named_state(trainer, host: bool = True) -> dict:
     """The model's parameters and buffers and every state tensor, by name,
-    copied to the host."""
+    copied to the host (``host=False``: cloned where they live, for a
+    comparison that measures no memory)."""
     out = {f"model.{k}": v for k, v in trainer.model.state_dict().items()}
 
     def walk(path, t):
@@ -3522,7 +3604,9 @@ def _named_state(trainer) -> dict:
             out[field] = getattr(state, field)
     for k, v in (state.ema_params or {}).items():
         out[f"ema_params.{k}"] = v
-    return {k: v.detach().cpu().clone() for k, v in out.items()}
+    where = "cpu" if host else None
+    return {k: v.detach().to(where or v.device, copy=True)
+            for k, v in out.items()}
 
 
 def _leaf_distance(got: dict, want: dict):
@@ -3606,8 +3690,8 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
     launches = {k: 0 for k in mt.launch_counts()}
 
     def fit(k):
-        shutil.rmtree(run_dir, ignore_errors=True)
-        model = mt.init_model(name, seed=SEED, device=dev, **model_kw)
+        _discard(run_dir)
+        model = _seeded_model(name, seed=SEED, device=dev, **model_kw)
         trainer = mt.Trainer(model, datasets=graph_sets(data, batch),
                              epochs=1, batch_size=batch, metric="accuracy",
                              model_dir=run_dir, seed=SEED, device=dev,
@@ -3726,7 +3810,7 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
         pass
     torch.cuda.synchronize()
     input_ms = (time.perf_counter() - t1) * 1e3 / n
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
     per_step = (TRAIN["seq_len"] * batch if name == "gpt2" else batch)
     unit = "tokens_per_s" if name == "gpt2" else "samples_per_s"
     label_p = trainer.precision.label()
@@ -3761,10 +3845,11 @@ def graphs(dev) -> list:
 # parameter, buffer, optimizer-state leaf, counter, the step and every
 # history list bitwise equal.
 RESUME_DIR = "build/chip_smoke_resume"  # each run's checkpoints; removed
-# examples/04_gpt2_pretrain.py's full-size line (BASELINE.json config 4),
-# less REMAT=1 (refused by the port; it changes no number), at K = 4:
-# 2 epochs of 8 steps and 2 validation batches.
-PRETRAIN = dict(steps=8, val_batches=2, k=4, opt=dict(
+# examples/04_gpt2_pretrain.py's full-size line (BASELINE.json config 4)
+# without REMAT=1 (the examples phase runs it with remat), at K = 4: 2
+# epochs of 4 steps (one chunk: A replays it in epoch 2, B captures it
+# anew) and 2 validation batches.
+PRETRAIN = dict(steps=4, val_batches=2, k=4, opt=dict(
     grad_accum_steps=TRAIN["accum"], optimizer="adamw", lr=3e-4,
     weight_decay=0.01, scheduler="CosineAnnealingWarmRestarts"))
 RESUME_DP_STEPS = 4  # the dp run's steps an epoch (2 epochs)
@@ -3894,7 +3979,7 @@ def resume_pretrain(dev) -> dict:
 
     c = PRETRAIN
     run_dir = f"{RESUME_DIR}/pretrain"
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
 
     def make(d):
         return mt.Trainer(TRAIN["model"], datasets=_token_sets(
@@ -3937,7 +4022,7 @@ def resume_dp(dev) -> dict:
 
     c, steps = DP, RESUME_DP_STEPS
     run_dir = f"{RESUME_DIR}/dp"
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
 
     def make(d, **kw):
         return mt.Trainer(
@@ -3998,11 +4083,11 @@ def resume_resnet(dev) -> dict:
 
     steps, batch = RESUME_RESNET["steps"], RESUME_RESNET["batch"]
     run_dir = f"{RESUME_DIR}/resnet"
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
 
     def make(d, **kw):
         return mt.Trainer(
-            mt.init_model("resnet18", seed=SEED, device=dev,
+            _seeded_model("resnet18", seed=SEED, device=dev,
                           cifar_stem=True),
             datasets=model_sets("cifar", batch, steps), epochs=2,
             batch_size=batch, model_dir=d, seed=SEED, device=dev,
@@ -4036,11 +4121,11 @@ def resume_resnet(dev) -> dict:
 DATA_DIR = "build/chip_smoke_data"  # shards and each run's files; removed
 DATA_K = 4
 NATIVE_PLAIN_ATOL = 1e-5  # the C++ pass x*(1/255) then *(1/std) vs numpy's /
-# ResNet-50 224 b64 fp32, 3 epochs of 12 steps (3 chunks): epoch 2 timed
+# ResNet-50 224 b64 fp32, 3 epochs of 8 steps (2 chunks): epoch 2 timed
 # (samples/s of the epoch, and of its steady state: the median interval
 # between consecutive chunks' ends on the device; the graphs captured in
 # epoch 1), epoch 3 profiled (busy / idle).
-DATA_RESNET = dict(batch=64, steps=12, val_batches=1, epochs=3)
+DATA_RESNET = dict(batch=64, steps=8, val_batches=1, epochs=3)
 # GPT-2 124M bf16 (TRAIN's config: 8 x 1024 tokens in 4 microbatches,
 # GPT2_OPT), 8 steps and 1 validation batch an epoch, loss_chunk 128.
 DATA_GPT2 = dict(steps=8, val_batches=1, loss_chunk=128)
@@ -4252,7 +4337,7 @@ def data_resnet(dev) -> dict:
         for loader in ("python", "native"):
             what = f"data resnet50 {source} {loader}"
             trainer = mt.Trainer(
-                mt.init_model("resnet50", seed=SEED, device=dev),
+                _seeded_model("resnet50", seed=SEED, device=dev),
                 datasets=(train_set, val), epochs=c["epochs"],
                 batch_size=batch, metric="accuracy", seed=SEED, device=dev,
                 model_dir=f"{DATA_DIR}/resnet50", loader=loader,
@@ -4290,7 +4375,7 @@ def data_resnet(dev) -> dict:
             del trainer
             torch.cuda.empty_cache()
     shutil.rmtree(f"{DATA_DIR}/shards")
-    shutil.rmtree(f"{DATA_DIR}/resnet50", ignore_errors=True)
+    _discard(f"{DATA_DIR}/resnet50")
     return dict(config=dict(model="resnet50", batch=batch, steps=steps,
                             epochs=c["epochs"], k=DATA_K,
                             images=int(len(train))), runs=runs)
@@ -4381,7 +4466,7 @@ def chunked_head_check(dev, x, y) -> dict:
     if not (fn["loss_rel"] <= CHUNK_LOSS_RTOL
             and max(fn["d_hidden"], fn["d_embedding"]) <= CHUNK_GRAD_RTOL):
         raise AssertionError(f"chunked vs dense head, float32: {fn}")
-    model = mt.init_model("gpt2", seed=SEED, device=dev,
+    model = _seeded_model("gpt2", seed=SEED, device=dev,
                           loss_chunk=DATA_GPT2["loss_chunk"])
     lc, gc, _ = _step_grads(model, lambda: model(x, targets=y))
     ld, gd, _ = _step_grads(model, lambda: F.cross_entropy(
@@ -4424,7 +4509,7 @@ def data_gpt2(dev) -> dict:
 
     def make(label, k, chunk):
         return mt.Trainer(
-            mt.init_model("gpt2", seed=SEED, device=dev, vocab_size=vocab,
+            _seeded_model("gpt2", seed=SEED, device=dev, vocab_size=vocab,
                           loss_chunk=chunk),
             datasets=(train, val), epochs=1, batch_size=batch, metric=None,
             seed=SEED, device=dev, precision="bf16",
@@ -4493,7 +4578,7 @@ def data_gpt2(dev) -> dict:
     for k, v in timed.items():
         runs[k]["profile"] = v["profile"]
     del ref, trainers
-    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    _discard(DATA_DIR)
     torch.cuda.empty_cache()
     return dict(config=dict(model="gpt2", precision="bf16", batch=batch,
                             seq_len=seq, accum=c["accum"], k=DATA_K,
@@ -4541,7 +4626,7 @@ def data_bert(dev) -> dict:
     train, val = wordpiece_sets(c["steps"], c["val_batches"], batch, seq)
     lens = (train.data != 0).sum(axis=1)
     tr = mt.Trainer(
-        mt.init_model("bert_base", seed=SEED, device=dev, right_padded=True),
+        _seeded_model("bert_base", seed=SEED, device=dev, right_padded=True),
         datasets=(train, val), epochs=1, batch_size=batch,
         metric="accuracy", seed=SEED, device=dev,
         model_dir=f"{DATA_DIR}/bert", steps_per_execution=DATA_K,
@@ -4550,7 +4635,7 @@ def data_bert(dev) -> dict:
                     val=c["val_batches"])
     rec["step_ms"] = _graph_step_ms({"bert": tr})["bert"]["step_ms"]
     del tr
-    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    _discard(DATA_DIR)
     torch.cuda.empty_cache()
     return dict(config=dict(model="bert_base", precision="bf16", batch=batch,
                             seq_len=seq, k=DATA_K, steps=c["steps"],
@@ -4581,7 +4666,7 @@ LLAMA_RUNS = [  # (label, model kwargs, trainer kwargs)
     ("bf16_chunked", {"loss_chunk": 256}, {"precision": "bf16"}),
 ]
 LLAMA_DP_STEPS = 4  # the 2-replica sharded bf16 fit (K4/K5)
-LLAMA_GEN = dict(batch=4, prompt=128, new_tokens=64, temperature=0.8)
+LLAMA_GEN = dict(batch=4, prompt=128, new_tokens=32, temperature=0.8)
 LLAMA_BF16_LOGITS = 3e-2  # of max|plain logits|: bf16 prefill, kernel vs
 #                           plain (the bf16 policy's CPU bar, Queue C 9)
 LLAMA_DIR = "build/chip_smoke_llama"  # each fit's files; removed after
@@ -4608,14 +4693,14 @@ def _token_fit(dev, what, name, model_kw, opt, c, k=1):
     import ml_trainer_tpu_torch as mt
 
     run_dir = f"{LLAMA_DIR}/{what}"
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
     sets = tuple(mt.SyntheticTokens(size=c["batch"] * n,
                                     seq_len=c["seq_len"],
                                     vocab_size=c["vocab_size"],
                                     seed=SEED + i)
                  for i, n in enumerate((c["steps"], c["val_batches"])))
     t0 = time.perf_counter()
-    model = mt.init_model(name, seed=SEED, device=dev, **model_kw)
+    model = _seeded_model(name, seed=SEED, device=dev, **model_kw)
     init_s = time.perf_counter() - t0
     trainer = mt.Trainer(model, datasets=sets, epochs=1,
                          batch_size=c["batch"], metric=None,
@@ -4645,7 +4730,7 @@ def _token_fit(dev, what, name, model_kw, opt, c, k=1):
         want.update(unscale_sqsum=n * c["steps"], fused_adam=n * c["steps"])
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
     return trainer, dict(
         init_s=init_s, fit_s=fit_s, peak_gb=torch.cuda.max_memory_allocated()
         / 1e9, launches=counts, step=trainer.state.step,
@@ -4736,7 +4821,7 @@ def llama_dp(dev) -> dict:
 
 def llama_generate(dev, precision) -> dict:
     """``generate()`` of ``llama`` (seeded weights; ``precision``: None or
-    "bf16") on [4, 128] prompts, 64 greedy tokens through the kernels
+    "bf16") on [4, 128] prompts, 32 greedy tokens through the kernels
     (K1 for each layer's prefill) and through the plain path
     (``attention_impl="xla"``), then one seeded sampled run, twice.
     Gates: the prefill's logits from the kernels within the bar of the
@@ -4752,7 +4837,7 @@ def llama_generate(dev, precision) -> dict:
     import ml_trainer_tpu_torch as mt
 
     g = LLAMA_GEN
-    model = mt.init_model("llama", seed=SEED, device=dev, precision=precision)
+    model = _seeded_model("llama", seed=SEED, device=dev, precision=precision)
     model.eval()
     depth, b, p, n = model.depth, g["batch"], g["prompt"], g["new_tokens"]
     prompts = np.random.default_rng(SEED + 9).integers(
@@ -4870,7 +4955,7 @@ def llama(dev) -> dict:
                dp=llama_dp(dev),
                generate=[llama_generate(dev, p) for p in (None, "bf16")],
                gpt2_sizes=gpt2_sizes(dev))
-    shutil.rmtree(LLAMA_DIR, ignore_errors=True)
+    _discard(LLAMA_DIR)
     return rec
 
 
@@ -4981,7 +5066,7 @@ def _cli_in_process(argv, model_dir) -> dict:
 
 def cli_compare(a_dir: str, c_dir: str, counts: dict) -> dict:
     """The resumed run (``a_dir``) against the uninterrupted one
-    (``c_dir``): checkpoint_3's every leaf (params, EMA, optimizer state,
+    (``c_dir``): checkpoint_2's every leaf (params, EMA, optimizer state,
     step, counters) and the history bitwise; the in-process run's K1-K3
     launches exact (K1 twice a microbatch under remat, once a
     validation batch)."""
@@ -4989,8 +5074,8 @@ def cli_compare(a_dir: str, c_dir: str, counts: dict) -> dict:
 
     import numpy as np
 
-    got = _checkpoint_leaves(f"{a_dir}/checkpoints/checkpoint_3")
-    want = _checkpoint_leaves(f"{c_dir}/checkpoints/checkpoint_3")
+    got = _checkpoint_leaves(f"{a_dir}/checkpoints/checkpoint_2")
+    want = _checkpoint_leaves(f"{c_dir}/checkpoints/checkpoint_2")
     differ = [k for k in want if k not in got or not (
         (got[k] is None and want[k] is None)
         or np.array_equal(np.asarray(got[k]), np.asarray(want[k])))]
@@ -5004,9 +5089,9 @@ def cli_compare(a_dir: str, c_dir: str, counts: dict) -> dict:
         raise AssertionError(f"cli: the resumed run differs: leaves "
                              f"{differ[:5]}, history {keys}, ema leaves "
                              f"{len(ema)}")
-    # 3 epochs of 4 steps, each one microbatch of [8, 1024] (CLI_ARGV sets
+    # 2 epochs of 4 steps, each one microbatch of [8, 1024] (CLI_ARGV sets
     # no --grad_accum_steps), and 2 validation batches an epoch.
-    epochs, steps, val, depth = 3, 4, 2, 12
+    epochs, steps, val, depth = 2, 4, 2, 12
     micro = epochs * steps
     want_counts = dict({k: 0 for k in counts},
                        flash_fwd=depth * (2 * micro + epochs * val),
@@ -5022,7 +5107,7 @@ def _seeded_pair(dev, name, model_kw):
     """Two models of ``name`` with one seeded init's weights."""
     import ml_trainer_tpu_torch as mt
 
-    first = mt.init_model(name, seed=SEED, device=dev, **model_kw)
+    first = _seeded_model(name, seed=SEED, device=dev, **model_kw)
     second = mt.get_model(name, device=dev, **model_kw)
     second.load_state_dict(first.state_dict())
     return first, second
@@ -5370,7 +5455,7 @@ def remat_dropout_ema_steps(dev) -> dict:
 
     for label, model_kw, trainer_kw in CLI_VARIANTS:
         if weights is None:
-            model = mt.init_model("gpt2", seed=SEED, device=dev, **model_kw)
+            model = _seeded_model("gpt2", seed=SEED, device=dev, **model_kw)
             weights = {k: v.clone() for k, v in model.state_dict().items()}
         else:
             model = mt.get_model("gpt2", device=dev, **model_kw)
@@ -5401,7 +5486,7 @@ def remat_dropout_ema_steps(dev) -> dict:
         raise AssertionError("cli step: dropout did not change a gradient")
     del grads
     mt.reset_launch_counts()
-    timed = _graph_step_ms(trainers, reps=2)
+    timed = _graph_step_ms(trainers, reps=1)
     for kname, n in mt.launch_counts().items():
         launches[kname] += n
     for label, t in timed.items():
@@ -5481,17 +5566,17 @@ def gpt2_large_remat(dev) -> dict:
 
 
 def cli_phase(dev, smi: str) -> dict:
-    """Phase 12.  The CLI as a user runs it, CLI_ARGV: a 2-epoch run in a
-    subprocess beside a 3-epoch run through ``cli.main`` in this process
+    """Phase 12.  The CLI as a user runs it, CLI_ARGV: a 1-epoch run in a
+    subprocess beside a 2-epoch run through ``cli.main`` in this process
     (its launches counted), then the first continued with ``--resume
-    --epochs 3`` in a subprocess (``cli_compare``).  While the
+    --epochs 2`` in a subprocess (``cli_compare``).  While the
     subprocesses run, the parts that time nothing: ``dropout_mask``,
     ``llama_remat``, ``dropout_ema_fits``, ``dropout_ema_dp``; then,
     alone on the card, the timed parts: ``remat_dropout_ema_steps`` and
     ``gpt2_large_remat``.  Each part is printed as it ends."""
     import torch
 
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    _discard(CLI_DIR)
     a_dir, c_dir = f"{CLI_DIR}/cli_a", f"{CLI_DIR}/cli_c"
     rec = {}
 
@@ -5502,27 +5587,27 @@ def cli_phase(dev, smi: str) -> dict:
         log(f"cli {label} on {smi}: " + json.dumps(rec[label]))
 
     t0 = time.perf_counter()
-    a = _cli_process(CLI_ARGV + ["--epochs", "2"], a_dir)
-    inproc = _cli_in_process(CLI_ARGV + ["--epochs", "3"], c_dir)
+    a = _cli_process(CLI_ARGV + ["--epochs", "1"], a_dir)
+    inproc = _cli_in_process(CLI_ARGV + ["--epochs", "2"], c_dir)
     torch.cuda.empty_cache()
-    seconds = {"in_process_3_epochs": inproc["seconds"],
-               "subprocess_2_epochs": _cli_wait("2 epochs", a, t0)}
+    seconds = {"in_process_2_epochs": inproc["seconds"],
+               "subprocess_1_epoch": _cli_wait("1 epoch", a, t0)}
     t1 = time.perf_counter()
-    b = _cli_process(CLI_ARGV + ["--epochs", "3", "--resume"], a_dir)
+    b = _cli_process(CLI_ARGV + ["--epochs", "2", "--resume"], a_dir)
     for label, fn in (("mask", dropout_mask), ("llama", llama_remat),
                       ("fits", dropout_ema_fits), ("dp", dropout_ema_dp)):
         part(label, fn)
-    seconds["subprocess_resumed"] = _cli_wait("--resume --epochs 3", b, t1)
+    seconds["subprocess_resumed"] = _cli_wait("--resume --epochs 2", b, t1)
     rec["cli"] = dict(argv=CLI_ARGV, seconds=seconds,
                       launches=inproc["launches"],
                       resume=cli_compare(a_dir, c_dir, inproc["launches"]),
                       part_s=time.perf_counter() - t0)
     log(f"cli cli on {smi}: " + json.dumps(rec["cli"]))
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    _discard(CLI_DIR)
     for label, fn in (("steps", remat_dropout_ema_steps),
                       ("gpt2_large", gpt2_large_remat)):
         part(label, fn)
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    _discard(CLI_DIR)
     return rec
 
 
@@ -5570,7 +5655,7 @@ def lora_fit(dev, base, precision, k) -> tuple:
 
     what = f"lora {precision or 'fp32'} K={k}"
     run_dir = f"{LORA_DIR}/{what.replace(' ', '_')}"
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
     trainer = _lora_trainer(dev, base, precision, k, run_dir)
     init = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
             if "_lora_" in n}
@@ -5599,7 +5684,7 @@ def lora_fit(dev, base, precision, k) -> tuple:
                              "did not move")
     opt_bytes = sum(t.numel() * t.element_size() for t in
                     mt.ops.optimizers.tree_leaves(trainer.state.opt_state))
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _discard(run_dir)
     return trainer, dict(
         fit_s=fit_s, launches=counts, step=trainer.state.step,
         adapter_leaves=len(init), adapter_params=sum(
@@ -5887,7 +5972,7 @@ def lora_export_torch(dev) -> dict:
     for device in (dev, "cpu"):
         run_dir = f"{LORA_DIR}/export_{torch.device(device).type}"
         made.append(mt.Trainer(
-            mt.init_model("mlmodel", seed=SEED, device=device),
+            _seeded_model("mlmodel", seed=SEED, device=device),
             datasets=sets, epochs=1, batch_size=32, lr=0.01, ema_decay=0.9,
             loader="python", model_dir=run_dir, device=device))
     card, cpu = made
@@ -5929,10 +6014,10 @@ def lora_phase(dev) -> dict:
     )
     from ml_trainer_tpu_torch.models.layers import init_lora
 
-    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    _discard(LORA_DIR)
     os.makedirs(LORA_DIR, exist_ok=True)
     rec = {}
-    base = mt.init_model("gpt2", seed=SEED, device=dev)
+    base = _seeded_model("gpt2", seed=SEED, device=dev)
     fp32, rec["train_fp32"] = lora_fit(dev, base, None, 1)
     bf16_1, rec["train_bf16_k1"] = lora_fit(dev, base, "bf16", 1)
     snap_1 = _named_state(bf16_1)
@@ -5976,7 +6061,7 @@ def lora_phase(dev) -> dict:
     # What a LoRA step costs against a full fine-tune at the same shape.
     fulls = {}
     for precision in (None, "bf16"):
-        model = mt.init_model("gpt2", seed=SEED, device=dev)
+        model = _seeded_model("gpt2", seed=SEED, device=dev)
         fulls[precision] = _lora_trainer(dev, model, precision, 1,
                                          f"{LORA_DIR}/full", lora=False)
     rec["step_costs"] = lora_step_costs(dev, {
@@ -5999,7 +6084,7 @@ def lora_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     rec["export_torch"] = lora_export_torch(dev)
-    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    _discard(LORA_DIR)
     total = {}
     for key in ("train_fp32", "train_bf16_k1", "train_bf16_k4"):
         for kname, n in rec[key]["launches"].items():
@@ -6015,12 +6100,325 @@ def lora_phase(dev) -> dict:
     return rec
 
 
+# The notebook flows (``--only examples``): the port's examples/torch_port
+# counterparts run as a user runs them, each script's main() through
+# runpy in this process (K1-K3 counted), then lamb, lion and adafactor on
+# GPT-2 124M bf16 at TRAIN's shape against adamw.
+EXAMPLES_DIR = "build/chip_smoke_examples"  # the runs' files; removed after
+EX_04 = dict(MODEL="gpt2", SEQ_LEN="1024", BATCH="8", ACCUM="4", REMAT="1",
+             K="4", SYNTH_SIZE="64", EPOCHS="1")  # 8 steps, 4 val batches
+EX_05 = dict(MODEL="bert_base", MAX_LEN="128", BATCH="32", EPOCHS="1")
+EX_METRIC_ATOL = 1e-6  # 03's loss and accuracy vs trainer.test of 01's
+EX_OPTIMIZERS = ("adamw", "lamb", "lion", "adafactor")
+EX_OPT_TURNS = 1  # timed rounds, each optimizer twice a round
+
+
+def _run_example(name: str, env: dict, argv=()):
+    """``examples/torch_port/<name>``'s ``main()`` as ``python <name>
+    <argv>`` runs it from the checkout's root, with ``env`` set: what it
+    returns, its seconds and the kernels' launches it made."""
+    import runpy
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    where = os.path.join(root, "examples", "torch_port")
+    saved_env = {k: os.environ.get(k) for k in env}
+    saved_argv, saved_path = sys.argv, list(sys.path)
+    os.environ.update(env)
+    sys.argv = [name, *argv]
+    sys.path.insert(0, where)
+    sys.modules.pop("_bootstrap", None)
+    try:
+        ns = runpy.run_path(os.path.join(where, name), run_name="example")
+        torch.cuda.synchronize()
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = ns["main"]()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, mt.launch_counts()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        sys.argv, sys.path[:] = saved_argv, saved_path
+        sys.modules.pop("_bootstrap", None)
+
+
+def _exact_launches(what: str, counts: dict, **want) -> None:
+    full = dict({k: 0 for k in counts}, **want)
+    if counts != full:
+        raise AssertionError(f"examples {what}: launches {counts}, "
+                             f"expected {full}")
+
+
+def _finite_history(what: str, history: dict, epochs: int) -> dict:
+    import math
+
+    if history["epochs"] != list(range(1, epochs + 1)) or not all(
+            math.isfinite(v) for v in history["train_loss"]
+            + history["val_loss"]):
+        raise AssertionError(f"examples {what}: history {history}")
+    return {k: v for k, v in history.items()
+            if k in ("train_loss", "val_loss", "train_metric",
+                     "val_metric")}
+
+
+def examples_01_03(dev) -> dict:
+    """01 at its defaults (MLModel, 6 epochs of 2048 synthetic images),
+    then 03 on 01's directory and on the same trainer's ``export_torch``
+    file: the loaded weights bitwise the trained ones, leaf for leaf,
+    and 03's loss and accuracy within EX_METRIC_ATOL of ``trainer.test``
+    of the in-memory model on 03's loader."""
+    import json as _json
+
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    d = f"{EXAMPLES_DIR}/m01"
+    golden = f"{EXAMPLES_DIR}/golden01.json"
+    (trainer, _, loss, acc), secs, counts = _run_example(
+        "01_local_training.py", {"MODEL_DIR": d, "GOLDEN_OUT": golden})
+    _exact_launches("01", counts)
+    with open(golden) as fp:
+        record = _json.load(fp)
+    rec = dict(seconds=secs, fit_wall_s=record["fit_wall_secs"],
+               samples_per_s=record["train_samples_per_sec_incl_compile"],
+               history=_finite_history("01", record["history"], 6),
+               test_loss=loss, test_accuracy=acc)
+    val = mt.SyntheticCIFAR10(size=512, seed=1,
+                              transform=mt.custom_pre_process_function())
+    want = trainer.test(None, mt.Loader(val, batch_size=32, shuffle=True))
+    trained = {k: v.detach().cpu() for k, v in
+               trainer.model.state_dict().items()}
+    path = trainer.export_torch(f"{EXAMPLES_DIR}/export.pth")
+    for label, argv in (("dir", ()), ("export_torch", (path,))):
+        (model, loss3, acc3), secs3, counts3 = _run_example(
+            "03_testing.py", {"MODEL_DIR": d}, argv)
+        _exact_launches(f"03 {label}", counts3)
+        differ = [k for k, v in trained.items()
+                  if not torch.equal(model.state_dict[k].cpu(), v)]
+        dl, da = abs(loss3 - want[0]), abs(acc3 - want[1])
+        if differ or dl > EX_METRIC_ATOL or da > EX_METRIC_ATOL:
+            raise AssertionError(f"examples 03 {label}: leaves {differ}, "
+                                 f"loss {loss3} vs {want[0]}, accuracy "
+                                 f"{acc3} vs {want[1]}")
+        rec[f"03_{label}"] = dict(seconds=secs3, loss=loss3, accuracy=acc3,
+                                  loss_diff=dl, accuracy_diff=da,
+                                  bitwise_leaves=len(trained))
+    return rec
+
+
+def examples_02(dev) -> dict:
+    """02 at its defaults: ResNet-18 on 4096 synthetic CIFAR images,
+    batch 256, 2 epochs, on 2 replicas that share the card."""
+    trainer, secs, counts = _run_example(
+        "02_distributed_training.py",
+        {"MODEL_DIR": f"{EXAMPLES_DIR}/m02"})
+    _exact_launches("02", counts)
+    if trainer.mesh.size != 2:
+        raise AssertionError(f"examples 02: {trainer.mesh.size} replicas")
+    n = len(trainer.train_loader.dataset) * trainer.epochs
+    return dict(seconds=secs, replicas=trainer.mesh.size,
+                samples_per_s=n / secs,
+                history=_finite_history("02", trainer.history, 2))
+
+
+def examples_04(dev) -> dict:
+    """04 at BASELINE config 5's widths (EX_04: GPT-2 124M, [8, 1024] in
+    4 microbatches, remat, K = 4): 1 epoch of 8 steps, then RESUME=1
+    EPOCHS=2 (epoch 2 only), then its sampled continuation.  K1 runs
+    twice a microbatch (remat's recompute) and once a validation batch;
+    each run's launches exact."""
+    env = dict(EX_04, MODEL_DIR=f"{EXAMPLES_DIR}/m04")
+    depth, micro, val = 12, 8 * 4, 32 // 8
+    want = dict(flash_fwd=depth * (2 * micro + val),
+                flash_bwd_dq=depth * micro, flash_bwd_dkv=depth * micro)
+    rec = {}
+    for label, extra, epochs in (("fit", {}, 1),
+                                 ("resumed", dict(RESUME="1", EPOCHS="2"),
+                                  2)):
+        (trainer, sampled), secs, counts = _run_example("04_gpt2_pretrain.py",
+                                                        dict(env, **extra))
+        # The continuation adds none: its 4-token prefill against a
+        # 20-slot cache and its decode steps take the plain path.
+        _exact_launches(f"04 {label}", counts, **want)
+        if len(sampled) != 16 or not all(0 <= t < 50257 for t in sampled):
+            raise AssertionError(f"examples 04 {label}: sampled {sampled}")
+        rec[label] = dict(seconds=secs, tokens_per_s=8 * 8 * 1024 / secs,
+                          history=_finite_history(f"04 {label}",
+                                                  trainer.history, epochs),
+                          launches=counts, sampled=sampled,
+                          step=trainer.state.step)
+    if rec["resumed"]["history"]["train_loss"][0] != rec["fit"]["history"][
+            "train_loss"][0] or rec["resumed"]["step"] != 16:
+        raise AssertionError(f"examples 04: the resumed run lost epoch 1: "
+                             f"{rec}")
+    return rec
+
+
+def examples_05(dev) -> dict:
+    """05 at EX_05 (BERT-base, [32, 128], right-padded: K1-K3 on the
+    kv_lens path): 96 training sentences (3 steps), 32 to validate."""
+    trainer, secs, counts = _run_example(
+        "05_bert_finetune.py", dict(EX_05, MODEL_DIR=f"{EXAMPLES_DIR}/m05"))
+    depth, steps, val = 12, 3, 1
+    _exact_launches("05", counts, flash_fwd=depth * (steps + val),
+                    flash_bwd_dq=depth * steps, flash_bwd_dkv=depth * steps)
+    return dict(seconds=secs, samples_per_s=96 / secs, launches=counts,
+                history=_finite_history("05", trainer.history, 1))
+
+
+def _restore_in_place(trainer, snap) -> None:
+    """``_snapshot``'s values written into the tensors the trainer holds
+    now (a captured graph keeps reading them)."""
+    import torch
+
+    from ml_trainer_tpu_torch.ops.optimizers import tree_leaves
+
+    with torch.no_grad():
+        for (k, v), t in zip(snap[0].items(),
+                             trainer.model.state_dict().values()):
+            t.copy_(v)
+        for t, v in zip(tree_leaves(trainer.state.opt_state),
+                        tree_leaves(snap[1])):
+            t.copy_(v)
+        if snap[2] is not None:
+            trainer.state.loss_scale.copy_(snap[2][0])
+            trainer.state.good_steps.copy_(snap[2][1])
+    trainer.state.step = 0
+
+
+def examples_optimizers(dev) -> dict:
+    """lamb, lion and adafactor beside adamw on GPT-2 124M bf16 at TRAIN's
+    shape (GPT2_OPT, K = 4): for each, from one state, 4 eager steps
+    against one replay of the captured chunk, every parameter and state
+    leaf bitwise, and the optimizer state's bytes; then, the four graphs
+    held at once, the ms a step of one replay each in turns (EX_OPT_TURNS
+    rounds of adamw, lamb, lion, adafactor and back; CUDA events)."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import prefetch_to_device
+    from ml_trainer_tpu_torch.ops.optimizers import tree_leaves
+    from ml_trainer_tpu_torch.trainer import _chunk_batches
+
+    rec, trainers, launches = {}, {}, {}
+    for name in EX_OPTIMIZERS:
+        model = _seeded_model("gpt2", seed=SEED, device=dev)
+        trainer = mt.Trainer(
+            model, datasets=_token_sets(GRAPH_K, 1, TRAIN["batch_size"]),
+            epochs=1, batch_size=TRAIN["batch_size"], metric=None,
+            model_dir=f"{EXAMPLES_DIR}/opt", seed=SEED, device=dev,
+            steps_per_execution=GRAPH_K, loader="python", precision="bf16",
+            **dict(GPT2_OPT, optimizer=name))
+        xs, ys = next(iter(prefetch_to_device(
+            _chunk_batches(trainer.train_loader, GRAPH_K, []), size=1,
+            device=dev)))
+        trainer._lr_t.fill_(1.0)
+        snap = _snapshot(trainer)
+        torch.cuda.synchronize()
+        mt.reset_launch_counts()
+        for x, y in zip(xs, ys):
+            trainer._train_step(x, y, 1.0)
+        eager = _named_state(trainer, host=False)
+        _restore_in_place(trainer, snap)
+        t0 = time.perf_counter()
+        trainer._dispatch("train", trainer._train_chunk, xs, ys)
+        torch.cuda.synchronize()
+        first_dispatch_s = time.perf_counter() - t0
+        _restore_in_place(trainer, snap)
+        trainer._dispatch("train", trainer._train_chunk, xs, ys)
+        first, worst, dist = _leaf_distance(
+            _named_state(trainer, host=False), eager)
+        if first is not None:
+            raise AssertionError(f"examples {name}: the K = {GRAPH_K} "
+                                 f"replay differs from {GRAPH_K} eager "
+                                 f"steps (first {first}, worst {worst} "
+                                 f"{dist})")
+        rec[name] = dict(
+            graph_bitwise_eager=True, leaves=len(eager),
+            first_dispatch_s=first_dispatch_s,
+            capture_s=next(iter(trainer._graphs.values())).capture_s,
+            opt_state_bytes=sum(t.numel() * t.element_size() for t in
+                                tree_leaves(trainer.state.opt_state)),
+            replay_ms_per_step=[])
+        trainers[name] = (trainer, xs, ys, mt.launch_counts())
+        del model, snap, eager
+        gc.collect()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    order = list(EX_OPTIMIZERS)
+    for name in (order + order[::-1]) * EX_OPT_TURNS:
+        trainer, xs, ys, _ = trainers[name]
+        mt.reset_launch_counts()
+        start.record()
+        trainer._dispatch("train", trainer._train_chunk, xs, ys)
+        end.record()
+        torch.cuda.synchronize()
+        rec[name]["replay_ms_per_step"].append(start.elapsed_time(end)
+                                               / GRAPH_K)
+        counts = mt.launch_counts()
+        trainers[name][3].update({k: trainers[name][3][k] + n
+                                  for k, n in counts.items()})
+    for name, (trainer, _, _, counts) in trainers.items():
+        # 4 eager steps, the warm-up chunk, 1 + 2 * EX_OPT_TURNS replays.
+        steps = GRAPH_K * (3 + 2 * EX_OPT_TURNS)
+        micro = steps * TRAIN["accum"]
+        _exact_launches(f"optimizer {name}", counts,
+                        flash_fwd=12 * micro, flash_bwd_dq=12 * micro,
+                        flash_bwd_dkv=12 * micro)
+        rec[name]["launches"] = counts
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        trainer._graphs.clear()
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["launches"] = launches
+    return rec
+
+
+def examples_phase(dev, smi: str) -> dict:
+    """Phase 14.  The notebook flows as a user runs them (01 -> 03 twice,
+    02, 04 fit -> resume -> sample, 05), then the three optimizers; each
+    part printed as it ends, with its seconds and rates."""
+    import torch
+
+    _discard(EXAMPLES_DIR)
+    os.makedirs(EXAMPLES_DIR, exist_ok=True)
+    rec = {}
+    for label, fn in (("01_03", examples_01_03), ("02", examples_02),
+                      ("04", examples_04), ("05", examples_05),
+                      ("optimizers", examples_optimizers)):
+        t0 = time.perf_counter()
+        rec[label] = fn(dev)
+        rec[label]["part_s"] = time.perf_counter() - t0
+        log(f"examples {label} on {smi}: " + json.dumps(rec[label]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    _discard(EXAMPLES_DIR)
+    total = {}
+    for counts in ([rec["04"][k]["launches"] for k in ("fit", "resumed")]
+                   + [rec["05"]["launches"],
+                      rec["optimizers"]["launches"]]):
+        for kname, n in counts.items():
+            total[kname] = total.get(kname, 0) + n
+    rec["launches"] = total
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
                                  "graphs", "resume", "data", "llama", "cli",
-                                 "lora"],
+                                 "lora", "examples"],
                         default=None)
     args = parser.parse_args(argv)
 
@@ -6046,6 +6444,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f}s")
+    # The imports' objects live to the end: keep every collection (the
+    # Trainer's clear(), once an epoch) from walking them again.
+    gc.freeze()
     for kname, rec in build.items():
         log(f"build {kname}: {rec['seconds']:.2f}s cached={rec['cached']}")
         for line in rec["ptxas"]:
@@ -6195,7 +6596,12 @@ def main(argv=None) -> int:
             log(f"lora {key} on {smi}: " + json.dumps(rec[key]))
         for kname, n in rec["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
-    lap("lora", mark)
+    mark = lap("lora", mark)
+    if args.only in (None, "examples"):
+        rec = examples_phase(dev, smi)
+        for kname, n in rec["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
+    lap("examples", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",
@@ -6284,6 +6690,7 @@ def main(argv=None) -> int:
          **(dp_split[kname] if dp_split else {})}
         for kname, line in (("unscale_sqsum", 132), ("fused_adam", 241))
     ]
+    _discards_done()
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

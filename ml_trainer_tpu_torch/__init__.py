@@ -24,7 +24,11 @@ bit, also after a SIGTERM or an injected fault (``resilience``).
 GPT-2 base; ``export_lora`` writes it in the JAX package's artifact
 format (``lora``) and ``Server(adapters=AdapterConfig(...))`` serves it
 from a pool of adapter slots (``serving/adapter_pool.py``);
-``export_torch`` writes the reference's ``model.pth``.
+``export_torch`` and ``save_model`` write a flat model's ``model.pth``
+in the reference's layout, which ``load_model`` reads back (as the JAX
+package does; ``utils/utils.py``), and ``plot_history`` draws a run's
+history.  The notebook flows run as scripts in
+``examples/torch_port/``.
 """
 
 from ml_trainer_tpu_torch import parallel, precision
@@ -70,6 +74,7 @@ from ml_trainer_tpu_torch.utils import (
     custom_pre_process_function,
     load_history,
     load_model,
+    plot_history,
 )
 
 __version__ = "0.1.0"
@@ -82,7 +87,7 @@ __all__ = [
     "adam_state_from_jax", "create_mesh", "custom_pre_process_function",
     "generate", "get_model", "init_gpt2", "init_model", "int8_matmul",
     "launch_counts", "load_history", "load_model", "parallel",
-    "params_from_jax", "precision", "quant_from_jax", "quantize_per_channel",
+    "params_from_jax", "plot_history", "precision", "quant_from_jax", "quantize_per_channel",
     "quantize_tree", "reset_launch_counts", "resolve_device",
     "state_from_jax", "UnknownAdapter", "variables_to_jax",
 ]

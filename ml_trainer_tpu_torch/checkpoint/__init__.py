@@ -1,6 +1,6 @@
 """Full-state checkpoints (format v2, the JAX package's layout):
-``checkpoint.py``; the reference's ``model.pth`` export:
-``torch_export.py``."""
+``checkpoint.py``; the reference's ``model.pth``: ``torch_export.py``
+writes it, ``torch_import.py`` reads it."""
 
 from ml_trainer_tpu_torch.checkpoint.checkpoint import (
     CHECKPOINT_PREFIX,
@@ -22,10 +22,15 @@ from ml_trainer_tpu_torch.checkpoint.torch_export import (
     convert_to_torch_state_dict,
     save_torch_checkpoint,
 )
+from ml_trainer_tpu_torch.checkpoint.torch_import import (
+    convert_torch_state_dict,
+    is_reference_layout,
+)
 
 __all__ = [
     "CHECKPOINT_PREFIX", "CORRUPT_SUFFIX", "CheckpointCorrupt",
-    "checkpoint_format", "convert_to_torch_state_dict", "latest_checkpoint",
+    "checkpoint_format", "convert_to_torch_state_dict",
+    "convert_torch_state_dict", "is_reference_layout", "latest_checkpoint",
     "latest_valid_checkpoint", "prune_checkpoints", "quarantine_checkpoint",
     "restore_checkpoint", "save_checkpoint", "save_torch_checkpoint",
     "verify_checkpoint", "wait_for_checkpoints", "weights_fingerprint",

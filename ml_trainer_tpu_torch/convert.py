@@ -21,10 +21,11 @@ MLModel's ``fc1`` needs no permutation: the port flattens in H, W, C
 order, as the JAX package does.
 
 ``adam_state_from_jax`` carries the JAX trainer's optax state (counts,
-moments, schedule count; any of the five optimizers) into the port's
+moments, schedule count; any of the eight optimizers) into the port's
 optimizer state, the moments through the same layout rules, and
 ``state_from_jax`` a whole JAX ``TrainState`` into the port's state tree
-(what a port checkpoint holds).
+(what a port checkpoint holds); ``state_to_jax`` is its inverse (a port
+checkpoint's tree -> the JAX ``TrainState``'s state dict).
 
 ``quant_from_jax`` takes the JAX package's int8 "quant" collection
 (``ops/kernels/int8_matmul.quantize_tree``: ``block{i}/attn/{qkv,proj}_*``,
@@ -37,7 +38,9 @@ model (or other tensors by its parameters' names, such as the EMA's) as
 flax variables of numpy arrays, the flax layouts and names restored
 (``blocks.{i}`` -> ``block{i}``; ``weight`` -> ``kernel`` transposed,
 ``embedding`` or ``scale`` by its module's kind).  The LoRA fingerprint
-and ``export_torch`` read it.
+and ``export_torch`` read it.  ``flax_axes`` gives the permutation that views
+each port tensor in the flax layout (the optimizers that read a leaf's
+axes take it).
 
 ``init_model`` builds a registered model with weights drawn from a seeded
 CPU ``torch.Generator`` (the same numbers on every device).  The GPT-2
@@ -98,12 +101,23 @@ def _leaf(prefix: str, name: str, value, out: Dict[str, torch.Tensor]):
     out[_join(prefix, name)] = torch.tensor(np.ascontiguousarray(arr))
 
 
-def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+def _named_leaf(prefix: str, name: str, value,
+                out: Dict[str, torch.Tensor]) -> None:
+    """A leaf under its port name, its layout kept (adafactor's factored
+    state, which is held in the flax layout)."""
+    name = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+            "mean": "running_mean", "var": "running_var"}.get(name, name)
+    out[_join(prefix, name)] = torch.tensor(
+        np.ascontiguousarray(np.asarray(value, np.float32)))
+
+
+def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor],
+          leaf=_leaf) -> None:
     for key, value in tree.items():
         if isinstance(value, Mapping):
-            _walk(value, _join(prefix, _module_name(key)), out)
+            _walk(value, _join(prefix, _module_name(key)), out, leaf)
         else:
-            _leaf(prefix, key, value, out)
+            leaf(prefix, key, value, out)
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -142,6 +156,33 @@ def _put(tree: dict, path: list, value) -> None:
     tree[path[-1]] = value
 
 
+def _to_flax(named: Mapping, modules: Mapping, layout: bool = True
+             ) -> dict:
+    """Tensors or arrays by the port's names -> a flax tree of numpy
+    arrays: flax's names by each module's kind, the flax layouts unless
+    ``layout=False`` (adafactor's factored state keeps its own)."""
+    out: dict = {}
+    for name, t in named.items():
+        arr = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+               else np.asarray(t))
+        prefix, _, leaf = name.rpartition(".")
+        mod = modules.get(prefix)
+        if leaf == "weight":
+            if isinstance(mod, (nn.Linear, Conv)):
+                if layout:
+                    arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+                leaf = "kernel"
+            elif isinstance(mod, nn.Embedding):
+                leaf = "embedding"
+            else:  # LayerNorm, RMSNorm, BatchNorm
+                leaf = "scale"
+        else:
+            leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf,
+                                                                      leaf)
+        _put(out, flax_path(prefix) + [leaf], np.ascontiguousarray(arr))
+    return _sorted(out)
+
+
 def variables_to_jax(model: nn.Module,
                      params: Mapping[str, torch.Tensor] = None) -> dict:
     """``{"params": ..., "batch_stats": ...}`` of numpy arrays in flax's
@@ -149,31 +190,30 @@ def variables_to_jax(model: nn.Module,
     name in place of the model's own).  Non-persistent buffers (the
     serving stacks) are left out."""
     modules = dict(model.named_modules())
-    out = {"params": {}, "batch_stats": {}}
-    for name, p in model.named_parameters():
-        t = (p if params is None else params[name]).detach()
-        arr = t.cpu().numpy()
-        prefix, _, leaf = name.rpartition(".")
-        mod = modules[prefix]
-        if leaf == "weight":
-            if isinstance(mod, (nn.Linear, Conv)):
-                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
-                leaf = "kernel"
-            elif isinstance(mod, nn.Embedding):
-                leaf = "embedding"
-            else:  # LayerNorm, RMSNorm, BatchNorm
-                leaf = "scale"
-        _put(out["params"], flax_path(prefix) + [leaf],
-             np.ascontiguousarray(arr))
+    named = {name: (p if params is None else params[name])
+             for name, p in model.named_parameters()}
     persistent = set(model.state_dict())
-    for name, b in model.named_buffers():
-        if name not in persistent:
-            continue
+    buffers = {name: b for name, b in model.named_buffers()
+               if name in persistent}
+    return {"batch_stats": _to_flax(buffers, modules),
+            "params": _to_flax(named, modules)}
+
+
+def flax_axes(model: nn.Module) -> Dict[str, tuple]:
+    """Parameter name -> the permutation that views the port's tensor in
+    the JAX package's layout (``t.permute(perm)``): Dense weights
+    [out, in] -> [in, out] ``(1, 0)``, Conv weights OIHW -> HWIO
+    ``(2, 3, 1, 0)``.  Every other leaf has the same layout in both
+    packages and is absent.  The optimizers whose arithmetic reads a
+    leaf's axes take it (``ops/optimizers.py``)."""
+    modules = dict(model.named_modules())
+    out = {}
+    for name, p in model.named_parameters():
         prefix, _, leaf = name.rpartition(".")
-        leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
-        _put(out["batch_stats"], flax_path(prefix) + [leaf],
-             np.ascontiguousarray(b.detach().cpu().numpy()))
-    return _sorted(out)
+        if leaf == "weight" and isinstance(modules[prefix], (nn.Linear,
+                                                             Conv)):
+            out[name] = (1, 0) if p.ndim == 2 else (2, 3, 1, 0)
+    return out
 
 
 def _sorted(tree):
@@ -208,6 +248,11 @@ def _opt_part(state, device):
         return {k: v.to(device)
                 for k, v in params_from_jax(_unmasked(tree)).items()}
 
+    def named(tree) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        _walk(_unmasked(tree), "", out, _named_leaf)
+        return {k: v.to(device) for k, v in out.items()}
+
     if not fields:  # EmptyState: identity, clip, constant learning rate
         return {}
     if fields == ("inner_state",):
@@ -221,6 +266,11 @@ def _opt_part(state, device):
     if {"count", "mu", "nu"} <= set(fields):  # scale_by_adam / _adamax
         return {"count": count(state.count), "mu": moments(state.mu),
                 "nu": moments(state.nu)}
+    if fields == ("count", "mu"):  # ScaleByLionState
+        return {"count": count(state.count), "mu": moments(state.mu)}
+    if fields == ("count", "v_row", "v_col", "v"):  # FactoredState
+        return {"count": count(state.count), "v_row": named(state.v_row),
+                "v_col": named(state.v_col), "v": named(state.v)}
     if fields == ("count",):  # ScaleByScheduleState
         return {"count": count(state.count)}
     if fields in (("trace",), ("sum_of_squares",)):  # momentum, adagrad
@@ -241,11 +291,15 @@ def _opt_state(state, device):
 
 def adam_state_from_jax(opt_state, device=None):
     """The JAX trainer's optax state (its ``chain(clip|identity, inner)``
-    of any of the five optimizers) as numpy -> the port's optimizer
-    state: ``ScaleByAdamState`` (adam, adamw, adamax) to ``{"count",
-    "mu", "nu"}``, ``TraceState`` to ``{"trace"}``, ``ScaleByRssState``
-    to ``{"sum_of_squares"}``, each tree of moments laid out as
+    of any of the eight optimizers) as numpy -> the port's optimizer
+    state: ``ScaleByAdamState`` (adam, adamw, adamax, lamb) to
+    ``{"count", "mu", "nu"}``, ``ScaleByLionState`` to ``{"count",
+    "mu"}``, ``TraceState`` to ``{"trace"}``, ``ScaleByRssState`` to
+    ``{"sum_of_squares"}``, each tree of moments laid out as
     ``params_from_jax`` lays out the params (Dense kernels transposed),
+    adafactor's ``FactoredState`` to ``{"count", "v_row", "v_col",
+    "v"}`` by the port's names in the flax layout (as the port holds
+    it; lamb's trust ratio keeps no state),
     ``ScaleByScheduleState`` to ``{"count"}``, empty and masked-empty
     states to ``{}``, each chain a tuple, and LoRA's ``multi_transform``
     state to ``{"inner_states": {label: ...}}`` (the masked moments hold
@@ -278,6 +332,57 @@ def state_from_jax(jax_state) -> dict:
     for key in ("skipped_steps", "bad_streak", "loss_scale", "good_steps"):
         tree[key] = tensor(getattr(jax_state, key, None))
     return tree
+
+
+_MOMENTS = ("mu", "nu", "trace", "sum_of_squares")
+_FACTORED = ("v_row", "v_col", "v")
+
+
+def state_to_jax(tree: Mapping, model: nn.Module, rng=None) -> dict:
+    """The inverse of ``state_from_jax``: the port's state tree (as
+    ``train_state.state_tree`` gives it or ``checkpoint.restore_checkpoint``
+    reads it) -> the JAX ``TrainState``'s state dict (flax's
+    ``to_state_dict`` layout, numpy leaves), what the JAX package's
+    ``restore_checkpoint`` reads from a format-v2 directory.  The params,
+    the EMA's and the moments in flax's names and layouts (``model``
+    tells the Dense and Conv weights apart); adafactor's factored state
+    keeps its (flax) layout.  The port keeps no masked-state level (the
+    JAX restore re-inserts it) and no ``rng``: ``rng`` (default a zero
+    key) stands in for it."""
+    modules = dict(model.named_modules())
+
+    def array(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    def opt(node):
+        if not isinstance(node, Mapping):
+            return array(node)
+        out = {}
+        for key, value in node.items():
+            if key in _MOMENTS:
+                out[key] = _to_flax(value, modules)
+            elif key in _FACTORED:
+                out[key] = _to_flax(value, modules, layout=False)
+            else:
+                out[key] = opt(value)
+        return out
+
+    ema = tree.get("ema_params")
+    out = {
+        "params": _to_flax(tree["params"], modules),
+        "batch_stats": _to_flax(tree.get("batch_stats") or {}, modules),
+        "opt_state": opt(tree["opt_state"]),
+        "step": np.asarray(tree["step"], np.int32),
+        "rng": np.zeros(2, np.uint32) if rng is None else np.asarray(rng),
+        "ema_params": None if ema is None else _to_flax(ema, modules),
+    }
+    for key in ("skipped_steps", "bad_streak", "loss_scale", "good_steps"):
+        out[key] = array(tree.get(key))
+    return out
 
 
 def quant_from_jax(quant: Mapping, device=None) -> dict:

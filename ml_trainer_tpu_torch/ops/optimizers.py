@@ -20,8 +20,35 @@ The reference's five names:
 * ``adamw``: ``scale_by_adam`` -> ``add_decayed_weights(mask)`` ->
   ``scale_by_learning_rate`` (decoupled decay).
 
+and the JAX package's three more, optax 0.2.6's chains copied:
+
+* ``lamb``: ``scale_by_adam(eps=1e-6)`` -> ``add_decayed_weights(mask)``
+  -> ``scale_by_trust_ratio`` -> ``scale_by_learning_rate``;
+* ``lion``: ``scale_by_lion`` (b1 0.9, b2 0.99, one moment ``mu``) ->
+  ``add_decayed_weights(mask)`` (the factory's ``weight_decay``) ->
+  ``scale_by_learning_rate``;
+* ``adafactor``: coupled decay, then ``scale_by_factored_rms`` (decay
+  0.8, ``min_dim_size_to_factor`` 128, eps 1e-30) ->
+  ``clip_by_block_rms(1.0)`` -> ``scale_by_learning_rate(flip_sign=
+  False)`` -> ``scale(-1)``; no parameter scale, no momentum.
+
 The decay mask is always present (default: decay everything;
 ``decay_mask_matrices_only`` skips 1-D leaves).
+
+Two of them are not elementwise, and their arithmetic reads a leaf's
+axes: adafactor factors a leaf's second moment over its two largest
+axes (optax's ``np.argsort`` of the shape, ties to the later axis), and
+``v_row`` alone is normalised by its mean.  The port holds Dense kernels
+as [out, in] and convolutions as OIHW, the JAX package as [in, out] and
+HWIO, so a square kernel would factor the other way round.
+``flax_axes`` (``convert.flax_axes(model)``: a parameter name -> the
+permutation that views the port's tensor in the flax layout) makes
+``scale_by_factored_rms`` work on the flax view of every leaf: its state
+(``v_row``, ``v_col``, ``v``) is the JAX state vector for vector, in
+the flax layout.  ``sharded_replicas=n`` gives lamb the trust ratio the
+JAX package's ``dp_update="sharded"`` step computes: that step runs the
+chain on each replica's dim-0 block of the flax-layout leaf, so the
+norms are per block (``scale_by_trust_ratio(replicas=n)``).
 
 ``multi_transform(transforms, labels)`` and ``set_to_zero()`` are
 optax's (LoRA's frozen base): each leaf goes through the transform its
@@ -31,14 +58,14 @@ norm (clipping) covers its own leaves only.  The state is
 ``{"inner_states": {label: state}}``, optax's ``MultiTransformState``
 without the ``MaskedState`` wrappers (``convert.adam_state_from_jax``
 drops them).  A leaf that ``update`` is not given (a parameter that
-takes no gradient) is treated as masked: it gets no update at all.  ``lamb``, ``lion`` and
-``adafactor`` are not ported yet.
+takes no gradient) is treated as masked: it gets no update at all.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
@@ -189,25 +216,189 @@ def scale_by_adamax(b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation(init, update)
 
 
-def scale_by_learning_rate(learning_rate: ScalarOrSchedule
+def scale_by_learning_rate(learning_rate: ScalarOrSchedule,
+                           flip_sign: bool = True
                            ) -> GradientTransformation:
-    """Multiply by ``-lr(count)``; the schedule's count is state."""
+    """Multiply by ``-lr(count)`` (``lr(count)`` without ``flip_sign``);
+    the schedule's count is state."""
+    m = -1 if flip_sign else 1
     if not callable(learning_rate):
-        lr = float(learning_rate)
-        return GradientTransformation(
-            lambda params: {},
-            lambda g, state, params=None: (
-                {k: -lr * u for k, u in g.items()}, state))
+        return scale(m * float(learning_rate))
 
     def init(params):
         return {"count": _count(params)}
 
     def update(updates, state, params=None):
-        step_size = -learning_rate(state["count"])
+        step_size = m * learning_rate(state["count"])
         return ({k: step_size.to(u.dtype) * u for k, u in updates.items()},
                 {"count": state["count"] + 1})
 
     return GradientTransformation(init, update)
+
+
+def scale(step_size: float) -> GradientTransformation:
+    """Multiply every update by a constant."""
+    return GradientTransformation(
+        lambda params: {},
+        lambda g, state, params=None: (
+            {k: step_size * u for k, u in g.items()}, state))
+
+
+def scale_by_lion(b1: float = 0.9, b2: float = 0.99
+                  ) -> GradientTransformation:
+    """``sign((1 - b1) g + b1 mu)``; ``mu = (1 - b2) g + b2 mu``."""
+    def init(params):
+        return {"count": _count(params),
+                "mu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(updates, state, params=None):
+        mu = state["mu"]
+        out = {k: torch.sign((1 - b1) * g + b1 * mu[k])
+               for k, g in updates.items()}
+        new_mu = {k: (1 - b2) * g + b2 * mu[k] for k, g in updates.items()}
+        return out, {"count": state["count"] + 1, "mu": new_mu}
+
+    return GradientTransformation(init, update)
+
+
+def _blockwise(t: torch.Tensor, block: Optional[tuple]) -> torch.Tensor:
+    """``t`` as rows of its blocks: ``block = (axis, n)`` splits ``axis``
+    into ``n`` equal blocks ([n, rest]); None is one block ([1, all])."""
+    if block is None:
+        return t.reshape(1, -1)
+    axis, n = block
+    return t.movedim(axis, 0).reshape(n, -1)
+
+
+def scale_by_trust_ratio(replicas: int = 1,
+                         flax_axes: Optional[Dict[str, tuple]] = None
+                         ) -> GradientTransformation:
+    """``u * |p| / |u|`` (1 where either norm is 0), optax's defaults
+    (no minimum norm, coefficient 1, eps 0).  ``replicas = n > 1``: the
+    norms and the ratio per block of the leaf's flax dim 0 split in
+    ``n``, where it divides (the JAX package's sharded step's shards,
+    its ``plan_grad_buckets`` rule)."""
+    flax_axes = flax_axes or {}
+
+    def block_of(k, t):
+        if replicas < 2 or t.ndim == 0:
+            return None
+        axis = flax_axes.get(k, (0,))[0]
+        return (axis, replicas) if t.shape[axis] % replicas == 0 else None
+
+    def update(updates, state, params=None):
+        out = {}
+        for k, u in updates.items():
+            block = block_of(k, u)
+            pb, ub = _blockwise(params[k], block), _blockwise(u, block)
+            p_norm = torch.sqrt(torch.sum(pb * pb, dim=1, keepdim=True))
+            u_norm = torch.sqrt(torch.sum(ub * ub, dim=1, keepdim=True))
+            ratio = torch.where((p_norm == 0.0) | (u_norm == 0.0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            scaled = ub * ratio
+            if block is None:
+                out[k] = scaled.reshape(u.shape)
+            else:
+                moved = u.movedim(block[0], 0)
+                out[k] = scaled.reshape(moved.shape).movedim(0, block[0])
+        return out, state
+
+    return GradientTransformation(lambda params: {}, update)
+
+
+def factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128
+                  ) -> Optional[tuple]:
+    """optax's ``_factored_dims``: (d1, d0), the second largest and the
+    largest axis by ``np.argsort``, or None below two axes or when the
+    second largest is under ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _inverse(perm: Sequence[int]) -> tuple:
+    return tuple(int(i) for i in np.argsort(perm))
+
+
+def scale_by_factored_rms(decay_rate: float = 0.8,
+                          min_dim_size_to_factor: int = 128,
+                          epsilon: float = 1e-30,
+                          flax_axes: Optional[Dict[str, tuple]] = None
+                          ) -> GradientTransformation:
+    """Adafactor's factored second moment (optax's
+    ``scale_by_factored_rms``, step offset 0), on each leaf's flax view
+    (``flax_axes``); the state ``{"count", "v_row", "v_col", "v"}`` in
+    the flax layout, with optax's [1] placeholders where a leaf keeps
+    the other kind."""
+    flax_axes = flax_axes or {}
+
+    def view(k, t):
+        perm = flax_axes.get(k)
+        return t if perm is None else t.permute(perm)
+
+    def init(params):
+        v_row, v_col, v = {}, {}, {}
+        for k, p in params.items():
+            shape = tuple(view(k, p).shape)
+            one = p.new_zeros((1,))
+            dims = factored_dims(shape, min_dim_size_to_factor)
+            if dims is None:
+                v_row[k], v_col[k] = one, one.clone()
+                v[k] = p.new_zeros(shape)
+            else:
+                d1, d0 = dims
+                v_row[k] = p.new_zeros(tuple(np.delete(shape, d0)))
+                v_col[k] = p.new_zeros(tuple(np.delete(shape, d1)))
+                v[k] = one
+        return {"count": _count(params), "v_row": v_row, "v_col": v_col,
+                "v": v}
+
+    def update(updates, state, params=None):
+        t = (state["count"] + 1).to(torch.float32)
+        decay_t = 1.0 - torch.pow(t, -decay_rate)
+        out, v_row, v_col, v = {}, {}, {}, {}
+        for k, g in updates.items():
+            gf = view(k, g)
+            dims = factored_dims(tuple(gf.shape), min_dim_size_to_factor)
+            grad_sqr = gf * gf + epsilon
+            if dims is None:
+                v_row[k], v_col[k] = state["v_row"][k], state["v_col"][k]
+                new_v = decay_t * state["v"][k] + (1.0 - decay_t) * grad_sqr
+                v[k] = new_v
+                uf = gf * new_v ** -0.5
+            else:
+                d1, d0 = dims
+                new_row = (decay_t * state["v_row"][k]
+                           + (1.0 - decay_t) * torch.mean(grad_sqr, dim=d0))
+                new_col = (decay_t * state["v_col"][k]
+                           + (1.0 - decay_t) * torch.mean(grad_sqr, dim=d1))
+                v_row[k], v_col[k], v[k] = new_row, new_col, state["v"][k]
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = torch.mean(new_row, dim=reduced_d1,
+                                          keepdim=True)
+                row_factor = (new_row / row_col_mean) ** -0.5
+                col_factor = new_col ** -0.5
+                uf = (gf * row_factor.unsqueeze(d0)
+                      * col_factor.unsqueeze(d1))
+            perm = flax_axes.get(k)
+            out[k] = uf if perm is None else uf.permute(_inverse(perm))
+        return out, {"count": state["count"] + 1, "v_row": v_row,
+                     "v_col": v_col, "v": v}
+
+    return GradientTransformation(init, update)
+
+
+def clip_by_block_rms(threshold: float) -> GradientTransformation:
+    """Each leaf divided by ``max(1, rms(leaf) / threshold)``."""
+    def update(updates, state, params=None):
+        return {k: u / torch.clamp(torch.sqrt(torch.mean(u * u))
+                                   / threshold, min=1.0)
+                for k, u in updates.items()}, state
+
+    return GradientTransformation(lambda params: {}, update)
 
 
 def global_norm(tree: Params) -> torch.Tensor:
@@ -306,14 +497,41 @@ def _adamw(lr, momentum, weight_decay, mask):
                  scale_by_learning_rate(lr))
 
 
+def _lamb(lr, momentum, weight_decay, mask, flax_axes=None,
+          sharded_replicas=1):
+    return chain(scale_by_adam(eps=1e-6),
+                 add_decayed_weights(weight_decay, mask),
+                 scale_by_trust_ratio(sharded_replicas, flax_axes),
+                 scale_by_learning_rate(lr))
+
+
+def _lion(lr, momentum, weight_decay, mask, flax_axes=None,
+          sharded_replicas=1):
+    return chain(scale_by_lion(), add_decayed_weights(weight_decay, mask),
+                 scale_by_learning_rate(lr))
+
+
+def _adafactor(lr, momentum, weight_decay, mask, flax_axes=None,
+               sharded_replicas=1):
+    return _with_coupled_decay(
+        chain(scale_by_factored_rms(flax_axes=flax_axes),
+              clip_by_block_rms(1.0),
+              scale_by_learning_rate(lr, flip_sign=False), scale(-1)),
+        weight_decay, mask)
+
+
 OPTIMIZERS = {
     "sgd": _sgd,
     "adam": _adam,
     "adagrad": _adagrad,
     "adamax": _adamax,
     "adamw": _adamw,
+    "lamb": _lamb,
+    "lion": _lion,
+    "adafactor": _adafactor,
 }
-_UNPORTED = ("lamb", "lion", "adafactor")
+# The names whose arithmetic reads a leaf's axes (``flax_axes``).
+_LAYOUT_AWARE = ("lamb", "lion", "adafactor")
 
 
 def decay_mask_matrices_only(params: Params) -> Dict[str, bool]:
@@ -328,20 +546,20 @@ def _decay_all(params: Params) -> Dict[str, bool]:
 
 def get_optimizer(name: str, learning_rate: ScalarOrSchedule,
                   momentum: float = 0.9, weight_decay: float = 0.0,
-                  decay_mask: Optional[Callable] = None
-                  ) -> GradientTransformation:
+                  decay_mask: Optional[Callable] = None,
+                  flax_axes: Optional[Dict[str, tuple]] = None,
+                  sharded_replicas: int = 1) -> GradientTransformation:
     """Map an optimizer name to its transformation (unknown names raise
-    ``ValueError``)."""
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet; see ROADMAP.md Queue A"
-        )
+    ``ValueError``).  ``flax_axes`` and ``sharded_replicas``: see the
+    module's docstring (adafactor and lamb read them)."""
     try:
         factory = OPTIMIZERS[name]
     except KeyError:
         raise ValueError(
-            f"Unknown optimizer {name!r}; expected one of "
-            f"{sorted(OPTIMIZERS) + list(_UNPORTED)}"
+            f"Unknown optimizer {name!r}; expected one of {sorted(OPTIMIZERS)}"
         ) from None
+    extra = {}
+    if name in _LAYOUT_AWARE:
+        extra = dict(flax_axes=flax_axes, sharded_replicas=sharded_replicas)
     return factory(learning_rate, momentum, weight_decay,
-                   decay_mask or _decay_all)
+                   decay_mask or _decay_all, **extra)

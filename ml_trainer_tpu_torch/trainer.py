@@ -155,7 +155,7 @@ from ml_trainer_tpu_torch.checkpoint import (
     wait_for_checkpoints,
 )
 from ml_trainer_tpu_torch.config import TrainerConfig, validate_kwargs
-from ml_trainer_tpu_torch.convert import init_model
+from ml_trainer_tpu_torch.convert import flax_axes, init_model
 from ml_trainer_tpu_torch.data import Loader, prefetch_to_device
 from ml_trainer_tpu_torch.data.native import (
     NativeLoader,
@@ -179,6 +179,7 @@ from ml_trainer_tpu_torch.ops.optimizers import (
     chain,
     clip_by_global_norm,
     decay_mask_matrices_only,
+    factored_dims,
     get_optimizer,
     identity,
     multi_transform,
@@ -293,6 +294,23 @@ def _refuse(knob: str, value, accepted) -> None:
         raise NotImplementedError(
             f"{knob}={value!r} is not ported yet; see ROADMAP.md Queue A"
         )
+
+
+def _refuse_sharded_adafactor(model: nn.Module, axes: dict, n: int) -> None:
+    """The JAX package's sharded step runs adafactor on each replica's
+    dim-0 block of the flax-layout leaf; where such a leaf factors, the
+    block's moments no longer fit the state and it raises (ROADMAP.md
+    Queue C 13).  The port refuses the same runs up front; elsewhere the
+    update is elementwise per leaf and both steps agree."""
+    for name, p in model.named_parameters():
+        shape = tuple(p.permute(axes[name]).shape if name in axes
+                      else p.shape)
+        if shape and shape[0] % n == 0 and factored_dims(shape):
+            raise ValueError(
+                f"optimizer='adafactor' with dp_update='sharded' factors "
+                f"the sharded leaf {name} {shape}: the JAX package's "
+                "sharded step raises there (ROADMAP.md Queue C 13); use "
+                "dp_update='fused'")
 
 
 # Whether this process has logged the inert knobs' warning.
@@ -788,16 +806,25 @@ class Trainer:
         # The sharded step keeps the identity slot (same state structure)
         # and clips by the global norm it sums over the replicas itself:
         # a chained clip would see one replica's shard.
+        sharded = self.dp_update == "sharded"
+        axes = flax_axes(self.model)
+        if sharded and cfg.optimizer == "adafactor":
+            _refuse_sharded_adafactor(self.model, axes, self.mesh.size)
         self.tx = chain(
             clip_by_global_norm(self.grad_clip_norm)
             if (self.grad_clip_norm is not None
-                and self.dp_update != "sharded") else identity(),
+                and not sharded) else identity(),
             get_optimizer(
                 cfg.optimizer, self.lr_schedule, cfg.momentum,
                 cfg.weight_decay,
                 decay_mask=(decay_mask_matrices_only
-                            if self.decay_exclude_bias_norm else None)),
+                            if self.decay_exclude_bias_norm else None),
+                flax_axes=axes,
+                sharded_replicas=self.mesh.size if sharded else 1),
         )
+        # lamb and adafactor read whole leaves: the sharded step runs
+        # them on the joined leaves (see _sharded_train_step).
+        self._whole_leaf_update = cfg.optimizer in ("lamb", "adafactor")
         if self.lora is not None:
             # Only the adapters reach the optimizer, the clip included;
             # the base gets zero updates and no optimizer state.
@@ -1094,7 +1121,22 @@ class Trainer:
         old_opt = [replica_view(state.opt_state, self._zero1, n, j)
                    for j in range(n)]
         new_p, new_opt, checked = [], [], []
-        for j in range(n):
+        if self._whole_leaf_update:
+            # lamb, adafactor: one update of the joined leaves.  lamb's
+            # trust ratio is per block of the flax dim 0 (the JAX sharded
+            # step's shards, ``sharded_replicas``); adafactor runs here
+            # only where no sharded leaf factors, elementwise per leaf.
+            gs = [grads[j] if factors[j] is None else {
+                k: t * factors[j] for k, t in grads[j].items()}
+                for j in range(n)]
+            updates, o_full = self.tx.update(
+                join_replica_views(gs, flags), state.opt_state, full)
+            p_full = {k: full[k] + u * lr_scale for k, u in updates.items()}
+            new_p = [replica_view(p_full, flags, n, j) for j in range(n)]
+            new_opt = [replica_view(o_full, self._zero1, n, j)
+                       for j in range(n)]
+            checked = gs
+        for j in range(0 if self._whole_leaf_update else n):
             if self.fused_adam:
                 pj, oj = self._fused_tail(grads[j], old_p[j], old_opt[j],
                                           factors[j], lr_scale)
@@ -1796,16 +1838,33 @@ class Trainer:
 
     # ----------------------------------------------------------- persistence
     def save_model(self, model_dir: str) -> None:
-        """The weights as a torch ``state_dict`` in
-        ``<model_dir>/model.pth`` (the reference's own format); the EMA
-        weights in place of the parameters when ``ema_decay`` is set."""
+        """The weights as ``<model_dir>/model.pth``; the EMA weights in
+        place of the parameters when ``ema_decay`` is set.  A flat model
+        (every key ``<layer>.<leaf>``: MLModel, an MLP) is written in the
+        reference's layout, the file ``export_torch`` writes (MLModel's
+        ``fc1`` columns in C*H*W order), so the reference and the JAX
+        package read it; a nested family as the port's ``state_dict``.
+        ``load_model`` reads both (``utils/utils.py``)."""
+        from ml_trainer_tpu_torch.checkpoint.torch_export import (
+            save_torch_checkpoint,
+        )
+        from ml_trainer_tpu_torch.checkpoint.torch_import import (
+            is_reference_layout,
+            spatial_inputs_of,
+        )
+        from ml_trainer_tpu_torch.convert import variables_to_jax
+
         logger.info("Saving the model.")
         os.makedirs(model_dir, exist_ok=True)
-        served = self._eval_params(self.model) or {}
-        state = {k: served.get(k, v).detach().cpu() for k, v in
+        served = self._eval_params(self.model)
+        state = {k: (served or {}).get(k, v).detach().cpu() for k, v in
                  self.model.state_dict().items()}
         tmp = os.path.join(model_dir, MODEL_FILE + ".tmp")
-        torch.save(state, tmp)
+        if is_reference_layout(state):
+            save_torch_checkpoint(tmp, variables_to_jax(self.model, served),
+                                  spatial_inputs=spatial_inputs_of(state))
+        else:
+            torch.save(state, tmp)
         os.replace(tmp, os.path.join(model_dir, MODEL_FILE))
 
     def export_lora(self, path: str, name: Optional[str] = None) -> dict:

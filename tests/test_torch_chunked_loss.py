@@ -35,6 +35,16 @@ from ml_trainer_tpu.ops.losses import chunked_lm_cross_entropy as jchunked
 from ml_trainer_tpu_torch.ops.losses import chunked_lm_cross_entropy
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: small ops otherwise wait on all cores'
+    threads, which the suite's other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(b=2, s=64, d=16, v=50, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, s, d)).astype(np.float32),

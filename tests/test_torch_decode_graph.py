@@ -56,6 +56,16 @@ CACHES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: small ops otherwise wait on all cores'
+    threads, which the suite's other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _prompts():
     """The prompts of tests/test_torch_serving.py (the last shares two
     16-token blocks with the second: a prefix hit at page 16)."""

@@ -57,6 +57,16 @@ CONFIGS = {"gqa": ("llama", GQA), "tiny": ("llama_tiny", {})}
 port_attention = importlib.import_module("ml_trainer_tpu_torch.ops.attention")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: small ops otherwise wait on all cores'
+    threads, which the suite's other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _host(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -56,6 +56,16 @@ KEYS = ("train_loss", "val_loss", "train_metric", "val_metric")
 STATS_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: small ops otherwise wait on all cores'
+    threads, which the suite's other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _host(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -34,6 +34,16 @@ from ml_trainer_tpu_torch.models.layers import BatchNorm, Conv, same_pads
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: small ops otherwise wait on all cores'
+    threads, which the suite's other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _host(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -1,6 +1,6 @@
 """Guards of the PyTorch/CUDA port (``ml_trainer_tpu_torch``).
 
-* No file of the port, nor ``chip_smoke.py``,
+* No file of the port, nor ``examples/torch_port/``, ``chip_smoke.py``,
   ``scripts/torch_call_check_mutations.py``, ``scripts/flash_bwd_ab.py``,
   ``scripts/flash_fwd_ab.py`` or ``scripts/cudnn_deterministic_cost.py``,
   imports JAX, flax, optax, tqdm,
@@ -42,6 +42,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_trainer_tpu", "tqdm",
 
 def _port_files():
     files = sorted((ROOT / "ml_trainer_tpu_torch").rglob("*.py"))
+    files += sorted((ROOT / "examples" / "torch_port").glob("*.py"))
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "torch_call_check_mutations.py",
                     ROOT / "scripts" / "flash_bwd_ab.py",
@@ -85,7 +86,8 @@ NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "models/llama.py", "cli.py", "__main__.py",
                "utils/profiler.py", "lora.py", "serving/adapter_pool.py",
                "checkpoint/torch_export.py", "serving/engine.py",
-               "serving/api.py", "ops/optimizers.py", "models/gpt2.py"]
+               "serving/api.py", "ops/optimizers.py", "models/gpt2.py",
+               "checkpoint/torch_import.py", "utils/utils.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)

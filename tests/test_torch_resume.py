@@ -50,6 +50,16 @@ from ml_trainer_tpu_torch.train_state import state_tree
 MLP_KW = dict(batch_size=16, metric=None, lr=0.01)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: small ops otherwise wait on all cores'
+    threads, which the suite's other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cifar(size, seed, cls=mt.SyntheticCIFAR10,
            transform=mt.custom_pre_process_function):
     return cls(size=size, seed=seed, transform=transform())

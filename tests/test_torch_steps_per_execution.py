@@ -51,6 +51,16 @@ LOSS_KEYS = ("train_loss", "val_loss", "train_metric", "val_metric")
 SUM_RTOL = 1e-6  # the epoch sums' order; everything else bitwise
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: small ops otherwise wait on all cores'
+    threads, which the suite's other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax():
     """The JAX package and its pieces these tests use (the card's machine
     has no jax)."""
