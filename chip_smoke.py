@@ -39,6 +39,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # flows (examples/torch_port
                                           # 01-05) and lamb, lion and
                                           # adafactor at K = 4
+    python3 chip_smoke.py --only dist     # kernel checks + one process
+                                          # per replica (NCCL at world
+                                          # size 1, two gloo processes
+                                          # on cuda:0) and the committed
+                                          # JPEG shards
 
 Phases, one line of output each (or a few):
 
@@ -297,8 +302,8 @@ Phases, one line of output each (or a few):
    graphs by CUDA events (dense, chunked, chunked, dense); BERT-base bf16
    (right_padded, 32 x 128, K = 4, 8 steps) on the fixture WordPiece's
    encoding of synthetic sentences (``TokenizedDataset.from_texts``):
-   exact launches and ms a step.  The JPEG shard path is not run here:
-   the card's machine has no PIL to encode the images.
+   exact launches and ms a step.  The JPEG shard path runs in the dist
+   phase, on the shards committed in ``tests/fixtures/jpeg224``.
 11. llama (``LLAMA``): ``llama`` at full width (124,668,672 parameters,
    12 query heads over 4 kv heads) on ``SyntheticTokens`` of 2048 x
    32000, batch 4, 8 steps, through ``fit()`` at K = 1 and K = 4 (one
@@ -385,6 +390,40 @@ Phases, one line of output each (or a few):
    replay of the captured chunk bitwise 4 eager steps from one state
    (every parameter and state leaf), the replay's ms a step (CUDA
    events), the optimizer state's bytes, exact launches.
+15. dist (``DIST_*``): one process per replica over ``torch.distributed``,
+   each process started by this one (``--dist-worker``), while this
+   process runs the one-process references.  (a) GPT-2 124M fp32,
+   ``dp_update="sharded"``, 4 steps at K = 1 in an NCCL group of one
+   process: every state leaf bitwise the same fit with no process group
+   (sha1 of each leaf), K1-K5 exact (K4/K5 one a step); the same at
+   K = 4 with the fused step, 8 steps (the group's all-reduces captured
+   in the CUDA graph and replayed).  (b) Two gloo
+   processes sharing cuda:0, GPT-2 124M bf16 at [8, 1024] global, the
+   sharded step, clip 1.0, 4 steps: each rank's parameters and its
+   blocks of the moments bitwise the one-process 2-replica fit on the
+   same global batches (a two-term sum commutes); the format-3
+   checkpoint the ranks write at the epoch's end, resumed by two fresh
+   trainers bitwise, and restored into one process of two replicas
+   bitwise the stitched arrays and that fit's state; each rank's peak
+   memory and optimizer-state bytes beside the one-process run's.  (c)
+   The two gloo processes, ResNet-50 224 on the committed JPEG shards
+   (64 images: 2 epochs of 2 steps at global batch 32, SGD momentum 0.9
+   at lr 1e-3: DIST_RESNET_OPT), each rank's 16
+   rows a step through the native loader, ``dp_update="fused"`` with the
+   BatchNorm statistics synced (flax's E[x^2] - E[x]^2): parameters and
+   BatchNorm buffers (||diff|| / ||reference|| over all parameters, and
+   over all buffers) against the one-process fit of two replicas on the
+   ranks' batches joined, in the same arithmetic, within
+   DIST_BN_FLOOR_FACTOR times that fit's distance from itself with the
+   ranks' rows swapped (the reorder floor), and the distance to the
+   port's one-process fit (cuDNN's statistics) beside it, while
+   per-replica statistics in flax's arithmetic must land beyond that bar
+   on both norms; the ranks bitwise each other; every image's decode here bitwise the CPU decode's digest in the fixture,
+   the native loader's pixels bitwise that decode; the JPEG loader's
+   host ms a batch of 64 and of 16.  (d) The planted desync: rank 1
+   scales its largest leaf by DIST_PLANT; ``check_desync`` raises on
+   rank 1 naming the step and not on rank 0.  Two NCCL ranks on
+   distinct cards need a machine with several and are not run.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -6413,13 +6452,609 @@ def examples_phase(dev, smi: str) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 15
+# One process per replica over torch.distributed (ROADMAP.md Queue A
+# 2b.8b) and the committed JPEG shards on the card (2b.6c).  The card's
+# machine has one H100: NCCL is driven at world size 1 and two ranks
+# share cuda:0 over gloo; two NCCL ranks on distinct cards are not run.
+DIST_DIR = "build/chip_smoke_dist"  # the runs' files; removed after
+DIST_JPEG = "tests/fixtures/jpeg224"  # 64 images, make_jpeg224.py
+DIST_GPT = dict(seq_len=1024, vocab_size=50257, batch=8, steps=4)
+DIST_GPT_OPT = dict(optimizer="adam", lr=3e-4, metric=None, seed=SEED,
+                    loader="python")
+DIST_RESNET = dict(batch=32, epochs=2)  # 64 images: 2 steps an epoch
+# SGD with momentum at a tenth of the reference's 0.01: at 0.01 four
+# steps from random weights already diverge (validation loss 4.5 -> 22-37
+# in three reorderings of one fit, on an H100), and a distance between
+# two fits then says nothing.
+DIST_RESNET_OPT = dict(optimizer="sgd", momentum=0.9, lr=1e-3)
+DIST_PLANT = 1 + 2 ** -10  # the planted desync's factor on rank 1
+# Synced BatchNorm (flax's E[x^2] - E[x]^2 over sums added across the
+# processes) after 4 float32 SGD steps of ResNet-50, against the
+# one-process fit of two replicas in the same arithmetic: within this
+# many times the distance of that fit from itself with the two ranks'
+# rows swapped in the global batch (the same sums in another order).  A
+# distance is ||a - b|| / ||b|| over all the parameters, and apart over
+# all the BatchNorm buffers: four steps lift float32 reorderings to
+# percents of a single BatchNorm bias or running mean (its worst leaf,
+# recorded beside), so the bar is set by the run.  It must sit below the
+# distance of the same fit with per-replica statistics (each rank's 16
+# rows normalised alone, in flax's arithmetic), on the parameters and on
+# the buffers, or it detects nothing and the phase fails.  On an H100
+# every reordering (the synced ranks, cuDNN's statistics) lands at
+# 1.00-1.09 times the floor on both norms, per-replica statistics at 1.8
+# times on the parameters and 29 on the buffers: the bar goes between.
+DIST_BN_FLOOR_FACTOR = 1.5
+DIST_TIMEOUT_S = 480
+DIST_LOADER_EPOCHS = 8  # epochs of the JPEG loader timed alone
+
+
+def _dist_token_sets(steps: int = DIST_GPT["steps"]):
+    import ml_trainer_tpu_torch as mt
+
+    c = DIST_GPT
+    return (mt.SyntheticTokens(size=c["batch"] * steps,
+                               seq_len=c["seq_len"],
+                               vocab_size=c["vocab_size"], seed=SEED),
+            mt.SyntheticTokens(size=c["batch"], seq_len=c["seq_len"],
+                               vocab_size=c["vocab_size"], seed=SEED + 1))
+
+
+def _dist_jpeg_set():
+    from ml_trainer_tpu_torch.data import (
+        Compose,
+        Normalize,
+        ShardedJpegDataset,
+        ToFloat,
+    )
+
+    return ShardedJpegDataset(DIST_JPEG, transform=Compose(
+        [ToFloat(), Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+
+
+def _rank_loaders(trainer, dataset, native: bool):
+    """The train loaders ranks 0 and 1 of a two-process run build for
+    ``dataset`` (``ShardedSampler`` split, half the global batch)."""
+    from ml_trainer_tpu_torch.data import ShardedSampler
+
+    kind, trainer._loader_kind = trainer._loader_kind, (
+        "native" if native else "python")
+    try:
+        return [trainer._make_loader(
+            dataset, trainer.global_batch // 2, True, SEED,
+            ShardedSampler(len(dataset), 2, r, shuffle=True, seed=SEED))
+            for r in (0, 1)]
+    finally:
+        trainer._loader_kind = kind
+
+
+def _state_digests(trainer, split=(), rank: int = 0, n: int = 1) -> dict:
+    """sha1 of every state leaf's bytes (``state_tree``), by '/'-path; a
+    leaf named in ``split`` as dim-0 block ``rank`` of ``n`` (a ZeRO-1
+    moment as a process of a two-process run holds it)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ml_trainer_tpu_torch.checkpoint.checkpoint import _flatten
+    from ml_trainer_tpu_torch.train_state import state_tree
+
+    out = {}
+    for path, v in _flatten(state_tree(trainer.state, trainer.model)):
+        if v is None or isinstance(v, dict):
+            continue
+        arr = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+               else np.asarray(v))
+        key = "/".join(path)
+        if key in split:
+            arr = arr.reshape((n, -1) + arr.shape[1:])[rank].reshape(
+                (-1,) + arr.shape[1:])
+        out[key] = hashlib.sha1(
+            f"{arr.dtype}{arr.shape}".encode()
+            + np.ascontiguousarray(arr).tobytes()).hexdigest()
+    return out
+
+
+def _digest_diff(got: dict, want: dict) -> list:
+    return sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+
+
+def _opt_bytes(trainer) -> int:
+    from ml_trainer_tpu_torch.ops.optimizers import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(trainer.state.opt_state))
+
+
+def _counted_fit(what: str, trainer, depth: int, micro: int, val: int,
+                 tail: int = 0) -> dict:
+    """``fit_whole`` with the launches counted from 0 and checked, the
+    peak memory from a reset, the fit's seconds."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit_whole(trainer, what)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = mt.launch_counts()
+    _want_launches(what, counts, depth, micro, val, tail)
+    return dict(launches=counts, fit_s=fit_s,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                train_loss=trainer.history["train_loss"],
+                val_loss=trainer.history["val_loss"])
+
+
+def _dist_worker_nccl1(port: int) -> dict:
+    """(a) GPT-2 124M fp32, ``dp_update="sharded"``, in an NCCL group of
+    one process, against the same fit with no process group; then the
+    fused step at K = 4 (its collectives captured in the CUDA graph,
+    8 steps: a chunk run for real, then one replayed) likewise."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.parallel import distributed
+
+    distributed.initialize_distributed("nccl", f"localhost:{port}", 1, 0,
+                                       device="cuda:0")
+    dev, c, out = torch.device("cuda:0"), DIST_GPT, {}
+    for label, group, k in (("nccl", True, 1), ("no_group", False, 1),
+                            ("nccl_k4", True, 4), ("no_group_k4", False, 4)):
+        steps = c["steps"] * (2 if k > 1 else 1)
+        tr = mt.Trainer(_seeded_model("gpt2", SEED, dev),
+                        datasets=_dist_token_sets(steps), epochs=1,
+                        batch_size=c["batch"], is_parallel=group, device=dev,
+                        dp_update="sharded" if k == 1 else "fused",
+                        steps_per_execution=k,
+                        model_dir=f"{DIST_DIR}/nccl1_{label}", **DIST_GPT_OPT)
+        rec = _counted_fit(f"dist nccl world 1 {label}", tr, 12, steps, 1,
+                           tail=steps if group and k == 1 else 0)
+        rec.update(digests=_state_digests(tr), dp_update=tr.dp_update,
+                   fused_adam=tr.fused_adam, mesh=tr.mesh.shape,
+                   distributed=tr.mesh.distributed, k=k)
+        out[label] = rec
+        del tr
+        torch.cuda.empty_cache()
+    out["backend"] = distributed.backend()
+    out["world"] = distributed.process_count()
+    distributed.shutdown()
+    return out
+
+
+def _dist_worker_gloo2(port: int, rank: int) -> dict:
+    """(b) GPT-2 124M bf16 sharded, its format-3 checkpoint resumed, (d)
+    the planted desync, (c) ResNet-50 on the JPEG shards: two gloo
+    processes sharing cuda:0."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.checkpoint import (
+        checkpoint_format,
+        latest_checkpoint,
+    )
+    from ml_trainer_tpu_torch.data import NativeLoader
+    from ml_trainer_tpu_torch.parallel import check_desync, distributed
+
+    distributed.initialize_distributed("gloo", f"localhost:{port}", 2, rank,
+                                       device="cuda:0")
+    dev, c, out = torch.device("cuda:0"), DIST_GPT, {}
+    kw = dict(datasets=_dist_token_sets(), epochs=1, batch_size=c["batch"],
+              is_parallel=True, device=dev, dp_update="sharded",
+              precision="bf16", grad_clip_norm=1.0,
+              model_dir=f"{DIST_DIR}/gpt2_bf16", **DIST_GPT_OPT)
+    a = mt.Trainer(_seeded_model("gpt2", SEED, dev), **kw)
+    rec = _counted_fit(f"dist gloo rank {rank} gpt2 bf16", a, 12,
+                       c["steps"], 1, tail=c["steps"])
+    split = sorted("/".join(p) for p in a._ckpt_split())
+    digests = _state_digests(a)
+    rec.update(digests=digests, split=len(split),
+               opt_state_bytes=_opt_bytes(a),
+               fused_adam=a.fused_adam, mesh=a.mesh.shape,
+               format=checkpoint_format(latest_checkpoint(a._ckpt_dir())))
+    out["gpt2"] = rec
+    # The format-3 checkpoint, resumed by two fresh processes' trainers.
+    t0 = time.perf_counter()
+    b = mt.Trainer(_seeded_model("gpt2", SEED, dev), **kw)
+    b.fit(resume=True)
+    out["resume"] = dict(s=time.perf_counter() - t0,
+                         differ=_digest_diff(_state_digests(b), digests),
+                         step=b.state.step)
+    # (d) A planted desync: rank 1 scales its largest leaf.
+    params = {k: p.detach().clone() for k, p in b.model.named_parameters()}
+    step = b.state.step
+    clean = raised = None
+    try:
+        check_desync(params, step=step)
+    except RuntimeError as e:
+        clean = str(e)
+    leaf = max(params, key=lambda k: params[k].numel())
+    if rank == 1:
+        params[leaf].mul_(DIST_PLANT)
+    try:
+        check_desync(params, step=step + 1)
+    except RuntimeError as e:
+        raised = str(e)
+    out["desync"] = dict(leaf=leaf, step=step + 1, clean=clean,
+                         raised=raised)
+    del a, b, params
+    torch.cuda.empty_cache()
+    # (c) ResNet-50 on the JPEG shards, each rank's half a step through
+    # the native loader.
+    r = DIST_RESNET
+    tr = mt.Trainer(_seeded_model("resnet50", SEED, dev),
+                    datasets=(_dist_jpeg_set(), _dist_jpeg_set()),
+                    epochs=r["epochs"], batch_size=r["batch"],
+                    is_parallel=True, device=dev, loader="native",
+                    metric="accuracy", seed=SEED,
+                    model_dir=f"{DIST_DIR}/resnet50_{rank}",
+                    **DIST_RESNET_OPT)
+    if not isinstance(tr.train_loader, NativeLoader):
+        raise AssertionError(f"dist resnet50 rank {rank}: {tr.train_loader}")
+    rec = _counted_fit(f"dist gloo rank {rank} resnet50", tr, 0, 0, 0)
+    state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    if rank == 0:
+        torch.save(state, f"{DIST_DIR}/resnet50_rank0.pt")
+    tr.train_loader.set_epoch(0)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in tr.train_loader)
+    rec.update(loader_host_ms_per_batch=(time.perf_counter() - t0) * 1e3 / n,
+               loader_batch=tr.train_loader.batch_size,
+               steps=len(tr.train_loader) * r["epochs"],
+               synced=all(m.synced for m in tr.model.modules()
+                          if hasattr(m, "synced")),
+               digest=_state_digests(tr))
+    out["resnet50"] = rec
+    distributed.shutdown()
+    return out
+
+
+def _dist_worker(args) -> int:
+    """A ``--dist-worker`` process: its job's record as JSON in
+    DIST_DIR."""
+    rec = (_dist_worker_nccl1(args.port) if args.dist_worker == "nccl1"
+           else _dist_worker_gloo2(args.port, args.rank))
+    with open(f"{DIST_DIR}/{args.dist_worker}_{args.rank}.json", "w") as fp:
+        json.dump(rec, fp)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_launch(job: str, rank: int, port: int):
+    log_path = f"{DIST_DIR}/{job}_{rank}.log"
+    fp = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", job,
+         "--rank", str(rank), "--port", str(port)],
+        stdout=fp, stderr=subprocess.STDOUT)
+    return proc, fp, log_path
+
+
+def _dist_ref_gpt2(dev) -> dict:
+    """The one-process fit of two replicas on the card that the gloo
+    ranks' GPT-2 run is held to bitwise, on the same global batches."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import JoinedLoader
+
+    c = DIST_GPT
+    tr = mt.Trainer(_seeded_model("gpt2", SEED, dev),
+                    datasets=_dist_token_sets(), epochs=1,
+                    batch_size=c["batch"], device=[dev] * 2,
+                    dp_update="sharded", precision="bf16",
+                    grad_clip_norm=1.0, model_dir=f"{DIST_DIR}/gpt2_ref",
+                    **DIST_GPT_OPT)
+    tr.train_loader = JoinedLoader(_rank_loaders(
+        tr, tr.train_loader.dataset, native=False))
+    rec = _counted_fit("dist gpt2 bf16 one process", tr, 12,
+                       2 * c["steps"], 1, tail=2 * c["steps"])
+    split = sorted("/".join(p) for p in tr._ckpt_split())
+    rec.update(digests=[_state_digests(tr, split, r, 2) for r in (0, 1)],
+               opt_state_bytes=_opt_bytes(tr))
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dist_ref_resnet(dev) -> dict:
+    """The one-process fits of two replicas on the ranks' native loaders'
+    batches, joined: with global-batch statistics in the port's
+    one-process arithmetic (``F.batch_norm``, cuDNN), in flax's
+    (``BatchNorm.synced`` with no group: E[x^2] - E[x]^2 over the whole
+    batch), in flax's with the ranks' rows swapped (the reorder floor),
+    and with per-replica statistics in flax's arithmetic (the fault the
+    sync repairs, and nothing else changed)."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.data import JoinedLoader
+    from ml_trainer_tpu_torch.models.layers import BatchNorm
+
+    r, out = DIST_RESNET, {}
+    for label, flax, order in (("port", False, 1), ("flax", True, 1),
+                               ("flax_swapped", True, -1),
+                               ("per_replica", True, 1)):
+        tr = mt.Trainer(_seeded_model("resnet50", SEED, dev),
+                        datasets=(_dist_jpeg_set(), _dist_jpeg_set()),
+                        epochs=r["epochs"], batch_size=r["batch"],
+                        device=[dev] * 2, loader="native", metric="accuracy",
+                        seed=SEED, model_dir=f"{DIST_DIR}/resnet50_{label}",
+                        **DIST_RESNET_OPT)
+        for m in tr.model.modules():
+            if isinstance(m, BatchNorm):
+                m.synced = flax
+        # Each replica's block through the model alone: its own statistics.
+        tr._has_batch_norm = label != "per_replica"
+        tr.train_loader = JoinedLoader(_rank_loaders(
+            tr, tr.train_loader.dataset, native=True)[::order])
+        rec = _counted_fit(f"dist resnet50 one process {label}", tr, 0, 0, 0)
+        rec["state"] = {k: v.detach().cpu()
+                        for k, v in tr.model.state_dict().items()}
+        for p in tr.train_loader.parts:
+            p.stop()
+        out[label] = rec
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_jpeg_checks() -> dict:
+    """The committed shards on this machine: every image's decode
+    (``jpeg_decode_np``) against the CPU decode's digest in
+    ``pixels.json``; the native loader's pixels (a batch of all 64,
+    normalised by 1, rounded back) bitwise those; the loader's host ms a
+    batch of 64 with the ImageNet normalisation (the raw shards' row of
+    the data phase) and of 16 (a rank's share in the fit)."""
+    import hashlib
+
+    import numpy as np
+
+    from ml_trainer_tpu_torch.data import NativeLoader, ShardedSampler
+    from ml_trainer_tpu_torch.data.native import jpeg_decode_np
+
+    ds = _dist_jpeg_set()
+    with open(os.path.join(DIST_JPEG, "pixels.json")) as fp:
+        want = json.load(fp)["sha256"]
+    pixels = np.stack([
+        jpeg_decode_np(blob[o[k]:o[k + 1]], ds.shape)
+        for blob, o in zip(ds.byte_maps, ds.offset_tables)
+        for k in range(len(o) - 1)])
+    got = [hashlib.sha256(p.tobytes()).hexdigest() for p in pixels]
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"dist jpeg: decode digests differ at {bad}")
+    plain = NativeLoader(ds, len(ds), shuffle=False, pad=0, flip=False,
+                         normalize=((0.0,) * 3, (1.0,) * 3))
+    (x, _), = list(plain)
+    plain.stop()
+    back = np.rint(x * 255.0).astype(np.uint8)
+    if not np.array_equal(back, pixels):
+        raise AssertionError("dist jpeg: the native loader's pixels differ "
+                             "from jpeg_decode_np's")
+    rec = dict(images=len(ds), bytes=int(sum(len(b) for b in ds.byte_maps)),
+               decode_bitwise_cpu_digests=True, loader_bitwise_decode=True)
+    for batch, sampler in ((64, None), (16, ShardedSampler(len(ds), 2, 0,
+                                                           seed=SEED))):
+        loader = NativeLoader(ds, batch, shuffle=sampler is None,
+                              sampler=sampler, pad=0, flip=False,
+                              normalize=(IMAGENET_MEAN, IMAGENET_STD),
+                              seed=SEED)
+        n, t0 = 0, time.perf_counter()
+        for epoch in range(DIST_LOADER_EPOCHS):
+            loader.set_epoch(epoch)
+            n += sum(1 for _ in loader)
+        rec[f"host_ms_per_batch_{batch}"] = (
+            (time.perf_counter() - t0) * 1e3 / n)
+        loader.stop()
+    return rec
+
+
+def _bn_distance(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| over every parameter (``params``) and,
+    apart, every BatchNorm buffer (``buffers``); beside them the worst
+    leaf's max |got - want| over its max |want| (``worst_leaf_rel``,
+    ``worst``).  An integer leaf must be equal."""
+    import torch
+
+    sq = {"params": [0.0, 0.0], "buffers": [0.0, 0.0]}
+    leaf = {}
+    for k, w in want.items():
+        if not w.is_floating_point():
+            if not torch.equal(got[k], w):
+                raise AssertionError(f"dist (c): {k} {got[k]} != {w}")
+            continue
+        d = got[k].double() - w.double()
+        acc = sq["buffers" if "running_" in k else "params"]
+        acc[0] += float((d * d).sum())
+        acc[1] += float((w.double() ** 2).sum())
+        scale = float(w.double().abs().max())
+        leaf[k] = float(d.abs().max()) / (scale if scale else 1.0)
+    worst = max(leaf, key=leaf.get)
+    return dict(params=(sq["params"][0] / sq["params"][1]) ** 0.5,
+                buffers=(sq["buffers"][0] / sq["buffers"][1]) ** 0.5,
+                worst_leaf_rel=leaf[worst], worst=worst)
+
+
+def dist_phase(dev, smi: str) -> dict:
+    """(a)-(d) of the module docstring's dist phase: the workers run
+    beside this process's one-process references and the JPEG checks;
+    then each rank's record is held to them."""
+    import torch
+
+    if os.path.isdir(DIST_DIR):
+        shutil.rmtree(DIST_DIR)
+    os.makedirs(DIST_DIR)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    port_a, port_b = _free_port(), _free_port()
+    jobs = {("nccl1", 0): _dist_launch("nccl1", 0, port_a)}
+    for rank in (0, 1):
+        jobs[("gloo2", rank)] = _dist_launch("gloo2", rank, port_b)
+    try:
+        ref_gpt = _dist_ref_gpt2(dev)
+        ref_resnet = _dist_ref_resnet(dev)
+        for (job, rank), (proc, _, path) in jobs.items():
+            left = DIST_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                code = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                code = None
+            if code != 0:
+                with open(path) as fp:
+                    tail = fp.read()[-6000:]
+                raise AssertionError(
+                    f"dist worker {job} rank {rank} exited {code}:\n{tail}")
+    finally:
+        for proc, fp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fp.close()
+    workers_s = time.perf_counter() - t0
+    jpeg = _dist_jpeg_checks()  # timed with the workers gone
+    recs = {}
+    for job, rank in jobs:
+        with open(f"{DIST_DIR}/{job}_{rank}.json") as fp:
+            recs[(job, rank)] = json.load(fp)
+    # (a) NCCL at world size 1: bitwise the fit with no process group.
+    a = recs[("nccl1", 0)]
+    differ = _digest_diff(a["nccl"]["digests"], a["no_group"]["digests"])
+    differ_k4 = _digest_diff(a["nccl_k4"]["digests"],
+                             a["no_group_k4"]["digests"])
+    if (differ or differ_k4 or a["backend"] != "nccl" or a["world"] != 1
+            or a["nccl"]["dp_update"] != "sharded"
+            or not a["nccl"]["fused_adam"]):
+        raise AssertionError(f"dist (a): differ {differ[:8]}, at K = 4 "
+                             f"{differ_k4[:8]}, backend {a['backend']}, "
+                             f"{a['nccl']['dp_update']}")
+    # (b) two gloo ranks: bitwise the one-process replicas, resumed
+    # bitwise from format 3.
+    ranks = [recs[("gloo2", r)] for r in (0, 1)]
+    for r, rec in enumerate(ranks):
+        differ = _digest_diff(rec["gpt2"]["digests"], ref_gpt["digests"][r])
+        if differ:
+            raise AssertionError(f"dist (b) rank {r}: {len(differ)} leaves "
+                                 f"differ from the one-process run: "
+                                 f"{differ[:8]}")
+        if rec["gpt2"]["format"] != 3 or rec["resume"]["differ"]:
+            raise AssertionError(f"dist (b) rank {r}: format "
+                                 f"{rec['gpt2']['format']}, resume differs "
+                                 f"at {rec['resume']['differ'][:8]}")
+    stitched = _dist_stitched_into_one(dev, ref_gpt)
+    # (d) the planted desync: rank 1 raises and names the step.
+    d0, d1 = ranks[0]["desync"], ranks[1]["desync"]
+    if (d0["clean"] or d1["clean"] or d0["raised"]
+            or not d1["raised"] or "host 1" not in d1["raised"]
+            or f"(step {d1['step']})" not in d1["raised"]):
+        raise AssertionError(f"dist (d): {d0} {d1}")
+    # (c) ResNet-50 on the JPEG shards: within DIST_BN_FLOOR_FACTOR times
+    # the reorder floor of the one-process fit in flax's arithmetic.
+    got = torch.load(f"{DIST_DIR}/resnet50_rank0.pt")
+    states = {k: rec.pop("state") for k, rec in ref_resnet.items()}
+    bn = dict(vs_flax=_bn_distance(got, states["flax"]),
+              floor=_bn_distance(states["flax_swapped"], states["flax"]),
+              vs_port=_bn_distance(got, states["port"]),
+              port_vs_flax=_bn_distance(states["port"], states["flax"]),
+              per_replica_vs_flax=_bn_distance(states["per_replica"],
+                                               states["flax"]))
+    bar = {k: max(DIST_BN_FLOOR_FACTOR * bn["floor"][k], 1e-7)
+           for k in ("params", "buffers")}
+    bn["bar"] = bar
+    if any(not bn["vs_flax"][k] <= bar[k] for k in bar):
+        raise AssertionError(f"dist (c): {bn} over the bar {bar}")
+    if any(not bn["per_replica_vs_flax"][k] > bar[k] for k in bar):
+        raise AssertionError(f"dist (c): per-replica statistics pass the "
+                             f"bar {bar}: {bn}")
+    if ranks[0]["resnet50"]["digest"] != ranks[1]["resnet50"]["digest"]:
+        raise AssertionError("dist (c): the ranks' ResNet-50 states differ")
+    phase_s = time.perf_counter() - t0
+    for rec in ranks:
+        rec["gpt2"].pop("digests")
+        rec["resnet50"].pop("digest")
+    for key in ("nccl", "no_group", "nccl_k4", "no_group_k4"):
+        a[key].pop("digests")
+    ref_gpt.pop("digests")
+    shutil.rmtree(DIST_DIR)
+    launches = {}
+    for counts in ([a[k]["launches"] for k in ("nccl", "no_group",
+                                               "nccl_k4", "no_group_k4")]
+                   + [ref_gpt["launches"]]
+                   + [rec["launches"] for rec in ref_resnet.values()]
+                   + [rec[k]["launches"] for rec in ranks
+                      for k in ("gpt2", "resnet50")]):
+        for kname, n in counts.items():
+            launches[kname] = launches.get(kname, 0) + n
+    return dict(card=smi, phase_s=phase_s, workers_s=workers_s,
+                nccl_world1=a,
+                gloo_ranks=ranks, one_process_gpt2=ref_gpt,
+                one_process_resnet50=ref_resnet, stitched_into_one=stitched,
+                resnet50_vs_one_process=bn, jpeg=jpeg, launches=launches)
+
+
+def _dist_stitched_into_one(dev, ref_gpt: dict) -> dict:
+    """2 -> 1: the two ranks' format-3 checkpoint, restored into one
+    process of two co-located replicas: bitwise the stitched arrays and
+    the one-process run's state."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.checkpoint import restore_checkpoint
+
+    c = DIST_GPT
+    path = f"{DIST_DIR}/gpt2_bf16/checkpoints/checkpoint_1"
+    t0 = time.perf_counter()
+    tree = restore_checkpoint(path)[0]
+    stitch_s = time.perf_counter() - t0
+    tr = mt.Trainer(_seeded_model("gpt2", SEED, dev),
+                    datasets=_dist_token_sets(), epochs=1,
+                    batch_size=c["batch"], device=[dev] * 2,
+                    dp_update="sharded", precision="bf16",
+                    grad_clip_norm=1.0, model_dir=f"{DIST_DIR}/gpt2_bf16",
+                    **DIST_GPT_OPT)
+    start = tr._resume_from_latest()
+    split = sorted("/".join(p) for p in tr._ckpt_split())
+    differ = [_digest_diff(_state_digests(tr, split, r, 2),
+                           ref_gpt["digests"][r]) for r in (0, 1)]
+    from ml_trainer_tpu_torch.checkpoint.checkpoint import _flatten
+    from ml_trainer_tpu_torch.train_state import state_tree
+
+    live = dict(_flatten(state_tree(tr.state, tr.model)))
+    off = [("/".join(p)) for p, v in _flatten(tree)
+           if v is not None and not isinstance(v, dict)
+           and not torch.equal(torch.as_tensor(v),
+                               torch.as_tensor(live[p]).cpu())]
+    if start != 2 or any(differ) or off:
+        raise AssertionError(f"dist 2 -> 1: start {start}, differ "
+                             f"{[d[:4] for d in differ]}, stitched {off[:4]}")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(stitch_s=stitch_s, leaves=len(live), bitwise=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
                                  "graphs", "resume", "data", "llama", "cli",
-                                 "lora", "examples"],
+                                 "lora", "examples", "dist"],
                         default=None)
+    # The dist phase's own processes (started by the phase, not by hand).
+    parser.add_argument("--dist-worker", choices=["nccl1", "gloo2"],
+                        default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -6428,6 +7063,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
         return 2
+    if args.dist_worker:
+        return _dist_worker(args)
     from ml_trainer_tpu_torch.device import resolve_device
     from ml_trainer_tpu_torch.ops.kernels import _build
 
@@ -6601,7 +7238,17 @@ def main(argv=None) -> int:
         rec = examples_phase(dev, smi)
         for kname, n in rec["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
-    lap("examples", mark)
+    mark = lap("examples", mark)
+    if args.only in (None, "dist"):
+        rec = dist_phase(dev, smi)
+        for key in ("nccl_world1", "one_process_gpt2", "one_process_resnet50",
+                    "stitched_into_one", "resnet50_vs_one_process", "jpeg"):
+            log(f"dist {key} on {smi}: " + json.dumps(rec[key]))
+        for rank, ranks_rec in enumerate(rec["gloo_ranks"]):
+            log(f"dist gloo rank {rank} on {smi}: " + json.dumps(ranks_rec))
+        for kname, n in rec["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
+    lap("dist", mark)
     main_flash = flash_rows[0]  # [2, 12, 1024, 64]: a training microbatch
     # The BERT launch shape's rows of K1-K3, beside each kernel's main row.
     bert_keys = ("ms", "device_ms", "bound_ms", "bound_by", "library_ms",

@@ -3,23 +3,31 @@ flow, on the port (``examples/02_distributed_training.py`` is the JAX
 package's).
 
 Where the reference launches main.py under SMDDP on several GPUs, the
-port runs its data-parallel replicas in one process; until they run on
-distinct cards (ROADMAP.md Queue A 2b.8b) they share one:
-``device=["cuda"] * REPLICAS``.  This is the counterpart of the JAX
-example's rehearsal on 8 host devices.
+port runs one process per card under ``torchrun`` (``PROCESSES``: NCCL
+on the cards, each process's replica on ``cuda:<LOCAL_RANK>``; gloo on
+the CPU under ``BACKEND=cpu``), or its replicas in one process that
+share one device (``REPLICAS``, ``device=["cuda"] * REPLICAS``: the
+counterpart of the JAX example's rehearsal on 8 host devices).
 
     python examples/torch_port/02_distributed_training.py       # card
     BACKEND=cpu SYNTH_SIZE=64 BATCH_SIZE=16 EPOCHS=1 \
         python examples/torch_port/02_distributed_training.py   # CPU
     RESUME=1 python examples/torch_port/02_distributed_training.py
+    # one process per card; PROCESSES > 1 relaunches the script so:
+    python -m torch.distributed.run --nproc_per_node 2 \
+        examples/torch_port/02_distributed_training.py
+    BACKEND=cpu PROCESSES=2 python examples/torch_port/02_distributed_training.py
 
-Knobs (env vars): MODEL (resnet18), REPLICAS (2), EPOCHS (2),
-BATCH_SIZE (256), SYNTH_SIZE (4096), RESUME, TP (a tensor axis: refused,
-ROADMAP.md Queue A 6).
+Knobs (env vars): MODEL (resnet18), PROCESSES (1: the replicas share one
+process; N: N processes of one replica each), REPLICAS (2, with one
+process), EPOCHS (2), BATCH_SIZE (256), SYNTH_SIZE (4096), RESUME, TP (a
+tensor axis: refused, ROADMAP.md Queue A 6).
 """
 
 import _bootstrap  # noqa: F401  (repo root onto sys.path)
 import os
+import subprocess
+import sys
 
 from ml_trainer_tpu_torch import Trainer, init_model
 from ml_trainer_tpu_torch.data import SyntheticCIFAR10
@@ -29,7 +37,15 @@ MODEL_DIR = os.environ.get("MODEL_DIR", "model_output_distributed")
 TP = int(os.environ.get("TP", "1"))
 MODEL = os.environ.get("MODEL", "resnet18")
 REPLICAS = int(os.environ.get("REPLICAS", "2"))
+PROCESSES = int(os.environ.get("PROCESSES", "1"))
 DEVICE = _bootstrap.device()
+
+
+def relaunch() -> int:
+    """This script under ``torchrun``, one process per replica."""
+    return subprocess.call([
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        f"--nproc_per_node={PROCESSES}", os.path.abspath(__file__)])
 
 
 def main():
@@ -56,15 +72,21 @@ def main():
     mesh_shape = None
     if TP > 1:
         mesh_shape = {"data": REPLICAS // TP, "tensor": TP}
+    # Under torchrun each process holds one replica: the CPU, or the
+    # card cuda:<LOCAL_RANK> the Trainer picks.
+    multi = "WORLD_SIZE" in os.environ
+    device = ("cpu" if DEVICE == "cpu" else None) if multi else (
+        [DEVICE] * REPLICAS)
     trainer = Trainer(
-        init_model(MODEL, seed=config["seed"], device=DEVICE),
+        init_model(MODEL, seed=config["seed"],
+                   device="cpu" if DEVICE == "cpu" or multi else DEVICE),
         datasets=datasets,
         epochs=int(os.environ.get("EPOCHS", "2")),
         batch_size=int(os.environ.get("BATCH_SIZE", "256")),
         is_parallel=True,
         save_history=True,
         mesh_shape=mesh_shape,
-        device=[DEVICE] * REPLICAS,
+        device=device,
         **config,
     )
     trainer.fit(resume=os.environ.get("RESUME") == "1")
@@ -74,4 +96,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if PROCESSES > 1 and "WORLD_SIZE" not in os.environ:
+        sys.exit(relaunch())
     main()

@@ -14,8 +14,8 @@ image shards, and the BPE/WordPiece tokenizers and text datasets.  The
 TPU's Pallas kernels on the serving, int8 decode and training paths are
 hand-written CUDA kernels here (``csrc/``), built with ``nvcc`` at first
 use; ``launch_counts()`` shows how often each one ran.  Data-parallel
-training runs its replicas on one device (``parallel/``,
-``create_mesh``).  ``Trainer(precision="bf16")`` trains in bf16 against
+training runs its replicas on one device, or one process per card over
+``torch.distributed`` (``parallel/``, ``create_mesh``; ``torchrun``).  ``Trainer(precision="bf16")`` trains in bf16 against
 float32 master parameters with dynamic loss scaling (``precision``).
 ``fit()`` writes full-state checkpoints in the JAX package's format
 (``checkpoint``) and ``fit(resume=True)`` continues from them bit for

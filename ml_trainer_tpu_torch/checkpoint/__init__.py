@@ -1,4 +1,4 @@
-"""Full-state checkpoints (format v2, the JAX package's layout):
+"""Full-state checkpoints (formats 2 and 3, the JAX package's layouts):
 ``checkpoint.py``; the reference's ``model.pth``: ``torch_export.py``
 writes it, ``torch_import.py`` reads it."""
 
@@ -13,6 +13,7 @@ from ml_trainer_tpu_torch.checkpoint.checkpoint import (
     quarantine_checkpoint,
     restore_checkpoint,
     save_checkpoint,
+    save_checkpoint_sharded,
     verify_checkpoint,
     wait_for_checkpoints,
     weights_fingerprint,
@@ -32,7 +33,8 @@ __all__ = [
     "checkpoint_format", "convert_to_torch_state_dict",
     "convert_torch_state_dict", "is_reference_layout", "latest_checkpoint",
     "latest_valid_checkpoint", "prune_checkpoints", "quarantine_checkpoint",
-    "restore_checkpoint", "save_checkpoint", "save_torch_checkpoint",
+    "restore_checkpoint", "save_checkpoint", "save_checkpoint_sharded",
+    "save_torch_checkpoint",
     "verify_checkpoint", "wait_for_checkpoints", "weights_fingerprint",
     "weights_structure_digest",
 ]

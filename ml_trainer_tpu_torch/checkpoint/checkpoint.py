@@ -19,8 +19,20 @@ state in place, so a reference would be read half-updated) and leaves
 the disk writes to one background writer thread, in submission order;
 ``wait_for_checkpoints()`` joins them and raises what failed.
 
-The JAX package's v1 pickles and v3 sharded checkpoints are not written
-here, and not read.
+Format 3 (``save_checkpoint_sharded``, the JAX package's sharded
+format): every process writes only the pieces it owns, ``leaf_<i>_s<j>_
+p<proc>.npy`` with a piece table ``manifest_p<proc>.json`` (each
+piece's global start/stop and CRC32); process 0 writes ``manifest.json``
+(format 3, the leaves' global shapes and dtypes, ``process_count``)
+last, after a barrier, as the commit marker.  A leaf split over the data
+replicas (ZeRO-1's moments) is written as each replica's dim-0 block by
+the process that holds it; any other leaf whole, by process 0.
+``restore_checkpoint`` reads either format, a format-3 leaf stitched
+from its pieces, whole or (``pick``) only the box a process holds, so a
+checkpoint restores onto another process count.  The directory is
+shared storage, as in the JAX package.
+
+The JAX package's v1 pickles are not read.
 """
 
 from __future__ import annotations
@@ -35,11 +47,12 @@ import shutil
 import threading
 import zlib
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ml_trainer_tpu_torch.parallel import distributed
 from ml_trainer_tpu_torch.resilience.faults import active_plan
 from ml_trainer_tpu_torch.utils.logging import get_logger
 
@@ -70,6 +83,10 @@ _pending: List[Future] = []
 _pending_lock = threading.Lock()
 
 
+# Path -> (n, local): a leaf held as the dim-0 blocks ``local`` of ``n``.
+Split = Dict[Tuple[str, ...], Tuple[int, Sequence[int]]]
+
+
 # ------------------------------------------------------------- the tree
 def _flatten(tree: Any, path=()):
     """(path tuple, leaf) pairs over nested dicts, keys sorted.  Empty
@@ -92,18 +109,33 @@ def _unflatten(pairs) -> dict:
     return root
 
 
+def _check_dtype(path, leaf: torch.Tensor) -> None:
+    if leaf.dtype not in _NUMPY_DTYPES:
+        raise ValueError(
+            f"checkpoint leaf {'/'.join(path)}: {leaf.dtype} has no "
+            "numpy dtype, and the format stores numpy arrays")
+
+
 def _host_copy(path, leaf):
     """A host copy of one leaf: numpy for a tensor, an array or a
     number; empty dicts and None as they are."""
     if leaf is None or isinstance(leaf, dict):
         return leaf
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype not in _NUMPY_DTYPES:
-            raise ValueError(
-                f"checkpoint leaf {'/'.join(path)}: {leaf.dtype} has no "
-                "numpy dtype, and the format stores numpy arrays")
+        _check_dtype(path, leaf)
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
+
+
+def _shape_dtype(path, leaf):
+    """(shape as a list, numpy dtype name) of a tensor, an array or a
+    number, with no host copy."""
+    if isinstance(leaf, torch.Tensor):
+        _check_dtype(path, leaf)
+        return (list(leaf.shape),
+                torch.empty(0, dtype=leaf.dtype).numpy().dtype.name)
+    arr = np.asarray(leaf)
+    return list(arr.shape), arr.dtype.name
 
 
 def _crc32(data: bytes) -> int:
@@ -235,6 +267,99 @@ def save_checkpoint(ckpt_dir: str, state_tree: Any, history: dict,
     return path
 
 
+def _atomic_write(path: str, data: bytes) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fp:
+        fp.write(data)
+    os.replace(tmp, path)
+
+
+def save_checkpoint_sharded(ckpt_dir: str, state_tree: Any, history: dict,
+                            epoch: int, split: Optional[Split] = None,
+                            keep: int = 3, block: bool = True,
+                            mesh: Optional[dict] = None) -> str:
+    """Write ``<ckpt_dir>/checkpoint_<epoch>/`` in format 3.  ``split``
+    names the leaves this process holds as dim-0 blocks of a larger
+    leaf: ``{path: (n, local)}``, the live leaf being blocks ``local``
+    (in order) of the leaf's ``n`` blocks; each block is one piece.  Any
+    other leaf is written whole by process 0.  COLLECTIVE in a
+    multi-process run (barriers before and after the pieces), and then
+    synchronous whatever ``block`` says; ``mesh`` is the topology the
+    manifest records."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    proc, nproc = distributed.process_index(), distributed.process_count()
+    if nproc > 1:
+        block = True
+    split = split or {}
+    final_dir = os.path.join(ckpt_dir, f"{CHECKPOINT_PREFIX}{epoch}")
+    history = copy.deepcopy(history)
+    pieces: list = []  # (leaf id, starts, stops, host array)
+    leaf_meta: list = []
+    for i, (path, leaf) in enumerate(_flatten(state_tree)):
+        if isinstance(leaf, dict):
+            leaf_meta.append({"path": list(path), "empty": True})
+            continue
+        if leaf is None:
+            leaf_meta.append({"path": list(path), "none": True})
+            continue
+        # Only what this process writes is copied to the host.
+        shape, dtype = _shape_dtype(path, leaf)
+        if path in split:
+            arr = _host_copy(path, leaf)
+            n, local = split[path]
+            rows = shape[0] // len(local)
+            shape[0] = rows * n
+            for k, j in enumerate(local):
+                pieces.append((i, [j * rows] + [0] * (arr.ndim - 1),
+                               [(j + 1) * rows] + shape[1:],
+                               arr[k * rows:(k + 1) * rows]))
+        elif proc == 0:
+            pieces.append((i, [0] * len(shape), shape,
+                           _host_copy(path, leaf)))
+        leaf_meta.append({"path": list(path), "shape": shape,
+                          "dtype": dtype})
+
+    def write_files():
+        os.makedirs(final_dir, exist_ok=True)
+        # A stale commit marker goes before any piece is rewritten, and
+        # the barrier keeps the other processes' writes behind it.
+        if proc == 0:
+            try:
+                os.unlink(os.path.join(final_dir, MANIFEST))
+            except FileNotFoundError:
+                pass
+        distributed.barrier()
+        table, count = [], {}
+        for leaf_id, starts, stops, arr in pieces:
+            j = count[leaf_id] = count.get(leaf_id, -1) + 1
+            fname = f"leaf_{leaf_id:05d}_s{j}_p{proc:05d}.npy"
+            crc = _write_npy(os.path.join(final_dir, fname), arr)
+            table.append({"leaf": leaf_id, "file": fname, "start": starts,
+                          "stop": stops, "crc32": crc})
+        _atomic_write(os.path.join(final_dir, f"manifest_p{proc:05d}.json"),
+                      json.dumps({"process": proc, "pieces": table}).encode())
+
+    def commit():
+        # Every process's pieces and table are on disk before the marker.
+        distributed.barrier()
+        if proc == 0:
+            _atomic_write(os.path.join(final_dir, MANIFEST), json.dumps({
+                "format": 3, "epoch": epoch, "history": history,
+                "process_count": nproc, "leaves": leaf_meta,
+                "mesh": mesh}).encode())
+            _apply_ckpt_faults(final_dir, epoch)
+            prune_checkpoints(ckpt_dir, keep)
+
+    if block:
+        write_files()
+        commit()
+    else:
+        fut = _writer.submit(lambda: (write_files(), commit()))
+        with _pending_lock:
+            _pending.append(fut)
+    return final_dir
+
+
 def wait_for_checkpoints() -> None:
     """Join every write in flight, raising the first that failed."""
     with _pending_lock:
@@ -275,16 +400,35 @@ def _read_manifest(path: str) -> dict:
 
 
 def checkpoint_format(path: str) -> int:
-    """The manifest's format: 2 for every checkpoint the port writes."""
+    """The manifest's format: 2 (whole leaves) or 3 (pieces)."""
     return int(_read_manifest(path).get("format", FORMAT))
 
 
-def _require_format_2(path: str, manifest: dict) -> None:
+def _require_known_format(path: str, manifest: dict) -> int:
     fmt = manifest.get("format", FORMAT)
-    if fmt != FORMAT:
+    if fmt not in (2, 3):
         raise ValueError(
-            f"{path}: checkpoint format {fmt}; the port reads format 2 "
-            "(the JAX package's sharded format 3: see ROADMAP.md Queue A)")
+            f"{path}: checkpoint format {fmt}; the port reads formats 2 "
+            "and 3 (the JAX package's v1 pickles are not ported: see "
+            "ROADMAP.md Queue A)")
+    return int(fmt)
+
+
+def _read_piece_tables(path: str, nproc: Optional[int]) -> dict:
+    """leaf id -> [(starts, stops, file, crc32)] over the piece tables of
+    processes [0, ``nproc``) (the commit manifest's count: a table left
+    by an earlier, larger run is never merged)."""
+    names = ([n for n in sorted(os.listdir(path))
+              if n.startswith("manifest_p") and n.endswith(".json")]
+             if nproc is None
+             else [f"manifest_p{p:05d}.json" for p in range(nproc)])
+    tables: dict = {}
+    for name in names:
+        with open(os.path.join(path, name)) as fp:
+            for e in json.load(fp)["pieces"]:
+                tables.setdefault(e["leaf"], []).append(
+                    (e["start"], e["stop"], e["file"], e.get("crc32")))
+    return tables
 
 
 # --------------------------------------------------------------- verify
@@ -310,7 +454,21 @@ def verify_checkpoint(path: str) -> None:
         manifest = _read_manifest(path)
     except (OSError, ValueError) as e:
         raise CheckpointCorrupt(f"unreadable manifest in {path}: {e}") from e
-    _require_format_2(path, manifest)
+    if _require_known_format(path, manifest) == 3:
+        try:
+            tables = _read_piece_tables(path, manifest.get("process_count"))
+            leaves = manifest["leaves"]
+        except (OSError, ValueError, KeyError) as e:
+            raise CheckpointCorrupt(
+                f"unreadable piece tables in {path}: {e}") from e
+        for i, leaf in enumerate(leaves):
+            if not (leaf.get("empty") or leaf.get("none")) and i not in tables:
+                raise CheckpointCorrupt(f"{path}: no piece of leaf "
+                                        f"{'/'.join(leaf['path'])}")
+        for pieces in tables.values():
+            for _, _, fname, crc in pieces:
+                _verify_file(os.path.join(path, fname), crc)
+        return
     for leaf in manifest.get("leaves", []):
         if leaf.get("empty") or leaf.get("none"):
             continue
@@ -365,14 +523,57 @@ def _load_leaf(path: str, leaf: dict) -> np.ndarray:
     return np.load(io.BytesIO(data), allow_pickle=False)
 
 
-def restore_checkpoint(path: str) -> Tuple[dict, dict, int]:
+def _stitch(path: str, pieces, starts, stops, dtype) -> np.ndarray:
+    """The box [starts, stops) of a leaf, from the saved pieces that meet
+    it (each read whole and checked against its CRC32)."""
+    box = np.empty([hi - lo for lo, hi in zip(starts, stops)], dtype=dtype)
+    filled = np.zeros(box.shape, dtype=bool)
+    for p_starts, p_stops, fname, crc in pieces:
+        lo = [max(a, b) for a, b in zip(starts, p_starts)]
+        hi = [min(a, b) for a, b in zip(stops, p_stops)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        src = _load_leaf(path, {"file": fname, "crc32": crc})
+        box[tuple(slice(a - b, c - b) for a, c, b in zip(lo, hi, starts))] = \
+            src[tuple(slice(a - b, c - b) for a, c, b in zip(lo, hi,
+                                                             p_starts))]
+        filled[tuple(slice(a - b, c - b)
+                     for a, c, b in zip(lo, hi, starts))] = True
+    if not filled.all():
+        raise CheckpointCorrupt(
+            f"{path}: the pieces do not cover [{starts}, {stops}) of a leaf")
+    return box
+
+
+Pick = Callable[[Tuple[str, ...], Tuple[int, ...]],
+                Optional[Tuple[Sequence[int], Sequence[int]]]]
+
+
+def restore_checkpoint(path: str, pick: Optional[Pick] = None
+                       ) -> Tuple[dict, dict, int]:
     """(state tree, history, epoch) of a checkpoint: the tree as nested
-    dicts of numpy arrays (None and empty dicts as saved), each leaf
-    checked against its CRC32."""
+    dicts of numpy arrays (None and empty dicts as saved), each leaf file
+    or piece checked against its CRC32.  A format-3 leaf is stitched
+    from its pieces: whole, or where ``pick(path, global shape)`` gives
+    ``(starts, stops)``, only that box (a process's own block)."""
     manifest = _read_manifest(path)
-    _require_format_2(path, manifest)
-    pairs = [(tuple(leaf["path"]),
-              {} if leaf.get("empty") else None if leaf.get("none")
-              else _load_leaf(path, leaf))
-             for leaf in manifest["leaves"]]
+    if _require_known_format(path, manifest) == 2:
+        pairs = [(tuple(leaf["path"]),
+                  {} if leaf.get("empty") else None if leaf.get("none")
+                  else _load_leaf(path, leaf))
+                 for leaf in manifest["leaves"]]
+        return _unflatten(pairs), manifest["history"], manifest["epoch"]
+    tables = _read_piece_tables(path, manifest.get("process_count"))
+    pairs = []
+    for i, leaf in enumerate(manifest["leaves"]):
+        lpath = tuple(leaf["path"])
+        if leaf.get("empty") or leaf.get("none"):
+            pairs.append((lpath, {} if leaf.get("empty") else None))
+            continue
+        shape = tuple(leaf["shape"])
+        box = pick(lpath, shape) if pick is not None else None
+        starts, stops = box if box is not None else ([0] * len(shape),
+                                                     list(shape))
+        pairs.append((lpath, _stitch(path, tables.get(i, []), list(starts),
+                                     list(stops), np.dtype(leaf["dtype"]))))
     return _unflatten(pairs), manifest["history"], manifest["epoch"]

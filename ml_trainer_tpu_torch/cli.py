@@ -16,6 +16,14 @@ MoE model is ported).  ``--profile DIR`` records the whole fit with
     python -m ml_trainer_tpu_torch --model gpt2 --synthetic_tokens \\
         --seq_len 1024 --vocab_size 50257 --dtype bf16 --remat \\
         --ema_decay 0.999 --steps_per_execution 4 --optimizer adamw
+
+Under ``torchrun`` with ``--is_parallel`` each process trains one
+replica (NCCL on ``cuda:<LOCAL_RANK>``; gloo on the CPU with ``--backend
+cpu``), and process 0 writes the history, ``model.pth`` and the
+checkpoints:
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m ml_trainer_tpu_torch --is_parallel --synthetic --epochs 2
 """
 
 from __future__ import annotations
@@ -31,6 +39,11 @@ from ml_trainer_tpu_torch.data.datasets import (
     CIFAR10,
     SyntheticCIFAR10,
     SyntheticTokens,
+)
+from ml_trainer_tpu_torch.parallel.distributed import (
+    PG_BACKENDS,
+    initialize_distributed,
+    is_primary,
 )
 from ml_trainer_tpu_torch.trainer import Trainer
 from ml_trainer_tpu_torch.utils.functions import custom_pre_process_function
@@ -104,6 +117,10 @@ def model_kwargs(args) -> dict:
 
 
 def main(args) -> None:
+    if args.is_parallel:
+        # Under torchrun: join the group first, so that the model is built
+        # on this process's card.
+        initialize_distributed(PG_BACKENDS[BACKEND_ALIASES[args.backend]])
     datasets = build_datasets(args)
     model_kw = model_kwargs(args)
     device = "cpu" if BACKEND_ALIASES[args.backend] == "cpu" else None
@@ -156,8 +173,10 @@ def main(args) -> None:
 
         with trace(args.profile):
             trainer.fit(resume=args.resume)
-        print(f"profiler trace -> {os.path.join(args.profile, 'trace.json')}"
-              " (open in Perfetto or chrome://tracing)")
+        if is_primary():
+            print(f"profiler trace -> "
+                  f"{os.path.join(args.profile, 'trace.json')}"
+                  " (open in Perfetto or chrome://tracing)")
     else:
         trainer.fit(resume=args.resume)
 
@@ -195,7 +214,8 @@ def parse_args(argv=None):
     parser.add_argument("--model", type=str, default="mlmodel",
                         help="model zoo name (default: mlmodel)")
     parser.add_argument("--is_parallel", action="store_true",
-                        help="train data-parallel over the device list")
+                        help="train data-parallel: one replica a process "
+                             "under torchrun")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the latest full checkpoint")
     parser.add_argument("--synthetic", action="store_true",

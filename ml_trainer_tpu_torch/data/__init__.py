@@ -11,7 +11,11 @@ from ml_trainer_tpu_torch.data.datasets import (
     SyntheticTokens,
     as_dataset,
 )
-from ml_trainer_tpu_torch.data.loader import Loader, prefetch_to_device
+from ml_trainer_tpu_torch.data.loader import (
+    JoinedLoader,
+    Loader,
+    prefetch_to_device,
+)
 from ml_trainer_tpu_torch.data.native import (
     NativeLoader,
     native_available,
@@ -49,8 +53,8 @@ from ml_trainer_tpu_torch.data.transforms import (
 
 __all__ = [
     "CIFAR10", "ArrayDataset", "ByteLevelBPETokenizer", "Compose",
-    "Dataset", "ForeignTransform", "Loader", "NativeLoader", "Normalize",
-    "PackedLMDataset", "RandomCrop", "RandomHorizontalFlip",
+    "Dataset", "ForeignTransform", "JoinedLoader", "Loader", "NativeLoader",
+    "Normalize", "PackedLMDataset", "RandomCrop", "RandomHorizontalFlip",
     "ShardedImageDataset", "ShardedJpegDataset", "ShardedSampler",
     "SyntheticCIFAR10", "SyntheticTokens", "ToFloat", "TokenizedDataset",
     "Transform", "WordPieceTokenizer", "as_dataset", "ingest_image_folder",

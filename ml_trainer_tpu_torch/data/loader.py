@@ -84,6 +84,30 @@ class Loader:
             yield x, y
 
 
+class JoinedLoader:
+    """The global batches of a multi-process run, for one process: batch
+    ``b`` is the first part's batch ``b``, then the second's, and so on.
+    ``parts`` are the processes' train loaders in rank order (each with
+    its ``ShardedSampler`` split); a one-process trainer fed these
+    batches takes the steps the processes take together."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self.sampler = self.parts[0].sampler
+
+    def set_epoch(self, epoch: int) -> None:
+        for p in self.parts:
+            p.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.parts[0])
+
+    def __iter__(self):
+        for batches in zip(*self.parts):
+            yield (np.concatenate([b[0] for b in batches]),
+                   np.concatenate([b[1] for b in batches]))
+
+
 def _as_tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(a))

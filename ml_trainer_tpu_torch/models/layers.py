@@ -769,7 +769,18 @@ class BatchNorm(nn.Module):
     running statistics.  ``F.batch_norm`` does the normalising (cuDNN on
     the card); its own running update, which takes the unbiased variance,
     writes only to scratch buffers at momentum 1, whose variance is turned
-    biased before the flax update."""
+    biased before the flax update.
+
+    ``synced`` (set by the Trainer in a run of several processes, one
+    replica each): the statistics cover the global batch, as the JAX
+    package's do under pjit.  Each process's per-channel sums of x and
+    x² are summed over the process group (``collectives.group_sum``,
+    whose backward sums the matching gradients), then flax's arithmetic:
+    mean E[x], biased variance max(0, E[x²] - E[x]²), ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``.  In a process without a group
+    the sums are the batch's own: flax's arithmetic on one device."""
+
+    synced = False
 
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM,
                  eps: float = BN_EPS, device=None,
@@ -794,6 +805,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
+        if self.synced:
+            return self._normalize_synced(x, weight, bias)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         out = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.eps)
@@ -803,4 +816,26 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var
                                    + (1 - m) * (var * ((n - 1) / n)))
+        return out
+
+    def _normalize_synced(self, x, weight, bias):
+        from ml_trainer_tpu_torch.parallel import collectives, distributed
+
+        dims = [0] + list(range(2, x.dim()))
+        sums = torch.stack([x.sum(dims), (x * x).sum(dims)])
+        procs = distributed.process_count()
+        if procs > 1:
+            sums = collectives.group_sum(sums)
+        n = (x.numel() // x.shape[1]) * procs
+        mean, mean2 = sums[0] / n, sums[1] / n
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * weight
+        out = (x - mean.view(shape)) * mul.view(shape) + bias.view(shape)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var
+                                   + (1 - m) * var.detach())
         return out

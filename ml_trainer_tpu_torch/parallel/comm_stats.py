@@ -15,9 +15,10 @@ all_gather         ``size * (n-1)``            receives every other shard
 reduce_scatter     ``size * (n-1)/n``          ring reduce-scatter
 =================  ==========================  =========================
 
-These are the bytes a ring over ``n`` devices would move; replicas that
-share one device move none over a link, but their accounting is the same,
-so it can be read against a multi-card run.  The registry gauges of the
+These are the bytes a ring over ``n`` devices would move.  A process of
+a multi-process run (one replica each) accounts them for its replica;
+replicas that share one device move none over a link, but each call's
+accounting is the same, so the two can be read against each other.  The registry gauges of the
 JAX package wait for the telemetry port (ROADMAP.md Queue A 7).
 """
 

@@ -13,7 +13,9 @@ Leaves come in the order the caller gives (``named_parameters()`` for a
 model, whose order is not the JAX package's sorted-key order, so the
 buckets of one model differ between the packages; the plan of one list
 of shapes is the same).  Per-replica values are lists indexed by
-replica, as in ``collectives``.
+local replica, as in ``collectives``: every replica of a one-process
+run, or a process's one replica of a multi-process run (``mesh``), whose
+collectives then run over the process group.
 """
 
 from __future__ import annotations
@@ -89,7 +91,8 @@ def plan_grad_buckets(leaves, n: int,
 
 
 def bucketed_reduce_scatter(replica_leaves: Sequence[Sequence[torch.Tensor]],
-                            plan: GradBucketPlan) -> List[List[torch.Tensor]]:
+                            plan: GradBucketPlan,
+                            mesh=None) -> List[List[torch.Tensor]]:
     """``replica_leaves[j][i]``: replica ``j``'s local gradient of leaf
     ``i``.  Each bucket leaves in ONE reduce-scatter: every leaf reshapes
     to ``(n, d0/n * rest)``, the bucket concatenates along dim 1 and
@@ -104,7 +107,7 @@ def bucketed_reduce_scatter(replica_leaves: Sequence[Sequence[torch.Tensor]],
         parts = [torch.cat([leaves[i].reshape(n, -1) for i in idxs], dim=1)
                  for leaves in replica_leaves]
         blocks = collectives.reduce_scatter(parts, scatter_axis=0,
-                                            bucket=f"b{bi}")
+                                            bucket=f"b{bi}", mesh=mesh)
         for j, block in enumerate(blocks):
             flat = block.reshape(-1)
             off = 0
@@ -118,7 +121,7 @@ def bucketed_reduce_scatter(replica_leaves: Sequence[Sequence[torch.Tensor]],
 
 def bucketed_all_gather(replica_leaves: Sequence[Sequence[torch.Tensor]],
                         plan: GradBucketPlan,
-                        full_shapes) -> List[List[torch.Tensor]]:
+                        full_shapes, mesh=None) -> List[List[torch.Tensor]]:
     """Inverse of :func:`bucketed_reduce_scatter` for the fresh weights:
     each bucket of per-replica shards in ONE all-gather, every sharded
     leaf restored to its full shape (replica ``j``'s block at dim-0 block
@@ -128,7 +131,8 @@ def bucketed_all_gather(replica_leaves: Sequence[Sequence[torch.Tensor]],
         parts = [torch.cat([leaves[i].reshape(-1) for i in idxs])
                  for leaves in replica_leaves]
         gathered = collectives.all_gather(parts, tiled=False,
-                                          bucket=f"b{bi}")  # [n, width]
+                                          bucket=f"b{bi}",
+                                          mesh=mesh)  # [n, width]
         unpacked = {}  # replicas sharing one gathered tensor share leaves
         for j, g in enumerate(gathered):
             if id(g) not in unpacked:

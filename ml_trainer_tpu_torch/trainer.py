@@ -45,7 +45,15 @@ Data parallelism (``is_parallel`` / ``mesh_shape={"data": n}`` with a
 list of ``n`` devices) follows the JAX package's two step flavours over
 replicas that share one device (``parallel/``): replica ``j`` takes row
 block ``j`` of the global batch, its ``grad_accum_steps`` microbatches
-cut from its own rows.
+cut from its own rows.  In a run of several processes (``is_parallel``
+under ``torchrun``, or after ``parallel.initialize_distributed``) each
+process is one replica: it reads its share of every global batch (the
+``ShardedSampler`` split), its collectives run over the process group,
+BatchNorm sums its statistics over the processes, the desync check runs
+at each epoch's end (and every ``desync_every_steps`` steps), process 0
+alone writes the history, ``model.pth`` and format-2 checkpoints, and a
+state split across processes goes to format-3 checkpoints that every
+process writes its pieces of.
 
 * ``dp_update="fused"`` (the default): the replicas' local-mean
   gradients are ``pmean``-ed, then go through the single-card update.
@@ -135,7 +143,6 @@ import dataclasses
 import gc
 import itertools
 import json
-import logging
 import math
 import os
 import pickle
@@ -149,14 +156,21 @@ import torch
 from torch import nn
 
 from ml_trainer_tpu_torch.checkpoint import (
+    checkpoint_format,
     latest_valid_checkpoint,
     restore_checkpoint,
     save_checkpoint,
+    save_checkpoint_sharded,
     wait_for_checkpoints,
 )
+from ml_trainer_tpu_torch.checkpoint.checkpoint import CHECKPOINT_PREFIX
 from ml_trainer_tpu_torch.config import TrainerConfig, validate_kwargs
 from ml_trainer_tpu_torch.convert import flax_axes, init_model
-from ml_trainer_tpu_torch.data import Loader, prefetch_to_device
+from ml_trainer_tpu_torch.data import (
+    Loader,
+    ShardedSampler,
+    prefetch_to_device,
+)
 from ml_trainer_tpu_torch.data.native import (
     NativeLoader,
     native_available,
@@ -193,7 +207,13 @@ from ml_trainer_tpu_torch.ops.schedules import (
     make_lr_schedule,
 )
 from ml_trainer_tpu_torch.parallel import collectives as col
-from ml_trainer_tpu_torch.parallel.distributed import initialize_distributed
+from ml_trainer_tpu_torch.parallel import distributed as dist_mod
+from ml_trainer_tpu_torch.parallel.desync import check_desync
+from ml_trainer_tpu_torch.parallel.distributed import (
+    PG_BACKENDS,
+    initialize_distributed,
+    is_primary,
+)
 from ml_trainer_tpu_torch.parallel.mesh import create_mesh
 from ml_trainer_tpu_torch.parallel.sharding import (
     bucketed_all_gather,
@@ -212,6 +232,7 @@ from ml_trainer_tpu_torch.resilience.faults import active_plan
 from ml_trainer_tpu_torch.step_graph import StepGraph
 from ml_trainer_tpu_torch.train_state import (
     TrainState,
+    as_tree,
     load_state_tree,
     state_tree,
 )
@@ -313,26 +334,6 @@ def _refuse_sharded_adafactor(model: nn.Module, axes: dict, n: int) -> None:
                 "dp_update='fused'")
 
 
-# Whether this process has logged the inert knobs' warning.
-_INERT_WARNED = False
-
-
-def _warn_inert_knobs(desync_every_steps) -> None:
-    """One ``logging`` warning per process when a knob the port accepts
-    and ignores is set so the JAX package would act on it: a
-    ``desync_every_steps`` (its replica-desync check, multi-host only).
-    The other two never qualify here: ``straggler_factor`` acts only under
-    ``telemetry=True``, which is refused, and ``moe_aux_weight`` only on a
-    model that sows auxiliary losses (MoE), of which none is ported."""
-    global _INERT_WARNED
-    if desync_every_steps is not None and not _INERT_WARNED:
-        _INERT_WARNED = True
-        logging.getLogger(__name__).warning(
-            "Trainer: %s accepted with no effect: not ported yet (the JAX "
-            "package would act on it); see ROADMAP.md Queue A",
-            f"desync_every_steps={desync_every_steps!r}")
-
-
 def _poison_batch(x: torch.Tensor) -> torch.Tensor:
     """The ``nan_grad`` fault: a floating batch filled with NaN, so the
     step's loss and gradients are non-finite."""
@@ -390,7 +391,11 @@ class Trainer:
 
         ``device``: one device, or the mesh's device list (one entry per
         data replica; the replicas must share one device, which may
-        repeat: ``["cpu"] * 8``, ``["cuda", "cuda"]``).
+        repeat: ``["cpu"] * 8``, ``["cuda", "cuda"]``).  With
+        ``is_parallel`` in a run of several processes (``torchrun``, or
+        ``parallel.initialize_distributed`` called first) each process
+        holds one replica: its device is the one given, else
+        ``cuda:<LOCAL_RANK>`` (the CPU for a CPU ``backend``).
 
         Ported: ``grad_accum_steps``, ``grad_clip_norm``,
         ``early_stop_patience``, ``save_best``, ``decay_exclude_bias_norm``,
@@ -423,16 +428,17 @@ class Trainer:
         ``test()``, ``predict()``, ``save_model`` and ``save_best`` use
         it), and ``lora`` (a ``LoraConfig`` or its kwargs dict: a
         frozen base and trainable adapters, GPT-2 family, the fused
-        update only).  Accepted with no effect here: ``moe_aux_weight`` (no MoE model is
-        ported), ``desync_every_steps`` and ``straggler_factor``
-        (multi-host and telemetry only); the first ``Trainer`` of a
-        process logs one warning when the JAX package would act on a
-        ``desync_every_steps`` as set (``_warn_inert_knobs``).
+        update only), ``desync_every_steps`` (in a multi-process run,
+        ``parallel.check_desync`` every N steps, besides each epoch's
+        end), ``sharded_checkpoint`` (None: format 3 exactly when the
+        state is split across processes, ZeRO-1's moments; True: always
+        format 3).  Accepted with no effect here: ``moe_aux_weight`` (no
+        MoE model is ported) and ``straggler_factor`` (telemetry only).
         Refused unless at their defaults: ``sharding_rules``,
-        ``telemetry``, ``elastic``,
-        ``pipeline_schedule`` and ``sharded_checkpoint=True``; so are
-        mesh axes other than ``data`` and
-        replicas on distinct devices.
+        ``telemetry``, ``elastic`` and ``pipeline_schedule``; so are
+        mesh axes other than ``data``, replicas on distinct devices in
+        one process and several replicas in a process of a
+        multi-process run.
         """
         logger.info("Config inputs.", config=config)
         cfg = TrainerConfig.from_kwargs(**config)
@@ -477,7 +483,6 @@ class Trainer:
             ("telemetry", telemetry, (False,)),
             ("elastic", elastic, (None,)),
             ("pipeline_schedule", pipeline_schedule, (None,)),
-            ("sharded_checkpoint", sharded_checkpoint, (None, False)),
         ):
             _refuse(knob, value, accepted)
         if lora is not None:
@@ -538,7 +543,10 @@ class Trainer:
                 f"straggler_factor must be > 1, got {straggler_factor}")
         if bucket_mb <= 0:
             raise ValueError(f"bucket_mb must be positive, got {bucket_mb}")
-        _warn_inert_knobs(desync_every_steps)
+        if desync_every_steps is not None and desync_every_steps < 1:
+            raise ValueError(
+                f"desync_every_steps must be >= 1, got {desync_every_steps}")
+        self.desync_every_steps = desync_every_steps
 
         listed = isinstance(device, (list, tuple))
         if listed and not device:
@@ -551,13 +559,28 @@ class Trainer:
                     f"backend={config.get('backend')!r} runs on the CPU, "
                     f"but device={device!r} was asked for")
             device = ["cpu"] * len(asked) if listed else "cpu"
+        distributed_run = False
+        if is_parallel:
+            initialize_distributed(
+                PG_BACKENDS[cfg.backend],
+                device=None if listed or device is None else device)
+            distributed_run = dist_mod.is_initialized()
+            if distributed_run and device is None:
+                device = dist_mod.group_device() or torch.device(
+                    "cuda", dist_mod.local_rank())
         devices = [resolve_device(d) for d in (device if listed
                                                else [device])]
-        if is_parallel:
-            initialize_distributed(cfg.backend)
-        self.mesh = create_mesh(mesh_shape, devices)
+        self.mesh = create_mesh(mesh_shape, devices, distributed_run)
         self.device = self.mesh.device
         n_replicas = self.mesh.size
+        self._multi = self.mesh.distributed and self.mesh.processes > 1
+        if (self.mesh.distributed and self.device.type == "cuda"
+                and dist_mod.backend() == "gloo"
+                and steps_per_execution > 1):
+            raise ValueError(
+                "steps_per_execution > 1 captures the step's collectives "
+                "in a CUDA graph, which gloo cannot run (it copies through "
+                "the host); use the nccl backend or steps_per_execution=1")
         self.dp_update = dp_update
         self.fused_adam = (
             dp_update == "sharded" and cfg.optimizer == "adam"
@@ -565,7 +588,7 @@ class Trainer:
         ) if fused_adam is None else bool(fused_adam)
         self.bucket_mb = float(bucket_mb)
         if dp_update == "sharded":
-            if n_replicas < 2:
+            if n_replicas < 2 and not self.mesh.distributed:
                 logger.warning(
                     "dp_update='sharded' on a single-replica mesh has "
                     "nothing to shard; falling back to the fused step.")
@@ -576,6 +599,22 @@ class Trainer:
                             "(ZeRO-1 moment placement).")
                 shard_opt_state = True
         self.shard_opt_state = bool(shard_opt_state)
+        # Format 3 exactly where the state is split across processes (the
+        # JAX package's rule), or where asked for.
+        split = self._multi and self.dp_update == "sharded"
+        if sharded_checkpoint is False and split:
+            raise ValueError(
+                "sharded_checkpoint=False: ZeRO-1's moments are split "
+                "across processes, and only format 3 writes them "
+                "(each process its own pieces)")
+        self._sharded_ckpt = (split if sharded_checkpoint is None
+                              else bool(sharded_checkpoint))
+        if split and cfg.optimizer in ("lamb", "adafactor"):
+            raise NotImplementedError(
+                f"optimizer={cfg.optimizer!r} reads whole leaves, and a "
+                "process of a multi-process dp_update='sharded' run holds "
+                "its shards only: not ported (see ROADMAP.md Queue A); use "
+                "dp_update='fused'")
 
         # Parity attribute names of the reference.
         self.epochs = epochs
@@ -636,6 +675,17 @@ class Trainer:
         self._has_batch_norm = any(
             isinstance(m, (BatchNorm, nn.modules.batchnorm._BatchNorm))
             for m in model.modules())
+        if self._multi and self._has_batch_norm:
+            if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+                   for m in model.modules()):
+                raise ValueError(
+                    "a multi-process run needs the global batch's "
+                    "statistics: use models.layers.BatchNorm (flax's "
+                    "arithmetic, synced over the processes), not torch's "
+                    "BatchNorm modules")
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.synced = True
         if self.dp_update == "sharded" and self._has_batch_norm:
             raise ValueError(
                 "dp_update='sharded' does not support batch_stats models "
@@ -752,8 +802,17 @@ class Trainer:
                 f"across {d} data-parallel microbatches.")
         drop_last = d > 1  # equal microbatches
         self.global_batch = eff
-        self.train_loader = self._make_loader(train_set, eff, drop_last,
-                                              cfg.seed)
+        sampler = None
+        if self.mesh.distributed:
+            # Each process reads its share of every global batch (the JAX
+            # package's per-host split); validation stays the full set,
+            # in global batches, on every process.
+            sampler = ShardedSampler(
+                len(train_set), num_replicas=self.mesh.processes,
+                rank=self.mesh.process_index, shuffle=True, seed=cfg.seed)
+        self.train_loader = self._make_loader(
+            train_set, eff // self.mesh.processes, drop_last, cfg.seed,
+            sampler)
         self.val_loader = self._make_loader(val_set, eff, drop_last,
                                             cfg.seed + 1)
         if len(self.train_loader) == 0 or len(self.val_loader) == 0:
@@ -762,19 +821,22 @@ class Trainer:
                 f"val {len(self.val_loader)}): dataset smaller than the "
                 f"batch {eff} with drop_last={drop_last}.")
 
-    def _make_loader(self, dataset, batch: int, drop_last: bool, seed: int):
-        """A shuffled loader of ``dataset``: the C++ ``NativeLoader`` for
-        ``loader='native'``, and for 'auto' where ``native_plan`` takes
-        the dataset, the library builds and the batches split evenly (a
-        ragged tail would be wrapped, not short: 'auto' never changes
-        the batches' count or size); else the Python ``Loader``."""
+    def _make_loader(self, dataset, batch: int, drop_last: bool, seed: int,
+                     sampler=None):
+        """A shuffled loader of ``dataset`` (or of ``sampler``'s share of
+        it): the C++ ``NativeLoader`` for ``loader='native'``, and for
+        'auto' where ``native_plan`` takes the dataset, the library
+        builds and the batches split evenly (a ragged tail would be
+        wrapped, not short: 'auto' never changes the batches' count or
+        size); else the Python ``Loader``."""
         plan = None
         if self._loader_kind in ("auto", "native"):
             plan = native_plan(dataset)
             if plan is not None and not native_available():
                 plan = None
+            n = len(sampler) if sampler is not None else len(dataset)
             if (plan is not None and self._loader_kind == "auto"
-                    and not drop_last and len(dataset) % batch != 0):
+                    and not drop_last and n % batch != 0):
                 plan = None
             if self._loader_kind == "native" and plan is None:
                 raise ValueError(
@@ -783,10 +845,11 @@ class Trainer:
                     "working g++); got an unsupported dataset/transform")
         if plan is not None:
             logger.info("Using the native (C++) input pipeline.")
-            return NativeLoader(dataset, batch_size=batch, shuffle=True,
+            return NativeLoader(dataset, batch_size=batch,
+                                shuffle=sampler is None, sampler=sampler,
                                 drop_last=drop_last, seed=seed, **plan)
-        return Loader(dataset, batch_size=batch, shuffle=True,
-                      drop_last=drop_last, seed=seed)
+        return Loader(dataset, batch_size=batch, shuffle=sampler is None,
+                      sampler=sampler, drop_last=drop_last, seed=seed)
 
     # ----------------------------------------------------------------- state
     def _params(self) -> dict:
@@ -848,6 +911,12 @@ class Trainer:
         if self.dp_update == "sharded":
             # ZeRO-1: which state leaves split over the replicas.
             self._zero1 = zero1_opt_shardings(self.state.opt_state, n)
+            if self.mesh.distributed:
+                # A process keeps only its replica's blocks of them.
+                self.state.opt_state = tree_map(
+                    lambda t, f: t.clone() if f else t, replica_view(
+                        self.state.opt_state, self._zero1, n,
+                        self.mesh.process_index), self._zero1)
             self._bucket_plan = plan_grad_buckets(
                 params, n, bucket_bytes=int(self.bucket_mb * 2 ** 20))
             logger.info(
@@ -927,18 +996,21 @@ class Trainer:
         return grads, loss_sum, metric_sum
 
     def _replica_grads(self, params, x, y, scale=None):
-        """``_local_grads`` of each replica's row block of the global
-        batch, in replica order; for a BatchNorm model, of the whole
-        global batch at once (global-batch statistics, as the JAX
-        package's SyncBN: the replicas' blocks are equal, so the mean
-        over the batch is the mean of their means)."""
-        if self._has_batch_norm:
+        """``_local_grads`` of each local replica's row block of the
+        batch ``x`` (the global batch, or in a multi-process run this
+        process's share), in replica order, each replica's rows placed
+        at its block of the global batch; for a BatchNorm model in one
+        process, of the whole global batch at once (global-batch
+        statistics, as the JAX package's SyncBN: the replicas' blocks are
+        equal, so the mean over the batch is the mean of their means; a
+        multi-process run syncs the statistics in ``BatchNorm``)."""
+        if self._has_batch_norm and not self.mesh.distributed:
             return [self._local_grads(params, x, y, scale)]
-        rows = x.shape[0] // self.mesh.size
-        return [self._local_grads(params, x[j * rows:(j + 1) * rows],
-                                  y[j * rows:(j + 1) * rows], scale,
+        rows = x.shape[0] // len(self.mesh.devices)
+        return [self._local_grads(params, x[i * rows:(i + 1) * rows],
+                                  y[i * rows:(i + 1) * rows], scale,
                                   row0=j * rows)
-                for j in range(self.mesh.size)]
+                for i, j in enumerate(self.mesh.local)]
 
     def _train_step(self, x, y, lr_scale: float):
         """One optimizer step on the global batch ``(x, y)``; returns the
@@ -972,7 +1044,7 @@ class Trainer:
         with torch.no_grad():
             # One division folds the microbatch mean and the loss scale.
             denom = accum if scale is None else accum * scale
-            if len(local) == 1:
+            if len(local) == 1 and not self.mesh.distributed:
                 grads, loss, metric = local[0]
                 if accum > 1 or scale is not None:
                     grads = {k: g / denom for k, g in grads.items()}
@@ -980,10 +1052,11 @@ class Trainer:
                     loss, metric = loss / accum, metric / accum
             else:
                 # Local-mean gradients, averaged over the replicas.
-                grads = {k: col.pmean([g[k] / denom for g, _, _ in local])[0]
-                         for k in params}
-                loss = col.pmean([lo / accum for _, lo, _ in local])[0]
-                metric = col.pmean([m / accum for _, _, m in local])[0]
+                mesh = self.mesh
+                grads = {k: col.pmean([g[k] / denom for g, _, _ in local],
+                                      mesh)[0] for k in params}
+                loss = col.pmean([lo / accum for _, lo, _ in local], mesh)[0]
+                metric = col.pmean([m / accum for _, _, m in local], mesh)[0]
             del local
             return self._apply_grads(params, grads, loss, metric, lr_scale,
                                      buffers)
@@ -1041,8 +1114,12 @@ class Trainer:
     def _sharded_train_step(self, x, y, lr_scale: float):
         """The bucketed reduce-scatter + 1/N-shard update step
         (``dp_update="sharded"``), the JAX package's
-        ``_make_sharded_train_step`` with its replicas given as lists."""
-        n, plan, accum = self.mesh.size, self._bucket_plan, self.grad_accum_steps
+        ``_make_sharded_train_step`` with its local replicas given as
+        lists: every replica in one process, or this process's one in a
+        multi-process run, whose optimizer state then holds only that
+        replica's blocks of the ZeRO-1 leaves."""
+        mesh, plan, accum = self.mesh, self._bucket_plan, self.grad_accum_steps
+        n, nl = mesh.size, len(mesh.devices)
         clip = self.grad_clip_norm
         params = self._params()
         names = list(params)
@@ -1051,19 +1128,19 @@ class Trainer:
         with torch.enable_grad():
             local = self._replica_grads(params, x, y, scale)
         # Epoch accounting reads global means.
-        loss = col.pmean([lo / accum for _, lo, _ in local])[0]
-        metric = col.pmean([m / accum for _, _, m in local])[0]
+        loss = col.pmean([lo / accum for _, lo, _ in local], mesh)[0]
+        metric = col.pmean([m / accum for _, _, m in local], mesh)[0]
         # (1) one reduce-scatter per bucket of the summed local-mean
         # gradients; each replica keeps its dim-0 shard, summed.
         g = bucketed_reduce_scatter([[gr[k] for k in names]
-                                     for gr, _, _ in local], plan)
+                                     for gr, _, _ in local], plan, mesh)
         del local
         rep_idx = [i for i, s in enumerate(plan.sharded) if not s]
         if rep_idx:
             # Leaves whose dim 0 does not divide by n: ONE psum over their
             # concatenation, a replicated update.
             flat = col.psum([torch.cat([gj[i].reshape(-1) for i in rep_idx])
-                             for gj in g])
+                             for gj in g], mesh)
             for j, gj in enumerate(g):
                 off = 0
                 for i in rep_idx:
@@ -1106,20 +1183,20 @@ class Trainer:
         del g
         # (3) the global clip factor, from the psum of the shards' squared
         # sums plus the replicated leaves' (counted once).
-        factors = [None] * n
+        factors = [None] * nl
         if clip is not None:
             clip_t = torch.full((), float(clip), dtype=torch.float32,
                                 device=dev)
-            loc_sum = col.psum(sq_loc)
+            loc_sum = col.psum(sq_loc, mesh)
             factors = [torch.div(clip_t, torch.maximum(
-                torch.sqrt(loc_sum[j] + sq_rep[j]), clip_t))
-                for j in range(n)]
+                torch.sqrt(loc_sum[i] + sq_rep[i]), clip_t))
+                for i in range(nl)]
         # (4) each replica updates its shard of the params and moments.
         full = {k: p.detach() for k, p in params.items()}
         state = self.state
-        old_p = [replica_view(full, flags, n, j) for j in range(n)]
-        old_opt = [replica_view(state.opt_state, self._zero1, n, j)
-                   for j in range(n)]
+        old_p = [replica_view(full, flags, n, j) for j in mesh.local]
+        old_opt = [replica_view(state.opt_state, self._zero1, nl, i)
+                   for i in range(nl)]
         new_p, new_opt, checked = [], [], []
         if self._whole_leaf_update:
             # lamb, adafactor: one update of the joined leaves.  lamb's
@@ -1128,7 +1205,7 @@ class Trainer:
             # only where no sharded leaf factors, elementwise per leaf.
             gs = [grads[j] if factors[j] is None else {
                 k: t * factors[j] for k, t in grads[j].items()}
-                for j in range(n)]
+                for j in range(nl)]
             updates, o_full = self.tx.update(
                 join_replica_views(gs, flags), state.opt_state, full)
             p_full = {k: full[k] + u * lr_scale for k, u in updates.items()}
@@ -1136,7 +1213,7 @@ class Trainer:
             new_opt = [replica_view(o_full, self._zero1, n, j)
                        for j in range(n)]
             checked = gs
-        for j in range(0 if self._whole_leaf_update else n):
+        for j in range(0 if self._whole_leaf_update else nl):
             if self.fused_adam:
                 pj, oj = self._fused_tail(grads[j], old_p[j], old_opt[j],
                                           factors[j], lr_scale)
@@ -1159,20 +1236,21 @@ class Trainer:
                 for t in gj.values():
                     ok = ok & torch.isfinite(t).all()
                 oks.append(ok.to(torch.float32))
-            ok = col.psum(oks)[0] > (n - 0.5)
+            ok = col.psum(oks, mesh)[0] > (n - 0.5)
 
             def sel(a, b):
                 return torch.where(ok, a, b)
 
-            new_p = [tree_map(sel, new_p[j], old_p[j]) for j in range(n)]
+            new_p = [tree_map(sel, new_p[j], old_p[j]) for j in range(nl)]
             new_opt = [tree_map(sel, new_opt[j], old_opt[j])
-                       for j in range(n)]
+                       for j in range(nl)]
             self._count_skip(ok)
             loss = torch.where(ok, loss, torch.zeros_like(loss))
             metric = torch.where(ok, metric, torch.zeros_like(metric))
         # (5) the fresh weights: one all-gather per bucket.
         gathered = bucketed_all_gather([[pj[k] for k in names] for pj in new_p],
-                                       plan, [full[k].shape for k in names])
+                                       plan, [full[k].shape for k in names],
+                                       mesh)
         # The replicas share the model: replica 0's copy is everyone's.
         for k, leaf in zip(names, gathered[0]):
             params[k].copy_(leaf)
@@ -1354,9 +1432,9 @@ class Trainer:
         multiple of ``max(log_every, K)`` steps fell inside the last
         dispatch and at the end: the only host reads of the epoch.  A
         resumed epoch starts at batch ``done`` from the saved ``sums``.
-        ``after(done, synced, loss_sum, metric_sum)`` runs after each
-        dispatch (``synced``: it logged) and ends the epoch there when
-        it returns True."""
+        ``after(done, steps, synced, loss_sum, metric_sum)`` runs after
+        each dispatch of ``steps`` steps (``synced``: it logged) and ends
+        the epoch there when it returns True."""
         every = max(self.log_every, self.steps_per_execution)
         loss_sum, metric_sum = sums or (
             torch.zeros((), device=self.device) for _ in range(2))
@@ -1369,7 +1447,7 @@ class Trainer:
                 # Without a metric: the last dispatch's mean loss.
                 self._log_progress(what, done, n, loss_sum, metric_sum,
                                    loss if steps == 1 else loss / steps)
-            if after is not None and after(done, synced, loss_sum,
+            if after is not None and after(done, steps, synced, loss_sum,
                                            metric_sum):
                 break
         return loss_sum, metric_sum
@@ -1412,18 +1490,32 @@ class Trainer:
             def step(x, y):
                 return self._train_step_in_place(x, y, self._lr_t)
 
-        def after(done, synced, loss_sum, metric_sum) -> bool:
+        def after(done, steps, synced, loss_sum, metric_sum) -> bool:
+            every = self.desync_every_steps
+            gstep = (epoch - 1) * n + done
+            if every and self._multi and (
+                    gstep % every == 0 if self.steps_per_execution == 1
+                    else done % every < steps):
+                # As the JAX package: at K = 1 every N-th global step; at
+                # K > 1 where a multiple of N (counted in the epoch) fell
+                # inside the last dispatch.  The loaders are equal, so
+                # every process reaches the same dispatch.
+                self._check_desync(gstep)
+            # A signal reaches the processes at different steps, and the
+            # emergency save is a collective: every process leaves at the
+            # first dispatch after which any of them was asked to.
+            preempt = self._agree_preemption()
             if self.steps_per_execution > 1:
                 # No batch cursor to save: a resume restarts the epoch
                 # from the last epoch-boundary checkpoint.
-                self.preempted = self._preempt_requested
+                self.preempted = preempt
                 return self.preempted
             if synced:
                 self._maybe_rollback()
             if (self.save_every_steps and done % self.save_every_steps == 0
                     and done < n):
                 self._save_mid_epoch(epoch, done, loss_sum, metric_sum)
-            if self._preempt_requested:
+            if preempt:
                 # The in-flight step finished: an emergency checkpoint
                 # with the batch cursor, then out.
                 self._save_mid_epoch(epoch, done, loss_sum, metric_sum)
@@ -1491,7 +1583,9 @@ class Trainer:
         default) SIGTERM/SIGINT finish the in-flight step, write an
         emergency checkpoint and ``PREEMPTED.json`` and return with
         ``self.preempted`` True (under ``steps_per_execution`` > 1 at the
-        next dispatch, with no mid-epoch checkpoint)."""
+        next dispatch, with no mid-epoch checkpoint).  In a multi-process
+        run the processes agree at each dispatch: all leave after the
+        first dispatch at whose end any of them had been signalled."""
         if self.state is None:
             raise ValueError("fit() needs datasets; this Trainer was built "
                              "for testing only")
@@ -1533,6 +1627,19 @@ class Trainer:
                 "step, then writing an emergency checkpoint.")
         self._preempt_requested = True
 
+    def _agree_preemption(self) -> bool:
+        """Whether this process, or in a multi-process run any process,
+        was asked to stop (``_preempt_requested``).  COLLECTIVE when
+        ``_multi``: one host all-reduce at every dispatch."""
+        if not self._multi:
+            return self._preempt_requested
+        # The agreed value, not the flag: a signal may land after the
+        # all-reduce read it, and is then agreed at the next dispatch.
+        agreed = dist_mod.any_process(self._preempt_requested)
+        if agreed:
+            self._request_preemption("another process was preempted")
+        return agreed
+
     def _ckpt_dir(self) -> str:
         return os.path.join(self.model_dir, "checkpoints")
 
@@ -1558,20 +1665,24 @@ class Trainer:
             self.clear()
             if self._plateau is not None:
                 self._lr_scale = self._plateau.update(self.val_losses[-1])
+            # Every process computes the same val loss, so the decisions
+            # below agree without a collective.
             improved = self.val_losses[-1] < self._best_val
             if improved:
                 self._best_val = self.val_losses[-1]
                 self._bad_epochs = 0
             else:
                 self._bad_epochs += 1
-            self.save_model(self.model_dir)
-            if improved and self.save_best:
-                self.save_model(os.path.join(self.model_dir, "best"))
+            if self._multi:
+                # The cross-process desync check, once an epoch.
+                self._check_desync(epoch * self.steps_per_epoch)
+            if is_primary():
+                self.save_model(self.model_dir)
+                if improved and self.save_best:
+                    self.save_model(os.path.join(self.model_dir, "best"))
             # The host copy blocks; the write runs while the next epoch
             # trains, and the end of fit() joins it.
-            save_checkpoint(self._ckpt_dir(),
-                            state_tree(self.state, self.model),
-                            self._partial_history(), epoch, block=False)
+            self._save_state(self._partial_history(), epoch)
             if self.metric:
                 logger.info(f"train loss: {self.train_losses[-1]} - "
                             f"train {self.metric}: {self.train_metrics[-1]}")
@@ -1593,10 +1704,45 @@ class Trainer:
             "rollbacks": self.rollbacks,
             "reshapes": self.reshapes,
         }
-        if self.save_history:
+        if self.save_history and is_primary():
             self.save_history_(self.model_dir)
         wait_for_checkpoints()
         logger.info("Training Complete.")
+
+    def _check_desync(self, step: int) -> None:
+        """``parallel.check_desync`` of the parameters (replicated on
+        every process) at global step ``step``."""
+        check_desync({k: p.detach()
+                      for k, p in self.model.named_parameters()}, step=step)
+
+    def _ckpt_split(self) -> dict:
+        """The state leaves this process holds as blocks of the data
+        axis (ZeRO-1's moments under the sharded step), by checkpoint
+        path: ``{path: (n, local blocks)}``."""
+        if self.dp_update != "sharded":
+            return {}
+        from ml_trainer_tpu_torch.checkpoint.checkpoint import _flatten
+
+        return {("opt_state",) + path: (self.mesh.size, self.mesh.local)
+                for path, flag in _flatten(as_tree(self._zero1))
+                if flag is True}
+
+    def _save_state(self, history: dict, epoch: int) -> None:
+        """The full-state checkpoint of ``epoch``: format 3 where the
+        state is split across processes (or ``sharded_checkpoint``),
+        every process writing its pieces; else format 2, written by
+        process 0."""
+        tree = state_tree(self.state, self.model)
+        if self._sharded_ckpt:
+            save_checkpoint_sharded(
+                self._ckpt_dir(), tree, history, epoch,
+                split=self._ckpt_split(), block=False,
+                mesh={"axes": {"data": self.mesh.size},
+                      "device_count": self.mesh.size,
+                      "process_count": self.mesh.processes})
+        elif is_primary():
+            save_checkpoint(self._ckpt_dir(), tree, history, epoch,
+                            block=False)
 
     def _out_of_patience(self) -> bool:
         stop = (self.early_stop_patience is not None
@@ -1667,8 +1813,7 @@ class Trainer:
             "metric_sum": float(metric_sum),
             "skipped_base": int(self._skipped_base),
         }
-        save_checkpoint(self._ckpt_dir(), state_tree(self.state, self.model),
-                        hist, epoch, block=False)
+        self._save_state(hist, epoch)
 
     def _maybe_rollback(self) -> bool:
         """Rollback to the last good state: after ``rollback_bad_steps``
@@ -1684,8 +1829,8 @@ class Trainer:
         self._lr_scale *= self.rollback_lr_backoff
         self.rollbacks += 1
         wait_for_checkpoints()  # the writes in flight must land first
-        latest = latest_valid_checkpoint(self._ckpt_dir())
-        if latest is None:
+        got = self._latest_tree()
+        if got is None:
             # The guard reverted every bad update: the live state is the
             # last good one.
             logger.warning(
@@ -1696,8 +1841,9 @@ class Trainer:
             return True
         # The cumulative skipped count survives (diagnostics); the streak
         # restarts: the restored counters predate the event.
+        tree, _, _, latest = got
         skipped_now = self.state.skipped_steps.clone()
-        load_state_tree(self.state, self.model, restore_checkpoint(latest)[0])
+        load_state_tree(self.state, self.model, tree)
         self.state.skipped_steps.copy_(skipped_now)
         self.state.bad_streak.zero_()
         self._reseed_loss_scale()
@@ -1710,6 +1856,8 @@ class Trainer:
         """``PREEMPTED.json``: the run left through the preemption path
         (its emergency checkpoint committed), not by a crash;
         ``fit(resume=True)`` logs and removes it."""
+        if not is_primary():
+            return
         ckpt_dir = self._ckpt_dir()
         os.makedirs(ckpt_dir, exist_ok=True)
         info = dict(self._preempt_info or {}, time=time.time(), mesh=None)
@@ -1745,14 +1893,79 @@ class Trainer:
                 "through the per-batch dispatch path; restart with "
                 "steps_per_execution=1 to continue it")
 
+    def _pick(self):
+        """A format-3 restore's ``pick`` for this process: its blocks of
+        the leaves split across processes, every other leaf whole."""
+        split = self._ckpt_split() if self.mesh.distributed else {}
+
+        def pick(path, shape):
+            if path not in split:
+                return None
+            n, local = split[path]
+            rows = shape[0] // n
+            return ([local[0] * rows] + [0] * (len(shape) - 1),
+                    [(local[-1] + 1) * rows] + list(shape[1:]))
+
+        return pick
+
+    def _local_tree(self, tree: dict) -> dict:
+        """A whole-leaf state tree cut to what this process holds (its
+        blocks of the leaves split across processes)."""
+        if not self.mesh.distributed:
+            return tree
+        from ml_trainer_tpu_torch.checkpoint.checkpoint import (
+            _flatten,
+            _unflatten,
+        )
+
+        pick = self._pick()
+        pairs = []
+        for path, leaf in _flatten(tree):
+            box = (pick(path, leaf.shape)
+                   if isinstance(leaf, np.ndarray) else None)
+            pairs.append((path, leaf if box is None
+                          else leaf[box[0][0]:box[1][0]]))
+        return _unflatten(pairs)
+
+    def _latest_tree(self):
+        """(state tree, history, epoch, path) of the newest valid
+        checkpoint, or None.  In a multi-process run process 0 decides
+        (found, format, epoch: one small broadcast), whatever the others'
+        disks say; a format-3 checkpoint (shared storage) is then read by
+        every process, its own blocks only, and a format-2 one by process
+        0, which broadcasts the tree (the JAX package's broadcast
+        resume)."""
+        ckpt_dir = self._ckpt_dir()
+        if not self.mesh.distributed:
+            latest = latest_valid_checkpoint(ckpt_dir)
+            if latest is None:
+                return None
+            return (*restore_checkpoint(latest), latest)
+        # Only process 0 scans (and CRC-reads) the checkpoints.
+        latest = latest_valid_checkpoint(ckpt_dir) if is_primary() else None
+        head = torch.tensor(
+            [0, 0, 0] if latest is None else
+            [1, checkpoint_format(latest),
+             int(os.path.basename(latest)[len(CHECKPOINT_PREFIX):])],
+            dtype=torch.int64, device=dist_mod.comm_device())
+        found, fmt, epoch = col.broadcast(head).tolist()
+        if not found:
+            return None
+        if fmt == 3:
+            latest = os.path.join(ckpt_dir, f"{CHECKPOINT_PREFIX}{epoch}")
+            return (*restore_checkpoint(latest, pick=self._pick()), latest)
+        tree, saved, done = dist_mod.broadcast_object(
+            restore_checkpoint(latest) if is_primary() else None)
+        return self._local_tree(tree), saved, done, latest
+
     def _resume_from_latest(self) -> int:
         """Restore the newest valid checkpoint into the live state; the
         epoch to start from (1 when there is none)."""
         self._consume_preempt_marker()
-        latest = latest_valid_checkpoint(self._ckpt_dir())
-        if latest is None:
+        got = self._latest_tree()
+        if got is None:
             return 1
-        tree, saved, done_epoch = restore_checkpoint(latest)
+        tree, saved, done_epoch, latest = got
         mid = saved.get("mid_epoch")
         if mid is not None:
             self._require_mid_resume_support()

@@ -47,7 +47,10 @@ def _port_files():
                     ROOT / "scripts" / "torch_call_check_mutations.py",
                     ROOT / "scripts" / "flash_bwd_ab.py",
                     ROOT / "scripts" / "flash_fwd_ab.py",
-                    ROOT / "scripts" / "cudnn_deterministic_cost.py"]
+                    ROOT / "scripts" / "cudnn_deterministic_cost.py",
+                    ROOT / "tests" / "torch_mp_worker.py",
+                    ROOT / "tests" / "fixtures" / "jpeg224" /
+                    "make_jpeg224.py"]
 
 
 def _imports(path):
@@ -87,7 +90,9 @@ NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "utils/profiler.py", "lora.py", "serving/adapter_pool.py",
                "checkpoint/torch_export.py", "serving/engine.py",
                "serving/api.py", "ops/optimizers.py", "models/gpt2.py",
-               "checkpoint/torch_import.py", "utils/utils.py"]
+               "checkpoint/torch_import.py", "utils/utils.py",
+               "parallel/distributed.py", "parallel/desync.py",
+               "parallel/collectives.py", "parallel/mesh.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)

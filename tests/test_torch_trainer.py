@@ -204,42 +204,38 @@ def test_poisoned_batch_is_skipped_alike(tmp_path):
     ("mesh_shape", {"fsdp": 2}), ("mesh_shape", {"tensor": 2}),
     ("telemetry", True), ("elastic", 2), ("pipeline_schedule", "gpipe"),
     ("pipeline_schedule", "1f1b"), ("mesh_shape", {"sequence": 2}),
-    ("mesh_shape", {"stage": 2}), ("sharded_checkpoint", True),
+    ("mesh_shape", {"stage": 2}),
 ])
 def test_unported_knobs_name_the_roadmap(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mt.Trainer("gpt2_tiny", device="cpu", **{knob: value})
 
 
-def test_inert_knobs_log_one_warning_per_process(monkeypatch, caplog):
-    """A set ``desync_every_steps`` is accepted and ignored: the first
-    Trainer of a process that sets it logs one warning naming it and
-    ROADMAP.md; later ones log nothing.  ``handle_preemption=True`` (the
-    default) installs real signal handlers now and is not named."""
-    import ml_trainer_tpu_torch.trainer as trainer_mod
-
+def test_inert_knobs_log_one_warning_per_process(caplog):
+    """``desync_every_steps`` acts now (the desync check of a
+    multi-process run, ``tests/test_torch_distributed.py``): no Trainer
+    logs it as inert, and a count below 1 is refused as in the JAX
+    package.  ``straggler_factor`` and ``moe_aux_weight`` are accepted
+    and never qualify for a warning here (telemetry is refused, no MoE
+    model is ported)."""
     name = "ml_trainer_tpu_torch.trainer"
-    monkeypatch.setattr(trainer_mod, "_INERT_WARNED", False)
     with caplog.at_level(logging.WARNING, logger=name):
-        mt.Trainer("gpt2_tiny", device="cpu", handle_preemption=True)
-        assert not [r for r in caplog.records if "no effect" in r.message]
-        mt.Trainer("gpt2_tiny", device="cpu", desync_every_steps=5,
-                   straggler_factor=3.0, moe_aux_weight=0.5)
+        tr = mt.Trainer("gpt2_tiny", device="cpu", desync_every_steps=5,
+                        straggler_factor=3.0, moe_aux_weight=0.5)
         mt.Trainer("gpt2_tiny", device="cpu", desync_every_steps=5)
-    warned = [r for r in caplog.records if "no effect" in r.message]
-    assert len(warned) == 1 and warned[0].name == name
-    msg = warned[0].message
-    assert "desync_every_steps=5" in msg and "ROADMAP.md" in msg
-    assert "handle_preemption" not in msg
-    assert "straggler_factor" not in msg and "moe_aux_weight" not in msg
+    assert tr.desync_every_steps == 5
+    assert not [r for r in caplog.records if "no effect" in r.message]
+    with pytest.raises(ValueError, match="desync_every_steps must be >= 1"):
+        mt.Trainer("gpt2_tiny", device="cpu", desync_every_steps=0)
 
 
 def test_resume_and_unported_optimizer_name_the_roadmap(tmp_path):
     """``fit(resume=True)`` with no checkpoint trains from epoch 1; a
-    sharded (format 3) checkpoint of the JAX package is refused with an
-    error naming ROADMAP.md, and left in place.  Every optimizer name of
-    the JAX package is ported now: an unknown one lists all eight, and
-    an unported knob still names ROADMAP.md."""
+    format-3 checkpoint is read now (``tests/test_torch_sharded_
+    checkpoint.py``), and one whose manifest lists no leaves fails its
+    check: it is quarantined and the run trains from epoch 1.  Every
+    optimizer name of the JAX package is ported now: an unknown one
+    lists all eight, and an unported knob still names ROADMAP.md."""
     import json
 
     sets = (mt.SyntheticTokens(size=8, seq_len=16, vocab_size=64),
@@ -256,9 +252,10 @@ def test_resume_and_unported_optimizer_name_the_roadmap(tmp_path):
         {"format": 3, "epoch": 1, "history": {}}))
     tr = mt.Trainer(model, datasets=sets, epochs=2, batch_size=4,
                     device="cpu", model_dir=str(tmp_path / "v3"))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        tr.fit(resume=True)
-    assert (sharded / "manifest.json").exists()
+    tr.fit(resume=True)
+    assert tr.history["epochs"] == [1, 2]
+    assert (sharded.parent / "checkpoint_1.corrupt" / "manifest.json"
+            ).exists()
     with pytest.raises(ValueError, match="'adafactor', 'adagrad'"):
         mt.Trainer(model, datasets=sets, epochs=1, batch_size=4,
                    device="cpu", optimizer="lars")
