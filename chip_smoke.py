@@ -44,6 +44,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # size 1, two gloo processes
                                           # on cuda:0) and the committed
                                           # JPEG shards
+    python3 chip_smoke.py --only decode   # kernel checks + speculative
+                                          # serving (n-gram and draft
+                                          # model), chunked prefill and
+                                          # generate()'s modes
 
 Phases, one line of output each (or a few):
 
@@ -424,6 +428,33 @@ Phases, one line of output each (or a few):
    scales its largest leaf by DIST_PLANT; ``check_desync`` raises on
    rank 1 naming the step and not on rank 0.  Two NCCL ranks on
    distinct cards need a machine with several and are not run.
+16. decode (``DECODE_*``, run right after serving): GPT-2 124M fp32
+   behind ``Server(max_batch=8)``, eight prompts of 130-300 tokens whose
+   tails repeat a 24-token span, 48 greedy tokens each, through
+   ``spec_k=4`` (contiguous, then ``kv_page_size=16``) and ``spec_k=0``
+   with its decode graph: the spec tokens equal the vanilla ones or part
+   first where the vanilla sequence's top-2 margin (teacher forced,
+   plain attention) is within LOGIT_SLACK (parted rows counted), K1
+   exactly 12 a prefill, acceptance, tokens per verify step, the verify
+   step's ms and tokens/s beside the vanilla run's; a sampled spec pass
+   twice (equal); bf16 spec against the bf16 vanilla engine (the same
+   rule at 3e-2 of the largest logit, every served token within it of
+   the best).  ``gpt2_mini`` with its registered draft ``gpt2_nano``
+   through ``speculative_generate`` and ``Server(drafter=...)`` against
+   ``generate()`` (the same rule).  Chunked prefill: a 900-token prompt
+   (4 windows of ``prefill_chunk=256``) queued ahead of three of at most
+   64 tokens on a paged ``paged_kernel`` server, with the decode graph:
+   tokens against the unchunked engine's (the rule), the short requests'
+   first tokens before the long one's (after it unchunked), K6 exactly
+   12 a decode step, the windows and TTFTs; the chunked run once more
+   eagerly.  ``generate()`` at [2, 128], 32 tokens: ``top_k=1`` and a
+   tight ``top_p`` equal to greedy, a top-k/top-p sampled run twice
+   (equal), ``beam_search`` (4 beams scoring at least greedy's sequence,
+   1 beam greedy's tokens under the rule), ``generate_ragged`` on three
+   lengths equal to ``generate`` per length; K1 exact.  Every eager K1
+   and K6 call of the sampled, bf16, draft-model, eager chunked and
+   ``generate()`` runs is held at once to the float64 JAX function on
+   its own inputs (float32 within 1e-4, bf16 within 2 ulps).
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -1992,35 +2023,53 @@ def exact_outputs(kname: str, args) -> list:
     raise ValueError(kname)
 
 
+def hold_call(kname: str, args, outs, rec: dict) -> None:
+    """One kernel call's outputs against ``exact_outputs`` on its own
+    inputs, into ``rec`` (the calls, the worst errors): float32 within
+    TOL, bf16 within 2 bf16 ulps (``bf16_gate`` <= 1); K1's lse within
+    TOL."""
+    import torch
+
+    want = exact_outputs(kname, args)
+    rec["calls"] += 1
+    if kname == "flash_fwd":
+        lse_err = (outs[1].float() - want[1]).abs().max().item()
+        rec["worst_lse_err"] = max(rec.get("worst_lse_err", 0.0), lse_err)
+        if not lse_err <= TOL:
+            raise AssertionError(f"{kname} call: lse {lse_err} from float64")
+        outs, want = outs[:1], want[:1]
+    for got, w in zip(outs, want):
+        if got.shape != w.shape or got.dtype != w.dtype:
+            raise AssertionError(f"{kname} call: {got.dtype} "
+                                 f"{tuple(got.shape)} vs {tuple(w.shape)}")
+        if got.dtype == torch.bfloat16:
+            ratio = bf16_gate(got, w)
+            rec["worst_gate_ratio"] = max(rec.get("worst_gate_ratio", 0.0),
+                                          ratio)
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"{kname} call: {ratio} of the 2-ulp bar against the "
+                    "float64 JAX function")
+        else:
+            err = (got.float() - w.float()).abs().max().item()
+            rec["worst_err"] = max(rec.get("worst_err", 0.0), err)
+            if not err <= TOL:
+                raise AssertionError(f"{kname} call: {err} from the float64 "
+                                     "JAX function")
+
+
 def call_check(calls) -> dict:
-    """Every recorded call's outputs (``capture_calls``) against
-    ``exact_outputs`` on its own inputs: each bf16 output within 2 bf16
-    ulps (``bf16_gate`` <= 1), K1's lse within ``TOL``.  Per kernel: the
-    calls checked and the worst gate ratio."""
+    """Every recorded call's outputs (``capture_calls``), each of them
+    bf16, through ``hold_call`` on its own inputs.  Per kernel: the calls
+    checked, the worst gate ratio and K1's worst lse error."""
     import torch
 
     rec = {}
     for i, (kname, args, outs) in enumerate(calls):
-        want = exact_outputs(kname, args)
-        r = rec.setdefault(kname, {"calls": 0, "worst_gate_ratio": 0.0})
-        r["calls"] += 1
-        if kname == "flash_fwd":
-            lse_err = (outs[1] - want[1]).abs().max().item()
-            r["worst_lse_err"] = max(r.get("worst_lse_err", 0.0), lse_err)
-            if not lse_err <= TOL:
-                raise AssertionError(f"call {i} ({kname}): lse {lse_err} from "
-                                     "float64")
-            outs, want = outs[:1], want[:1]
-        for got, w in zip(outs, want):
-            if got.dtype != torch.bfloat16 or got.shape != w.shape:
-                raise AssertionError(f"call {i} ({kname}): {got.dtype} "
-                                     f"{tuple(got.shape)}")
-            ratio = bf16_gate(got, w)
-            r["worst_gate_ratio"] = max(r["worst_gate_ratio"], ratio)
-            if not ratio <= 1.0:
-                raise AssertionError(
-                    f"call {i} ({kname}): {ratio} of the 2-ulp bar against "
-                    "the float64 JAX function")
+        if outs[0].dtype != torch.bfloat16:
+            raise AssertionError(f"call {i} ({kname}): {outs[0].dtype}")
+        hold_call(kname, args, outs,
+                  rec.setdefault(kname, {"calls": 0, "worst_gate_ratio": 0.0}))
     return rec
 
 
@@ -7043,12 +7092,488 @@ def _dist_stitched_into_one(dev, ref_gpt: dict) -> dict:
     return dict(stitch_s=stitch_s, leaves=len(live), bitwise=True)
 
 
+# Speculative decoding, chunked prefill and generate()'s modes (``--only
+# decode``): GPT-2 124M serves with spec_k=4 and prefill_chunk=256.
+DECODE_SPEC_K = 4
+DECODE_LENS = [130, 150, 170, 200, 230, 260, 280, 300]  # the spec prompts
+DECODE_NEW = 48
+DECODE_BF16_REL = 3e-2  # Queue C 9's bf16 bar: of the largest logit
+DECODE_CHUNK = dict(chunk=256, long=900, shorts=(64, 48, 32), new_tokens=32)
+DECODE_GEN = dict(batch=2, prompt=128, new_tokens=32, ragged=(96, 128, 200))
+
+
+def _spec_prompts(rng, vocab: int, lengths) -> list:
+    """Prompts whose tails repeat a 24-token span (the n-gram drafter
+    finds its matches there), each after its own 32 random tokens (no
+    two share a page-16 block: no prefix hit)."""
+    import numpy as np
+
+    out = []
+    for n in lengths:
+        span = rng.integers(0, vocab, 24)
+        tail = np.resize(span, n - 32)
+        out.append(np.concatenate([rng.integers(0, vocab, 32),
+                                   tail]).astype(np.int32))
+    return out
+
+
+@contextlib.contextmanager
+def checked_calls(rec: dict):
+    """Inside, every eager call of K1's and K6's launch functions runs as
+    it would and is held at once against the float64 JAX function on its
+    own inputs (``hold_call``; nothing is kept but counts and the worst
+    errors, into ``rec``).  A call made while a CUDA graph is being
+    captured is counted apart (its outputs are not computed then)."""
+    import importlib
+    from unittest import mock
+
+    import torch
+
+    with contextlib.ExitStack() as stack:
+        for mod, attr, kname in CALL_SITES:
+            if kname not in ("flash_fwd", "paged_attention"):
+                continue
+            module = importlib.import_module(mod)
+            r = rec.setdefault(kname, {"calls": 0, "in_capture": 0})
+
+            def wrapped(*args, _real=getattr(module, attr), _k=kname, _r=r,
+                        **kw):
+                out = _real(*args, **kw)
+                if torch.cuda.is_current_stream_capturing():
+                    _r["in_capture"] += 1
+                else:
+                    hold_call(_k, args, out if isinstance(out, tuple)
+                              else (out,), _r)
+                return out
+
+            stack.enter_context(mock.patch.object(module, attr, wrapped))
+        yield rec
+
+
+def _teacher_logits(model, seq) -> "torch.Tensor":
+    """Logits [len(seq), V] float32 of one full forward over ``seq``
+    through the plain attention."""
+    import numpy as np
+    import torch
+
+    model.attention_impl = "xla"
+    try:
+        with torch.no_grad():
+            ids = torch.as_tensor(np.asarray(seq, np.int64),
+                                  device=model.device)[None]
+            return model(ids)[0].float()
+    finally:
+        model.attention_impl = "auto"
+
+
+def near_tie(model, prompts, got, want, bar, what: str) -> int:
+    """Each row of ``got`` equal to ``want``'s, or parting first at a step
+    where the reference's top-2 margin (``want``'s sequence teacher
+    forced) is within ``bar(logits)`` and ``got``'s token there is within
+    it of the best.  Returns the number of parted rows."""
+    import numpy as np
+
+    parted = 0
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        n = len(p)
+        g, w = np.asarray(g).reshape(-1), np.asarray(w).reshape(-1)
+        if g.shape != w.shape or not np.array_equal(g[:n], w[:n]):
+            raise AssertionError(f"{what} row {i}: shape or prompt differs")
+        diff = np.flatnonzero(g[n:] != w[n:])
+        if not diff.size:
+            continue
+        j = n + int(diff[0])
+        logits = _teacher_logits(model, w[:j])[-1]
+        top2 = logits.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        gap = (top2[0] - logits[int(g[j])]).item()
+        slack = bar(logits)
+        if not (margin <= slack and gap <= slack):
+            raise AssertionError(
+                f"{what} row {i}: token {j - n} differs where the "
+                f"reference's margin is {margin} (gap {gap}) > {slack}")
+        parted += 1
+    return parted
+
+
+def _slack(precision):
+    if precision is None:
+        return lambda logits: LOGIT_SLACK
+    return lambda logits: DECODE_BF16_REL * logits.abs().max().item()
+
+
+def _serve_timed(model, prompts, new_tokens: int, warm, what: str,
+                 **server_kw) -> dict:
+    """One ``Server`` (``server_kw``): ``warm`` completed uncounted (the
+    decode graph's warm-up and capture, the verify's first shapes), then
+    the counts set to 0, ``prompts`` submitted together and served
+    greedily, the counts read.  Gates: every request done with its
+    tokens; K1 12 a prefill (every prompt's bucket is >= 128), K6 12 a
+    decode step of a ``paged_kernel`` engine and none otherwise."""
+    import ml_trainer_tpu_torch as mt
+
+    with mt.Server(model, max_batch=8, device=model.device,
+                   **server_kw) as server:
+        for p in warm:
+            server.complete(p, 4, timeout=600)
+        before = server.metrics.snapshot()
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = [server.submit(p, new_tokens) for p in prompts]
+        outs = [s.result(timeout=600) for s in streams]
+        wall = time.perf_counter() - t0
+        snap = settled_snapshot(server, before,
+                                len(prompts) * (new_tokens - 1))
+        counts = mt.launch_counts()
+        steps = snap["decode_steps"] - before["decode_steps"]
+        step_secs = list(server.metrics.step_secs)[-steps:]
+    reqs = [s.request for s in streams]
+    if not all(r.state == "done" and len(r.tokens) == new_tokens
+               for r in reqs):
+        raise AssertionError(f"{what}: not every request completed: "
+                             f"{[(r.state, len(r.tokens)) for r in reqs]}")
+    k6 = model.depth * steps if server_kw.get("paged_kernel") else 0
+    want = dict(dict.fromkeys(counts, 0), flash_fwd=model.depth * len(prompts),
+                paged_attention=k6)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    spec = {k: snap[k] - before[k] for k in (
+        "spec_steps_total", "spec_drafted_tokens", "spec_accepted_tokens")}
+    rec = dict(wall_s=wall, tokens_per_s=len(prompts) * new_tokens / wall,
+               decode_steps=steps,
+               step_ms_mean=1e3 * sum(step_secs) / max(len(step_secs), 1),
+               step_ms_p50=1e3 * sorted(step_secs)[len(step_secs) // 2],
+               launches=counts, outs=outs)
+    if server_kw.get("spec_k"):
+        # One (verify step, slot) entry drafts spec_k and commits its
+        # accepted drafts plus one.
+        entries = spec["spec_drafted_tokens"] // server_kw["spec_k"]
+        rec.update(spec, acceptance_rate=(
+            spec["spec_accepted_tokens"] / spec["spec_drafted_tokens"]),
+            tokens_per_verify_step=(
+                (spec["spec_accepted_tokens"] + entries) / entries))
+    return rec
+
+
+def decode_spec(dev, checks: dict) -> dict:
+    """GPT-2 124M fp32 behind ``Server(max_batch=8)``: the eight
+    ``DECODE_LENS`` prompts, 48 greedy tokens, through ``spec_k=4``
+    (contiguous, then ``kv_page_size=16``) and ``spec_k=0`` with its
+    decode graph (the reference; the near-tie rule); a sampled spec pass
+    twice (equal); bf16 spec against the bf16 vanilla engine (tokens
+    under the near-tie rule at DECODE_BF16_REL of the largest logit, and
+    every served token within it of the best)."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    model = _seeded_model("gpt2", seed=SEED, device=dev).eval()
+    rng = np.random.default_rng(SEED + 23)
+    prompts = _spec_prompts(rng, model.vocab_size, DECODE_LENS)
+    warm = _spec_prompts(rng, model.vocab_size, [130, 300])
+    k = DECODE_SPEC_K
+    runs = {
+        "vanilla": _serve_timed(model, prompts, DECODE_NEW, warm,
+                                "vanilla"),
+        "spec": _serve_timed(model, prompts, DECODE_NEW, warm, "spec",
+                             spec_k=k),
+        "spec_paged": _serve_timed(model, prompts, DECODE_NEW, warm,
+                                   "spec paged", spec_k=k, kv_page_size=16),
+    }
+    ref = runs["vanilla"].pop("outs")
+    for name in ("spec", "spec_paged"):
+        runs[name]["parted_rows"] = near_tie(
+            model, prompts, runs[name].pop("outs"), ref, _slack(None),
+            f"spec serving ({name})")
+    with checked_calls(checks):
+        sampled = []
+        for _ in range(2):
+            with mt.Server(model, max_batch=8, spec_k=k, device=dev) as s:
+                streams = [s.submit(p, 16, temperature=0.8, rng=i)
+                           for i, p in enumerate(prompts[:4])]
+                sampled.append([st.result(timeout=600) for st in streams])
+        if not all(np.array_equal(a, b) for a, b in zip(*sampled)):
+            raise AssertionError("sampled spec serving does not repeat")
+        bf16 = _seeded_model("gpt2", seed=SEED, device=dev,
+                             precision="bf16").eval()
+        outs = {}
+        for name, kw in (("vanilla", {}), ("spec", dict(spec_k=k))):
+            with mt.Server(bf16, max_batch=8, device=dev, **kw) as s:
+                outs[name] = [s.complete(p, 24, timeout=600)
+                              for p in prompts[:4]]
+        parted = near_tie(bf16, prompts[:4], outs["spec"], outs["vanilla"],
+                          _slack("bf16"), "bf16 spec serving")
+        worst = 0.0
+        for p, seq in zip(prompts[:4], outs["spec"]):
+            logits = _teacher_logits(bf16, seq[:-1])[len(p) - 1:]
+            served = torch.as_tensor(seq[len(p):].astype(np.int64),
+                                     device=dev)
+            gap = (logits.max(-1).values
+                   - logits.gather(1, served[:, None])[:, 0]).max().item()
+            bar = DECODE_BF16_REL * logits.abs().max().item()
+            if not gap <= bar:
+                raise AssertionError(f"bf16 spec: a served token {gap} below "
+                                     f"the best logit (> {bar})")
+            worst = max(worst, gap / bar)
+    del bf16
+    return dict(runs=runs, prompt_lens=DECODE_LENS, new_tokens=DECODE_NEW,
+                spec_k=k, sampled_equal=True,
+                bf16=dict(parted_rows=parted, worst_gap_of_bar=worst))
+
+
+def decode_draft_model(dev, checks: dict) -> dict:
+    """``gpt2_mini`` as target with ``gpt2_nano`` as draft (the pair the
+    JAX package registers), seeded: ``speculative_generate`` and
+    ``Server(drafter=...)`` greedy against ``generate()`` (the near-tie
+    rule), with the acceptance stats."""
+    import numpy as np
+
+    import ml_trainer_tpu_torch as mt
+
+    target = _seeded_model("gpt2_mini", seed=SEED, device=dev).eval()
+    draft = _seeded_model("gpt2_nano", seed=SEED + 1, device=dev).eval()
+    rng = np.random.default_rng(SEED + 24)
+    prompts = _spec_prompts(rng, target.vocab_size, [130] * 4)
+    with checked_calls(checks):
+        want = mt.generate(target, np.stack(prompts), DECODE_NEW,
+                           device=dev).cpu().numpy()
+        got, stats = mt.speculative_generate(
+            target, np.stack(prompts), DECODE_NEW, draft_k=DECODE_SPEC_K,
+            drafter=draft, return_stats=True, device=dev)
+        with mt.Server(target, max_batch=8, spec_k=DECODE_SPEC_K,
+                       drafter=draft, device=dev) as s:
+            served = [s.complete(p, DECODE_NEW, timeout=600)
+                      for p in prompts]
+            snap = s.metrics.snapshot()
+    return dict(
+        parted_rows_batch=near_tie(target, prompts, got.cpu().numpy(), want,
+                                   _slack(None), "draft-model batch"),
+        parted_rows_served=near_tie(target, prompts, served, want,
+                                    _slack(None), "draft-model serving"),
+        batch_stats=stats,
+        served_acceptance_rate=snap["spec_acceptance_rate"],
+        served_tokens_per_step=snap["spec_tokens_per_step"])
+
+
+def _chunked_run(model, long_p, shorts, chunk: int, graph: bool) -> dict:
+    """The long prompt queued ahead of the short ones through a paged
+    ``Server`` (page 16, ``paged_kernel``, ``prefill_chunk=chunk``), after
+    an uncounted warm-up (the decode graph's capture; with chunking, its
+    window shapes).  Gates: exact K6 (12 a decode step), K1 none with
+    chunking (the shorts' buckets are under 128, the windows attend
+    plainly) and 12 without (the long prefill); the windows counted."""
+    import numpy as np
+
+    import ml_trainer_tpu_torch as mt
+
+    n = DECODE_CHUNK["new_tokens"]
+    rng = np.random.default_rng(SEED + 25)
+    with decode_graph(graph), mt.Server(
+            model, max_batch=8, kv_page_size=16, paged_kernel=True,
+            prefill_chunk=chunk, prefix_cache=False,
+            device=model.device) as server:
+        server.complete(rng.integers(0, model.vocab_size, 300), 3,
+                        timeout=600)
+        server.complete(rng.integers(0, model.vocab_size, 40), 3,
+                        timeout=600)
+        before = server.metrics.snapshot()
+        mt.reset_launch_counts()
+        streams = [server.submit(long_p, n)] + [server.submit(p, n)
+                                                for p in shorts]
+        outs = [s.result(timeout=600) for s in streams]
+        snap = settled_snapshot(server, before, len(streams) * (n - 1))
+        counts = mt.launch_counts()
+    steps = snap["decode_steps"] - before["decode_steps"]
+    windows = -(-len(long_p) // chunk) if chunk else 0
+    want = dict(dict.fromkeys(counts, 0), paged_attention=model.depth * steps,
+                flash_fwd=0 if chunk else model.depth)
+    if counts != want:
+        raise AssertionError(f"chunked prefill {chunk}: launches {counts}, "
+                             f"expected {want}")
+    got = {k: snap[k] - before[k] for k in ("chunked_admissions_total",
+                                            "prefill_chunks_total")}
+    if got != {"chunked_admissions_total": int(bool(chunk)),
+               "prefill_chunks_total": windows}:
+        raise AssertionError(f"chunked prefill {chunk}: {got}")
+    reqs = [s.request for s in streams]
+    return dict(outs=outs, launches=counts, decode_steps=steps, **got,
+                long_prefill_chunks=reqs[0].prefill_chunks,
+                ttft_s=[r.first_token_at - r.submitted_at for r in reqs],
+                first_token_at=[r.first_token_at for r in reqs])
+
+
+def decode_chunked(dev, checks: dict) -> dict:
+    """GPT-2 124M, ``kv_page_size=16, paged_kernel=True``: one 900-token
+    prompt (4 windows of ``prefill_chunk=256``) queued ahead of three of
+    at most 64 tokens, with the decode graph, chunked and not: tokens
+    under the near-tie rule, the short requests' first tokens before the
+    long one's when chunked (after it when not); then the chunked run
+    eagerly with every K6 call held to its plain version."""
+    import numpy as np
+
+    model = _seeded_model("gpt2", seed=SEED, device=dev).eval()
+    rng = np.random.default_rng(SEED + 26)
+    c = DECODE_CHUNK
+    long_p = rng.integers(0, model.vocab_size, c["long"]).astype(np.int32)
+    shorts = [rng.integers(0, model.vocab_size, m).astype(np.int32)
+              for m in c["shorts"]]
+    chunked = _chunked_run(model, long_p, shorts, c["chunk"], graph=True)
+    plain = _chunked_run(model, long_p, shorts, 0, graph=True)
+    prompts = [long_p] + shorts
+    parted = near_tie(model, prompts, chunked.pop("outs"), plain["outs"],
+                      _slack(None), "chunked prefill")
+    first = chunked.pop("first_token_at")
+    if not max(first[1:]) < first[0]:
+        raise AssertionError(f"chunked: a short request's first token came "
+                             f"after the long one's ({first})")
+    first_plain = plain.pop("first_token_at")
+    if not first_plain[0] < min(first_plain[1:]):
+        raise AssertionError(f"unchunked: the long prefill did not come "
+                             f"first ({first_plain})")
+    with checked_calls(checks):
+        eager = _chunked_run(model, long_p, shorts, c["chunk"], graph=False)
+    parted_eager = near_tie(model, prompts, eager.pop("outs"),
+                            plain.pop("outs"), _slack(None),
+                            "chunked prefill, eager")
+    return dict(chunked=chunked, unchunked=plain, parted_rows=parted,
+                parted_rows_eager=parted_eager,
+                eager_launches=eager["launches"],
+                short_ttft_s={"chunked": chunked["ttft_s"][1:],
+                              "unchunked": plain["ttft_s"][1:]},
+                long_ttft_s={"chunked": chunked["ttft_s"][0],
+                             "unchunked": plain["ttft_s"][0]})
+
+
+def decode_generate(dev, checks: dict) -> dict:
+    """``generate()``'s modes at GPT-2 124M on [2, 128] prompts, 32
+    tokens: ``top_k=1`` at temperature 1.5 and ``top_p=1e-6`` at 0.05
+    equal to greedy; a ``top_k=50, top_p=0.95`` sampled run twice, equal;
+    ``beam_search(num_beams=4)`` scoring at least greedy's sequence
+    (teacher-forced log-probabilities) and ``num_beams=1`` greedy's tokens
+    under the near-tie rule; ``generate_ragged`` on three prompt lengths
+    equal to ``generate`` per length.  K1 12 a prefill of 128 tokens."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    model = _seeded_model("gpt2", seed=SEED, device=dev).eval()
+    g = DECODE_GEN
+    rng = np.random.default_rng(SEED + 27)
+    prompts = rng.integers(0, model.vocab_size, (g["batch"], g["prompt"]))
+    n = g["new_tokens"]
+    with checked_calls(checks):
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        greedy = mt.generate(model, prompts, n, device=dev)
+        torch.cuda.synchronize()
+        greedy_ms = (time.perf_counter() - t0) * 1e3
+        for kw in (dict(temperature=1.5, top_k=1, rng=1),
+                   dict(temperature=0.05, top_p=1e-6, rng=2)):
+            if not torch.equal(mt.generate(model, prompts, n, device=dev,
+                                           **kw), greedy):
+                raise AssertionError(f"generate {kw} differs from greedy")
+        sampled = [mt.generate(model, prompts, n, temperature=0.8, top_k=50,
+                               top_p=0.95, rng=3, device=dev)
+                   for _ in range(2)]
+        if not torch.equal(*sampled):
+            raise AssertionError("top-k/top-p sampling does not repeat")
+        t0 = time.perf_counter()
+        beams = mt.beam_search(model, prompts, n, num_beams=4, device=dev)
+        torch.cuda.synchronize()
+        beam_ms = (time.perf_counter() - t0) * 1e3
+        beam1 = mt.beam_search(model, prompts, n, num_beams=1, device=dev)
+        lens = g["ragged"]
+        ragged_prompts = [rng.integers(0, model.vocab_size, m)
+                          for m in (lens[1], lens[0], lens[2], lens[1])]
+        ragged = mt.generate_ragged(model, ragged_prompts, 16, device=dev)
+        for m in lens:
+            idx = [i for i, p in enumerate(ragged_prompts) if len(p) == m]
+            want = mt.generate(model, np.stack([ragged_prompts[i]
+                                                for i in idx]), 16,
+                               device=dev)
+            if not all(torch.equal(ragged[i], want[j])
+                       for j, i in enumerate(idx)):
+                raise AssertionError(f"generate_ragged at length {m}")
+        counts = mt.launch_counts()
+    # 5 generate calls, 2 beam searches and the ragged and per-length
+    # calls at 128 tokens: K1 for each; 96 and 200 take the plain path.
+    prefills = 5 + 2 + 2
+    want = dict(dict.fromkeys(counts, 0), flash_fwd=model.depth * prefills)
+    if counts != want:
+        raise AssertionError(f"generate modes: launches {counts}, "
+                             f"expected {want}")
+    greedy_np, beams_np = greedy.cpu().numpy(), beams.cpu().numpy()
+    parted = near_tie(model, list(prompts), beam1.cpu().numpy(), greedy_np,
+                      _slack(None), "beam_search(num_beams=1)")
+    scores = {}
+    for name, seqs in (("greedy", greedy_np), ("beam4", beams_np)):
+        scores[name] = []
+        for seq in seqs:
+            logp = torch.log_softmax(_teacher_logits(model, seq[:-1]), -1)
+            tok = torch.as_tensor(seq[g["prompt"]:].astype(np.int64),
+                                  device=dev)
+            scores[name].append(logp[g["prompt"] - 1:].gather(
+                1, tok[:, None]).sum().item())
+    for b, (s_beam, s_greedy) in enumerate(zip(scores["beam4"],
+                                               scores["greedy"])):
+        if not s_beam >= s_greedy - 1e-4 * abs(s_greedy):
+            raise AssertionError(f"beam row {b}: score {s_beam} below "
+                                 f"greedy's {s_greedy}")
+    return dict(prompts=[g["batch"], g["prompt"]], new_tokens=n,
+                greedy_ms=greedy_ms, beam4_ms=beam_ms, scores=scores,
+                beam1_parted_rows=parted, ragged_lens=list(lens),
+                launches=counts)
+
+
+def decode_phase(dev, smi: str) -> dict:
+    """The ``decode`` phase: its runs in order, each one line, then the
+    per-call checks of every eager K1 and K6 call; returns the counted
+    runs' launches."""
+    import torch
+
+    checks: dict = {}
+    t0 = time.perf_counter()
+    spec = decode_spec(dev, checks)
+    for name, run in spec["runs"].items():
+        log(f"decode serving {name} on {smi}: " + json.dumps(run))
+    log(f"decode serving sampled/bf16 on {smi}: " + json.dumps(
+        {k: spec[k] for k in ("sampled_equal", "bf16", "prompt_lens",
+                              "new_tokens", "spec_k")}))
+    t1 = time.perf_counter()
+    draft = decode_draft_model(dev, checks)
+    log(f"decode draft model on {smi}: " + json.dumps(draft))
+    t2 = time.perf_counter()
+    chunked = decode_chunked(dev, checks)
+    log(f"decode chunked prefill on {smi}: " + json.dumps(chunked))
+    t3 = time.perf_counter()
+    gen = decode_generate(dev, checks)
+    log(f"decode generate modes on {smi}: " + json.dumps(gen))
+    t4 = time.perf_counter()
+    for kname in ("flash_fwd", "paged_attention"):
+        if not checks.get(kname, {}).get("calls"):
+            raise AssertionError(f"the per-call check saw no {kname} call")
+    log(f"decode per-call checks on {smi}: " + json.dumps(checks))
+    log(f"decode seconds: spec {t1 - t0:.1f}, draft {t2 - t1:.1f}, chunked "
+        f"{t3 - t2:.1f}, generate {t4 - t3:.1f}")
+    launches = {}
+    for counts in ([r["launches"] for r in spec["runs"].values()]
+                   + [chunked["chunked"]["launches"],
+                      chunked["unchunked"]["launches"], gen["launches"]]):
+        for kname, n in counts.items():
+            launches[kname] = launches.get(kname, 0) + n
+    log(f"decode launches on {smi}: " + json.dumps(launches))
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
                                  "graphs", "resume", "data", "llama", "cli",
-                                 "lora", "examples", "dist"],
+                                 "lora", "examples", "dist", "decode"],
                         default=None)
     # The dist phase's own processes (started by the phase, not by hand).
     parser.add_argument("--dist-worker", choices=["nccl1", "gloo2"],
@@ -7123,6 +7648,11 @@ def main(argv=None) -> int:
         log(f"int8 quality gate on {smi}: " + json.dumps(quality_gate(dev)))
     step_split = {kname: {} for kname in ATTN_MARKS}  # K1-K3 per step
     mark = lap("serve", mark)
+    if args.only in (None, "decode"):
+        rec = decode_phase(dev, smi)
+        for kname, n in rec["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
+    mark = lap("decode", mark)
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))

@@ -20,6 +20,10 @@ float32 master parameters with dynamic loss scaling (``precision``).
 ``fit()`` writes full-state checkpoints in the JAX package's format
 (``checkpoint``) and ``fit(resume=True)`` continues from them bit for
 bit, also after a SIGTERM or an injected fault (``resilience``).
+``generate()`` samples with ``top_k``/``top_p`` and decodes
+speculatively with ``spec_k`` (``speculative``: an n-gram or draft-model
+drafter); ``beam_search`` and ``generate_ragged`` are its other modes,
+and ``Server`` takes ``spec_k`` and ``prefill_chunk`` (chunked prefill).
 ``Trainer(lora=LoraConfig(...))`` trains a LoRA adapter on a frozen
 GPT-2 base; ``export_lora`` writes it in the JAX package's artifact
 format (``lora``) and ``Server(adapters=AdapterConfig(...))`` serves it
@@ -52,9 +56,19 @@ from ml_trainer_tpu_torch.device import (
     reset_launch_counts,
     resolve_device,
 )
-from ml_trainer_tpu_torch.generate import generate
+from ml_trainer_tpu_torch.generate import (
+    beam_search,
+    generate,
+    generate_ragged,
+)
 from ml_trainer_tpu_torch.lora import LoraConfig
-from ml_trainer_tpu_torch.models import GPT2, LlamaLM, MLModel, get_model
+from ml_trainer_tpu_torch.models import (
+    GPT2,
+    LlamaLM,
+    MLModel,
+    get_model,
+    suggested_draft,
+)
 from ml_trainer_tpu_torch.ops.kernels import (
     int8_matmul,
     quantize_per_channel,
@@ -69,6 +83,11 @@ from ml_trainer_tpu_torch.serving import (
     SlotDecodeEngine,
     UnknownAdapter,
 )
+from ml_trainer_tpu_torch.speculative import (
+    DraftModelDrafter,
+    NgramDrafter,
+    speculative_generate,
+)
 from ml_trainer_tpu_torch.trainer import Trainer
 from ml_trainer_tpu_torch.utils import (
     custom_pre_process_function,
@@ -81,13 +100,15 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AdapterConfig", "AdapterPool", "AdapterPoolExhausted",
-    "ArrayDataset", "GPT2", "LlamaLM", "Loader", "LoraConfig", "MLModel",
-    "Server",
+    "ArrayDataset", "DraftModelDrafter", "GPT2", "LlamaLM", "Loader",
+    "LoraConfig", "MLModel", "NgramDrafter", "Server",
     "SlotDecodeEngine", "SyntheticCIFAR10", "SyntheticTokens", "Trainer",
-    "adam_state_from_jax", "create_mesh", "custom_pre_process_function",
-    "generate", "get_model", "init_gpt2", "init_model", "int8_matmul",
+    "adam_state_from_jax", "beam_search", "create_mesh",
+    "custom_pre_process_function", "generate", "generate_ragged",
+    "get_model", "init_gpt2", "init_model", "int8_matmul",
     "launch_counts", "load_history", "load_model", "parallel",
-    "params_from_jax", "plot_history", "precision", "quant_from_jax", "quantize_per_channel",
-    "quantize_tree", "reset_launch_counts", "resolve_device",
-    "state_from_jax", "UnknownAdapter", "variables_to_jax",
+    "params_from_jax", "plot_history", "precision", "quant_from_jax",
+    "quantize_per_channel", "quantize_tree", "reset_launch_counts",
+    "resolve_device", "speculative_generate", "state_from_jax",
+    "suggested_draft", "UnknownAdapter", "variables_to_jax",
 ]

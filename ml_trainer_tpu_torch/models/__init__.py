@@ -14,13 +14,18 @@ from ml_trainer_tpu_torch.models.layers import (
 )
 from ml_trainer_tpu_torch.models.llama import LlamaLM
 from ml_trainer_tpu_torch.models.mlmodel import MLModel
-from ml_trainer_tpu_torch.models.registry import available_models, get_model
+from ml_trainer_tpu_torch.models.registry import (
+    DRAFT_PAIRS,
+    available_models,
+    get_model,
+    suggested_draft,
+)
 from ml_trainer_tpu_torch.models.resnet import ResNet
 from ml_trainer_tpu_torch.models.vit import VisionTransformer
 
 __all__ = [
-    "GPT2", "MLP", "BatchNorm", "BertEncoder", "ContiguousKVCache", "Conv",
-    "LlamaLM", "MLModel", "MultiHeadAttention", "PagedKVCache", "RMSNorm",
-    "ResNet", "TransformerBlock", "VisionTransformer", "available_models",
-    "get_model",
+    "DRAFT_PAIRS", "GPT2", "MLP", "BatchNorm", "BertEncoder",
+    "ContiguousKVCache", "Conv", "LlamaLM", "MLModel", "MultiHeadAttention",
+    "PagedKVCache", "RMSNorm", "ResNet", "TransformerBlock",
+    "VisionTransformer", "available_models", "get_model", "suggested_draft",
 ]

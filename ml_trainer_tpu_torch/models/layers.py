@@ -17,6 +17,9 @@ row's position, then ``advance``).  Two layouts, as in the reference:
   vector.  A call with S > 1 is the PREFILL of an empty cache (plain
   causal attention over the prompt itself, the flash kernel's route);
   S == 1 is the decode step over the valid prefix ``arange(L) <= idx``.
+  With the cache's ``windowed`` flag set (the speculative verify window,
+  ``speculative.py``), S > 1 is instead a window written at each row's
+  own offset, query j attending cached positions ``<= idx + j``.
 * ``PagedKVCache``: per layer one pool [N, H, page, D] shared by every
   row, a per-row page table [B, P] and positions.  Writes scatter the
   length-S window at each row's own offset (positions at or past L go
@@ -270,9 +273,13 @@ def _dense(linear: "Dense", name: str, x, quant, quant_impl: str):
 
 class ContiguousKVCache:
     """Per-row contiguous K/V ([B, H, L, D] per layer) plus each row's
-    position; the model's forward writes and advances it in place."""
+    position; the model's forward writes and advances it in place.
+    ``windowed``: an S > 1 call is a window at each row's offset, not
+    the prefill of an empty cache (the JAX layer tells them apart by
+    the index's rank; here the index is always a [B] vector)."""
 
     paged = False
+    windowed = False
 
     def __init__(self, depth: int, batch: int, heads: int, max_len: int,
                  head_dim: int, dtype=torch.float32, device=None):
@@ -395,6 +402,8 @@ class MultiHeadAttention(nn.Module):
         idx = cache.index
         L = cache.max_len
         ck, cv = cache.k[layer], cache.v[layer]
+        if s > 1 and cache.windowed:
+            return self._window_step(q, k, v, cache, layer)
         if s > 1:
             # Prefill of an EMPTY cache: causal attention over the prompt
             # itself, K/V landing at positions [0, s).  A warm-cache
@@ -417,6 +426,27 @@ class MultiHeadAttention(nn.Module):
         cv[rows, :, pos] = v[:, :, 0].to(cv.dtype)
         valid = (torch.arange(L, device=q.device)[None, :]
                  <= idx[:, None])[:, None, None, :]
+        return attention(q, ck, cv, causal=False, mask=valid,
+                         implementation="xla")
+
+    @staticmethod
+    def _window_step(q, k, v, cache, layer):
+        """The length-S window at each row's own offset (the JAX layer's
+        per-row ``dynamic_update_slice``, whose start clamps to
+        ``L - S``); query j attends positions ``<= idx + j``."""
+        b, h, s, d = q.shape
+        idx, L = cache.index, cache.max_len
+        ck, cv = cache.k[layer], cache.v[layer]
+        start = torch.clamp(idx, 0, L - s)
+        pos = start[:, None] + torch.arange(s, device=q.device)[None, :]
+        rows = torch.arange(b, device=q.device)[:, None]
+        ck[rows, :, pos] = k.transpose(1, 2).to(ck.dtype)
+        cv[rows, :, pos] = v.transpose(1, 2).to(cv.dtype)
+        valid = (
+            torch.arange(L, device=q.device)[None, None, :]
+            <= (idx[:, None] + torch.arange(s, device=q.device)[None, :])
+            [:, :, None]
+        )[:, None, :, :]
         return attention(q, ck, cv, causal=False, mask=valid,
                          implementation="xla")
 

@@ -11,6 +11,15 @@ from torch import nn
 
 MODELS: Dict[str, Callable[..., nn.Module]] = {}
 
+# Target-model name -> suggested draft-model name for speculative
+# decoding (``speculative.py``).  A valid pair shares one vocabulary:
+# acceptance compares token ids across the two models.  The 50257-vocab
+# family has no small partner (gpt2_tiny's 1024 vocab is not
+# compatible); the n-gram drafter covers those targets.
+DRAFT_PAIRS: Dict[str, str] = {
+    "gpt2_mini": "gpt2_nano",
+}
+
 _FAMILY_MODULES = ("mlmodel", "resnet", "vit", "bert", "gpt2", "llama")
 
 
@@ -69,3 +78,18 @@ def get_model(name: str, **kwargs) -> nn.Module:
 def available_models():
     _load_families()
     return sorted(MODELS)
+
+
+def suggested_draft(name: str, **kwargs) -> nn.Module:
+    """Build the registered draft-model partner of target ``name`` (for
+    speculative decoding; ``kwargs`` go to ``get_model``).  Raises
+    ``ValueError`` when no pairing is registered: the caller should then
+    use the model-free n-gram drafter rather than guess a
+    vocabulary-incompatible model."""
+    if name not in DRAFT_PAIRS:
+        raise ValueError(
+            f"no draft model registered for {name!r} "
+            f"(known pairs: {sorted(DRAFT_PAIRS)}); use the n-gram "
+            "lookup drafter instead"
+        )
+    return get_model(DRAFT_PAIRS[name], **kwargs)

@@ -120,7 +120,17 @@ class Server:
 
     ``adapters`` (an ``AdapterConfig`` or its kwargs; the GPT-2 family)
     serves LoRA adapters from a pool of slots beside the base
-    (``serving/adapter_pool.py``): ``submit(..., adapter=name)``."""
+    (``serving/adapter_pool.py``): ``submit(..., adapter=name)``.
+
+    ``spec_k > 0`` decodes speculatively: ``drafter`` ("ngram", the
+    lookup over ``ngram_n``-grams, or a draft model of the same
+    vocabulary) proposes ``spec_k`` tokens a slot and one verify forward
+    scores them; greedy requests get the vanilla tokens.  A request then
+    needs ``spec_k`` positions of slack under ``max_len``.
+    ``prefill_chunk`` (paged, a page multiple) prefills prompts longer
+    than it in windows of that many tokens, one per loop iteration, so
+    that a long prompt does not hold back the first tokens of the short
+    requests behind it."""
 
     # Seconds the idle loop waits for a submission before looking again.
     _IDLE_POLL = 0.02
@@ -129,7 +139,8 @@ class Server:
                  kv_page_size: int = 0,
                  kv_pages: int = 0, paged_kernel: bool = False,
                  prefix_cache: bool = True, prefix_scope: str = "tenant",
-                 max_preemptions: int = 8, spec_k: int = 0, adapters=None,
+                 max_preemptions: int = 8, spec_k: int = 0,
+                 drafter="ngram", ngram_n: int = 3, adapters=None,
                  quant_int8: bool = False, prefill_chunk: int = 0,
                  http_port: Optional[int] = None, device=None):
         if http_port is not None:
@@ -142,7 +153,8 @@ class Server:
             kv_page_size=kv_page_size, kv_pages=kv_pages,
             paged_kernel=paged_kernel, prefix_cache=prefix_cache,
             prefix_scope=prefix_scope, max_preemptions=max_preemptions,
-            spec_k=spec_k, adapters=adapters, quant_int8=quant_int8,
+            spec_k=spec_k, drafter=drafter, ngram_n=ngram_n,
+            adapters=adapters, quant_int8=quant_int8,
             prefill_chunk=prefill_chunk, device=device,
         )
         self.scheduler = FifoScheduler(max_batch, max_queue=max_queue,
@@ -175,10 +187,14 @@ class Server:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new_tokens}")
-        if prompt.size + max_new_tokens > self.engine.max_len:
+        spec_k = self.engine.spec_k
+        if prompt.size + max_new_tokens + spec_k > self.engine.max_len:
+            extra = (f" + spec_k ({spec_k}) — the speculative verify "
+                     "window needs spec_k tokens of cache slack"
+                     if spec_k else "")
             raise ValueError(
-                f"prompt ({prompt.size}) + new tokens ({max_new_tokens}) "
-                f"exceeds the model's max_len ({self.engine.max_len})"
+                f"prompt ({prompt.size}) + new tokens ({max_new_tokens})"
+                f"{extra} exceeds the model's max_len ({self.engine.max_len})"
             )
         if eos_token_id is not None and not (
                 0 <= eos_token_id < self.engine.vocab_size):
@@ -228,7 +244,10 @@ class Server:
             "closed": self._stopping,
             "device": str(engine.device),
             "active_slots": engine.active_count(),
+            "chunking_slots": engine.chunking_count(),
             "max_slots": engine.max_batch,
+            "spec_k": engine.spec_k,
+            "prefill_chunk": engine.prefill_chunk,
             "queue_depth": self.scheduler.queue_depth(),
             "kv_pages_free": engine.pool.free_count() if engine.paged else None,
             "kv_pages_total": engine.kv_pages - 1 if engine.paged else None,
@@ -238,6 +257,8 @@ class Server:
         }
 
     def close(self) -> None:
+        """Stop the loop; its exit fails whatever is queued, in flight or
+        mid-chunk (``abort_chunked``) with a structured error."""
         self._stopping = True
         self._wake.set()
         self._thread.join(timeout=60.0)
@@ -264,7 +285,8 @@ class Server:
         admitting, self._admitting = self._admitting, None
         if admitting is not None and admitting.state == "active":
             admitting.finish("error", msg)
-            if admitting.slot >= 0 and admitting.slot not in engine._active:
+            if (admitting.slot >= 0 and admitting.slot not in engine._active
+                    and admitting.slot not in engine._chunked):
                 engine._release_slot_pages(admitting.slot, donate=False)
                 self._release(admitting.slot)
         for slot, req in list(engine._active.items()):
@@ -272,6 +294,8 @@ class Server:
                 req.finish("error", msg)
             del engine._active[slot]
             engine._release_slot_pages(slot, donate=False)
+            self._release(slot)
+        for slot in engine.abort_chunked(msg):
             self._release(slot)
         for req in engine.drain_preempted() + self.scheduler.drain_pending():
             req.finish("error", msg)
@@ -306,6 +330,14 @@ class Server:
                 sched.release(slot)
                 sched.requeue(req)
                 break
+            if status == "finished":
+                sched.release(slot)
+            # "chunking" holds its slot: advance_chunks runs its windows.
+        # One chunked-prefill window per slot per iteration, after the
+        # admissions: short requests admit (and decode, below) between a
+        # long prompt's windows.
+        for slot, _, status in engine.advance_chunks():
+            progressed = True
             if status == "finished":
                 sched.release(slot)
         if engine.active_count():

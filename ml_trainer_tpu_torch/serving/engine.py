@@ -57,11 +57,29 @@
   An unknown adapter or a full pool fails the request with a structured
   error.  The prefix cache's namespace always carries the adapter.
 
+* **Speculative decoding** (``spec_k > 0``, ``speculative.py``): each
+  step drafts ``spec_k`` tokens per slot (the n-gram lookup over the
+  request's prompt and tokens, or a draft model decoding greedily in its
+  own contiguous slot cache), scores the ``[max_batch, spec_k + 1]``
+  window in ONE target forward (the contiguous cache's windowed mode, or
+  the paged window write; plain masked attention, eagerly, never the
+  decode graph) and commits each slot's accepted prefix plus one token.
+  The host's ``pos`` sets the cache's index before the verify and after
+  it (the rollback).  Greedy slots commit the vanilla stream.
+* **Chunked prefill** (``prefill_chunk``, paged only): a prompt longer
+  than ``prefill_chunk`` prefills in page-aligned windows, one per
+  serving-loop iteration (``advance_chunks``), each the paged
+  continuation at the slot's offset; decode steps run between them.
+  The slot is held (``free_capacity`` counts it) but not active; its
+  row still rides every decode step, whose S == 1 write lands at the
+  next window's first position (the window overwrites it).  The
+  sampler's counter does not consume, so the last window draws the
+  unchunked first token.
+
 Sampling follows ``generate.sample_rows``: greedy argmax, or per request
 a generator seeded from ``(rng, t)`` per token, so a served request
-reproduces the port's ``generate()`` for it.  Speculative decoding and
-chunked prefill are not ported yet, and a model without a slot-indexed
-cache (Llama: no ``new_paged_cache``) is refused.
+reproduces the port's ``generate()`` for it.  A model without a
+slot-indexed cache (Llama: no ``new_paged_cache``) is refused.
 """
 
 from __future__ import annotations
@@ -87,6 +105,12 @@ from ml_trainer_tpu_torch.serving.kv_pool import KVPagePool
 from ml_trainer_tpu_torch.serving.metrics import ServingMetrics
 from ml_trainer_tpu_torch.serving.prefix_cache import PrefixCache
 from ml_trainer_tpu_torch.serving.scheduler import Request
+from ml_trainer_tpu_torch.speculative import (
+    DraftModelDrafter,
+    NgramDrafter,
+    draft_scan,
+    verify,
+)
 from ml_trainer_tpu_torch.step_graph import StepGraph
 
 
@@ -105,8 +129,13 @@ class SlotDecodeEngine:
                  kv_page_size: int = 0, kv_pages: int = 0,
                  paged_kernel: bool = False, prefix_cache: bool = True,
                  prefix_scope: str = "tenant", max_preemptions: int = 8,
-                 spec_k: int = 0, adapters=None, quant_int8: bool = False,
+                 spec_k: int = 0, drafter="ngram", ngram_n: int = 3,
+                 adapters=None, quant_int8: bool = False,
                  prefill_chunk: int = 0, device=None):
+        if spec_k < 0 or spec_k >= int(model.max_len):
+            raise ValueError(
+                f"spec_k must be in [0, max_len={model.max_len}), "
+                f"got {spec_k}")
         if quant_int8 and spec_k:
             raise ValueError(
                 "quant_int8 with spec_k > 0 is not supported: the verify "
@@ -118,13 +147,11 @@ class SlotDecodeEngine:
                 "quant_int8 with adapters is not supported: LoRA deltas "
                 "attach to the fp32 projections the quantized program does "
                 "not read (serve quantized without adapters)")
-        for knob, value in (("spec_k", spec_k),
-                            ("prefill_chunk", prefill_chunk)):
-            if value:
-                raise NotImplementedError(
-                    f"{knob}={value!r} is not ported yet; see ROADMAP.md "
-                    "Queue A"
-                )
+        if adapters is not None and spec_k:
+            raise ValueError(
+                "adapters with spec_k > 0 is not supported yet: the "
+                "speculative verify window does not thread the adapter "
+                "gather (serve adapters with spec_k=0)")
         if not hasattr(model, "new_paged_cache"):
             # The engine writes each slot's cache row at its own position;
             # in the JAX package only MultiHeadAttention has that mode, so
@@ -176,6 +203,31 @@ class SlotDecodeEngine:
                 raise ValueError("kv_pages needs kv_page_size > 0")
             self.kv_pages = 0
             self.cache = model.new_cache(max_batch)
+            # With spec_k, S > 1 calls on the slot cache are verify
+            # windows.
+            self.cache.windowed = bool(spec_k)
+        # Chunked prefill: page-aligned windows through the paged
+        # continuation, so it needs the paged cache.
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk:
+            if not self.paged:
+                raise ValueError(
+                    "prefill_chunk needs paged KV (kv_page_size > 0): "
+                    "chunk windows are continuation-window prefills at "
+                    "the slot's page-aligned offset")
+            if self.prefill_chunk % self.kv_page_size:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) must be a multiple "
+                    f"of kv_page_size ({kv_page_size}): every window "
+                    "boundary must land on a page boundary")
+            if spec_k:
+                raise ValueError(
+                    "prefill_chunk with spec_k > 0 is not supported yet: "
+                    "the draft cache has no continuation-window prefill "
+                    "(serve chunked prefill with spec_k=0)")
+        # Chunk-in-progress slots: slot -> dispatch state.  They hold
+        # their slot but are not in ``_active`` until the last window.
+        self._chunked: Dict[int, dict] = {}
         # The decode step's int8 weights, or None for the fp32 program.
         self.quant = None
         if quant_int8:
@@ -208,6 +260,46 @@ class SlotDecodeEngine:
         # Host mirror of each slot's consumed-token count.
         self._pos = np.zeros((max_batch,), np.int64)
         self._active: Dict[int, Request] = {}
+        self._init_spec(int(spec_k), drafter, int(ngram_n))
+
+    # -- speculative decoding (speculative.py) ---------------------------
+
+    def _init_spec(self, spec_k: int, drafter, ngram_n: int) -> None:
+        """The drafter, the write caps and the draft model's contiguous
+        slot cache.  ``spec_enabled`` turns speculation off without a
+        new engine (vanilla decode steps over the same slots)."""
+        self.spec_k = spec_k
+        self.spec_enabled = True
+        self._ngram: Optional[NgramDrafter] = None
+        self._draft: Optional[DraftModelDrafter] = None
+        if not spec_k:
+            return
+        if isinstance(drafter, str) and drafter == "ngram":
+            self._ngram = NgramDrafter(k=spec_k, n=ngram_n)
+        elif isinstance(drafter, DraftModelDrafter):
+            self._draft = drafter
+        elif isinstance(drafter, torch.nn.Module) and hasattr(drafter,
+                                                              "max_len"):
+            self._draft = DraftModelDrafter(drafter)
+        else:
+            raise ValueError(
+                "drafter must be 'ngram', a DraftModelDrafter or a model, "
+                f"got {drafter!r}")
+        # The verify window writes spec_k + 1 positions from pos, so pos
+        # is capped to keep every write inside max_len.
+        self._caps = np.full((self.max_batch,), self.max_len - spec_k - 1,
+                             np.int64)
+        if self._draft is not None:
+            d_model = self._draft.model
+            self._draft.check_compatible(self.model)
+            check_model_device(d_model, self.device)
+            if int(d_model.max_len) < self.max_len:
+                raise ValueError(
+                    f"draft model max_len ({d_model.max_len}) must cover "
+                    f"the target's ({self.max_len})")
+            # The draft model keeps a contiguous slot cache: it is small
+            # by design, so paging its K/V buys nothing.
+            self._draft_cache = d_model.new_cache(self.max_batch)
 
     # -- LoRA adapters (serving/adapter_pool.py) -------------------------
 
@@ -431,17 +523,22 @@ class SlotDecodeEngine:
     # -- serving ---------------------------------------------------------
 
     def free_capacity(self) -> int:
-        return self.max_batch - len(self._active)
+        return self.max_batch - len(self._active) - len(self._chunked)
 
     def active_count(self) -> int:
         return len(self._active)
 
+    def chunking_count(self) -> int:
+        return len(self._chunked)
+
     def admit(self, req: Request, slot: int) -> str:
         """Prefill ``req`` into ``slot`` and emit its first token.
         Returns ``"active"``, ``"finished"`` (EOS or budget on token 0,
-        or a structured error), or ``"no_memory"`` (paged: the pool
-        cannot hold the prompt now; the caller re-queues it)."""
-        if slot in self._active:
+        or a structured error), ``"no_memory"`` (paged: the pool cannot
+        hold the prompt now; the caller re-queues it), or ``"chunking"``
+        (``prefill_chunk``: the first window ran and the slot is held;
+        ``advance_chunks`` runs the rest)."""
+        if slot in self._active or slot in self._chunked:
             raise ValueError(f"slot {slot} is already occupied")
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         done_tokens = len(req.tokens)
@@ -458,8 +555,10 @@ class SlotDecodeEngine:
                     record=not req.kv_blocked,
                 )
                 req.prefix_hit_tokens = c
-            # Cover the prompt plus the first decode token.
-            n_new = self.pool.pages_for(min(p + 1, self.max_len)) - len(shared)
+            # Cover the prompt plus the first decode window, so that a
+            # fresh admission cannot trigger a preemption at once.
+            n_new = self.pool.pages_for(
+                min(p + 1 + self.spec_k, self.max_len)) - len(shared)
             pages = self.pool.allocate(n_new)
             if pages is None and self._prefix is not None:
                 self._prefix.evict(n_new - self.pool.free_count())
@@ -496,6 +595,9 @@ class SlotDecodeEngine:
         req.slot = slot
         req.state = "active"
         seed = int(req.rng or 0)
+        if self.prefill_chunk and (p - c) > self.prefill_chunk:
+            return self._admit_chunked(req, slot, prompt, c, seed,
+                                       done_tokens)
         t0 = time.perf_counter()
         with torch.no_grad():
             if self.paged and c > 0:
@@ -504,10 +606,23 @@ class SlotDecodeEngine:
             else:
                 tok0 = self._admit_full_prefill(req, slot, prompt, seed,
                                                 done_tokens)
+            if self.spec_k:
+                self._caps[slot] = min(
+                    p + (req.max_new_tokens - done_tokens) - 1,
+                    self.max_len - self.spec_k - 1)
+                if self._draft is not None:
+                    self._admit_draft(prompt, slot)
             token = int(tok0)  # host read: the prefill has landed
         prefill_dt = time.perf_counter() - t0
-        self._pos[slot] = p
         self.metrics.record_prefill(prefill_dt)
+        return self._activate(req, slot, prompt, seed, done_tokens, token)
+
+    def _activate(self, req: Request, slot: int, prompt: np.ndarray,
+                  seed: int, done_tokens: int, token: int) -> str:
+        """The admission's tail once the prompt's K/V landed: position,
+        sampler state, prefix registration, first token, TTFT."""
+        p = prompt.shape[0]
+        self._pos[slot] = p
         self._temps[slot] = req.temperature
         self._seeds[slot] = seed
         self._steps[slot] = done_tokens + 1
@@ -581,6 +696,127 @@ class SlotDecodeEngine:
         self.tok[slot, 0] = tok0[0]
         return tok0[0]
 
+    def _admit_draft(self, prompt: np.ndarray, slot: int) -> None:
+        """Prefill the draft model's slot cache with the same effective
+        prompt (batch 1, the bucket's length) and insert its K/V into
+        the slot; its logits are not used."""
+        p = prompt.shape[0]
+        d_model = self._draft.model
+        bucket = min(1 << (p - 1).bit_length(), self.max_len)
+        padded = torch.zeros((1, bucket), dtype=torch.long, device=self.device)
+        padded[0, :p] = torch.from_numpy(prompt.astype(np.int64))
+        c1 = d_model.new_cache(1, max_len=bucket)
+        d_model(padded, c1, select=torch.tensor([p - 1], device=self.device))
+        cache = self._draft_cache
+        for layer in range(len(cache.k)):
+            cache.k[layer][slot, :, :bucket] = c1.k[layer][0]
+            cache.v[layer][slot, :, :bucket] = c1.v[layer][0]
+        cache.index[slot] = p
+
+    # -- chunked prefill (prefill_chunk) ---------------------------------
+
+    def _admit_chunked(self, req: Request, slot: int, prompt: np.ndarray,
+                       c: int, seed: int, done_tokens: int) -> str:
+        """Admit a long prompt through page-aligned windows: run the
+        first now and park the slot in ``_chunked``; ``advance_chunks``
+        runs one window per serving-loop iteration."""
+        self.metrics.record_chunked_admission()
+        self._chunked[slot] = {
+            "req": req, "prompt": prompt, "p": prompt.shape[0],
+            "seed": seed, "done_tokens": done_tokens, "next": c,
+            "secs": 0.0,
+        }
+        self._dispatch_chunk(slot)
+        return "chunking"
+
+    def _dispatch_chunk(self, slot: int) -> Optional[int]:
+        """Run ONE prefill window of a chunking slot at its page-aligned
+        offset (prefix hits are whole blocks and ``prefill_chunk`` is a
+        page multiple).  A window before the last samples nothing and
+        reads nothing back; the last samples the first token at the
+        request's own counter and returns it."""
+        st = self._chunked[slot]
+        req, prompt, p = st["req"], st["prompt"], st["p"]
+        start = st["next"]
+        w = min(self.prefill_chunk, p - start)
+        final = start + w >= p
+        t0 = time.perf_counter()
+        bucket = min(max(self._MIN_SUFFIX_BUCKET, 1 << (w - 1).bit_length()),
+                     self.max_len)
+        window = torch.zeros((1, bucket), dtype=torch.long, device=self.device)
+        window[0, :w] = torch.from_numpy(prompt[start:start + w].astype(np.int64))
+        row = torch.from_numpy(self._page_row(slot)).to(self.device)
+        view = self.cache.view(
+            row[None, :], torch.tensor([start], dtype=torch.long,
+                                       device=self.device))
+        token = None
+        with torch.no_grad():
+            last = self._serve_model(
+                window, view, select=torch.tensor([w - 1], device=self.device),
+                adapter_idx=self._row_idx(slot))
+            # The row rides the decode steps until the next window: its
+            # S == 1 write lands at ``start + w``, which that window
+            # overwrites.
+            self.cache.index[slot] = start + w
+            if final:
+                tok0 = sample_rows(last, [req.temperature], [st["seed"]],
+                                   [st["done_tokens"]])
+                self.tok[slot, 0] = tok0[0]
+                token = int(tok0[0])  # host read: the last window landed
+        st["next"] = start + w
+        st["secs"] += time.perf_counter() - t0
+        req.prefill_chunks += 1
+        self.metrics.record_prefill_chunk()
+        return token
+
+    def advance_chunks(self) -> List[tuple]:
+        """Advance every chunking slot by ONE window (the serving loop
+        calls this once per iteration, after admissions and before the
+        decode step).  Returns ``(slot, req, status)``: ``"chunking"``
+        (windows left), ``"active"`` (the last window landed and the
+        request decodes) or ``"finished"`` (expired, or done on its
+        first token: the caller frees the slot)."""
+        out: List[tuple] = []
+        now = time.monotonic()
+        for slot in sorted(self._chunked):
+            st = self._chunked[slot]
+            req = st["req"]
+            if req.expired(now):
+                del self._chunked[slot]
+                req.finish("expired",
+                           f"deadline ({req.deadline}s) passed during its "
+                           "chunked prefill")
+                self.metrics.record_expiry()
+                self._release_slot_pages(slot, None, donate=False)
+                out.append((slot, req, "finished"))
+                continue
+            token = self._dispatch_chunk(slot)
+            if token is None:
+                out.append((slot, req, "chunking"))
+                continue
+            out.append((slot, req, self._finalize_chunked(slot, token)))
+        return out
+
+    def _finalize_chunked(self, slot: int, token: int) -> str:
+        """The last window landed: the slot activates exactly as an
+        unchunked admission would."""
+        st = self._chunked.pop(slot)
+        self.metrics.record_prefill(st["secs"])
+        return self._activate(st["req"], slot, st["prompt"], st["seed"],
+                              st["done_tokens"], token)
+
+    def abort_chunked(self, msg: str) -> List[int]:
+        """Fail every chunking request with a structured error (their
+        page chains are partly written, so the pages go back without
+        prefix donation).  Returns the freed slots."""
+        freed: List[int] = []
+        for slot in list(self._chunked):
+            st = self._chunked.pop(slot)
+            st["req"].finish("error", msg)
+            self._release_slot_pages(slot, None, donate=False)
+            freed.append(slot)
+        return freed
+
     def _finished(self, req: Request, token: int) -> bool:
         """Finish and unbind ``req`` if it just completed."""
         done = (
@@ -630,11 +866,14 @@ class SlotDecodeEngine:
         if not self._active:
             return []
         freed: List[int] = []
+        spec_now = bool(self.spec_k and self.spec_enabled)
         if self.paged:
-            freed += self._ensure_pages(1)
+            freed += self._ensure_pages(self.spec_k + 1 if spec_now else 1)
             self._sync_table()
             if not self._active:
                 return freed
+        if spec_now:
+            return freed + self._step_spec()
         if self._rows_dirty:
             self._adapter_idx.copy_(torch.from_numpy(self._adapter_rows))
             self._rows_dirty = False
@@ -650,24 +889,89 @@ class SlotDecodeEngine:
             toks = nxt.cpu().numpy()  # the step's one host read
         dt = time.perf_counter() - t0
         self._pos = np.minimum(self._pos + 1, self.max_len)
-        emitted = 0
+        commits = {slot: [int(toks[slot])] for slot in self._live(freed)}
+        return freed + self._hand_out(commits, dt)
+
+    def _step_spec(self) -> List[int]:
+        """One speculative verify step over all slots: draft ``spec_k``
+        tokens per slot, score the ``[max_batch, spec_k + 1]`` window in
+        ONE target forward (eagerly), and commit each slot's accepted
+        prefix plus one token.  Free slots draft zeros and decode masked
+        rows nobody reads."""
+        k = self.spec_k
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if self._draft is not None:
+                drafts = draft_scan(self._draft.model, self._draft_cache,
+                                    self.tok, self._pos, k)
+            else:
+                drafts = np.zeros((self.max_batch, k), np.int32)
+                for slot, req in self._active.items():
+                    drafts[slot] = self._ngram.draft_one(np.concatenate([
+                        np.asarray(req.prompt, np.int32).reshape(-1),
+                        np.asarray(req.tokens, np.int32)]))
+            window = torch.cat(
+                [self.tok, torch.from_numpy(drafts.astype(np.int64)).to(
+                    self.device)], dim=1)
+            self.cache.index.copy_(torch.from_numpy(self._pos))
+            live = np.zeros(self.max_batch, bool)
+            live[list(self._active)] = True
+            acc, toks = verify(self._serve_model(window, self.cache), window,
+                               np.where(live, self._temps, 0.0), self._seeds,
+                               self._steps)
+            # The rollback: every row's index is its new consumed count.
+            self._pos = np.minimum(self._pos + acc + 1, self._caps)
+            self.cache.index.copy_(torch.from_numpy(self._pos))
+            self.tok.copy_(torch.from_numpy(toks[:, None]))
+        dt = time.perf_counter() - t0
+        freed: List[int] = []
+        commits = {}
+        for slot in self._live(freed):
+            req, n_acc = self._active[slot], int(acc[slot])
+            req.spec_steps += 1
+            req.spec_accepted_tokens += n_acc
+            commits[slot] = [int(t) for t in drafts[slot][:n_acc]] + [
+                int(toks[slot])]
+        self.metrics.record_spec([int(acc[slot]) for slot in commits], k)
+        return freed + self._hand_out(commits, dt)
+
+    def _live(self, freed: List[int]) -> List[int]:
+        """The active slots after the step, in order; the requests whose
+        deadline passed are finished and their slots added to ``freed``."""
         now = time.monotonic()
+        live = []
         for slot in sorted(self._active):
             req = self._active[slot]
-            if req.expired(now):
-                req.finish("expired",
-                           f"deadline ({req.deadline}s) passed mid-decode "
-                           f"after {len(req.tokens)} token(s)")
-                self.metrics.record_expiry()
-                self._release_slot_pages(slot, req, donate=True)
-                del self._active[slot]
-                freed.append(slot)
+            if not req.expired(now):
+                live.append(slot)
                 continue
-            self._steps[slot] += 1
-            token = int(toks[slot])
-            req.push_token(token)
-            emitted += 1
-            if self._finished(req, token):
-                freed.append(slot)
-        self.metrics.record_step(dt, emitted)
+            req.finish("expired",
+                       f"deadline ({req.deadline}s) passed mid-decode after "
+                       f"{len(req.tokens)} token(s)")
+            self.metrics.record_expiry()
+            self._release_slot_pages(slot, req, donate=True)
+            del self._active[slot]
+            freed.append(slot)
+        return live
+
+    def _hand_out(self, commits: Dict[int, List[int]], dt: float
+                  ) -> List[int]:
+        """Record the step, then push each slot's committed tokens, up to
+        its request's end (budget or EOS).  Recording first means that a
+        client woken by its last token reads metrics that count this
+        step.  Returns the slots that finished."""
+        for slot, tokens in commits.items():
+            req = self._active[slot]
+            tokens[:] = tokens[:req.max_new_tokens - len(req.tokens)]
+            if req.eos_token_id in tokens:
+                del tokens[tokens.index(req.eos_token_id) + 1:]
+        self.metrics.record_step(dt, sum(len(t) for t in commits.values()))
+        freed = []
+        for slot, tokens in commits.items():
+            req = self._active[slot]
+            for token in tokens:
+                self._steps[slot] += 1
+                req.push_token(token)
+                if self._finished(req, token):
+                    freed.append(slot)
         return freed

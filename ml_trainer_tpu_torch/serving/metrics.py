@@ -9,6 +9,7 @@ the serving loop writes, any thread reads ``snapshot()``.
 
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Dict, List, Optional
 
@@ -40,6 +41,17 @@ class ServingMetrics:
         # resident, the hit/load/eviction counters and the device bytes
         # one slot takes over every stack.
         self.adapters: Dict[str, int] = {}
+        # Chunked prefill: admissions that took the chunked path and the
+        # prefill windows run.
+        self.chunked_admissions_total = 0
+        self.prefill_chunks_total = 0
+        # Speculative decoding: one histogram entry per (verify step,
+        # active slot), keyed by the accepted-draft count 0..K.
+        self.spec_draft_k = 0
+        self.spec_steps_total = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_accept_hist: collections.Counter = collections.Counter()
 
     def _inc(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -76,6 +88,27 @@ class ServingMetrics:
             self.step_secs.append(float(secs))
             self.counters["decode_steps"] += 1
             self.counters["tokens_generated"] += int(emitted)
+
+    def record_chunked_admission(self) -> None:
+        """One long prompt admitted through the chunked-prefill path."""
+        with self._lock:
+            self.chunked_admissions_total += 1
+
+    def record_prefill_chunk(self) -> None:
+        """One chunked-prefill window run."""
+        with self._lock:
+            self.prefill_chunks_total += 1
+
+    def record_spec(self, accepted_counts, draft_k: int) -> None:
+        """One speculative verify step: each active slot's accepted-draft
+        count (the slot advanced ``accepted + 1`` tokens)."""
+        with self._lock:
+            self.spec_draft_k = int(draft_k)
+            self.spec_steps_total += 1
+            for a in accepted_counts:
+                self.spec_accept_hist[int(a)] += 1
+                self.spec_drafted_tokens += int(draft_k)
+                self.spec_accepted_tokens += int(a)
 
     def record_kv(self, free: int, used: int, total: int,
                   prefix_blocks: int) -> None:
@@ -119,7 +152,28 @@ class ServingMetrics:
                 "kv": dict(self.kv),
                 "prefix": dict(self.prefix),
                 **self._adapter_snapshot(),
+                "chunked_admissions_total": self.chunked_admissions_total,
+                "prefill_chunks_total": self.prefill_chunks_total,
+                **self._spec_snapshot(),
             }
+
+    def _spec_snapshot(self) -> dict:
+        """The JAX snapshot's speculative keys."""
+        hist = self.spec_accept_hist
+        return {
+            "spec_draft_k": self.spec_draft_k,
+            "spec_steps_total": self.spec_steps_total,
+            "spec_drafted_tokens": self.spec_drafted_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_acceptance_rate": round(
+                self.spec_accepted_tokens / self.spec_drafted_tokens, 4
+            ) if self.spec_drafted_tokens else 0.0,
+            # Mean tokens committed per slot per verify step (1..K+1).
+            "spec_tokens_per_step": round(
+                sum((a + 1) * c for a, c in hist.items())
+                / sum(hist.values()), 3) if hist else 0.0,
+            "spec_accept_hist": {str(a): hist[a] for a in sorted(hist)},
+        }
 
     def _adapter_snapshot(self) -> dict:
         """The JAX snapshot's adapter keys (zeros without a pool); the

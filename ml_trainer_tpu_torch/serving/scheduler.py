@@ -66,8 +66,15 @@ class Request:
     state: str = "queued"  # queued | active | done | expired | error
     slot: int = -1
     tokens: list = field(default_factory=list)
+    # Speculative decoding (engine spec mode): this request's verify
+    # steps and the drafts they accepted.
+    spec_steps: int = 0
+    spec_accepted_tokens: int = 0
     preemptions: int = 0
     prefix_hit_tokens: int = 0
+    # Chunked prefill (engine prefill_chunk mode): the prefill windows
+    # this request's prompt ran in (0: unchunked).
+    prefill_chunks: int = 0
     # A "no_memory" admission is being retried: retries skip the prefix
     # cache's stats and LRU stamps.
     kv_blocked: bool = False

@@ -15,6 +15,9 @@
   resume and the sampled continuation) and 05 at the JAX example tests'
   sizes: each writes ``history.pkl`` with finite losses.
 * ``plot_history``'s two-panel and one-panel figures.
+* 08 (every decoding mode) with ``gpt2_tiny`` and ``llama_tiny``: its
+  greedy and beam-search lines equal to the JAX example's functions
+  (``generate``, ``beam_search``) on the same seeded weights.
 """
 
 import os
@@ -218,3 +221,33 @@ def test_plot_history_two_and_one_panel():
     assert len(fig.axes) == 1
     assert list(fig.axes[0].get_xticks()) == list(range(1, 6))
     assert mt.plot_history(h1, show=True) is None
+
+
+@pytest.mark.parametrize("model", ["gpt2_tiny", "llama_tiny"])
+def test_08_generation_matches_the_jax_functions(model, monkeypatch,
+                                                 tmp_path, capsys):
+    from ml_trainer_tpu.generate import beam_search as jbeam_search
+    from ml_trainer_tpu.generate import generate as jgenerate
+    from ml_trainer_tpu.models import get_model as jget_model
+
+    out = run_example("08_generation.py", monkeypatch, tmp_path,
+                      {"MODEL": model})
+    printed = capsys.readouterr().out
+    prompt = out["prompt"]
+    j_model = jget_model(model)
+    variables = {"params": mt.variables_to_jax(out["model"])["params"]}
+    greedy = np.asarray(jgenerate(j_model, variables, prompt, 8))
+    beams = np.asarray(jbeam_search(j_model, variables, prompt, 6,
+                                    num_beams=4))
+    np.testing.assert_array_equal(out["greedy"].numpy(), greedy)
+    np.testing.assert_array_equal(out["beams"].numpy(), beams)
+    assert f"greedy          (2, 14): {greedy[0].tolist()}" in printed
+    assert f"beam search     (2, 12): {beams[0].tolist()}" in printed
+    assert [len(r) for r in out["ragged"]] == [6, 9]
+    stopped = out["stopped"].numpy()
+    for row in stopped[:, 6:]:
+        hit = np.flatnonzero(row == 3)
+        if hit.size:
+            assert (row[hit[0] + 1:] == 0).all()
+    if "speculative" in out:
+        np.testing.assert_array_equal(out["speculative"].numpy(), greedy)

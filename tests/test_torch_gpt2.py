@@ -124,5 +124,9 @@ def test_init_gpt2_is_seeded_and_refusals():
     assert not hasattr(lora.blocks[0].attn, "proj_lora_A")
     assert get_model("gpt2_tiny", device="cpu",
                      dropout_rate=0.1).embed_drop.rate == 0.1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate(a, _ids(0, 1, 4), 2, top_k=5, device="cpu")
+    # top_k is ported: every sampled token is among its step's top 5.
+    out = generate(a, _ids(0, 1, 4), 2, temperature=1.0, top_k=5, rng=1,
+                   device="cpu")
+    with torch.no_grad():
+        logits = a(out[:, :-1])[:, 3:]
+    assert (logits.topk(5, dim=-1).indices == out[:, 4:, None]).any(-1).all()

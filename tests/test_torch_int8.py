@@ -380,9 +380,9 @@ def test_int8_refusals(models, monkeypatch):
     with pytest.raises(ValueError, match="quant_int8 with adapters"):
         Server(t_model, kv_page_size=16, quant_int8=True,
                adapters={"rank": 4}, device="cpu")
-    # Without quant_int8 the same knobs are refused as not ported.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotDecodeEngine(t_model, spec_k=2, device="cpu")
+    # Without quant_int8 the same knob builds (speculative decoding is
+    # ported).
+    assert SlotDecodeEngine(t_model, spec_k=2, device="cpu").spec_k == 2
     # A model with no quantizable projection is refused, never served
     # un-quantized.
     import ml_trainer_tpu_torch.serving.engine as engine

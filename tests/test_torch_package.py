@@ -92,7 +92,8 @@ NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "serving/api.py", "ops/optimizers.py", "models/gpt2.py",
                "checkpoint/torch_import.py", "utils/utils.py",
                "parallel/distributed.py", "parallel/desync.py",
-               "parallel/collectives.py", "parallel/mesh.py"]
+               "parallel/collectives.py", "parallel/mesh.py",
+               "speculative.py", "generate.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
@@ -127,6 +128,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: mt.get_model("gpt2_tiny", max_len=32),
         lambda: mt.init_gpt2("gpt2_tiny", max_len=32),
         lambda: mt.generate(model, np.zeros((1, 3), np.int32), 2),
+        lambda: mt.speculative_generate(model, np.zeros((1, 3), np.int32),
+                                        2),
+        lambda: mt.beam_search(model, np.zeros((1, 3), np.int32), 2),
+        lambda: mt.generate_ragged(model, [np.zeros(3, np.int32)], 2),
         lambda: mt.SlotDecodeEngine(model),
         lambda: mt.Server(model),
         lambda: mt.resolve_device(),

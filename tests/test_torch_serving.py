@@ -120,9 +120,18 @@ def test_preemption_under_page_pressure_changes_no_token(models):
 
 def test_server_refusals_and_failures(models):
     _, _, t_model = models
-    for kw in (dict(spec_k=2), dict(prefill_chunk=16), dict(http_port=0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Server(t_model, device="cpu", kv_page_size=16, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Server(t_model, device="cpu", kv_page_size=16, http_port=0)
+    # Speculative decoding and chunked prefill are ported
+    # (tests/test_torch_speculative.py, tests/test_torch_chunked_prefill.py).
+    prompt = np.arange(1, 40, dtype=np.int32)
+    with Server(t_model, max_batch=1, device="cpu") as s:
+        want = s.complete(prompt, 6, timeout=120)
+    for kw in (dict(spec_k=2), dict(prefill_chunk=16)):
+        with Server(t_model, device="cpu", kv_page_size=16, **kw) as s:
+            np.testing.assert_array_equal(s.complete(prompt, 6, timeout=120),
+                                          want)
+            assert s.health()[next(iter(kw))] == next(iter(kw.values()))
     # Adapters are ported (tests/test_torch_lora_serving.py).
     with Server(t_model, device="cpu", kv_page_size=16,
                 adapters={"rank": 4}) as s:
