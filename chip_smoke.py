@@ -48,6 +48,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # serving (n-gram and draft
                                           # model), chunked prefill and
                                           # generate()'s modes
+    python3 chip_smoke.py --only front    # kernel checks + the serving
+                                          # front end: two weighted
+                                          # tenants over HTTP, the
+                                          # endpoints, the overload
+                                          # ladder, the decode watchdog
 
 Phases, one line of output each (or a few):
 
@@ -245,14 +250,15 @@ Phases, one line of output each (or a few):
    step; BERT's also K1-K3 device ms per step beside their bounds;
 8. ``steps_per_execution`` (``GRAPH_RUNS``): GPT-2 124M fp32 and bf16
    (``TRAIN``'s config), BERT-base bf16, ViT-B/16 bf16, ResNet-50 and
-   MLModel (``MODEL_RUNS``' configs), each through ``Trainer.fit()`` at
+   MLModel (``MODEL_RUNS``' configs; the four transformers at their
+   widths with depth cut to ``CUT_DEPTH`` blocks), each through ``Trainer.fit()`` at
    K = 1 (the eager step) and at K = 4 (each full chunk of 4 batches one
    replay of a CUDA graph of the 4 steps; 9 steps: two chunks, the
    first eager before the capture, and a tail of one; 9 validation
    batches: the eval graph's chunk and a tail) from the same weights and
    data.  Gates: finite losses, no skipped step, exact launch counts in
-   both runs (K1 12 a microbatch and a validation batch, K2/K3 12 a
-   microbatch, replays counted), the K = 4 run's parameters, buffers
+   both runs (K1 depth a microbatch and a validation batch, K2/K3 depth
+   a microbatch, replays counted), the K = 4 run's parameters, buffers
    and optimizer state bitwise those of K = 1 and its epoch losses and
    metrics within 1e-6 relative (the sums' order), for every family
    (cuDNN's deterministic algorithms are the port's default).  Printed
@@ -263,7 +269,8 @@ Phases, one line of output each (or a few):
    step's host enqueue time and the input path's host time per batch;
 9. full-state checkpoints and ``fit(resume=True)`` (``RESUME_*``), each
    against its uninterrupted fit: GPT-2 124M pretraining as
-   examples/04_gpt2_pretrain.py's full-size line sets it (fp32, adamw,
+   examples/04_gpt2_pretrain.py's full-size line sets it, depth cut to
+   ``CUT_DEPTH`` blocks (fp32, adamw,
    wd 0.01, cosine restarts, 8 x 1024 tokens in 4 microbatches, K = 4;
    2 epochs of 4 steps: epoch 2 a replay), a new Trainer resuming from the first run's
    checkpoint_1 alone (epoch 2 through a fresh capture); ``dp_train``'s
@@ -455,6 +462,38 @@ Phases, one line of output each (or a few):
    and K6 call of the sampled, bf16, draft-model, eager chunked and
    ``generate()`` runs is held at once to the float64 JAX function on
    its own inputs (float32 within 1e-4, bf16 within 2 ulps).
+17. front (``FRONT_*``, run after decode): GPT-2 124M fp32 behind
+   ``Server(max_batch=8, kv_page_size=16, paged_kernel=True)`` with the
+   prefix cache and its HTTP front end on 127.0.0.1:0, tenant a at
+   weight 3 and tenant b at weight 1 with ``max_active=4``, under a
+   stated ``SloPolicy``.  After an uncounted warm-up pass, four counted
+   passes of 16 fresh prompts of 130-300 tokens and 32 greedy tokens:
+   over HTTP (16 client threads of a process of their own POST
+   ``/v1/generate``), the same at a 0.5 ms GIL switch interval,
+   in-process, and in-process with ``/metrics`` scraped at 10 Hz by
+   another process: K1 exactly 12 a prefill, K6 12 a decode step; the HTTP tokens against the same server's in-process
+   ``complete()`` of the same prompts (the near-tie rule), every eager
+   K1 and K6 call of the warm-up and of that check held to the float64
+   JAX function; of the first (HTTP) pass's admissions made while
+   both tenants had queued requests, a takes 0.65-0.85 (its weight's
+   0.75; a FIFO's 0.5 and a starved b's 1.0 fail).  ``/metrics`` parses as
+   Prometheus text with TTFT and TPOT buckets for each tenant,
+   ``/metrics.json`` has the JAX snapshot's keys, ``/slo`` each
+   tenant's attainment, ``/healthz`` 200, an unknown path 404, a
+   malformed body 400.  The ladder: rung 1 clamps a fresh request and
+   spares the running one, rung 2 mid-stream on a ``spec_k=4`` server
+   keeps the vanilla tokens, rung 3 answers a prefix miss 503 with
+   Retry-After and serves a hit, rung 4 sheds the queued priority-0
+   request and keeps the priority-1 and the running ones.  The wedge:
+   ``Server(watchdog_timeout=2.0, max_queue=2)`` answers a full queue
+   429, then under ``decode_wedge@step=N,secs=60`` the HTTP client gets
+   503 "wedged" within 2.0 s + a poll + 2 s, ``/healthz`` 503, a new POST
+   503, one trip; after the release and ``close()`` the card's allocated
+   memory is back within 1% and a fresh ``Server`` serves the prompt
+   with the same tokens.  Printed: tokens/s over HTTP and in-process,
+   TTFT/TPOT/queue wait/e2e per tenant, the HTTP overhead a request, the
+   decode step ms scraped and not, the watchdog's detection seconds and
+   the capture seconds it sees.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -789,7 +828,9 @@ def attn_step_bounds(launches: int, bf16: bool = False) -> dict:
 def _averages(prof):
     """``prof.key_averages()``, computed once a profile: it walks every
     event, and ``device_split`` and ``kernel_device_ms`` read the same
-    window."""
+    window.  The profiles record the device's activity only: both read
+    device events alone, and the host's op events took most of the
+    parse's time (and slowed the host inside the window)."""
     avg = getattr(prof, "_smoke_averages", None)
     if avg is None:
         avg = prof._smoke_averages = prof.key_averages()
@@ -827,8 +868,7 @@ def profiled_ms(fn, marks, iters: int = 20):
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -2289,16 +2329,17 @@ def run_server(model, prompts, new_tokens: int, quant_int8: bool) -> dict:
         for p in prompts:
             server.complete((p + 1) % model.vocab_size, 1, timeout=600)
         before = server.metrics.snapshot()
-        steps_before = before["decode_steps"]
+        steps_before = before["decode_steps_total"]
         mt.reset_launch_counts()
         t0 = time.perf_counter()
         streams = [server.submit(p, new_tokens) for p in prompts]
         outs = [s.result(timeout=900) for s in streams]
         wall = time.perf_counter() - t0
-        snap = settled_snapshot(server, before, len(prompts) * (new_tokens - 1))
+        snap = settled_snapshot(server, before, len(prompts) * new_tokens)
         counts = mt.launch_counts()
-        step_secs = list(server.metrics.step_secs)
-        prefill_ms = [1e3 * t for t in server.metrics.prefill[-len(prompts):]]
+        step_secs = list(server.metrics._step_secs)
+        prefill_ms = [1e3 * t for t in
+                      list(server.metrics._prefill_secs)[-len(prompts):]]
         profile = profile_serving(server, prompts)
     reqs = [s.request for s in streams]
     if not all(r.state == "done" and len(r.tokens) == new_tokens
@@ -2308,7 +2349,7 @@ def run_server(model, prompts, new_tokens: int, quant_int8: bool) -> dict:
     hits = [r.prefix_hit_tokens for r in reqs]
     if hits[5] != 256:
         raise AssertionError(f"expected a 256-token prefix hit, got {hits}")
-    steps = snap["decode_steps"] - steps_before
+    steps = snap["decode_steps_total"] - steps_before
     full = [len(p) for p, h in zip(prompts, hits) if h == 0]
     want_flash = model.depth * sum(
         1 for n in full if min(1 << (n - 1).bit_length(), model.max_len) >= 128)
@@ -2508,19 +2549,18 @@ def device_split(prof, wall: float) -> dict:
 
 
 def settled_snapshot(server, before: dict, tokens: int) -> dict:
-    """The server's metrics once its worker has recorded the decode steps
-    that emitted ``tokens`` tokens since the snapshot ``before``: a step
-    hands out its tokens before it records itself, so a client's result
-    can come first."""
+    """The server's metrics once its worker has recorded the prefills and
+    decode steps that emitted ``tokens`` tokens (each prefill's first
+    token counted) since the snapshot ``before``."""
     deadline = time.monotonic() + 60
     while True:
         snap = server.metrics.snapshot()
-        if snap["tokens_generated"] - before["tokens_generated"] >= tokens:
+        if snap["tokens_total"] - before["tokens_total"] >= tokens:
             return snap
         if time.monotonic() > deadline:
             raise AssertionError(
-                f"the server recorded {snap['tokens_generated']} decode "
-                f"tokens, expected {before['tokens_generated'] + tokens}")
+                f"the server recorded {snap['tokens_total']} tokens, "
+                f"expected {before['tokens_total'] + tokens}")
         time.sleep(1e-3)
 
 
@@ -2533,8 +2573,7 @@ def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     before = server.metrics.snapshot()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         streams = [server.submit(p, new_tokens) for p in prompts]
         for st in streams:
@@ -2542,8 +2581,8 @@ def profile_serving(server, prompts, new_tokens: int = 16) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     split = device_split(prof, wall)
-    steps = settled_snapshot(server, before, len(prompts) * (new_tokens - 1))[
-        "decode_steps"] - before["decode_steps"]
+    steps = settled_snapshot(server, before, len(prompts) * new_tokens)[
+        "decode_steps_total"] - before["decode_steps_total"]
     split["decode_steps"] = steps
     split.update(kernel_device_ms(prof, DECODE_MARKS))
     split["decode_step_device_ms"] = {
@@ -2692,8 +2731,7 @@ def profile_step(trainer, x, y) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer._train_step(x, y, 1.0)
         torch.cuda.synchronize()
@@ -3277,8 +3315,7 @@ def dp_train(dev, precision=None, steps=None):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer._train_step(x, y, 1.0)
         torch.cuda.synchronize()
@@ -3636,6 +3673,11 @@ def models(dev) -> list:
 # the capture, the second replays; GRAPH_VAL validation batches give the
 # eval graph one replay and a tail of one.
 GRAPH_K = 4
+# The depth the graphs phase's transformer families and the resume
+# phase's pretraining run are cut to, at their full widths: the script's
+# time budget.  Their gates (a graph replay and a resumed fit each
+# bitwise their reference) hold block by block at any depth.
+CUT_DEPTH = 4
 GRAPH_STEPS = 2 * GRAPH_K + 1
 GRAPH_VAL = 2 * GRAPH_K + 1
 GRAPH_LOSS_RTOL = 1e-6  # the epoch sums' order: a chunk's K losses first
@@ -3645,12 +3687,15 @@ GPT2_OPT = dict(grad_accum_steps=TRAIN["accum"], optimizer="adamw", lr=3e-4,
                 grad_clip_norm=1.0)
 _MODEL = {(name, opt.get("precision")): (name, kw, opt, data, batch)
           for name, kw, opt, data, batch, _ in MODEL_RUNS}
+_CUT = {"depth": CUT_DEPTH}
 GRAPH_RUNS = [  # (label, model name, model kwargs, trainer kwargs, data, batch)
-    ("gpt2_fp32", "gpt2", {}, GPT2_OPT, "gpt2", TRAIN["batch_size"]),
-    ("gpt2_bf16", "gpt2", {}, dict(GPT2_OPT, precision="bf16"), "gpt2",
+    ("gpt2_fp32", "gpt2", _CUT, GPT2_OPT, "gpt2", TRAIN["batch_size"]),
+    ("gpt2_bf16", "gpt2", _CUT, dict(GPT2_OPT, precision="bf16"), "gpt2",
      TRAIN["batch_size"]),
-    ("bert_base_bf16", *_MODEL[("bert_base", "bf16")]),
-    ("vit_b16_bf16", *_MODEL[("vit_b16", "bf16")]),
+    *((label, name, dict(kw, **_CUT), opt, data, batch)
+      for label, (name, kw, opt, data, batch) in (
+          ("bert_base_bf16", _MODEL[("bert_base", "bf16")]),
+          ("vit_b16_bf16", _MODEL[("vit_b16", "bf16")]))),
     ("resnet50", *_MODEL[("resnet50", None)]),
     ("mlmodel", *_MODEL[("mlmodel", None)]),
 ]
@@ -3737,8 +3782,7 @@ def profile_dispatch(trainer, xs, ys) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer._dispatch("train", trainer._train_chunk, xs, ys)
         torch.cuda.synchronize()
@@ -3902,11 +3946,12 @@ def graph_run(dev, label, name, model_kw, opt, data, batch) -> dict:
     per_step = (TRAIN["seq_len"] * batch if name == "gpt2" else batch)
     unit = "tokens_per_s" if name == "gpt2" else "samples_per_s"
     label_p = trainer.precision.label()
+    depth = getattr(trainer.model, "depth", None)
     del trainer, xs, ys
     torch.cuda.empty_cache()
     return dict(
-        label=label, model=name, precision=label_p, batch=batch,
-        k=GRAPH_K, steps=GRAPH_STEPS, val_batches=GRAPH_VAL,
+        label=label, model=name, precision=label_p, depth=depth,
+        batch=batch, k=GRAPH_K, steps=GRAPH_STEPS, val_batches=GRAPH_VAL,
         same_as_k1=same, check_s=check_s,
         eager=rec_1, graph=rec_k, launches_total=launches,
         eager_step_ms=eager_ms, graph_step_ms=graph_ms,
@@ -4057,7 +4102,8 @@ def _checkpoint_costs(trainer, run_dir: str) -> dict:
 
 
 def resume_pretrain(dev) -> dict:
-    """GPT-2 124M fp32 at K = 4 (``PRETRAIN``): A uninterrupted; then
+    """GPT-2 124M fp32 at K = 4 (``PRETRAIN``; ``CUT_DEPTH`` blocks, the
+    init ``Trainer`` makes of the name): A uninterrupted; then
     A's checkpoint costs; then B, a new Trainer, resumes from A's
     checkpoint_1 alone (checkpoint_2 removed) and trains epoch 2 through
     a fresh graph capture."""
@@ -4070,7 +4116,9 @@ def resume_pretrain(dev) -> dict:
     _discard(run_dir)
 
     def make(d):
-        return mt.Trainer(TRAIN["model"], datasets=_token_sets(
+        model = mt.init_model(TRAIN["model"], seed=SEED, device=dev,
+                              depth=CUT_DEPTH)
+        return mt.Trainer(model, datasets=_token_sets(
             c["steps"], c["val_batches"], TRAIN["batch_size"]), epochs=2,
             batch_size=TRAIN["batch_size"], model_dir=d, seed=SEED,
             device=dev, steps_per_execution=c["k"], **c["opt"])
@@ -4090,7 +4138,8 @@ def resume_pretrain(dev) -> dict:
     gate = _resume_gate("pretrain", b, snap, want)
     del b, snap
     shutil.rmtree(run_dir)
-    return dict(config=dict(c, model=TRAIN["model"], precision="float32",
+    return dict(config=dict(c, model=TRAIN["model"], depth=depth,
+                            precision="float32",
                             batch=TRAIN["batch_size"],
                             seq_len=TRAIN["seq_len"]),
                 A=rec_a, B=rec_b, gate=gate, **costs)
@@ -4294,8 +4343,7 @@ def _epoch_clock(trainer, profile_epoch=None):
             rec["chunk_ms"].append([a.elapsed_time(b)
                                     for a, b in zip(ends, ends[1:])])
             return
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             inner(epoch)
             wall = time.perf_counter() - t0
@@ -4378,8 +4426,7 @@ def _graph_step_ms(trainers: dict, reps: int = 3,
         if profile:
             xs, ys = chunks[label]
             torch.cuda.synchronize()
-            with profiler(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
+            with profiler(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 tr._dispatch("train", tr._train_chunk, xs, ys)
                 torch.cuda.synchronize()
@@ -7222,11 +7269,10 @@ def _serve_timed(model, prompts, new_tokens: int, warm, what: str,
         streams = [server.submit(p, new_tokens) for p in prompts]
         outs = [s.result(timeout=600) for s in streams]
         wall = time.perf_counter() - t0
-        snap = settled_snapshot(server, before,
-                                len(prompts) * (new_tokens - 1))
+        snap = settled_snapshot(server, before, len(prompts) * new_tokens)
         counts = mt.launch_counts()
-        steps = snap["decode_steps"] - before["decode_steps"]
-        step_secs = list(server.metrics.step_secs)[-steps:]
+        steps = snap["decode_steps_total"] - before["decode_steps_total"]
+        step_secs = list(server.metrics._step_secs)[-steps:]
     reqs = [s.request for s in streams]
     if not all(r.state == "done" and len(r.tokens) == new_tokens
                for r in reqs):
@@ -7382,9 +7428,9 @@ def _chunked_run(model, long_p, shorts, chunk: int, graph: bool) -> dict:
         streams = [server.submit(long_p, n)] + [server.submit(p, n)
                                                 for p in shorts]
         outs = [s.result(timeout=600) for s in streams]
-        snap = settled_snapshot(server, before, len(streams) * (n - 1))
+        snap = settled_snapshot(server, before, len(streams) * n)
         counts = mt.launch_counts()
-    steps = snap["decode_steps"] - before["decode_steps"]
+    steps = snap["decode_steps_total"] - before["decode_steps_total"]
     windows = -(-len(long_p) // chunk) if chunk else 0
     want = dict(dict.fromkeys(counts, 0), paged_attention=model.depth * steps,
                 flash_fwd=0 if chunk else model.depth)
@@ -7568,12 +7614,646 @@ def decode_phase(dev, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# The serving front end (``--only front``): GPT-2 124M fp32 behind
+# ``Server``'s HTTP front end, two weighted tenants, SLO accounting, the
+# overload ladder and the decode watchdog.
+FRONT = dict(requests=16, new_tokens=32, lens=(130, 300), page=16)
+FRONT_TENANTS = dict(a=dict(weight=3.0), b=dict(weight=1.0, max_active=4))
+FRONT_SLO = dict(ttft_ms=500.0, tpot_ms=50.0, target=0.99)
+FRONT_WATCHDOG_S = 2.0
+# Tenant a's share of the contended admissions of the first pass: its
+# weight's 0.75, apart from an unweighted FIFO's 0.5 and a starved b's 1.
+FRONT_SHARE = (0.65, 0.85)
+FRONT_SCRAPE_HZ = 10.0
+# The JAX package's ServingMetrics.snapshot() keys (the CPU tests hold the
+# port's to them: tests/test_torch_serving_front.py).
+JAX_SNAPSHOT_KEYS = (
+    "adapter_evictions_total", "adapter_hits_total", "adapter_loads_total",
+    "adapter_pool_bytes", "adapter_slots_free", "adapter_slots_total",
+    "adapter_slots_used", "adapters_resident", "admissions_blocked",
+    "chunked_admissions_total", "decode_step_p50_ms", "decode_step_p99_ms",
+    "decode_steps_total", "e2e_p50_ms", "e2e_p99_ms", "engine_errors",
+    "kv_pages_free", "kv_pages_total", "kv_pages_used", "kv_pool_bytes",
+    "max_active_slots", "preemptions_total", "prefill_chunks_total",
+    "prefill_p50_ms", "prefill_p99_ms", "prefix_cache_nodes",
+    "prefix_hit_rate", "prefix_hits", "prefix_misses",
+    "prefix_tokens_saved", "queue_depth", "queue_wait_p50_ms",
+    "queue_wait_p99_ms", "requests_admitted", "requests_cancelled",
+    "requests_completed", "requests_expired", "requests_rejected",
+    "requests_shed", "slot_occupancy_mean", "spec_accept_hist",
+    "spec_acceptance_rate", "spec_accepted_tokens", "spec_draft_k",
+    "spec_drafted_tokens", "spec_steps_total", "spec_tokens_per_step",
+    "tenants", "tokens_per_sec_busy", "tokens_per_sec_wall", "tokens_total",
+    "tpot_p50_ms", "tpot_p99_ms", "ttft_p50_ms", "ttft_p99_ms",
+    "watchdog_trips")
+PROM_SAMPLE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$'
+
+
+def _http(base: str, path: str, body=None, raw=None, timeout=120):
+    """(status, JSON or text payload, headers) of one request to the
+    server on the loopback."""
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else (
+        None if body is None else json.dumps(body).encode())
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, text, headers = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        code, text, headers = e.code, e.read(), e.headers
+    try:
+        return code, json.loads(text), headers
+    except ValueError:
+        return code, text.decode(), headers
+
+
+def _gen_body(prompt, n, **kw) -> dict:
+    return dict(prompt=[int(t) for t in prompt], max_new_tokens=n, **kw)
+
+
+def _front_prompts(rng, vocab: int, n: int) -> list:
+    """``n`` random prompts of distinct lengths in FRONT["lens"] (a
+    timeline is matched to its client by tenant and length); no two
+    share a page-16 block."""
+    import numpy as np
+
+    lo, hi = FRONT["lens"]
+    lens = rng.choice(np.arange(lo, hi + 1), n, replace=False)
+    return [rng.integers(0, vocab, int(m)).astype(np.int32) for m in lens]
+
+
+# The HTTP clients and the scraper run in processes of their own, as a
+# load balancer's clients and a Prometheus scraper do: threads of this
+# process would wait on its GIL beside the server's threads.  Each
+# prints JSON; time.monotonic() is the machine's CLOCK_MONOTONIC in both.
+FRONT_CLIENTS = r"""
+import json, sys, threading, time, urllib.error, urllib.request
+base, bodies = sys.argv[1], json.load(sys.stdin)
+with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+    resp.read()  # the first request pays urllib's lazy imports
+out = [None] * len(bodies)
+barrier = threading.Barrier(len(bodies))
+def post(i):
+    req = urllib.request.Request(base + "/v1/generate",
+                                 data=json.dumps(bodies[i]).encode(),
+                                 headers={"Content-Type": "application/json"})
+    barrier.wait()
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            code, text = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, text = e.code, e.read()
+    out[i] = dict(code=code, body=json.loads(text), t0=t0,
+                  t1=time.monotonic())
+threads = [threading.Thread(target=post, args=(i,))
+           for i in range(len(bodies))]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps(out))
+"""
+FRONT_SCRAPER = r"""
+import json, sys, threading, time, urllib.request
+base, hz = sys.argv[1], float(sys.argv[2])
+stop = threading.Event()
+threading.Thread(target=lambda: (sys.stdin.read(), stop.set()),
+                 daemon=True).start()
+codes = []
+while True:
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+        resp.read()
+        codes.append(resp.status)
+    if len(codes) == 1:
+        print("ready", flush=True)
+    if stop.wait(1.0 / hz):
+        break
+print(json.dumps(codes))
+"""
+
+
+def _front_pass(server, prompts, tenants, base=None, scrape=None) -> dict:
+    """One counted pass: the prompts submitted together (over HTTP with
+    ``base``: 16 client threads in a process of their own; else
+    in-process), FRONT["new_tokens"] greedy tokens each, the counts set
+    to 0 before and read after.  With ``scrape``, a process GETs
+    ``/metrics`` at that rate meanwhile.  Gates: every request 200/done
+    with its tokens; K1 12 a prefill (every prompt's bucket is >= 128,
+    no prefix hit), K6 12 a decode step."""
+    import numpy as np
+
+    import ml_trainer_tpu_torch as mt
+
+    n = FRONT["new_tokens"]
+    model = server.engine.model
+    gc.collect()  # not inside the timed pass
+    before = server.metrics.snapshot()
+    scraper = None
+    if scrape:
+        host, port = server._httpd.server_address
+        scraper = subprocess.Popen(
+            [sys.executable, "-c", FRONT_SCRAPER, f"http://{host}:{port}",
+             str(scrape)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True)
+        if scraper.stdout.readline().strip() != "ready":
+            raise AssertionError("front: the scraper did not start")
+    mt.reset_launch_counts()
+    client_times = None
+    since = time.monotonic()
+    t0 = time.perf_counter()
+    if base is not None:
+        bodies = [_gen_body(p, n, tenant=t) for p, t in zip(prompts, tenants)]
+        proc = subprocess.run(
+            [sys.executable, "-c", FRONT_CLIENTS, base],
+            input=json.dumps(bodies), capture_output=True, text=True,
+            timeout=600, check=True)
+        res = json.loads(proc.stdout)
+        bad = [(r["code"], r["body"]) for r in res if r["code"] != 200]
+        if bad:
+            raise AssertionError(f"front: HTTP failures {bad[:3]}")
+        outs = [np.asarray(r["body"]["tokens"], np.int32) for r in res]
+        client_times = [(r["t0"], r["t1"]) for r in res]
+        wall = max(r["t1"] for r in res) - min(r["t0"] for r in res)
+    else:
+        streams = [server.submit(p, n, tenant=t)
+                   for p, t in zip(prompts, tenants)]
+        outs = [s.result(timeout=600) for s in streams]
+        wall = time.perf_counter() - t0
+    snap = settled_snapshot(server, before, len(prompts) * n)
+    counts = mt.launch_counts()
+    scrapes = 0
+    if scraper is not None:
+        out, _ = scraper.communicate(timeout=60)
+        codes = json.loads(out.strip().splitlines()[-1])
+        if scraper.returncode or any(c != 200 for c in codes):
+            raise AssertionError(f"front: scrapes {codes[:3]}")
+        scrapes = len(codes)
+    steps = snap["decode_steps_total"] - before["decode_steps_total"]
+    want = dict(dict.fromkeys(counts, 0), flash_fwd=model.depth * len(prompts),
+                paged_attention=model.depth * steps)
+    if counts != want or not steps:
+        raise AssertionError(f"front: launches {counts}, expected {want}")
+    if any(len(o) != len(p) + n for o, p in zip(outs, prompts)):
+        raise AssertionError("front: a response is short")
+    step_secs = list(server.metrics._step_secs)[-steps:]
+    return dict(outs=outs, launches=counts, wall_s=wall,
+                tokens_per_s=len(prompts) * n / wall, decode_steps=steps,
+                step_ms_mean=1e3 * sum(step_secs) / steps,
+                step_ms_p50=1e3 * sorted(step_secs)[steps // 2],
+                client_times=client_times, since=since, scrapes=scrapes)
+
+
+def _http_overhead(server, run: dict, tenants, prompts) -> dict:
+    """A client's seconds less its request's e2e, in ms: the mean, the
+    largest, and its parts before the submit and after the finish (the
+    timelines matched to the clients by tenant and prompt length; call
+    it before the next pass)."""
+    tls = {(tl["tenant"], tl["prompt_tokens"]): tl
+           for tl in server.slo.timelines(since=run["since"])}
+    lags = [(tls[(t, len(p))]["submitted_at"] - c0,
+             c1 - tls[(t, len(p))]["finished_at"])
+            for (c0, c1), t, p in zip(run["client_times"], tenants, prompts)]
+    total = [a + b for a, b in lags]
+    return dict(mean=1e3 * sum(total) / len(total), max=1e3 * max(total),
+                to_submit_mean=1e3 * sum(a for a, _ in lags) / len(lags),
+                from_finish_mean=1e3 * sum(b for _, b in lags) / len(lags))
+
+
+def _contended_admissions(server):
+    """Wrap the server's ``scheduler.acquire`` (host-only) to record, for
+    each admission, its tenant and whether both tenants had queued
+    requests just before it."""
+    sched = server.scheduler
+    real = sched.acquire
+    log_ = []
+
+    def acquire():
+        depths = sched.tenant_depths()
+        got = real()
+        if got is not None:
+            log_.append((got[0].tenant,
+                         depths.get("a", 0) > 0 and depths.get("b", 0) > 0))
+        return got
+
+    sched.acquire = acquire
+    return log_
+
+
+def _tenant_latencies(server, since: float) -> dict:
+    """TTFT, TPOT, queue wait and e2e percentiles (ms) per tenant over
+    the timelines submitted since ``since`` (``aggregate_timelines``)."""
+    from ml_trainer_tpu_torch.serving import aggregate_timelines
+
+    out = {}
+    for t in ("a", "b"):
+        agg = aggregate_timelines(server.slo.timelines(since=since,
+                                                       tenants={t}),
+                                  server.slo.policy)
+        out[t] = {k: agg[k] for k in ("n_requests", "ttft_ms", "tpot_ms",
+                                      "queue_wait_ms", "e2e_ms",
+                                      "attainment")}
+    return out
+
+
+def front_tenants(dev, model, checks: dict) -> dict:
+    """Two tenants over HTTP on one ``Server`` (tenant a weight 3, b
+    weight 1 with ``max_active=4``; ``FRONT_SLO``): an HTTP pass of 16
+    client threads, the same at a 0.5 ms GIL switch interval, an
+    in-process pass and an in-process pass with ``/metrics`` scraped at
+    10 Hz, each 16 fresh prompts of 130-300 tokens and 32 greedy tokens,
+    counted; the HTTP pass's tokens against
+    the same server's in-process ``complete()`` of its prompts (tenant
+    "check": no prefix hit) under the per-call checks; the weighted
+    share of contended admissions; then the endpoints."""
+    import re
+
+    import numpy as np
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.serving import TenantConfig
+    from ml_trainer_tpu_torch.telemetry import reset_default_registry
+
+    rng = np.random.default_rng(SEED + 30)
+    vocab = model.vocab_size
+    tenants = {k: TenantConfig(**v) for k, v in FRONT_TENANTS.items()}
+    names = ["a", "b"] * (FRONT["requests"] // 2)
+    reset_default_registry()
+    rec = {}
+    with mt.Server(model, max_batch=8, kv_page_size=FRONT["page"],
+                   paged_kernel=True, tenants=tenants,
+                   slo=mt.SloPolicy(**FRONT_SLO), slo_timelines=256,
+                   http_port=0, device=dev) as server:
+        host, port = server._httpd.server_address
+        base = f"http://{host}:{port}"
+        rec["kernel_load_s"] = server.kernel_load_s
+        with checked_calls(checks):
+            # Uncounted: the decode graph's warm-up (its one eager step
+            # checked) and capture, then a pass's worth of prefills and
+            # steps (the allocator's blocks for 8 slots of both buckets),
+            # and the handlers' first request.
+            for m in FRONT["lens"]:
+                server.complete(rng.integers(0, vocab, m), 3, timeout=600,
+                                tenant="warm")
+            warm = [server.submit(p, 4, tenant="warm") for p in
+                    _front_prompts(rng, vocab, FRONT["requests"])]
+            for st in warm:
+                st.result(timeout=600)
+        _http(base, "/healthz")
+        rec["capture_s"] = server.engine._graph.capture_s
+        # The HTTP pass first: the tenants' strides start level.  A pass
+        # carries them over to the next (tenant a, owed the most, then
+        # takes every contended admission), in the JAX package alike
+        # (tests/test_torch_serving_front.py), so only this pass is
+        # held to the weights.
+        prompts = _front_prompts(rng, vocab, FRONT["requests"])
+        admissions = _contended_admissions(server)
+        http = _front_pass(server, prompts, names, base=base)
+        del server.scheduler.acquire  # the class's again
+        rec["latency_ms"] = _tenant_latencies(server, http["since"])
+        http_over = _http_overhead(server, http, names, prompts)
+        # The same pass with the interpreter's GIL switch interval at
+        # 0.5 ms (5 ms by default), set by this script around it: how
+        # much of the HTTP overhead is the handlers waiting on the GIL
+        # behind the loop thread.
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            fast_prompts = _front_prompts(rng, vocab, FRONT["requests"])
+            fast = _front_pass(server, fast_prompts, names, base=base)
+        finally:
+            sys.setswitchinterval(switch)
+        fast_over = _http_overhead(server, fast, names, fast_prompts)
+        n = FRONT["requests"]
+        inproc = _front_pass(server, _front_prompts(rng, vocab, n), names)
+        scraped = _front_pass(server, _front_prompts(rng, vocab, n), names,
+                              scrape=FRONT_SCRAPE_HZ)
+        with checked_calls(checks):
+            streams = [server.submit(p, FRONT["new_tokens"], tenant="check")
+                       for p in prompts]
+            want = [s.result(timeout=600) for s in streams]
+        parted = near_tie(model, prompts, http["outs"], want, _slack(None),
+                          "front: HTTP vs in-process")
+        # Weighted admission: tenant a's share of the pass's contended
+        # admissions near its 3 of 4, apart from 1:1 and 1:0.
+        contended = [t for t, both in admissions if both]
+        share = contended.count("a") / max(len(contended), 1)
+        if len(contended) < 8 or not (
+                FRONT_SHARE[0] <= share <= FRONT_SHARE[1]):
+            raise AssertionError(f"front: contended admissions {contended}")
+        rec.update(
+            inproc={k: v for k, v in inproc.items()
+                    if k not in ("outs", "client_times", "since")},
+            http={k: v for k, v in http.items()
+                  if k not in ("outs", "client_times", "since")},
+            scraped={k: v for k, v in scraped.items()
+                     if k not in ("outs", "client_times", "since")},
+            http_over_inproc=http["tokens_per_s"] / inproc["tokens_per_s"],
+            http_overhead_ms=http_over,
+            http_switch_0_5ms=dict(
+                launches=fast["launches"], tokens_per_s=fast["tokens_per_s"],
+                step_ms_mean=fast["step_ms_mean"], overhead_ms=fast_over),
+            contended_admissions="".join(contended),
+            contended_share_a=share,
+            parted_rows=parted)
+        # The endpoints.
+        code, prom, headers = _http(base, "/metrics")
+        if code != 200 or not headers["Content-Type"].startswith(
+                "text/plain; version=0.0.4"):
+            raise AssertionError(f"front: /metrics {code}")
+        sample = re.compile(PROM_SAMPLE)
+        for line in prom.splitlines():
+            if not (line.startswith("# ") or sample.match(line)):
+                raise AssertionError(f"front: /metrics line {line!r}")
+        for stem in ("ttft", "tpot"):
+            for t in ("a", "b"):
+                if f'serving_{stem}_seconds_bucket{{tenant="{t}"' not in prom:
+                    raise AssertionError(f"front: no {stem} buckets for {t}")
+        code, snap, _ = _http(base, "/metrics.json")
+        if code != 200 or sorted(snap) != sorted(JAX_SNAPSHOT_KEYS):
+            raise AssertionError(
+                "front: /metrics.json keys "
+                f"{sorted(set(snap) ^ set(JAX_SNAPSHOT_KEYS))}")
+        code, slo, _ = _http(base, "/slo")
+        if code != 200 or not {"a", "b"} <= set(slo["tenants"]):
+            raise AssertionError(f"front: /slo {code} {slo}")
+        health = _http(base, "/healthz")
+        if health[0] != 200 or not health[1]["ok"]:
+            raise AssertionError(f"front: /healthz {health[:2]}")
+        codes = dict(
+            unknown=_http(base, "/nope")[0],
+            malformed=_http(base, "/v1/generate", raw=b"{not json")[0])
+        if codes != dict(unknown=404, malformed=400):
+            raise AssertionError(f"front: codes {codes}")
+        rec.update(slo={t: slo["tenants"][t] for t in ("a", "b")},
+                   slo_policy=slo["policy"], codes=codes,
+                   metrics_lines=len(prom.splitlines()),
+                   snapshot=dict(tokens_per_sec_busy=snap[
+                       "tokens_per_sec_busy"], slot_occupancy_mean=snap[
+                       "slot_occupancy_mean"], tenants=snap["tenants"]))
+        rec["overload"] = front_overload(server, base, rng)
+    return rec
+
+
+def front_overload(server, base: str, rng) -> dict:
+    """The ladder's rungs on the tenants' server (every rung acts on new
+    admissions only): 1 clamps a fresh request and spares a running one;
+    3 answers a prefix miss 503 with Retry-After and admits a hit; 4
+    sheds the queued priority-0 request, keeps the queued priority-1 one
+    and the running ones, and refuses a fresh priority-0 POST."""
+    import numpy as np
+
+    from ml_trainer_tpu_torch.serving import (
+        DegradationConfig, DegradationLadder, OverloadShed)
+
+    vocab = server.engine.model.vocab_size
+    cfg = DegradationConfig(clamp_tokens=8, retry_after_s=2.0,
+                            shed_below_priority=1)
+    ladder = DegradationLadder([server], cfg)
+    rec = {}
+    pA, pB = (rng.integers(0, vocab, 140) for _ in range(2))
+    sA = server.submit(pA, 64)
+    while len(sA.tokens) < 3:
+        time.sleep(1e-3)
+    ladder.set_level(1, "front: clamp")
+    sB = server.submit(pB, 64)
+    outA, outB = sA.result(timeout=600), sB.result(timeout=600)
+    ladder.set_level(0, "front: recovered")
+    refB = server.complete(pB, 64, tenant="ref", timeout=600)
+    if len(outA) != len(pA) + 64 or len(outB) != len(pB) + 8:
+        raise AssertionError(f"front rung 1: {len(outA)}, {len(outB)}")
+    rec["rung1_parted_rows"] = near_tie(
+        server.engine.model, [pB], [outB], [refB[:len(pB) + 8]],
+        _slack(None), "front rung 1")
+    # Rung 3: a miss is shed (503, Retry-After), a hit is served.
+    ladder.set_level(3, "front: hits only")
+    miss = _http(base, "/v1/generate", _gen_body(
+        rng.integers(0, vocab, 150), 4))
+    hit_p = np.concatenate([pA[:128], rng.integers(0, vocab, 20)])
+    hit = _http(base, "/v1/generate", _gen_body(hit_p, 4))
+    if (miss[0], miss[2]["Retry-After"]) != (503, "2") or hit[0] != 200:
+        raise AssertionError(f"front rung 3: {miss[:2]}, {hit[:2]}")
+    rec["rung3"] = dict(miss=miss[0], retry_after=miss[2]["Retry-After"],
+                        hit=hit[0])
+    # Rung 4: eight running (prefix hits, so that rung 3 lets them in),
+    # then a queued priority-0 and a queued priority-1 request.
+    ladder.set_level(0, "front: recovered")
+    hits = [np.concatenate([pA[:128], rng.integers(0, vocab, 8)])
+            for _ in range(9)]
+    running = [server.submit(p, 48) for p in hits[:8]]
+    while server.engine.active_count() < 8:
+        time.sleep(1e-3)
+    lo = server.submit(rng.integers(0, vocab, 130), 8, priority=0)
+    hi = server.submit(hits[8], 8, priority=1)
+    ladder.set_level(4, "front: shed")
+    try:
+        lo.result(timeout=600)
+        raise AssertionError("front rung 4: the priority-0 request ran")
+    except OverloadShed as e:
+        rec["rung4_retry_after"] = e.retry_after
+    fresh = _http(base, "/v1/generate", _gen_body(hits[8], 4, priority=0))
+    if fresh[0] != 503 or fresh[2]["Retry-After"] != "2":
+        raise AssertionError(f"front rung 4: fresh {fresh[:2]}")
+    if any(len(s.result(timeout=600)) != 136 + 48 for s in running):
+        raise AssertionError("front rung 4: a running stream was cut")
+    if len(hi.result(timeout=600)) != 136 + 8:
+        raise AssertionError("front rung 4: the priority request was cut")
+    rec.update(rung4_shed_total=ladder.snapshot()["shed_total"],
+               requests_shed=server.metrics.snapshot()["requests_shed"])
+    ladder.set_level(0, "front: done")
+    return rec
+
+
+def front_spec_off(dev, model) -> dict:
+    """Rung 2 mid-stream on a ``spec_k=4`` server: the greedy stream that
+    crosses it keeps the vanilla tokens (a vanilla server's, the near-tie
+    rule) and no verify step runs after the one in flight."""
+    import numpy as np
+
+    import ml_trainer_tpu_torch as mt
+
+    rng = np.random.default_rng(SEED + 31)
+    p = _spec_prompts(rng, model.vocab_size, [200])[0]
+    with mt.Server(model, max_batch=8, kv_page_size=FRONT["page"],
+                   paged_kernel=True, device=dev) as vanilla:
+        want = vanilla.complete(p, 48, timeout=600)
+    with mt.Server(model, max_batch=8, kv_page_size=FRONT["page"],
+                   paged_kernel=True, spec_k=DECODE_SPEC_K,
+                   device=dev) as server:
+        st = server.submit(p, 48)
+        while len(st.tokens) < 8:
+            time.sleep(1e-3)
+        server.set_degradation(2)
+        at_switch = server.metrics.snapshot()["spec_steps_total"]
+        got = st.result(timeout=600)
+        after = server.metrics.snapshot()["spec_steps_total"]
+    if after > at_switch + 1 or at_switch == 0:
+        raise AssertionError(f"front rung 2: verify steps {at_switch} -> "
+                             f"{after}")
+    return dict(parted_rows=near_tie(model, [p], [got], [want], _slack(None),
+                                     "front rung 2"),
+                verify_steps_before=at_switch, verify_steps_after=after)
+
+
+def front_wedge(dev, model) -> dict:
+    """The watchdog on the card: a ``Server(watchdog_timeout=2.0,
+    max_queue=2)`` warmed (eight active and two queued make a POST 429;
+    the decode graph captured), then ``decode_wedge@step=N,secs=60``: the
+    HTTP client gets 503 "wedged" within the timeout plus a poll plus 2 s
+    of the wedge, ``/healthz`` 503, a new POST 503, one trip; after the
+    release and ``close()`` the memory is back within 1% and a fresh
+    ``Server`` serves the prompt with the same tokens."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.resilience import faults
+    from ml_trainer_tpu_torch.serving import AdmissionError
+
+    rng = np.random.default_rng(SEED + 32)
+    vocab = model.vocab_size
+    p = rng.integers(0, vocab, 180).astype(np.int32)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    rec = {}
+    server = mt.Server(model, max_batch=8, max_queue=2,
+                       kv_page_size=FRONT["page"], paged_kernel=True,
+                       watchdog_timeout=FRONT_WATCHDOG_S, http_port=0,
+                       device=dev)
+    plan = None
+    try:
+        host, port = server._httpd.server_address
+        base = f"http://{host}:{port}"
+        want = server.complete(p, 32, timeout=600)
+        rec["capture_s"] = server.engine._graph.capture_s
+        streams = []
+        while len(streams) < 10:
+            try:
+                streams.append(server.submit(rng.integers(0, vocab, 140), 64))
+            except AdmissionError:
+                time.sleep(2e-3)
+            if len(streams) == 8:
+                while server.engine.active_count() < 8:
+                    time.sleep(1e-3)
+        full = _http(base, "/v1/generate", _gen_body(p, 4))
+        for s in streams:
+            s.result(timeout=600)
+        if full[0] != 429:
+            raise AssertionError(f"front: a full queue answered {full[:2]}")
+        rec["queue_full"] = full[0]
+        n = server.engine._step_seq + 4
+        plan = faults.install(faults.FaultPlan.parse(
+            f"decode_wedge@step={n},secs=60"))
+        box = {}
+
+        def client():
+            box["resp"] = _http(base, "/v1/generate", _gen_body(p, 32))
+            box["t"] = time.monotonic()
+
+        th = threading.Thread(target=client)
+        th.start()
+        while not plan.faults[0].fired:
+            time.sleep(1e-3)
+        fired = time.monotonic()
+        th.join(timeout=120)
+        code, payload, _ = box["resp"]
+        detect = box["t"] - fired
+        bar = FRONT_WATCHDOG_S + FRONT_WATCHDOG_S / 5 + 2.0
+        if code != 503 or "wedged" not in payload["error"] or detect > bar:
+            raise AssertionError(f"front wedge: {code} {payload} after "
+                                 f"{detect:.2f}s (bar {bar}s)")
+        health = _http(base, "/healthz")
+        again = _http(base, "/v1/generate", _gen_body(p, 4))
+        trips = server.metrics.snapshot()["watchdog_trips"]
+        if (health[0], again[0], trips) != (503, 503, 1):
+            raise AssertionError(f"front wedge: /healthz {health[0]}, POST "
+                                 f"{again[0]}, trips {trips}")
+        rec.update(step=n, detect_s=detect, bar_s=bar,
+                   reason=health[1]["reason"], wedged_post=again[0])
+    finally:
+        if plan is not None:
+            plan.release_wedge()
+        faults.uninstall()
+        server.close()
+    del server
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(dev)
+    if abs(mem1 - mem0) > 0.01 * mem0:
+        raise AssertionError(f"front wedge: memory {mem0} -> {mem1}")
+    with mt.Server(model, max_batch=8, kv_page_size=FRONT["page"],
+                   paged_kernel=True, device=dev) as fresh:
+        got = fresh.complete(p, 32, timeout=600)
+    if not np.array_equal(got, want):
+        raise AssertionError("front wedge: the fresh server's tokens differ")
+    rec.update(memory_before=mem0, memory_after=mem1)
+    return rec
+
+
+def front_phase(dev, smi: str) -> dict:
+    """The ``front`` phase: the tenants' server over HTTP (with the
+    endpoints and rungs 1, 3 and 4), rung 2 on a ``spec_k=4`` server, the
+    wedge, each one line; then the per-call checks.  Returns the counted
+    passes' launches."""
+    import torch
+
+    model = _seeded_model("gpt2", seed=SEED, device=dev).eval()
+    checks: dict = {}
+    t0 = time.perf_counter()
+    ten = front_tenants(dev, model, checks)
+    t1 = time.perf_counter()
+    spec = front_spec_off(dev, model)
+    t2 = time.perf_counter()
+    wedge = front_wedge(dev, model)
+    t3 = time.perf_counter()
+    for kname in ("flash_fwd", "paged_attention"):
+        if not checks.get(kname, {}).get("calls"):
+            raise AssertionError(f"the per-call check saw no {kname} call")
+    over = ten.pop("overload")
+    log(f"front tenants over HTTP on {smi}: " + json.dumps(ten))
+    log(f"front overload on {smi}: " + json.dumps(dict(over, rung2=spec)))
+    log(f"front wedge on {smi}: " + json.dumps(wedge))
+    log(f"front per-call checks on {smi}: " + json.dumps(checks))
+    log(f"front on {smi}: tokens/s HTTP {ten['http']['tokens_per_s']:.1f} "
+        f"vs in-process {ten['inproc']['tokens_per_s']:.1f}; HTTP overhead "
+        f"{ten['http_overhead_ms']['mean']:.2f} ms a request (GIL switch "
+        f"0.5 ms: {ten['http_switch_0_5ms']['tokens_per_s']:.1f} tokens/s, "
+        f"{ten['http_switch_0_5ms']['overhead_ms']['mean']:.2f} ms); decode "
+        "step "
+        f"{ten['inproc']['step_ms_mean']:.3f} ms unscraped, "
+        f"{ten['scraped']['step_ms_mean']:.3f} ms scraped at "
+        f"{FRONT_SCRAPE_HZ:g} Hz; watchdog detection {wedge['detect_s']:.2f}"
+        f" s (capture {wedge['capture_s']:.3f} s)")
+    for t, lat in ten["latency_ms"].items():
+        log(f"front tenant {t}: TTFT p50/p99 {lat['ttft_ms']['p50']}/"
+            f"{lat['ttft_ms']['p99']} ms, TPOT p50/p99 {lat['tpot_ms']['p50']}"
+            f"/{lat['tpot_ms']['p99']} ms, queue wait p50 "
+            f"{lat['queue_wait_ms']['p50']} ms, e2e p50 {lat['e2e_ms']['p50']}"
+            " ms")
+    log(f"front seconds: tenants {t1 - t0:.1f}, spec-off {t2 - t1:.1f}, "
+        f"wedge {t3 - t2:.1f}")
+    launches = {}
+    for run in ("inproc", "http", "scraped", "http_switch_0_5ms"):
+        for kname, n in ten[run]["launches"].items():
+            launches[kname] = launches.get(kname, 0) + n
+    log(f"front launches on {smi}: " + json.dumps(launches))
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
                                  "graphs", "resume", "data", "llama", "cli",
-                                 "lora", "examples", "dist", "decode"],
+                                 "lora", "examples", "dist", "decode",
+                                 "front"],
                         default=None)
     # The dist phase's own processes (started by the phase, not by hand).
     parser.add_argument("--dist-worker", choices=["nccl1", "gloo2"],
@@ -7653,6 +8333,11 @@ def main(argv=None) -> int:
         for kname, n in rec["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
     mark = lap("decode", mark)
+    if args.only in (None, "front"):
+        rec = front_phase(dev, smi)
+        for kname, n in rec["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
+    mark = lap("front", mark)
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))

@@ -24,6 +24,11 @@ bit, also after a SIGTERM or an injected fault (``resilience``).
 speculatively with ``spec_k`` (``speculative``: an n-gram or draft-model
 drafter); ``beam_search`` and ``generate_ragged`` are its other modes,
 and ``Server`` takes ``spec_k`` and ``prefill_chunk`` (chunked prefill).
+``Server`` serves over HTTP (``http_port``, ``serve_http``) through a
+weighted multi-tenant scheduler (``TenantConfig``), with SLO accounting
+(``SloPolicy``), the overload ladder (``set_degradation``,
+``DegradationConfig``) and a decode watchdog; ``telemetry`` holds the
+metrics registry that ``GET /metrics`` exposes.
 ``Trainer(lora=LoraConfig(...))`` trains a LoRA adapter on a frozen
 GPT-2 base; ``export_lora`` writes it in the JAX package's artifact
 format (``lora``) and ``Server(adapters=AdapterConfig(...))`` serves it
@@ -79,8 +84,11 @@ from ml_trainer_tpu_torch.serving import (
     AdapterConfig,
     AdapterPool,
     AdapterPoolExhausted,
+    DegradationConfig,
     Server,
+    SloPolicy,
     SlotDecodeEngine,
+    TenantConfig,
     UnknownAdapter,
 )
 from ml_trainer_tpu_torch.speculative import (
@@ -100,9 +108,10 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AdapterConfig", "AdapterPool", "AdapterPoolExhausted",
-    "ArrayDataset", "DraftModelDrafter", "GPT2", "LlamaLM", "Loader",
-    "LoraConfig", "MLModel", "NgramDrafter", "Server",
-    "SlotDecodeEngine", "SyntheticCIFAR10", "SyntheticTokens", "Trainer",
+    "ArrayDataset", "DegradationConfig", "DraftModelDrafter", "GPT2",
+    "LlamaLM", "Loader", "LoraConfig", "MLModel", "NgramDrafter", "Server",
+    "SloPolicy", "SlotDecodeEngine", "SyntheticCIFAR10", "SyntheticTokens",
+    "TenantConfig", "Trainer",
     "adam_state_from_jax", "beam_search", "create_mesh",
     "custom_pre_process_function", "generate", "generate_ragged",
     "get_model", "init_gpt2", "init_model", "int8_matmul",

@@ -13,23 +13,31 @@
                       check catches;
 * ``decode_error``  — ``NativeLoader``: the matching epoch counts one
                       more failed JPEG decode, so it raises at its end
-                      as a corrupt stream makes it.
+                      as a corrupt stream makes it;
+* ``decode_wedge``  — serving engine: the matching decode step (the
+                      engine's ``_step_seq``) blocks before its replay
+                      is issued, as a wedged device program would, until
+                      ``FaultPlan.release_wedge`` or ``secs`` seconds
+                      (default 300); the server's watchdog must fail the
+                      clients meanwhile.
 
-The JAX package's other kinds (``decode_wedge``, ``host_kill``, ``host_hang`` and the serving fleet's) have no hook here:
-a plan that names one raises ``NotImplementedError`` when it is parsed,
-so no fault is accepted and then never fired.
+The JAX package's other kinds (``host_kill``, ``host_hang`` and the
+serving fleet's ``replica_*``, ``healthz_flap`` and ``migration_corrupt``)
+have no hook here: a plan that names one raises ``NotImplementedError``
+when it is parsed, so no fault is accepted and then never fired.
 
 Spec syntax (also read from the ``ML_TRAINER_TPU_FAULTS`` environment
 variable)::
 
     nan_grad@step=12;ckpt_truncate@epoch=1;preempt@step=40
-    nan_grad@step=5,count=3
+    nan_grad@step=5,count=3;decode_wedge@step=8,secs=60
 
 Entries are ``kind@key=value[,key=value...]`` separated by ``;``.
-Trigger keys: ``step`` (the 1-based global train step) or ``epoch``;
-``count`` is the number of consecutive steps to fire on (default 1).
-Every hook is a no-op when no plan is active, and every fault fires a
-bounded number of times.
+Trigger keys: ``step`` (the 1-based global train step, or the engine's
+decode step) or ``epoch``; ``count`` is the number of consecutive steps
+to fire on (default 1); ``secs`` bounds a ``decode_wedge``'s hold (the
+only kind that holds).  Every hook is a no-op when no plan is active,
+and every fault fires a bounded number of times.
 """
 
 from __future__ import annotations
@@ -42,10 +50,11 @@ from typing import List, Optional
 
 ENV_VAR = "ML_TRAINER_TPU_FAULTS"
 
-KINDS = ("nan_grad", "preempt", "ckpt_truncate", "decode_error")
+KINDS = ("nan_grad", "preempt", "ckpt_truncate", "decode_error",
+         "decode_wedge")
 # The JAX package's kinds that have no hook in the port.
-UNPORTED_KINDS = ("decode_wedge", "host_kill", "host_hang", "replica_kill",
-                  "replica_slow", "healthz_flap", "migration_corrupt")
+UNPORTED_KINDS = ("host_kill", "host_hang", "replica_kill", "replica_slow",
+                  "healthz_flap", "migration_corrupt")
 
 
 @dataclass
@@ -57,6 +66,7 @@ class Fault:
     step: Optional[int] = None
     epoch: Optional[int] = None
     count: int = 1
+    secs: float = 300.0
     fired: int = 0
 
     def matches(self, step: Optional[int], epoch: Optional[int]) -> bool:
@@ -81,14 +91,16 @@ class Fault:
 
 
 class FaultPlan:
-    """A parsed fault list.  ``fire(kind, step=..., epoch=...)`` is the
-    hooks' one entry point: it returns the matching :class:`Fault`
-    (one firing consumed) or ``None``; a fault conditioned on a key the
-    hook did not pass never fires.  Thread-safe."""
+    """A parsed fault list plus the wedge-release latch.  ``fire(kind,
+    step=..., epoch=...)`` is the hooks' one entry point: it returns the
+    matching :class:`Fault` (one firing consumed) or ``None``; a fault
+    conditioned on a key the hook did not pass never fires.
+    Thread-safe."""
 
     def __init__(self, faults: List[Fault]):
         self.faults = list(faults)
         self._lock = threading.Lock()
+        self._wedge_release = threading.Event()
 
     @classmethod
     def parse(cls, spec: str) -> "FaultPlan":
@@ -115,11 +127,13 @@ class FaultPlan:
                         f"malformed fault trigger {pair!r} in {entry!r} "
                         "(expected key=value)")
                 key = key.strip()
-                if key not in ("step", "epoch", "count"):
+                keys = ("step", "epoch", "count") + (
+                    ("secs",) if kind == "decode_wedge" else ())
+                if key not in keys:
                     raise ValueError(
-                        f"unknown fault key {key!r} in {entry!r}; "
-                        "expected step|epoch|count")
-                kwargs[key] = int(value)
+                        f"unknown fault key {key!r} for {kind!r} in "
+                        f"{entry!r}; expected {'|'.join(keys)}")
+                kwargs[key] = float(value) if key == "secs" else int(value)
             faults.append(Fault(kind=kind, **kwargs))
         return cls(faults)
 
@@ -131,6 +145,15 @@ class FaultPlan:
                     fault.fired += 1
                     return fault
         return None
+
+    def hold_wedge(self, fault: Fault) -> None:
+        """Block as a wedged decode step would, until ``release_wedge``
+        or the fault's ``secs`` bound (an injected fault never hangs a
+        process for good)."""
+        self._wedge_release.wait(timeout=fault.secs)
+
+    def release_wedge(self) -> None:
+        self._wedge_release.set()
 
     def remaining(self) -> List[Fault]:
         with self._lock:

@@ -1,5 +1,6 @@
-"""Serving: the slot/paged decode engine, the threaded ``Server`` and
-the LoRA adapter pool."""
+"""Serving: the slot/paged decode engine, the threaded ``Server`` with
+its HTTP front end and watchdog, the weighted multi-tenant scheduler,
+SLO accounting, the overload ladder and the LoRA adapter pool."""
 
 from ml_trainer_tpu_torch.serving.adapter_pool import (
     AdapterConfig,
@@ -11,17 +12,34 @@ from ml_trainer_tpu_torch.serving.api import Server, TokenStream
 from ml_trainer_tpu_torch.serving.engine import SlotDecodeEngine
 from ml_trainer_tpu_torch.serving.kv_pool import KVPagePool
 from ml_trainer_tpu_torch.serving.metrics import ServingMetrics
+from ml_trainer_tpu_torch.serving.overload import (
+    CircuitBreaker,
+    DegradationConfig,
+    DegradationLadder,
+    OverloadShed,
+    RollingQuantile,
+)
 from ml_trainer_tpu_torch.serving.prefix_cache import PrefixCache
 from ml_trainer_tpu_torch.serving.scheduler import (
     AdmissionError,
     DeadlineExceeded,
-    FifoScheduler,
+    EngineUnhealthy,
     Request,
+    TenantConfig,
+    TenantScheduler,
+)
+from ml_trainer_tpu_torch.serving.slo import (
+    SloPolicy,
+    SloTracker,
+    aggregate_timelines,
 )
 
 __all__ = [
     "AdapterConfig", "AdapterPool", "AdapterPoolExhausted",
-    "AdmissionError", "DeadlineExceeded", "FifoScheduler", "KVPagePool",
-    "PrefixCache", "Request", "Server", "ServingMetrics", "SlotDecodeEngine",
-    "TokenStream", "UnknownAdapter",
+    "AdmissionError", "CircuitBreaker", "DeadlineExceeded",
+    "DegradationConfig", "DegradationLadder", "EngineUnhealthy",
+    "KVPagePool", "OverloadShed", "PrefixCache", "Request",
+    "RollingQuantile", "Server", "ServingMetrics", "SloPolicy",
+    "SloTracker", "SlotDecodeEngine", "TenantConfig", "TenantScheduler",
+    "TokenStream", "UnknownAdapter", "aggregate_timelines",
 ]

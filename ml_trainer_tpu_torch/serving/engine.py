@@ -75,6 +75,17 @@
   next window's first position (the window overwrites it).  The
   sampler's counter does not consume, so the last window draws the
   unchunked first token.
+* **The front end's hooks** (``serving/api.py``): each admission marks
+  the request's lifecycle (``prefill_start``, ``prefill_chunk``,
+  ``prefill_done`` with its milliseconds, ``preempt``,
+  ``adapter_loaded``) and records TTFT and the queue wait by tenant at
+  its first token; ``prefill_secs`` is taken at the host read of the
+  prefill's token, so it spans the device work.  ``degradation_level``
+  3 sheds a fresh prefix-cache miss (state ``"shed"``, ``retry_after``
+  ``shed_retry_after``), and ``spec_enabled`` off (rung 2) runs vanilla
+  steps.  ``step`` first drops the cancelled requests, then advances the
+  decode-step clock ``_step_seq`` and runs the ``decode_wedge`` fault's
+  hook (``resilience/faults.py``) before the step's forward is issued.
 
 Sampling follows ``generate.sample_rows``: greedy argmax, or per request
 a generator seeded from ``(rng, t)`` per token, so a served request
@@ -94,6 +105,7 @@ from ml_trainer_tpu_torch.convert import flax_path
 from ml_trainer_tpu_torch.device import check_model_device
 from ml_trainer_tpu_torch.generate import sample_rows
 from ml_trainer_tpu_torch.ops.kernels.int8_matmul import quantize_tree
+from ml_trainer_tpu_torch.resilience.faults import active_plan
 from ml_trainer_tpu_torch.serving.adapter_pool import (
     AdapterConfig,
     AdapterPool,
@@ -111,7 +123,7 @@ from ml_trainer_tpu_torch.speculative import (
     draft_scan,
     verify,
 )
-from ml_trainer_tpu_torch.step_graph import StepGraph
+from ml_trainer_tpu_torch.step_graph import StepGraph, give_back_stream
 
 
 class SlotDecodeEngine:
@@ -198,6 +210,10 @@ class SlotDecodeEngine:
             self.cache = model.new_paged_cache(
                 max_batch, self.kv_pages, self.kv_page_size,
                 paged_kernel=self.paged_kernel)
+            # Device bytes of one page over every layer's K and V.
+            self._page_bytes = sum(
+                t.numel() * t.element_size()
+                for t in self.cache.k + self.cache.v) // self.kv_pages
         else:
             if kv_pages:
                 raise ValueError("kv_pages needs kv_page_size > 0")
@@ -261,6 +277,15 @@ class SlotDecodeEngine:
         self._pos = np.zeros((max_batch,), np.int64)
         self._active: Dict[int, Request] = {}
         self._init_spec(int(spec_k), drafter, int(ngram_n))
+        # Decode steps run: the decode_wedge fault's clock.
+        self._step_seq = 0
+        # The fault plan whose decode_wedge holds the loop right now
+        # (``Server.close`` releases it).
+        self._holding = None
+        # Overload control (serving/overload.py): the ladder's rung and
+        # the backoff a shed request is told.
+        self.degradation_level = 0
+        self.shed_retry_after = 2.0
 
     # -- speculative decoding (speculative.py) ---------------------------
 
@@ -350,6 +375,7 @@ class SlotDecodeEngine:
             meta, leaves = upload
             self._upload(prepare_upload(meta, leaves, self._stack_shapes,
                                         self.adapters.rank), aslot)
+            req.mark("adapter_loaded", adapter=req.adapter, slot=aslot)
         self._set_row(slot, aslot)
         self._push_adapter_metrics()
 
@@ -450,6 +476,7 @@ class SlotDecodeEngine:
             self.pool.free_count(), self.pool.used_count(),
             self.kv_pages - 1,
             len(self._prefix) if self._prefix is not None else 0,
+            bytes_per_page=self._page_bytes,
         )
         if self._prefix is not None:
             self.metrics.record_prefix_stats(
@@ -458,25 +485,27 @@ class SlotDecodeEngine:
             )
 
     def _pick_victim(self, exclude: int) -> Optional[int]:
-        """Youngest admission first (it loses the least work)."""
-        candidates = [(-(req.admitted_at or 0.0), slot)
+        """The lowest priority first, and within it the youngest
+        admission (it loses the least work)."""
+        candidates = [(req.priority, -(req.admitted_at or 0.0), slot)
                       for slot, req in self._active.items() if slot != exclude]
-        return min(candidates)[1] if candidates else None
+        return min(candidates)[2] if candidates else None
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, cause: str) -> None:
         """Evict ``slot`` under page pressure: donate its written blocks,
         free the rest, and queue it for resumption (or fail it after
         ``max_preemptions``)."""
         req = self._active.pop(slot)
         req.preemptions += 1
-        self.metrics.record_preemption()
+        req.mark("preempt", slot=slot, cause=cause)
+        self.metrics.record_preemption(req.tenant)
         self._release_slot_pages(slot, req, donate=True)
         if req.preemptions > self.max_preemptions:
             req.finish(
                 "error",
-                f"request {req.id} preempted {req.preemptions}x under page "
-                f"pressure; giving up after max_preemptions="
-                f"{self.max_preemptions}",
+                f"request {req.id} (tenant '{req.tenant}') preempted "
+                f"{req.preemptions}x under page pressure ({cause}); "
+                f"giving up after max_preemptions={self.max_preemptions}",
             )
         else:
             self._preempted.append(req)
@@ -505,14 +534,16 @@ class SlotDecodeEngine:
                 if pages is not None:
                     break
                 want = short - pool.free_count()
+                cause = (f"page_pressure: slot {slot} needs {short} page(s), "
+                         f"{pool.free_count()} free of {self.kv_pages - 1}")
                 if self._prefix is not None and self._prefix.evict(want) > 0:
                     continue
                 victim = self._pick_victim(exclude=slot)
                 if victim is None:
-                    self._preempt(slot)
+                    self._preempt(slot, cause)
                     freed.append(slot)
                     break
-                self._preempt(victim)
+                self._preempt(victim, cause)
                 freed.append(victim)
             if pages is not None and slot in self._active:
                 pool.extend_slot(slot, pages)
@@ -555,6 +586,21 @@ class SlotDecodeEngine:
                     record=not req.kv_blocked,
                 )
                 req.prefix_hit_tokens = c
+            if (self.degradation_level >= 3 and c == 0 and done_tokens == 0
+                    and self._prefix is not None):
+                # Rung 3 (hits_only): a fresh prefix-cache miss is shed
+                # with a structured 503 instead of a full prefill; a
+                # resume (committed tokens) is never shed.
+                if shared:
+                    self.pool.release(shared)
+                req.retry_after = self.shed_retry_after
+                req.finish(
+                    "shed",
+                    f"request {req.id} (tenant '{req.tenant}') shed: "
+                    "degradation rung hits_only admits prefix-cache "
+                    f"hits only; retry after {self.shed_retry_after}s")
+                self.metrics.record_shed(req.tenant)
+                return "finished"
             # Cover the prompt plus the first decode window, so that a
             # fresh admission cannot trigger a preemption at once.
             n_new = self.pool.pages_for(
@@ -569,9 +615,10 @@ class SlotDecodeEngine:
                 if not self._active:
                     req.finish(
                         "error",
-                        f"kv pool exhausted: request {req.id} needs {n_new} "
-                        f"page(s) beyond its prefix hit, pool has "
-                        f"{self.pool.free_count()} of {self.kv_pages - 1}",
+                        f"kv pool exhausted: request {req.id} (tenant "
+                        f"'{req.tenant}') needs {n_new} page(s) beyond its "
+                        f"prefix hit, pool has {self.pool.free_count()} of "
+                        f"{self.kv_pages - 1}",
                     )
                     return "finished"
                 self.metrics.record_admission_blocked()
@@ -598,6 +645,9 @@ class SlotDecodeEngine:
         if self.prefill_chunk and (p - c) > self.prefill_chunk:
             return self._admit_chunked(req, slot, prompt, c, seed,
                                        done_tokens)
+        req.mark("prefill_start", slot=slot,
+                 kind="continuation" if (self.paged and c > 0) else "full",
+                 prefix_hit_tokens=c, resumed_tokens=done_tokens)
         t0 = time.perf_counter()
         with torch.no_grad():
             if self.paged and c > 0:
@@ -614,13 +664,16 @@ class SlotDecodeEngine:
                     self._admit_draft(prompt, slot)
             token = int(tok0)  # host read: the prefill has landed
         prefill_dt = time.perf_counter() - t0
+        req.prefill_secs += prefill_dt
+        req.mark("prefill_done", ms=round(prefill_dt * 1e3, 3))
         self.metrics.record_prefill(prefill_dt)
         return self._activate(req, slot, prompt, seed, done_tokens, token)
 
     def _activate(self, req: Request, slot: int, prompt: np.ndarray,
                   seed: int, done_tokens: int, token: int) -> str:
         """The admission's tail once the prompt's K/V landed: position,
-        sampler state, prefix registration, first token, TTFT."""
+        sampler state, prefix registration, first token, TTFT and the
+        queue wait (by tenant)."""
         p = prompt.shape[0]
         self._pos[slot] = p
         self._temps[slot] = req.temperature
@@ -638,7 +691,13 @@ class SlotDecodeEngine:
             self._push_kv_metrics()
         req.push_token(token)
         if done_tokens == 0:
-            self.metrics.record_ttft(time.monotonic() - req.submitted_at)
+            self.metrics.record_ttft(time.monotonic() - req.submitted_at,
+                                     tenant=req.tenant)
+            if req.first_admitted_at is not None:
+                # The queueing half of TTFT (the other is the prefill).
+                self.metrics.record_queue_wait(
+                    req.first_admitted_at - req.submitted_at,
+                    tenant=req.tenant)
         self._active[slot] = req
         if self._finished(req, token):
             return "finished"
@@ -720,6 +779,9 @@ class SlotDecodeEngine:
         """Admit a long prompt through page-aligned windows: run the
         first now and park the slot in ``_chunked``; ``advance_chunks``
         runs one window per serving-loop iteration."""
+        req.mark("prefill_start", slot=slot, kind="chunked",
+                 prefix_hit_tokens=c, resumed_tokens=done_tokens,
+                 window=self.prefill_chunk)
         self.metrics.record_chunked_admission()
         self._chunked[slot] = {
             "req": req, "prompt": prompt, "p": prompt.shape[0],
@@ -767,6 +829,8 @@ class SlotDecodeEngine:
         st["secs"] += time.perf_counter() - t0
         req.prefill_chunks += 1
         self.metrics.record_prefill_chunk()
+        if not final:
+            req.mark("prefill_chunk", start=start, window=w)
         return token
 
     def advance_chunks(self) -> List[tuple]:
@@ -781,6 +845,13 @@ class SlotDecodeEngine:
         for slot in sorted(self._chunked):
             st = self._chunked[slot]
             req = st["req"]
+            if req.cancel_requested:
+                del self._chunked[slot]
+                req.finish("error", "cancelled: hedge superseded")
+                self.metrics.record_cancellation()
+                self._release_slot_pages(slot, None, donate=False)
+                out.append((slot, req, "finished"))
+                continue
             if req.expired(now):
                 del self._chunked[slot]
                 req.finish("expired",
@@ -801,8 +872,12 @@ class SlotDecodeEngine:
         """The last window landed: the slot activates exactly as an
         unchunked admission would."""
         st = self._chunked.pop(slot)
+        req = st["req"]
+        req.prefill_secs += st["secs"]
+        req.mark("prefill_done", ms=round(st["secs"] * 1e3, 3),
+                 chunks=req.prefill_chunks)
         self.metrics.record_prefill(st["secs"])
-        return self._activate(st["req"], slot, st["prompt"], st["seed"],
+        return self._activate(req, slot, st["prompt"], st["seed"],
                               st["done_tokens"], token)
 
     def abort_chunked(self, msg: str) -> List[int]:
@@ -853,19 +928,63 @@ class SlotDecodeEngine:
             self._graph.capture(self._decode)
         return self._graph.replay()
 
+    def kernel_sources(self) -> List[str]:
+        """The kernel libraries (``csrc/<name>.cu``) this engine's path
+        launches on the card: K1 for the prefills, K6 with
+        ``paged_kernel``, K7 with ``quant_int8``; none on the CPU."""
+        if self.device.type != "cuda":
+            return []
+        return (["flash_fwd"] + ["paged_attention"] * self.paged_kernel
+                + ["int8_matmul"] * (self.quant is not None))
+
     def close(self) -> None:
         """Drop the decode graph, and with it its memory pool (a later
-        step would warm up and capture again)."""
+        step would warm up and capture again), and hand its side stream
+        on to the next engine (``step_graph.take_stream``)."""
         if self._graph is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # no replay in flight
+            give_back_stream(self.device, self._graph.stream)
         self._graph = None
+
+    def _sweep_cancelled(self) -> List[int]:
+        """Free the slots whose request was cancelled (``Server.cancel``
+        cleared its SLO observer): pages donated (the prefill stays
+        useful in the prefix cache), slot freed before the step."""
+        freed: List[int] = []
+        for slot in [s for s, r in self._active.items()
+                     if r.cancel_requested]:
+            req = self._active.pop(slot)
+            req.finish("error", "cancelled: hedge superseded")
+            self.metrics.record_cancellation()
+            self._release_slot_pages(slot, req, donate=True)
+            freed.append(slot)
+        return freed
+
+    def _wedge_hook(self) -> None:
+        """The ``decode_wedge`` fault: a matching ``_step_seq`` holds the
+        loop here, before the step's forward (the graph's replay) is
+        issued, until the plan's release or the fault's ``secs``."""
+        plan = active_plan()
+        if plan is None:
+            return
+        fault = plan.fire("decode_wedge", step=self._step_seq)
+        if fault is not None:
+            self._holding = plan
+            try:
+                plan.hold_wedge(fault)
+            finally:
+                self._holding = None
 
     def step(self) -> List[int]:
         """One decode step over all slots; returns the slots freed
-        (finished, expired or preempted)."""
+        (finished, expired, cancelled or preempted)."""
         if not self._active:
             return []
-        freed: List[int] = []
+        freed = self._sweep_cancelled()
+        if not self._active:
+            return freed
+        self._step_seq += 1
+        self._wedge_hook()
         spec_now = bool(self.spec_k and self.spec_enabled)
         if self.paged:
             freed += self._ensure_pages(self.spec_k + 1 if spec_now else 1)
@@ -889,8 +1008,9 @@ class SlotDecodeEngine:
             toks = nxt.cpu().numpy()  # the step's one host read
         dt = time.perf_counter() - t0
         self._pos = np.minimum(self._pos + 1, self.max_len)
+        active = len(self._active)
         commits = {slot: [int(toks[slot])] for slot in self._live(freed)}
-        return freed + self._hand_out(commits, dt)
+        return freed + self._hand_out(commits, dt, active)
 
     def _step_spec(self) -> List[int]:
         """One speculative verify step over all slots: draft ``spec_k``
@@ -899,6 +1019,7 @@ class SlotDecodeEngine:
         prefix plus one token.  Free slots draft zeros and decode masked
         rows nobody reads."""
         k = self.spec_k
+        active = len(self._active)
         t0 = time.perf_counter()
         with torch.no_grad():
             if self._draft is not None:
@@ -933,7 +1054,7 @@ class SlotDecodeEngine:
             commits[slot] = [int(t) for t in drafts[slot][:n_acc]] + [
                 int(toks[slot])]
         self.metrics.record_spec([int(acc[slot]) for slot in commits], k)
-        return freed + self._hand_out(commits, dt)
+        return freed + self._hand_out(commits, dt, active)
 
     def _live(self, freed: List[int]) -> List[int]:
         """The active slots after the step, in order; the requests whose
@@ -954,18 +1075,20 @@ class SlotDecodeEngine:
             freed.append(slot)
         return live
 
-    def _hand_out(self, commits: Dict[int, List[int]], dt: float
-                  ) -> List[int]:
-        """Record the step, then push each slot's committed tokens, up to
-        its request's end (budget or EOS).  Recording first means that a
-        client woken by its last token reads metrics that count this
-        step.  Returns the slots that finished."""
+    def _hand_out(self, commits: Dict[int, List[int]], dt: float,
+                  active: int) -> List[int]:
+        """Record the step (``active`` slots of ``max_batch`` rode it),
+        then push each slot's committed tokens, up to its request's end
+        (budget or EOS).  Recording first means that a client woken by
+        its last token reads metrics that count this step.  Returns the
+        slots that finished."""
         for slot, tokens in commits.items():
             req = self._active[slot]
             tokens[:] = tokens[:req.max_new_tokens - len(req.tokens)]
             if req.eos_token_id in tokens:
                 del tokens[tokens.index(req.eos_token_id) + 1:]
-        self.metrics.record_step(dt, sum(len(t) for t in commits.values()))
+        self.metrics.record_step(dt, active, self.max_batch,
+                                 sum(len(t) for t in commits.values()))
         freed = []
         for slot, tokens in commits.items():
             req = self._active[slot]

@@ -23,10 +23,19 @@ caller undoes its own side effects (the host step count).
 The capture prohibits unsafe CUDA calls on its own thread only
 (``capture_error_mode="thread_local"``): the serving engine captures on
 its worker thread while other threads may synchronise or profile.
+
+torch keeps a cuBLAS workspace for every (handle, stream) pair it has
+met, for the life of the process: on the H100 a server whose graph took
+a new stream left 34.6 MB allocated after its close.  So a graph takes
+its side stream from ``take_stream``, and the serving engine hands it
+back with ``give_back_stream`` when it closes: each new engine reuses a
+stream, and the card's memory stays flat however many servers a
+process makes in turn.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -35,12 +44,35 @@ from ml_trainer_tpu_torch.device import CountedGraph
 from ml_trainer_tpu_torch.parallel import comm_stats
 
 
+# Side streams that closed graphs gave back, by device.
+_FREE_STREAMS: dict = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def take_stream(device):
+    """A side stream for a graph on ``device``: one given back, else a
+    new one."""
+    with _STREAMS_LOCK:
+        free = _FREE_STREAMS.get(str(device))
+        if free:
+            return free.pop()
+    return torch.cuda.Stream(device)
+
+
+def give_back_stream(device, stream) -> None:
+    """Return ``stream`` for the next graph on ``device`` (its work
+    must be finished)."""
+    with _STREAMS_LOCK:
+        _FREE_STREAMS.setdefault(str(device), []).append(stream)
+
+
 class StepGraph:
-    """One CUDA graph of ``fn(*inputs)`` on ``device``'s card."""
+    """One CUDA graph of ``fn(*inputs)`` on ``device``'s card, warmed up
+    and captured on a side stream from ``take_stream``."""
 
     def __init__(self, device):
         self.device = device
-        self.stream = torch.cuda.Stream(device)
+        self.stream = take_stream(device)
         self.graph = CountedGraph(torch.cuda.CUDAGraph(),
                                   comm_stats.tallies())
         self.inputs: list = []

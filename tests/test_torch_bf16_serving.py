@@ -222,7 +222,7 @@ def test_bf16_preemption_changes_no_token(models):
                 paged_kernel=True, quant_int8=False, device="cpu") as s:
         got, _ = _serve(s, prompts, n=30)
         snap = s.metrics.snapshot()
-    assert snap["preemptions"] > 0
+    assert snap["preemptions_total"] > 0
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 

@@ -371,7 +371,7 @@ def test_fault_plan_from_the_environment(monkeypatch):
 
 
 @pytest.mark.parametrize("spec,error,match", [
-    ("decode_wedge@step=5", NotImplementedError, "ROADMAP.md"),
+    ("healthz_flap@step=5", NotImplementedError, "ROADMAP.md"),
     ("host_kill@step=9,host=1", NotImplementedError, "ROADMAP.md"),
     ("replica_kill@step=3,host=2", NotImplementedError, "ROADMAP.md"),
     ("meteor_strike@step=1", ValueError, "unknown fault kind"),
@@ -383,3 +383,20 @@ def test_fault_plan_refuses_what_the_port_does_not_act_on(spec, error,
                                                           match):
     with pytest.raises(error, match=match):
         FaultPlan.parse(spec)
+
+
+def test_decode_wedge_parses_with_its_hold_bound():
+    """``decode_wedge`` has its hook in the serving engine: it parses
+    with ``secs`` (default 300, as in the JAX package), and its hold
+    returns at ``release_wedge``; the Queue A 5 kinds stay refused."""
+    plan = FaultPlan.parse("decode_wedge@step=8,secs=60;decode_wedge@step=2")
+    assert [(f.step, f.secs) for f in plan.faults] == [(8, 60.0), (2, 300.0)]
+    assert plan.fire("decode_wedge", step=7) is None
+    fault = plan.fire("decode_wedge", step=8)
+    assert fault is plan.faults[0]
+    plan.release_wedge()
+    plan.hold_wedge(fault)  # released: returns at once
+    for kind in ("replica_kill", "replica_slow", "healthz_flap",
+                 "migration_corrupt"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            FaultPlan.parse(f"{kind}@step=1")

@@ -242,10 +242,10 @@ def test_step_in_place_is_the_eager_step(cache, quant_int8, precision,
     assert engine._graph is None  # dropped on close
     (graph,) = stand_in
     assert (graph.warm_ups, graph.captures) == (1, 1)
-    assert graph.replays == snap["decode_steps"] - 1 > 0
+    assert graph.replays == snap["decode_steps_total"] - 1 > 0
     assert _state_ptrs(engine) == engine.ptrs_at_init
     if cache != "contiguous":
-        assert snap["preemptions"] > 0
+        assert snap["preemptions_total"] > 0
     with Server(model, **kw) as s:
         s.engine._graphed = False  # the eager step
         want = _serve_mixed(s, prompts, 30)
@@ -351,7 +351,7 @@ def test_graph_preemption_changes_no_token(precision, stand_in):
                 paged_kernel=True, device="cpu") as s:
         got, _ = _serve(s, prompts, n=30)
         snap = s.metrics.snapshot()
-    assert snap["preemptions"] > 0
+    assert snap["preemptions_total"] > 0
     assert all(g.replays > 0 for g in stand_in)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
@@ -365,7 +365,7 @@ def test_launch_counts_are_exact_with_replays(quant_int8, precision,
     with Server(model, max_batch=4, kv_page_size=16, paged_kernel=True,
                 quant_int8=quant_int8, device="cpu") as s:
         _serve(s, _prompts())
-        steps = s.metrics.snapshot()["decode_steps"]
+        steps = s.metrics.snapshot()["decode_steps_total"]
     (graph,) = stand_in
     assert graph.replays == steps - 1
     counts = mt.launch_counts()
@@ -453,7 +453,7 @@ def test_decode_graph_matches_eager_on_card():
                         mt.reset_launch_counts()
                         outs, _ = _serve(s, prompts)
                         counts = mt.launch_counts()
-                        steps = s.metrics.snapshot()["decode_steps"]
+                        steps = s.metrics.snapshot()["decode_steps_total"]
                         captured = (s.engine._graph is not None
                                     and s.engine._graph.capture_s is not None)
                 finally:

@@ -309,7 +309,8 @@ def test_serving_spec_mid_stream_join_equals_jax(models, paged):
         snap["spec_accept_hist"].values())
     assert 0.0 <= snap["spec_acceptance_rate"] <= 1.0
     assert snap["spec_tokens_per_step"] >= 1.0
-    assert health["spec_k"] == 4 and health["prefill_chunk"] == 0
+    assert health["ok"] and s.engine.spec_k == 4
+    assert s.engine.prefill_chunk == 0
     req = streams[0].request
     assert req.spec_steps > 0 and req.spec_accepted_tokens >= 0
 
