@@ -53,6 +53,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # tenants over HTTP, the
                                           # endpoints, the overload
                                           # ladder, the decode watchdog
+    python3 chip_smoke.py --only router   # kernel checks + KV migration
+                                          # and the router: disaggregated,
+                                          # colocated, a replica killed,
+                                          # two worker processes over HTTP
 
 Phases, one line of output each (or a few):
 
@@ -297,8 +301,8 @@ Phases, one line of output each (or a few):
    and as raw shards written by ``write_sharded_dataset``: samples/s of
    the second epoch, each loader's host ms a batch timed alone, and
    device-busy ms a step and idle share of the third epoch under the
-   profiler; GPT-2 124M in bf16 (``TRAIN``'s batch, ``GPT2_OPT``, K = 4)
-   on ``PackedLMDataset`` blocks of the fixture byte-level BPE's
+   profiler; GPT-2 124M's widths at ``CUT_DEPTH`` blocks in bf16
+   (``TRAIN``'s batch, ``GPT2_OPT``, K = 4) on ``PackedLMDataset`` blocks of the fixture byte-level BPE's
    encoding of synthetic text (``examples/04_gpt2_pretrain.py``'s
    recipe) with ``loss_chunk=128`` against the dense head: in float32
    the chunked loss function at [8, 1024, 768] x [50257, 768] and one
@@ -343,7 +347,8 @@ Phases, one line of output each (or a few):
    subprocesses run: one dropout site's mask on the card bitwise the
    CPU's and its kept share within 4 sigma of 0.9; Llama 124.7M bf16
    ``loss_chunk=256`` with 'dots' at K = 1 and 4, bitwise; dropout 0.1
-   at K = 1 and K = 4 bitwise for GPT-2 124M bf16 with the EMA,
+   at K = 1 and K = 4 bitwise for GPT-2 124M's widths at ``CUT_DEPTH``
+   blocks (so the GPT-2 runs below) in bf16 with the EMA,
    BERT-base bf16 (the SST-2 recipe) and ViT-B/16 bf16 with the EMA
    (one epoch each, ``_train_one_epoch``); BERT ``test()`` bitwise the
    same weights without dropout and ``predict()`` bitwise the test
@@ -354,7 +359,8 @@ Phases, one line of output each (or a few):
    GPT-2 124M bf16 in ``CLI_VARIANTS`` (plain, remat 'none' and 'dots',
    dropout 0.1, the EMA) from one seeded init: one step's gradients,
    remat bitwise plain and dropout under 'dots' bitwise dropout alone,
-   K1 2 x 12 a microbatch under remat (K2/K3 12), the step's peak, then
+   K1 2 x depth a microbatch under remat (K2/K3 depth), the step's
+   peak, then
    each variant's K = 4 graph in turns (ms a step: remat's, the masks'
    and the EMA's cost); ``gpt2_large`` bf16 [4, 1024] at K = 1 with
    remat off and 'none' (the step's peak, ms a step).
@@ -494,6 +500,30 @@ Phases, one line of output each (or a few):
    TTFT/TPOT/queue wait/e2e per tenant, the HTTP overhead a request, the
    decode step ms scraped and not, the watchdog's detection seconds and
    the capture seconds it sees.
+18. router (``ROUTER``, run after front): GPT-2 124M fp32 (12 blocks,
+   768 wide, seeded), paged at page 16, max_len 1024, 8 slots a replica,
+   ``paged_kernel``; 16 prompts of 130-300 tokens (the even ones open
+   with one 128-token system prompt), 32 greedy tokens each.  A single
+   ``Server``'s tokens are the reference.  ``Router.build(["prefill",
+   "decode", "decode"])``: an uncounted warm-up (its eager K1 and K6
+   calls held to float64), a counted pass (every request migrates once;
+   tokens against the reference by the near-tie rule), then the same
+   traffic with ``decode1`` held before a decode step, killed and
+   released (redistributions counted; tokens against the first pass).
+   ``["both"] * 3`` on the same traffic: no migration, tokens against
+   the disaggregated pass.  Two worker processes on the card
+   (``Fleet(["prefill", "decode"])``, started at the phase's start from
+   a ``--ckpt`` written here) behind ``make_router()``: a warm-up whose
+   first payload has one bit flipped (``migration_corrupt``: the decode
+   worker's CRC check refuses it), then 8 of the prompts counted through
+   each worker's ``/v1/spec``.  Gates: K1 12 a full prefill (a prefix hit
+   runs the plain paged path) and K6 12 a decode step, exactly, in every
+   counted pass and worker; one decode-graph capture per decoding engine
+   whatever was imported; the card's allocated memory back within 1%.
+   Printed: tokens/s and TTFT p50 of each layout, the bytes of a
+   migration (``router_kv_migrated_bytes_total``; the padded payload is
+   the same whatever the prompt), export, adopt and import ms in process
+   and adopt ms over HTTP, the phase's seconds.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -4602,7 +4632,7 @@ def chunked_head_check(dev, x, y) -> dict:
             and max(fn["d_hidden"], fn["d_embedding"]) <= CHUNK_GRAD_RTOL):
         raise AssertionError(f"chunked vs dense head, float32: {fn}")
     model = _seeded_model("gpt2", seed=SEED, device=dev,
-                          loss_chunk=DATA_GPT2["loss_chunk"])
+                          loss_chunk=DATA_GPT2["loss_chunk"], **_CUT)
     lc, gc, _ = _step_grads(model, lambda: model(x, targets=y))
     ld, gd, _ = _step_grads(model, lambda: F.cross_entropy(
         model(x).reshape(-1, c["vocab_size"]), y.reshape(-1).long()))
@@ -4618,7 +4648,8 @@ def chunked_head_check(dev, x, y) -> dict:
 
 
 def data_gpt2(dev) -> dict:
-    """GPT-2 124M bf16, [8, 1024] in 4 microbatches, K = 4, on
+    """GPT-2 124M's widths at ``CUT_DEPTH`` blocks (the budget's cut; the
+    gates hold block by block), bf16, [8, 1024] in 4 microbatches, K = 4, on
     ``PackedLMDataset`` blocks: the float32 checks of
     ``chunked_head_check``; the bf16 chunked gradients of one microbatch
     against the float32 dense ones (no farther than the bf16 dense
@@ -4639,13 +4670,13 @@ def data_gpt2(dev) -> dict:
     x, y = next(iter(prefetch_to_device(
         mt.Loader(train, batch // c["accum"]), size=1, device=dev)))
     checks, ref = chunked_head_check(dev, x, y)
-    launches = dict(depth=12, micro=g["steps"] * c["accum"],
+    launches = dict(depth=CUT_DEPTH, micro=g["steps"] * c["accum"],
                     val=g["val_batches"])
 
     def make(label, k, chunk):
         return mt.Trainer(
             _seeded_model("gpt2", seed=SEED, device=dev, vocab_size=vocab,
-                          loss_chunk=chunk),
+                          loss_chunk=chunk, **_CUT),
             datasets=(train, val), epochs=1, batch_size=batch, metric=None,
             seed=SEED, device=dev, precision="bf16",
             model_dir=f"{DATA_DIR}/{label}", steps_per_execution=k,
@@ -4715,8 +4746,9 @@ def data_gpt2(dev) -> dict:
     del ref, trainers
     _discard(DATA_DIR)
     torch.cuda.empty_cache()
-    return dict(config=dict(model="gpt2", precision="bf16", batch=batch,
-                            seq_len=seq, accum=c["accum"], k=DATA_K,
+    return dict(config=dict(model="gpt2", depth=CUT_DEPTH, precision="bf16",
+                            batch=batch, seq_len=seq, accum=c["accum"],
+                            k=DATA_K,
                             steps=g["steps"], loss_chunk=g["loss_chunk"],
                             vocab=vocab, tokenizer_vocab=tok_vocab,
                             blocks=len(train)),
@@ -5128,11 +5160,11 @@ CLI_LARGE = dict(seq_len=1024, vocab_size=50257, batch=4, steps=2)
 # The EMA against its float64 recompute from the recorded params: d e
 # rounds to float32, (1 - d) p too, and their sum.
 EMA_F64_RTOL = 8 * 2.0 ** -24
-# Dropout RATE at K = 1 and 4, one epoch of 8 steps each: GPT-2 124M
-# bf16 with the EMA, BERT-base bf16 (SST-2 recipe, 32 x 128 right
+# Dropout RATE at K = 1 and 4, one epoch of 8 steps each: GPT-2 124M's
+# widths at CUT_DEPTH blocks, bf16 with the EMA, BERT-base bf16 (SST-2 recipe, 32 x 128 right
 # padded) and ViT-B/16 bf16 (b 32) with the EMA.
 CLI_FAMILIES = [  # (label, name, model kwargs, trainer kwargs, data, batch)
-    ("gpt2", "gpt2", {"dropout_rate": RATE},
+    ("gpt2", "gpt2", {"dropout_rate": RATE, "depth": CUT_DEPTH},
      dict(GPT2_OPT, precision="bf16", ema_decay=EMA_DECAY), "gpt2",
      TRAIN["batch_size"]),
     ("bert_base", "bert_base", {"right_padded": True, "dropout_rate": RATE},
@@ -5452,11 +5484,12 @@ def dropout_ema_fits(dev) -> dict:
 
 
 def dropout_ema_dp(dev) -> dict:
-    """GPT-2 124M bf16 with dropout RATE and the EMA on 2 sharded replicas
-    (adam, no decay: K4/K5) against one card, from one state and batch
-    (``dp_step_check``: the single-vs-sharded bar DP_SINGLE_ATOL, the
-    masks of the whole batch on both); then one sharded step with K4 =
-    K5 = 2 launches and its EMA against the float64 recompute."""
+    """GPT-2 124M's widths at CUT_DEPTH blocks, bf16 with dropout RATE
+    and the EMA on 2 sharded replicas (adam, no decay: K4/K5) against one
+    card, from one state and batch (``dp_step_check``: the
+    single-vs-sharded bar DP_SINGLE_ATOL, the masks of the whole batch on
+    both); then one sharded step with K4 = K5 = 2 launches and its EMA
+    against the float64 recompute."""
     import torch
 
     import ml_trainer_tpu_torch as mt
@@ -5465,7 +5498,7 @@ def dropout_ema_dp(dev) -> dict:
     opt = dict(optimizer="adam", lr=3e-4, grad_clip_norm=1.0,
                grad_accum_steps=2, precision="bf16", ema_decay=EMA_DECAY)
     sets = _token_sets(2, 1, CLI_GPT2["batch"])
-    one, two = _seeded_pair(dev, "gpt2", {"dropout_rate": RATE})
+    one, two = _seeded_pair(dev, "gpt2", {"dropout_rate": RATE, **_CUT})
     single = _cli_trainer(dev, one, sets, CLI_GPT2["batch"], opt, 1)
     sharded = mt.Trainer(two, datasets=sets, epochs=1,
                          batch_size=CLI_GPT2["batch"], metric=None,
@@ -5555,13 +5588,14 @@ def _one_step_grads(trainer, x, y):
 
 
 def remat_dropout_ema_steps(dev) -> dict:
-    """GPT-2 124M bf16 [8, 1024], CLI_VARIANTS from one seeded init.  One
-    step's gradients: remat 'none' and 'dots' bitwise plain, dropout
-    under 'dots' (the dropout model's own remat switched on) bitwise
-    dropout alone, K1 launches 2 x depth a microbatch under remat (K2/K3
-    depth), the peak of the step; then each variant's K = 4 graph, ms a
-    step in turns (``_graph_step_ms``): remat's, the masks' and the
-    EMA's cost beside the plain step."""
+    """GPT-2 124M's widths at CUT_DEPTH blocks, bf16 [8, 1024],
+    CLI_VARIANTS from one seeded init.  One step's gradients: remat
+    'none' and 'dots' bitwise plain, dropout under 'dots' (the dropout
+    model's own remat switched on) bitwise dropout alone, K1 launches 2
+    x depth a microbatch under remat (K2/K3 depth), the peak of the
+    step; then each variant's K = 4 graph, ms a step in turns
+    (``_graph_step_ms``): remat's, the masks' and the EMA's cost beside
+    the plain step."""
     import torch
 
     import ml_trainer_tpu_torch as mt
@@ -5590,10 +5624,11 @@ def remat_dropout_ema_steps(dev) -> dict:
 
     for label, model_kw, trainer_kw in CLI_VARIANTS:
         if weights is None:
-            model = _seeded_model("gpt2", seed=SEED, device=dev, **model_kw)
+            model = _seeded_model("gpt2", seed=SEED, device=dev, **model_kw,
+                                  **_CUT)
             weights = {k: v.clone() for k, v in model.state_dict().items()}
         else:
-            model = mt.get_model("gpt2", device=dev, **model_kw)
+            model = mt.get_model("gpt2", device=dev, **model_kw, **_CUT)
             model.load_state_dict(weights)
         tr = _cli_trainer(dev, model, sets, CLI_GPT2["batch"],
                           dict(opt, **trainer_kw), DATA_K)
@@ -5633,7 +5668,7 @@ def remat_dropout_ema_steps(dev) -> dict:
     del trainers
     torch.cuda.empty_cache()
     return dict(config=dict(CLI_GPT2, k=DATA_K, accum=TRAIN["accum"],
-                            precision="bf16"),
+                            precision="bf16", depth=CUT_DEPTH),
                 variants=recs, gradients=same, ms_over_plain=cost,
                 launches=launches)
 
@@ -8247,13 +8282,494 @@ def front_phase(dev, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# KV migration and the router (``--only router``): GPT-2 124M fp32 (12
+# blocks, 768 wide, seeded) through ``Router``, paged at page 16 with
+# max_len 1024 and 8 slots a replica, K1 in every full prefill and K6 in
+# every decode step (the graph).
+ROUTER = dict(requests=16, system=128, lens=(130, 300), new_tokens=32,
+              page=16, max_batch=8, fleet_requests=8, hold_step=4)
+ROUTER_DIR = "build/chip_smoke_router"  # the fleet's weights and logs
+
+
+def _router_prompts(rng, vocab: int) -> tuple:
+    """ROUTER["requests"] prompts of distinct lengths in ROUTER["lens"]:
+    the even ones open with one 128-token system prompt (tenant "sys",
+    one prefix-cache namespace), the odd ones are random (tenant
+    "default"); returns (prompts, tenants)."""
+    import numpy as np
+
+    lo, hi = ROUTER["lens"]
+    lens = rng.choice(np.arange(lo, hi + 1), ROUTER["requests"],
+                      replace=False)
+    system = rng.integers(0, vocab, ROUTER["system"])
+    prompts, tenants = [], []
+    for i, m in enumerate(lens):
+        if i % 2 == 0:
+            tail = rng.integers(0, vocab, int(m) - ROUTER["system"])
+            prompts.append(np.concatenate([system, tail]).astype(np.int32))
+            tenants.append("sys")
+        else:
+            prompts.append(rng.integers(0, vocab, int(m)).astype(np.int32))
+            tenants.append("default")
+    return prompts, tenants
+
+
+@contextlib.contextmanager
+def _engine_clocks(engines, router=None):
+    """Count each engine's full prefills (the K1 route: a prefix hit runs
+    the suffix through the plain paged path) and time its exports and
+    imports, and the router's adoptions (serialize, ship, verify), on the
+    host clock, by wrapping the instances' methods (host code only)."""
+    rec = dict(full_prefills=0, export_ms=[], import_ms=[], adopt_ms=[])
+    wrapped = []
+
+    def wrap(obj, attr, key):
+        real = getattr(obj, attr)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                if key == "full_prefills":
+                    rec[key] += 1
+                else:
+                    rec[key].append(1e3 * (time.perf_counter() - t0))
+
+        setattr(obj, attr, timed)
+        wrapped.append((obj, attr))
+
+    for eng in engines:
+        wrap(eng, "_admit_full_prefill", "full_prefills")
+        wrap(eng, "export_slot", "export_ms")
+        wrap(eng, "import_slot", "import_ms")
+    if router is not None:
+        wrap(router, "_adopt", "adopt_ms")
+    try:
+        yield rec
+    finally:
+        for obj, attr in wrapped:
+            delattr(obj, attr)
+
+
+def _hold_at_step(server, n: int):
+    """Hold ``server``'s loop before its ``n``th decode step from now
+    until the returned ``go`` is set (``reached`` set when it gets there);
+    a server marked unhealthy meanwhile skips that step.  So the kill
+    lands mid-stream whatever the machine's pace."""
+    import threading
+
+    engine, real = server.engine, server.engine.step
+    reached, go = threading.Event(), threading.Event()
+    count = [0]
+
+    def step():
+        count[0] += 1
+        if count[0] == n:
+            reached.set()
+            go.wait(120)
+            if not server.healthy:
+                return []
+        return real()
+
+    engine.step = step
+    return reached, go
+
+
+def _allocated_without_workspaces(dev) -> int:
+    """The card's allocated bytes with torch's cuBLAS workspaces freed
+    first: torch keeps one for each (handle, stream) pair it meets for
+    the process's life, and a router's replicas each bring a loop thread
+    (a handle) and a graph stream, so the workspaces would read as a
+    leak.  Called with no graph of the phase alive; a workspace is made
+    again at its next use."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated(dev)
+
+
+def _live_cuda(top: int = 8) -> list:
+    """The largest CUDA tensors the collector can see: (MB, shape,
+    dtype), to name what a memory gate found still held."""
+    import torch
+
+    found = []
+    for obj in gc.get_objects():
+        try:
+            if torch.is_tensor(obj) and obj.is_cuda:
+                found.append((obj.numel() * obj.element_size() / 1e6,
+                              list(obj.shape), str(obj.dtype)))
+        except Exception:  # noqa: BLE001 - a half-built object
+            continue
+    return sorted(found, reverse=True)[:top]
+
+
+def _ms_stats(values) -> dict:
+    vals = sorted(values)
+    if not vals:
+        return dict(n=0)
+    return dict(n=len(vals), mean=sum(vals) / len(vals),
+                p50=vals[len(vals) // 2], max=vals[-1])
+
+
+def _router_pass(router, prompts, tenants, what: str, kill=None) -> dict:
+    """One counted pass through ``router``: the prompts submitted
+    together, ROUTER["new_tokens"] greedy tokens each, the launch counts
+    set to 0 before and read after.  ``kill`` (a replica name): that
+    replica is held before its ROUTER["hold_step"]th decode step from
+    here, killed, then released.  Gates: every request done with its
+    tokens; K1 12 a full prefill, K6 12 a decode step, exactly."""
+    import ml_trainer_tpu_torch as mt
+
+    n = ROUTER["new_tokens"]
+    reps = router.replicas
+    servers = [r.server for r in reps.values()]
+    model = servers[0].engine.model
+    before = {name: r.server.metrics.snapshot()["decode_steps_total"]
+              for name, r in reps.items()}
+    snap0 = router.snapshot()
+    gc.collect()  # not inside the timed pass
+    hold = (_hold_at_step(reps[kill].server, ROUTER["hold_step"])
+            if kill else None)
+    with _engine_clocks([s.engine for s in servers], router) as clk:
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = [router.submit(p, n, tenant=t)
+                   for p, t in zip(prompts, tenants)]
+        if hold is not None:
+            reached, go = hold
+            if not reached.wait(120):
+                raise AssertionError(f"{what}: {kill} never decoded")
+            router.kill_replica(kill)
+            go.set()
+        outs = [s.result(timeout=600) for s in streams]
+        wall = time.perf_counter() - t0
+        counts = mt.launch_counts()
+    reqs = [s.request for s in streams]
+    if not all(r.state == "done" and len(r.tokens) == n for r in reqs):
+        raise AssertionError(f"{what}: not every request completed: "
+                             f"{[(r.state, len(r.tokens)) for r in reqs]}")
+    steps = {name: r.server.metrics.snapshot()["decode_steps_total"]
+             - before[name] for name, r in reps.items()}
+    want = dict(dict.fromkeys(counts, 0),
+                flash_fwd=model.depth * clk["full_prefills"],
+                paged_attention=model.depth * sum(steps.values()))
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    snap = router.snapshot()
+    moved = {k: snap[k] - snap0[k] for k in (
+        "migrations_total", "kv_migrated_bytes_total", "redistributes_total",
+        "migrations_corrupt_total")}
+    ttft = sorted(1e3 * (r.first_token_at - r.submitted_at) for r in reqs)
+    return dict(
+        outs=outs, launches=counts, wall_s=wall,
+        tokens_per_s=len(prompts) * n / wall,
+        ttft_ms=dict(p50=ttft[len(ttft) // 2], max=ttft[-1]),
+        decode_steps=steps, full_prefills=clk["full_prefills"],
+        migrations_a_request=[sum(e["event"] == "kv_migrated"
+                                  for e in r.events) for r in reqs],
+        prefill_replica=[next(e["prefill"] for e in r.events
+                              if e["event"] == "routed") for r in reqs],
+        export_ms=_ms_stats(clk["export_ms"]),
+        import_ms=_ms_stats(clk["import_ms"]),
+        adopt_ms=_ms_stats(clk["adopt_ms"]), **moved,
+        bytes_a_migration=(moved["kv_migrated_bytes_total"]
+                           / max(moved["migrations_total"], 1)))
+
+
+def _router_run(dev, model, roles, prompts, tenants, what: str,
+                checks: dict, kill=None) -> tuple:
+    """``Router.build(roles)`` over ``model``: an uncounted warm-up (the
+    decode graphs' warm-up and capture on every decoding replica, its
+    eager K1 and K6 calls held to float64), then the counted pass and,
+    with ``kill``, a second counted pass that kills that replica
+    mid-stream.  Returns (pass, kill pass or None, record)."""
+    import ml_trainer_tpu_torch as mt
+
+    with mt.Router.build(model, roles=roles, max_batch=ROUTER["max_batch"],
+                         kv_page_size=ROUTER["page"], paged_kernel=True,
+                         device=dev,
+                         router_kwargs=dict(hedging=False)) as router:
+        with checked_calls(checks):
+            warm = [router.submit(p[:ROUTER["lens"][0]], 8, tenant="warm")
+                    for p in (prompts[1], prompts[-1])]
+            for s in warm:
+                s.result(timeout=600)
+        first = _router_pass(router, prompts, tenants, what)
+        killed = None
+        if kill:
+            killed = _router_pass(router, prompts, tenants,
+                                  f"{what} kill {kill}", kill=kill)
+        engines = {n: r.server.engine for n, r in router.replicas.items()}
+        rec = dict(
+            graph_captures={n: e.graph_captures for n, e in engines.items()},
+            prefix_hits={n: e._prefix.hits for n, e in engines.items()},
+            prefix_nodes={n: len(e._prefix) for n, e in engines.items()},
+            snapshot={k: v for k, v in router.snapshot().items()
+                      if k != "degradation"},
+            weights_fp=sorted({e.weights_fp for e in engines.values()}))
+    for name, e in engines.items():
+        decodes = first["decode_steps"][name] > 1
+        if e.graph_captures != (1 if decodes else 0):
+            raise AssertionError(f"{what}: {name} captured "
+                                 f"{e.graph_captures} decode graphs")
+    return first, killed, rec
+
+
+def router_fleet_launch(model):
+    """Start the fleet's two worker processes on the card
+    (``Fleet(["prefill", "decode"])``, ``--ckpt`` the seeded weights
+    written here as the port's ``.pth``) without waiting for them: they
+    import, load and reach the card while the in-process runs go on.
+    Returns (fleet, launched, t0)."""
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    os.makedirs(ROUTER_DIR, exist_ok=True)
+    ckpt = f"{ROUTER_DIR}/model.pth"
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               ckpt)
+    t0 = time.perf_counter()
+    fleet = mt.serving.Fleet(
+        ["prefill", "decode"], model_name="gpt2", max_len=model.max_len,
+        max_batch=ROUTER["max_batch"], kv_page_size=ROUTER["page"],
+        paged_kernel=True, ckpt=ckpt, log_dir=f"{ROUTER_DIR}/logs")
+    launched = []
+    try:
+        for name, role in (("prefill0", "prefill"), ("decode0", "decode")):
+            launched.append((name, *fleet.launch(name, role)))
+    except BaseException:
+        _stop_launched(launched)
+        raise
+    return fleet, launched, t0
+
+
+def _stop_launched(launched) -> None:
+    for _, proc, _, _ in launched:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def router_fleet(model, fleet, launched, t0, prompts, tenants) -> dict:
+    """The fleet's workers (``router_fleet_launch``) ready, behind
+    ``make_router()``: an uncounted warm-up under one
+    ``migration_corrupt`` (the decode worker's CRC check refuses it and
+    the request is prefilled again), then ROUTER["fleet_requests"]
+    greedy requests counted through each worker's ``/v1/spec``: K1 12 a
+    prefix miss on the prefill worker, K6 12 a decode step on the decode
+    worker, one decode-graph capture."""
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.resilience import faults
+
+    n = ROUTER["new_tokens"]
+    router = None
+    try:
+        for launch in launched:
+            fleet.wait_ready(*launch)
+        spawn_s = time.perf_counter() - t0
+        router = fleet.make_router(hedging=False)
+        remotes = dict(fleet.replicas)
+        want_fp = mt.serving.engine.weights_fp(model)
+        if any(r.engine.weights_fp != want_fp for r in remotes.values()):
+            raise AssertionError("fleet: a worker serves other weights")
+        t_warm = time.perf_counter()
+        with faults.injected("migration_corrupt") as plan:
+            router.complete(prompts[1][:ROUTER["lens"][0]], 8, timeout=600,
+                            tenant="warm")
+            if plan.remaining():
+                raise AssertionError("fleet: the corrupt payload never flew")
+        warm_s = time.perf_counter() - t_warm
+        corrupt = router.snapshot()["migrations_corrupt_total"]
+        if corrupt != 1:
+            raise AssertionError(f"fleet: {corrupt} payloads refused")
+
+        def worker_state():
+            out = {}
+            for name, r in remotes.items():
+                m = r._get("/metrics.json")
+                out[name] = dict(spec=r.spec(), misses=m["prefix_misses"],
+                                 steps=m["decode_steps_total"])
+            return out
+
+        before = worker_state()
+        k = ROUTER["fleet_requests"]
+        snap0 = router.snapshot()
+        with _engine_clocks([], router) as clk:
+            t1 = time.perf_counter()
+            streams = [router.submit(p, n, tenant=t)
+                       for p, t in zip(prompts[:k], tenants[:k])]
+            outs = [s.result(timeout=600) for s in streams]
+            wall = time.perf_counter() - t1
+        after = worker_state()
+        reqs = [s.request for s in streams]
+        if not all(r.state == "done" and len(r.tokens) == n for r in reqs):
+            raise AssertionError("fleet: not every request completed")
+        launches, captures = {}, {}
+        for name in remotes:
+            a, b = after[name], before[name]
+            got = {kn: a["spec"]["launches"][kn] - b["spec"]["launches"][kn]
+                   for kn in a["spec"]["launches"]}
+            want = dict(dict.fromkeys(got, 0),
+                        flash_fwd=model.depth * (a["misses"] - b["misses"]),
+                        paged_attention=model.depth * (a["steps"]
+                                                       - b["steps"]))
+            if got != want:
+                raise AssertionError(f"fleet {name}: launches {got}, "
+                                     f"expected {want}")
+            for kn, v in got.items():
+                launches[kn] = launches.get(kn, 0) + v
+            captures[name] = a["spec"]["graph_captures"]
+        if captures != {"prefill0": 0, "decode0": 1}:
+            raise AssertionError(f"fleet: decode graph captures {captures}")
+        snap = router.snapshot()
+        moved = {key: snap[key] - snap0[key] for key in (
+            "migrations_total", "kv_migrated_bytes_total",
+            "redistributes_total")}
+        if moved["migrations_total"] != k or moved["redistributes_total"]:
+            raise AssertionError(f"fleet: {moved}")
+        ttft = sorted(1e3 * (r.first_token_at - r.submitted_at)
+                      for r in reqs)
+        rec = dict(outs=outs, launches=launches, spawn_s=spawn_s,
+                   warm_s=warm_s, wall_s=wall, tokens_per_s=k * n / wall,
+                   ttft_ms=dict(p50=ttft[len(ttft) // 2], max=ttft[-1]),
+                   adopt_ms=_ms_stats(clk["adopt_ms"]),
+                   corrupt_refused_at_the_worker=corrupt,
+                   graph_captures=captures, worker_pids=[
+                       r.pid for r in remotes.values()], **moved)
+    finally:
+        t_close = time.perf_counter()
+        if router is not None:
+            router.close()  # owns the workers: /admin/shutdown
+        fleet.stop()
+        _stop_launched(launched)
+    rec["close_s"] = time.perf_counter() - t_close
+    _discard(ROUTER_DIR)
+    return rec
+
+
+def router_phase(dev, smi: str) -> dict:
+    """The ``router`` phase: a single ``Server``'s reference tokens, the
+    disaggregated router (``["prefill", "decode", "decode"]``) and, on it,
+    the kill pass (``decode1`` killed mid-stream), the colocated router
+    (``["both"] * 3``), then the two-process fleet; each one line, then
+    the per-call checks.  Gates: every pass's tokens equal the reference
+    (the near-tie rule), one migration a request disaggregated, none
+    colocated, exact launches, one decode-graph capture per decoding
+    engine, the card's allocated memory back within 1% at the end.
+    Returns the counted passes' launches."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+
+    t0 = time.perf_counter()
+    model = _seeded_model("gpt2", seed=SEED, device=dev).eval()
+    rng = np.random.default_rng(SEED + 40)
+    prompts, tenants = _router_prompts(rng, model.vocab_size)
+    n = ROUTER["new_tokens"]
+    checks: dict = {}
+    mem0 = _allocated_without_workspaces(dev)
+    launch = router_fleet_launch(model)
+    try:
+        with mt.Server(model, max_batch=ROUTER["max_batch"],
+                       kv_page_size=ROUTER["page"], paged_kernel=True,
+                       device=dev) as server:
+            streams = [server.submit(p, n, tenant=t)
+                       for p, t in zip(prompts, tenants)]
+            want = [s.result(timeout=600) for s in streams]
+        del server, streams  # its page pool
+        t1 = time.perf_counter()
+        disagg, killed, d_rec = _router_run(
+            dev, model, ["prefill", "decode", "decode"], prompts, tenants,
+            "router disagg", checks, kill="decode1")
+        t2 = time.perf_counter()
+        coloc, _, c_rec = _router_run(dev, model, ["both"] * 3, prompts,
+                                      tenants, "router colocated", checks)
+        t3 = time.perf_counter()
+    except BaseException:
+        _stop_launched(launch[1])
+        raise
+    fleet = router_fleet(model, *launch, prompts, tenants)
+    t4 = time.perf_counter()
+    parted = dict(
+        disagg=near_tie(model, prompts, disagg["outs"], want, _slack(None),
+                        "router disagg vs one server"),
+        colocated=near_tie(model, prompts, coloc["outs"], disagg["outs"],
+                           _slack(None), "router colocated vs disagg"),
+        killed=near_tie(model, prompts, killed["outs"], disagg["outs"],
+                        _slack(None), "router kill vs disagg"),
+        fleet=near_tie(model, prompts[:ROUTER["fleet_requests"]],
+                       fleet["outs"], disagg["outs"], _slack(None),
+                       "router fleet vs disagg"))
+    if disagg["migrations_a_request"] != [1] * ROUTER["requests"]:
+        raise AssertionError(f"router disagg: migrations a request "
+                             f"{disagg['migrations_a_request']}")
+    if coloc["migrations_total"] or any(coloc["migrations_a_request"]):
+        raise AssertionError("router colocated: a request migrated")
+    if killed["redistributes_total"] < 1:
+        raise AssertionError("router kill: nothing was redistributed")
+    if not (disagg["full_prefills"] and coloc["full_prefills"]):
+        raise AssertionError("router: a pass prefilled nothing through K1")
+    sys_prefill = {r for r, t in zip(disagg["prefill_replica"], tenants)
+                   if t == "sys"}
+    for kname in ("flash_fwd", "paged_attention"):
+        if not checks.get(kname, {}).get("calls"):
+            raise AssertionError(f"the per-call check saw no {kname} call")
+    mem1 = _allocated_without_workspaces(dev)
+
+    def line(run):
+        return {k: v for k, v in run.items() if k != "outs"}
+
+    mb = disagg["bytes_a_migration"] / 1e6
+    log(f"router disagg on {smi}: " + json.dumps(dict(
+        line(disagg), **d_rec, sys_prefill_replicas=sorted(sys_prefill))))
+    log(f"router kill decode1 on {smi}: " + json.dumps(line(killed)))
+    log(f"router colocated on {smi}: " + json.dumps(dict(line(coloc),
+                                                         **c_rec)))
+    log(f"router fleet on {smi}: " + json.dumps(line(fleet)))
+    log(f"router per-call checks on {smi}: " + json.dumps(checks))
+    log(f"router on {smi}: tokens/s disaggregated "
+        f"{disagg['tokens_per_s']:.1f} vs colocated "
+        f"{coloc['tokens_per_s']:.1f} vs fleet {fleet['tokens_per_s']:.1f}; "
+        f"TTFT p50 {disagg['ttft_ms']['p50']:.1f} / "
+        f"{coloc['ttft_ms']['p50']:.1f} / {fleet['ttft_ms']['p50']:.1f} ms; "
+        f"{mb:.2f} MB a migration (router_kv_migrated_bytes_total "
+        f"{disagg['kv_migrated_bytes_total']} for "
+        f"{disagg['migrations_total']}); adopt ms p50 in process "
+        f"{disagg['adopt_ms'].get('p50', 0):.1f} (+ export "
+        f"{disagg['export_ms'].get('p50', 0):.1f}, import "
+        f"{disagg['import_ms'].get('p50', 0):.1f}) vs over HTTP "
+        f"{fleet['adopt_ms'].get('p50', 0):.1f}; parted rows {parted}; "
+        f"memory {mem0} -> {mem1}")
+    log(f"router seconds: reference {t1 - t0:.1f}, disagg + kill "
+        f"{t2 - t1:.1f}, colocated {t3 - t2:.1f}, fleet {t4 - t3:.1f} "
+        f"(its workers ready {fleet['spawn_s']:.1f} s after their start, "
+        f"beside the in-process runs), phase {t4 - t0:.1f}")
+    launches = {}
+    for run in (disagg, killed, coloc, fleet):
+        for kname, count in run["launches"].items():
+            launches[kname] = launches.get(kname, 0) + count
+    log(f"router launches on {smi}: " + json.dumps(launches))
+    if abs(mem1 - mem0) > 0.01 * mem0:
+        raise AssertionError(f"router: memory {mem0} -> {mem1}; the "
+                             f"largest live tensors: {_live_cuda()}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
                                  "graphs", "resume", "data", "llama", "cli",
                                  "lora", "examples", "dist", "decode",
-                                 "front"],
+                                 "front", "router"],
                         default=None)
     # The dist phase's own processes (started by the phase, not by hand).
     parser.add_argument("--dist-worker", choices=["nccl1", "gloo2"],
@@ -8338,6 +8854,11 @@ def main(argv=None) -> int:
         for kname, n in rec["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
     mark = lap("front", mark)
+    if args.only in (None, "router"):
+        rec = router_phase(dev, smi)
+        for kname, n in rec["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
+    mark = lap("router", mark)
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))

@@ -85,6 +85,7 @@ from ml_trainer_tpu_torch.serving import (
     AdapterPool,
     AdapterPoolExhausted,
     DegradationConfig,
+    Router,
     Server,
     SloPolicy,
     SlotDecodeEngine,
@@ -109,9 +110,9 @@ __version__ = "0.1.0"
 __all__ = [
     "AdapterConfig", "AdapterPool", "AdapterPoolExhausted",
     "ArrayDataset", "DegradationConfig", "DraftModelDrafter", "GPT2",
-    "LlamaLM", "Loader", "LoraConfig", "MLModel", "NgramDrafter", "Server",
-    "SloPolicy", "SlotDecodeEngine", "SyntheticCIFAR10", "SyntheticTokens",
-    "TenantConfig", "Trainer",
+    "LlamaLM", "Loader", "LoraConfig", "MLModel", "NgramDrafter", "Router",
+    "Server", "SloPolicy", "SlotDecodeEngine", "SyntheticCIFAR10",
+    "SyntheticTokens", "TenantConfig", "Trainer",
     "adam_state_from_jax", "beam_search", "create_mesh",
     "custom_pre_process_function", "generate", "generate_ragged",
     "get_model", "init_gpt2", "init_model", "int8_matmul",

@@ -17,6 +17,7 @@ the capture's counts to the replays.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict, Optional, Sequence, Union
 
 import torch
@@ -74,8 +75,29 @@ def check_model_device(model: torch.nn.Module, device) -> torch.device:
     return have
 
 
+# The capture in progress (one at a time: ``step_graph`` captures under
+# one process-wide lock): its thread and the launches it took in.  A
+# launch belongs to it when it comes from that thread, or from a thread
+# whose current stream is capturing (autograd's device thread runs a
+# captured backward on the capture's stream); another thread's launch
+# meanwhile (a second engine of an in-process router) counts as a launch
+# that ran.
+_CAPTURE = {"thread": None, "launches": None}
+
+
+def _in_capture() -> bool:
+    if threading.get_ident() == _CAPTURE["thread"]:
+        return True
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    sink = _CAPTURE["launches"]
+    if sink is not None and _in_capture():
+        sink[name] = sink.get(name, 0) + 1
+    else:
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -91,12 +113,14 @@ class CountedGraph:
     """A CUDA graph and what its capture added to the launch counters.
 
     A capture launches nothing, but the wrappers it runs count their
-    launches.  ``capturing()`` takes back what the capture added to the
-    counters, and to each dict of ``tallies`` (name -> number: the
-    collectives' accounting), and keeps it; ``replay()`` replays the
-    graph and adds it again, so that ``launch_counts()`` stays the number
-    of launches that ran.  ``graph``: a ``torch.cuda.CUDAGraph``, or
-    anything with a ``replay()``."""
+    launches.  ``capturing()`` keeps what the capture's wrappers count
+    aside (``_in_capture``: other threads go on counting theirs), takes
+    back what the capture added to each dict of ``tallies`` (name ->
+    number: the collectives' accounting), and keeps both; ``replay()``
+    replays the graph and adds them again, so that ``launch_counts()``
+    stays the number of launches that ran (a capture that raises leaves
+    the counters as they were).  ``graph``: a ``torch.cuda.CUDAGraph``,
+    or anything with a ``replay()``."""
 
     def __init__(self, graph, tallies: Sequence[dict] = ()):
         self.graph = graph
@@ -105,11 +129,17 @@ class CountedGraph:
 
     @contextlib.contextmanager
     def capturing(self):
-        before = [dict(t) for t in self.tallies]
+        before = [dict(t) for t in self.tallies[1:]]
+        _CAPTURE["launches"] = {}
+        _CAPTURE["thread"] = threading.get_ident()
         try:
             yield self.graph
         finally:
-            for tally, old, added in zip(self.tallies, before, self.added):
+            self.added[0].clear()
+            self.added[0].update(_CAPTURE["launches"])
+            _CAPTURE["launches"] = _CAPTURE["thread"] = None
+            for tally, old, added in zip(self.tallies[1:], before,
+                                         self.added[1:]):
                 added.clear()
                 added.update({k: v - old.get(k, 0) for k, v in tally.items()
                               if v != old.get(k, 0)})

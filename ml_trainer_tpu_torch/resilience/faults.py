@@ -19,10 +19,23 @@
                       is issued, as a wedged device program would, until
                       ``FaultPlan.release_wedge`` or ``secs`` seconds
                       (default 300); the server's watchdog must fail the
-                      clients meanwhile.
+                      clients meanwhile;
+* ``replica_kill``  — router: at the matching busy health poll the
+                      router kills the replica at fleet index ``host``
+                      (``Router._fire_chaos_kill``); a fleet worker
+                      process gets a real ``SIGKILL``;
+* ``replica_slow``  — server: the matching replica's loop latches a
+                      slow-down window of ``secs`` seconds once it is
+                      busy (``Server._fault_hooks``), each dispatch in it
+                      paying 0.5 s (``Server._maybe_slow``);
+* ``healthz_flap``  — server: one ``health()`` of the matching replica
+                      answers a dropped poll (the router's flap damping
+                      must absorb it);
+* ``migration_corrupt`` — router: the next KV migration payload has one
+                      bit flipped in flight (``Router._adopt``); the
+                      CRC32 check must refuse it.
 
-The JAX package's other kinds (``host_kill``, ``host_hang`` and the
-serving fleet's ``replica_*``, ``healthz_flap`` and ``migration_corrupt``)
+The JAX package's ``host_kill`` and ``host_hang`` (elastic training)
 have no hook here: a plan that names one raises ``NotImplementedError``
 when it is parsed, so no fault is accepted and then never fired.
 
@@ -31,13 +44,18 @@ variable)::
 
     nan_grad@step=12;ckpt_truncate@epoch=1;preempt@step=40
     nan_grad@step=5,count=3;decode_wedge@step=8,secs=60
+    replica_kill@step=3,host=2;replica_slow@step=1,host=0,secs=8
 
 Entries are ``kind@key=value[,key=value...]`` separated by ``;``.
-Trigger keys: ``step`` (the 1-based global train step, or the engine's
-decode step) or ``epoch``; ``count`` is the number of consecutive steps
-to fire on (default 1); ``secs`` bounds a ``decode_wedge``'s hold (the
-only kind that holds).  Every hook is a no-op when no plan is active,
-and every fault fires a bounded number of times.
+Trigger keys: ``step`` (the 1-based global train step, the engine's
+decode step, a replica's busy loop iteration or the router's busy
+health poll) or ``epoch``; ``count`` is the number of consecutive steps
+to fire on (default 1); ``secs`` bounds a ``decode_wedge``'s hold and a
+``replica_slow`` window (default 300); ``host`` names the replica's
+fleet index for the serving kinds (default 0): a serving hook passes
+its own index, so a fault naming ``host=2`` fires only in replica 2's
+hook.  Every hook is a no-op when no plan is active, and every fault
+fires a bounded number of times.
 """
 
 from __future__ import annotations
@@ -51,10 +69,16 @@ from typing import List, Optional
 ENV_VAR = "ML_TRAINER_TPU_FAULTS"
 
 KINDS = ("nan_grad", "preempt", "ckpt_truncate", "decode_error",
-         "decode_wedge")
-# The JAX package's kinds that have no hook in the port.
-UNPORTED_KINDS = ("host_kill", "host_hang", "replica_kill", "replica_slow",
-                  "healthz_flap", "migration_corrupt")
+         "decode_wedge", "replica_kill", "replica_slow", "healthz_flap",
+         "migration_corrupt")
+# The kinds whose ``host`` names a replica's fleet index.
+HOSTED_KINDS = ("replica_kill", "replica_slow", "healthz_flap",
+                "migration_corrupt")
+# The kinds that take ``secs``.
+TIMED_KINDS = ("decode_wedge", "replica_slow")
+# The JAX package's kinds that have no hook in the port (elastic
+# training: ROADMAP.md Queue A 6).
+UNPORTED_KINDS = ("host_kill", "host_hang")
 
 
 @dataclass
@@ -67,10 +91,14 @@ class Fault:
     epoch: Optional[int] = None
     count: int = 1
     secs: float = 300.0
+    host: int = 0
     fired: int = 0
 
-    def matches(self, step: Optional[int], epoch: Optional[int]) -> bool:
+    def matches(self, step: Optional[int], epoch: Optional[int],
+                host: Optional[int] = None) -> bool:
         if self.fired >= self.count:
+            return False
+        if host is not None and self.host != host:
             return False
         if self.step is not None:
             return step is not None and (
@@ -87,6 +115,8 @@ class Fault:
             parts.append(f"epoch={self.epoch}")
         if self.count != 1:
             parts.append(f"count={self.count}")
+        if self.kind in HOSTED_KINDS:
+            parts.append(f"host={self.host}")
         return self.kind + ("@" + ",".join(parts) if parts else "")
 
 
@@ -128,7 +158,8 @@ class FaultPlan:
                         "(expected key=value)")
                 key = key.strip()
                 keys = ("step", "epoch", "count") + (
-                    ("secs",) if kind == "decode_wedge" else ())
+                    ("secs",) if kind in TIMED_KINDS else ()) + (
+                    ("host",) if kind in HOSTED_KINDS else ())
                 if key not in keys:
                     raise ValueError(
                         f"unknown fault key {key!r} for {kind!r} in "
@@ -138,10 +169,11 @@ class FaultPlan:
         return cls(faults)
 
     def fire(self, kind: str, *, step: Optional[int] = None,
-             epoch: Optional[int] = None) -> Optional[Fault]:
+             epoch: Optional[int] = None,
+             host: Optional[int] = None) -> Optional[Fault]:
         with self._lock:
             for fault in self.faults:
-                if fault.kind == kind and fault.matches(step, epoch):
+                if fault.kind == kind and fault.matches(step, epoch, host):
                     fault.fired += 1
                     return fault
         return None

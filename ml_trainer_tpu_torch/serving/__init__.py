@@ -1,6 +1,9 @@
 """Serving: the slot/paged decode engine, the threaded ``Server`` with
 its HTTP front end and watchdog, the weighted multi-tenant scheduler,
-SLO accounting, the overload ladder and the LoRA adapter pool."""
+SLO accounting, the overload ladder, the LoRA adapter pool, KV migration
+(``transfer.py``), the disaggregated ``Router`` and the multi-process
+``Fleet`` (``RemoteServer``; imported at first use, so that ``python -m
+ml_trainer_tpu_torch.serving.fleet`` runs the module once)."""
 
 from ml_trainer_tpu_torch.serving.adapter_pool import (
     AdapterConfig,
@@ -20,6 +23,7 @@ from ml_trainer_tpu_torch.serving.overload import (
     RollingQuantile,
 )
 from ml_trainer_tpu_torch.serving.prefix_cache import PrefixCache
+from ml_trainer_tpu_torch.serving.router import Router
 from ml_trainer_tpu_torch.serving.scheduler import (
     AdmissionError,
     DeadlineExceeded,
@@ -33,13 +37,27 @@ from ml_trainer_tpu_torch.serving.slo import (
     SloTracker,
     aggregate_timelines,
 )
+from ml_trainer_tpu_torch.serving.transfer import (
+    KVSlotExport,
+    MigrationCorrupt,
+    WeightsMismatch,
+)
+
+
+def __getattr__(name):
+    if name in ("Fleet", "RemoteServer"):
+        from ml_trainer_tpu_torch.serving import fleet
+
+        return getattr(fleet, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "AdapterConfig", "AdapterPool", "AdapterPoolExhausted",
     "AdmissionError", "CircuitBreaker", "DeadlineExceeded",
-    "DegradationConfig", "DegradationLadder", "EngineUnhealthy",
-    "KVPagePool", "OverloadShed", "PrefixCache", "Request",
-    "RollingQuantile", "Server", "ServingMetrics", "SloPolicy",
-    "SloTracker", "SlotDecodeEngine", "TenantConfig", "TenantScheduler",
-    "TokenStream", "UnknownAdapter", "aggregate_timelines",
+    "DegradationConfig", "DegradationLadder", "EngineUnhealthy", "Fleet",
+    "KVPagePool", "KVSlotExport", "MigrationCorrupt", "OverloadShed",
+    "PrefixCache", "RemoteServer", "Request", "RollingQuantile", "Router",
+    "Server", "ServingMetrics", "SloPolicy", "SloTracker",
+    "SlotDecodeEngine", "TenantConfig", "TenantScheduler", "TokenStream",
+    "UnknownAdapter", "WeightsMismatch", "aggregate_timelines",
 ]

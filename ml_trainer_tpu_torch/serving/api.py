@@ -1,5 +1,5 @@
 """Thread-safe serving front end over the slot decode engine (the JAX
-package's ``serving/api.py``, without the fleet: Queue A 5).
+package's ``serving/api.py``).
 
 ``Server`` owns the engine, the weighted multi-tenant scheduler
 (``scheduler.py``), the SLO tracker (``slo.py``), one worker thread
@@ -32,6 +32,26 @@ driving the admit/step loop and one watchdog thread.  Callers use:
 * ``close()`` or the context manager: stop the loop, fail whatever is
   queued or in flight, and drop the engine's decode graph.
 
+The fleet surface (``router.py``, ``fleet.py``): ``role`` ("prefill",
+"decode" or "both") labels the replica for the router (routing policy
+only: the engine can always do both); a request with a
+``migration_sink`` prefills here and hands its slot's KV export to the
+sink instead of decoding (``_export_for_migration``); ``adopt(req,
+export)`` takes a migration in, which the loop imports into a free slot
+before any fresh admission (``_drain_adoptions``; a pool that cannot
+hold the chain falls back to requeue-and-reprefill, or with a
+``resolver`` reports the verdict to the remote router); ``evacuate``
+exports every active slot to a sink (a role reassignment).  Over HTTP
+(``serve_http``): ``POST /v1/stream`` (NDJSON: the admission verdict,
+then ``{"t": token}`` lines, then ``{"done": ...}``, or an ``{"m":
+payload}`` line when the request migrates), ``POST /v1/adopt`` (the raw
+payload, CRC-verified here; its first line is the import verdict, then
+the tokens), ``POST /v1/cancel`` (a stream by the router's id), ``GET
+/v1/spec`` (the geometry a ``RemoteServer`` mirrors) and ``POST
+/admin/{role,replica_index,degradation,shed_queued,fail,faults,evacuate,
+shutdown}``.  The chaos hooks: ``replica_slow`` in ``_fault_hooks``,
+``healthz_flap`` in ``health()`` (``resilience/faults.py``).
+
 Failure contract: a client never hangs on a dead engine.  The watchdog
 sees the loop's heartbeat; when work is pending and the loop has not
 beaten for ``watchdog_timeout`` seconds (a wedged decode step), it fails
@@ -50,14 +70,18 @@ device cannot hang ``/healthz``.
 
 from __future__ import annotations
 
+import base64
+import collections
 import json
 import os
+import queue
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
+from ml_trainer_tpu_torch.resilience.faults import active_plan
 from ml_trainer_tpu_torch.serving.engine import SlotDecodeEngine
 from ml_trainer_tpu_torch.serving.metrics import ServingMetrics
 from ml_trainer_tpu_torch.serving.overload import (
@@ -74,6 +98,16 @@ from ml_trainer_tpu_torch.serving.scheduler import (
 )
 from ml_trainer_tpu_torch.serving.slo import SloPolicy, SloTracker
 from ml_trainer_tpu_torch.telemetry.registry import default_registry
+
+# The stream item a migration sink pushes between tokens: the router's
+# pump adopts the export when it reads it, and the fleet's stream
+# endpoint turns it into an ``{"m": payload}`` line.  The string is the
+# wire contract ``router.py`` shares.
+_KV_MIGRATE = "__kv_migrate__"
+# That line around the payload's base64: the bytes ``json.dumps({"m":
+# b64}) + "\n"`` gives, written and read in pieces (``fleet.py``) so that
+# ~100 MB of base64 is neither scanned by the JSON codec nor copied.
+_M_LINE = (b'{"m": "', b'"}\n')
 
 
 class TokenStream:
@@ -128,6 +162,16 @@ class TokenStream:
         return list(self._req.tokens)
 
 
+def _exit_after_close(server) -> None:
+    """``/admin/shutdown`` in a fleet worker: let the reply leave, close
+    the server (its loop frees the card), then end the process."""
+    time.sleep(0.25)
+    try:
+        server.close()
+    finally:
+        os._exit(0)
+
+
 class Server:
     """Continuous-batching server: engine + scheduler + one worker
     thread + the watchdog.  ``device`` defaults to the CUDA card and must
@@ -163,7 +207,10 @@ class Server:
     ``prefill_chunk`` (paged, a page multiple) prefills prompts longer
     than it in windows of that many tokens, one per loop iteration, so
     that a long prompt does not hold back the first tokens of the short
-    requests behind it."""
+    requests behind it.
+
+    ``role`` ("prefill", "decode" or "both") is the replica's label for
+    the router, advertised on ``/healthz``."""
 
     # Seconds the idle loop waits for a submission before looking again.
     _IDLE_POLL = 0.02
@@ -178,10 +225,15 @@ class Server:
                  tenants: Optional[dict] = None,
                  slo: Optional[SloPolicy] = None, slo_timelines: int = 64,
                  watchdog_timeout: Optional[float] = 60.0,
-                 http_port: Optional[int] = None, device=None):
+                 http_port: Optional[int] = None, role: str = "both",
+                 device=None):
         if watchdog_timeout is not None and watchdog_timeout <= 0:
             raise ValueError(f"watchdog_timeout must be positive or None, "
                              f"got {watchdog_timeout}")
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role must be 'prefill', 'decode' or 'both', "
+                             f"got {role!r}")
+        self.role = role
         self.metrics = ServingMetrics()
         self.slo = SloTracker(policy=slo, metrics=self.metrics,
                               keep_timelines=slo_timelines)
@@ -219,9 +271,25 @@ class Server:
         self._degradation_level = 0
         self._degradation_cfg: Optional[DegradationConfig] = None
         self._started_at = time.monotonic()
-        # The replica name a fleet gives a server (Queue A 5); a
-        # standalone server answers "replica": null.
+        # KV adoptions from another replica's prefill: (request, export,
+        # resolver) triples the loop drains (one consumer; producers only
+        # append).
+        self._adoptions: collections.deque = collections.deque()
+        # The fleet's plumbing: the index the chaos faults name replicas
+        # by, the replica_slow latch, the evacuation sink a role
+        # reassignment installs, how the server is reached ("inproc"
+        # until a fleet worker serves it over "http"), the replica name
+        # (a standalone server answers "replica": null) and the wire id
+        # -> request map that lets /v1/cancel reach a stream.
+        self.replica_index = 0
+        self._slow_until = 0.0
+        self._busy_iters = 0
+        self._evacuate_sink = None
+        self._evacuated = threading.Event()
+        self.transport = "inproc"
         self.name = ""
+        self._wire_streams: Dict[int, Request] = {}
+        self._wire_lock = threading.Lock()
         self._httpd = None
         self._http_thread = None
         self._watchdog_timeout = watchdog_timeout
@@ -296,14 +364,7 @@ class Server:
         checked its shape, this checks the server's state).  One that
         carries committed ``tokens`` resumes from them and is never
         clamped or shed by a degradation rung."""
-        if self._stopping:
-            raise RuntimeError("server is closed")
-        if not self.healthy:
-            raise EngineUnhealthy(self._unhealthy_reason
-                                  or "serving engine unhealthy")
-        if self._draining:
-            raise AdmissionError("server is draining: admission stopped, "
-                                 "in-flight requests are finishing")
+        self._check_open()
         level, cfg = self._degradation_level, self._degradation_cfg
         if level and cfg is not None and not req.tokens:
             if level >= 4 and req.priority < cfg.shed_below_priority:
@@ -324,6 +385,40 @@ class Server:
         req.observer = self.slo.observe
         self.scheduler.submit(req)
         self.slo.track(req)
+        self._wake.set()
+
+    def _check_open(self) -> None:
+        if self._stopping:
+            raise RuntimeError("server is closed")
+        if not self.healthy:
+            raise EngineUnhealthy(self._unhealthy_reason
+                                  or "serving engine unhealthy")
+        if self._draining:
+            raise AdmissionError("server is draining: admission stopped, "
+                                 "in-flight requests are finishing")
+
+    def adopt(self, req: Request, export, resolver=None) -> None:
+        """Take a KV migration in (thread-safe): ``req`` was prefilled on
+        another replica and ``export`` is its slot's ``KVSlotExport``.
+        The loop imports it into a free slot and decodes from there; a
+        pool that cannot hold the chain (or a corrupt payload) falls back
+        to requeue-and-reprefill from the committed tokens.  Raises
+        ``EngineUnhealthy``/``AdmissionError``/``RuntimeError`` when this
+        replica cannot take work.
+
+        ``resolver`` (the fleet's ``/v1/adopt``): ``callable(status,
+        detail)`` the loop calls with the outcome, ``"adopted"``,
+        ``"corrupt"``, ``"weights_mismatch"``, ``"no_memory"``,
+        ``"error"``, ``"expired"``, ``"cancelled"``, ``"draining"`` or
+        ``"unhealthy"``; with one, a refusal is reported instead of
+        requeued here (the remote router holds the payload and its next
+        candidates)."""
+        self._check_open()
+        # This replica's tracker owns the request from here (the prefill
+        # replica forgot it at the export).
+        req.observer = self.slo.observe
+        self.slo.track(req)
+        self._adoptions.append((req, export, resolver))
         self._wake.set()
 
     def complete(self, prompt, max_new_tokens: int,
@@ -375,6 +470,23 @@ class Server:
         req.cancel_requested = True
         self._wake.set()
 
+    def evacuate(self, sink, timeout: float = 30.0) -> bool:
+        """Empty this replica through the migration machinery (a role
+        reassignment): the loop exports every active slot's KV and hands
+        ``(request, export)`` to ``sink``, hands pending adoptions on,
+        and fails queued and mid-chunk requests with a retryable
+        ``draining`` error the router redistributes.  Blocks up to
+        ``timeout`` for the loop's sweep; True when it ran.  The server
+        stays healthy and serving."""
+        if not self.engine.paged:
+            raise ValueError(
+                "evacuate needs a paged engine: the page chain is the "
+                "migration unit (kv_page_size > 0)")
+        self._evacuated.clear()
+        self._evacuate_sink = sink
+        self._wake.set()
+        return self._evacuated.wait(timeout=timeout)
+
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop admission (``submit`` raises ``AdmissionError``) and
         block until every queued and in-flight request finished, or
@@ -393,16 +505,29 @@ class Server:
     def _idle(self) -> bool:
         engine = self.engine
         return (engine.active_count() == 0 and engine.chunking_count() == 0
-                and self.scheduler.queue_depth() == 0)
+                and self.scheduler.queue_depth() == 0
+                and not self._adoptions)
+
+    def _busy(self) -> bool:
+        engine = self.engine
+        return (engine.active_count() > 0 or engine.chunking_count() > 0
+                or self.scheduler.queue_depth() > 0
+                or len(self._adoptions) > 0)
 
     def health(self) -> dict:
-        """The ``/healthz`` payload: the JAX package's keys and meaning.
-        Host state only.  The keys of modules not ported yet are null or
-        0: ``compile_events_post_warmup_total`` (compile watch), the
-        span clock's ``trace_now_us``/``mono_epoch`` (Queue A 7),
-        ``weights_fp`` and ``adoptions_pending`` (Queue A 5).  ``role``
-        is "both": a server prefills and decodes, and the split roles
-        come with the router (Queue A 5)."""
+        """The ``/healthz`` payload: the JAX package's keys and meaning;
+        the router places requests on ``role``, ``queue_depth``,
+        ``active_slots``, ``adoptions_pending`` and ``kv_pages_free``.
+        Host state only.  The keys of modules not ported yet are null:
+        ``compile_events_post_warmup_total`` (compile watch) and the span
+        clock's ``trace_now_us``/``mono_epoch`` (ROADMAP.md Queue A 7).
+        A matching ``healthz_flap`` fault answers one dropped poll."""
+        plan = active_plan()
+        if plan is not None and plan.fire("healthz_flap",
+                                          host=self.replica_index):
+            return {"ok": False, "healthy": False, "draining": False,
+                    "closed": False, "flap": True,
+                    "reason": "injected healthz flap (transient)"}
         engine = self.engine
         busy = engine.active_count() + engine.chunking_count()
         depth = self.scheduler.queue_depth()
@@ -412,10 +537,10 @@ class Server:
             "draining": self._draining,
             "closed": self._stopping,
             "reason": self._unhealthy_reason,
-            "role": "both",
+            "role": self.role,
             "pid": os.getpid(),
             "uptime_s": round(time.monotonic() - self._started_at, 3),
-            "transport": "inproc",
+            "transport": self.transport,
             "compile_events_post_warmup_total": None,
             "trace_now_us": None,
             "mono_epoch": None,
@@ -424,9 +549,9 @@ class Server:
             "max_slots": engine.max_batch,
             "queued_requests": depth,
             "queue_depth": depth,
-            "adoptions_pending": 0,
+            "adoptions_pending": len(self._adoptions),
             "degradation_level": self._degradation_level,
-            "weights_fp": None,
+            "weights_fp": engine.weights_fp,
             "kv_pages_free": (engine.pool.free_count() if engine.paged
                               else None),
             "kv_pages_total": engine.kv_pages - 1 if engine.paged else None,
@@ -511,6 +636,17 @@ class Server:
             for req in reqs:
                 if req.state == "active":
                     req.finish("error", msg)
+        while self._adoptions:
+            try:
+                req, _, resolver = self._adoptions.popleft()
+            except IndexError:
+                break
+            if req.state in ("active", "queued"):
+                req.finish("error", msg)
+            if resolver is not None:
+                # The remote router holds its own copy of the payload:
+                # "unhealthy" sends it to its next candidate.
+                resolver("unhealthy", msg)
         for req in self.scheduler.drain_pending():
             req.finish("error", msg)
 
@@ -537,9 +673,7 @@ class Server:
             if self._stop.wait(poll):
                 return
             engine = self.engine
-            busy = (engine.active_count() > 0 or engine.chunking_count() > 0
-                    or self.scheduler.queue_depth() > 0
-                    or self._admitting is not None)
+            busy = self._busy() or self._admitting is not None
             stale = time.monotonic() - self._last_beat
             if busy and stale > self._watchdog_timeout:
                 self.metrics.record_watchdog_trip()
@@ -573,12 +707,18 @@ class Server:
 
     def _iteration(self) -> None:
         engine, sched = self.engine, self.scheduler
-        progressed = False
+        self._fault_hooks()
+        if self._evacuate_sink is not None:
+            self._run_evacuation()
+        # Adoptions first: they already spent a prefill on another
+        # replica.
+        progressed = self._drain_adoptions()
         while engine.free_capacity() > 0:
             got = sched.acquire()
             if got is None:
                 break
             req, slot = got
+            self._maybe_slow()
             # Tracked, so that a wedge or a crash inside the prefill (the
             # request is out of the queue, not yet in the engine) fails
             # its stream too.
@@ -595,15 +735,20 @@ class Server:
                 break
             if status == "finished":
                 sched.release(slot)
+            elif status == "active" and req.migration_sink is not None:
+                self._export_for_migration(req, slot)
             # "chunking" holds its slot: advance_chunks runs its windows.
         # One chunked-prefill window per slot per iteration, after the
         # admissions: short requests admit (and decode, below) between a
         # long prompt's windows.
-        for slot, _, status in engine.advance_chunks():
+        for slot, req, status in engine.advance_chunks():
             progressed = True
             if status == "finished":
                 sched.release(slot)
+            elif status == "active" and req.migration_sink is not None:
+                self._export_for_migration(req, slot)
         if engine.active_count():
+            self._maybe_slow()
             for slot in engine.step():
                 sched.release(slot)
             # Preempted requests resume from their committed tokens, at
@@ -615,7 +760,194 @@ class Server:
             self._wake.wait(timeout=self._IDLE_POLL)
             self._wake.clear()
 
+    # -- KV migration and the fleet's hooks (loop thread only) -----------
+
+    def _drain_adoptions(self) -> bool:
+        """Import the queued adoptions into free slots.  A chain the
+        pool cannot hold, or a payload refused at import, falls back to
+        the requeue path (admission re-prefills from the committed
+        tokens), or with a resolver is reported to the remote router."""
+        from ml_trainer_tpu_torch.serving.transfer import (
+            MigrationCorrupt,
+            WeightsMismatch,
+        )
+
+        engine, sched = self.engine, self.scheduler
+        progressed = False
+        for _ in range(len(self._adoptions)):
+            try:
+                req, export, resolver = self._adoptions.popleft()
+            except IndexError:
+                break
+            if req.expired():
+                req.finish("expired",
+                           f"deadline ({req.deadline}s) passed awaiting "
+                           "adoption")
+                self.metrics.record_expiry()
+                if resolver is not None:
+                    self.slo.forget(req)
+                    resolver("expired", req.error)
+                progressed = True
+                continue
+            if req.cancel_requested:
+                req.finish("error", "cancelled: hedge superseded")
+                self.metrics.record_cancellation()
+                if resolver is not None:
+                    resolver("cancelled", req.error)
+                progressed = True
+                continue
+            slot = sched.acquire_direct(req)
+            if slot is None:
+                # No free slot: the oldest adoption takes the next one.
+                self._adoptions.appendleft((req, export, resolver))
+                break
+            self._admitting = req
+            try:
+                status = engine.import_slot(req, slot, export)
+            except (MigrationCorrupt, ValueError) as e:
+                # Refused before any page was written: never adopt
+                # garbage, never poison the loop.  A WeightsMismatch is
+                # its own verdict: another candidate of the same weights
+                # cannot help, the router re-prefills.
+                self._admitting = None
+                sched.release(slot)
+                verdict = ("weights_mismatch" if isinstance(e, WeightsMismatch)
+                           else "corrupt" if isinstance(e, MigrationCorrupt)
+                           else "error")
+                req.mark(f"adopt_{verdict}", error=str(e))
+                if resolver is not None:
+                    self.slo.forget(req)
+                    resolver(verdict, str(e))
+                elif verdict == "error":
+                    req.finish("error", f"kv adoption refused: {e}")
+                else:
+                    sched.requeue(req)
+                progressed = True
+                continue
+            self._admitting = None
+            if status == "no_memory":
+                sched.release(slot)
+                req.mark("adopt_no_memory",
+                         kv_pages_free=engine.pool.free_count())
+                if resolver is not None:
+                    self.slo.forget(req)
+                    resolver("no_memory", "kv pool cannot hold the chain")
+                else:
+                    sched.requeue(req)
+            elif status == "error":
+                # The import finished the request (an adapter this
+                # replica cannot serve); nothing stayed bound.
+                sched.release(slot)
+                if resolver is not None:
+                    resolver("error", req.error)
+            else:
+                req.mark("adopted", slot=slot)
+                if resolver is not None:
+                    resolver("adopted", None)
+            progressed = True
+        return progressed
+
+    def _export_for_migration(self, req: Request, slot: int) -> None:
+        """The request just prefilled into ``slot`` and carries a
+        ``migration_sink``: ship its KV instead of decoding here.  The
+        slot's pages go back with the prefix donation, so the prompt stays
+        hot on this replica for the requests placed after it."""
+        engine = self.engine
+        export = engine.export_slot(slot)
+        engine._active.pop(slot, None)
+        engine._release_slot_pages(slot, req, donate=True)
+        self.scheduler.release(slot)
+        # The decode replica's tracker takes over at its adopt().
+        self.slo.forget(req)
+        req.mark("kv_exported", pages=export.n_pages,
+                 kv_bytes=export.nbytes())
+        sink, req.migration_sink = req.migration_sink, None
+        try:
+            sink(req, export)
+        except Exception as e:  # noqa: BLE001 - the sink is router code
+            req.finish("error",
+                       f"kv migration sink failed: {type(e).__name__}: {e}")
+
+    def _fault_hooks(self) -> None:
+        """``replica_slow``: a matching fault (its ``step`` counts this
+        replica's busy loop iterations) latches a window of ``secs``
+        seconds in which every dispatch pays 0.5 s."""
+        plan = active_plan()
+        if plan is None:
+            return
+        if self._busy():
+            self._busy_iters += 1
+            fault = plan.fire("replica_slow", step=self._busy_iters,
+                              host=self.replica_index)
+            if fault is not None:
+                self._slow_until = time.monotonic() + fault.secs
+        self._maybe_slow()
+
+    def _maybe_slow(self) -> None:
+        """Inside a ``replica_slow`` window: 0.5 s a dispatch, so the
+        replica's queue grows under load as a throttled one's does."""
+        if time.monotonic() < self._slow_until:
+            time.sleep(0.5)
+
+    def _run_evacuation(self) -> None:
+        """The role reassignment's sweep: every active slot exported to
+        the installed sink, the pending adoptions handed along, the
+        mid-chunk and queued requests failed with a retryable
+        ``draining`` error.  The replica is empty and healthy after."""
+        sink, self._evacuate_sink = self._evacuate_sink, None
+        engine, sched = self.engine, self.scheduler
+        drain_msg = ("replica draining for role reassignment: request "
+                     "redistributed")
+        for slot in sorted(engine._active):
+            req = engine._active[slot]
+            export = engine.export_slot(slot)
+            engine._active.pop(slot, None)
+            engine._release_slot_pages(slot, req, donate=True)
+            sched.release(slot)
+            self.slo.forget(req)
+            req.mark("evacuated", slot=slot, pages=export.n_pages)
+            try:
+                sink(req, export)
+            except Exception as e:  # noqa: BLE001 - the sink is router code
+                req.finish("error",
+                           "replica draining for role reassignment; "
+                           f"evacuation sink failed: {type(e).__name__}: {e}")
+        # Mid-chunk prompts have half-written pages and no token yet: the
+        # router resubmits them from scratch.
+        for st in engine._chunked.values():
+            self.slo.forget(st["req"])
+        for slot in engine.abort_chunked(drain_msg):
+            self._release(slot)
+        while self._adoptions:
+            try:
+                req, export, resolver = self._adoptions.popleft()
+            except IndexError:
+                break
+            self.slo.forget(req)
+            if resolver is not None:
+                resolver("draining", "replica draining for role "
+                         "reassignment")
+                continue
+            try:
+                sink(req, export)
+            except Exception as e:  # noqa: BLE001
+                req.finish("error",
+                           "replica draining for role reassignment; "
+                           f"evacuation sink failed: {type(e).__name__}: {e}")
+        for req in sched.drain_pending():
+            self.slo.forget(req)
+            req.finish("error", drain_msg)
+        self._evacuated.set()
+
     # -- HTTP front end --------------------------------------------------
+
+    def _register_wire(self, wire_id, req: Request) -> None:
+        with self._wire_lock:
+            self._wire_streams[int(wire_id)] = req
+
+    def _forget_wire(self, wire_id) -> None:
+        with self._wire_lock:
+            self._wire_streams.pop(int(wire_id), None)
 
     def serve_http(self, host: str = "127.0.0.1", port: int = 0):
         """Start the stdlib HTTP front end on a daemon thread; returns
@@ -652,12 +984,276 @@ class Server:
                 self.end_headers()
                 self.wfile.write(body)
 
+            # -- the fleet's NDJSON streams (fleet.py) --------------------
+            # HTTP/1.0 bodies that end when the connection closes: the
+            # client reads line by line until EOF.
+
+            def _ndjson_start(self):
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.end_headers()
+
+            def _ndjson(self, obj) -> bool:
+                return self._write(json.dumps(obj).encode() + b"\n")
+
+            def _write(self, *parts) -> bool:
+                try:
+                    for part in parts:
+                        self.wfile.write(part)
+                    self.wfile.flush()
+                    return True
+                except OSError:  # the client went away
+                    return False
+
+            def _body(self) -> dict:
+                n = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(n) or b"{}")
+
+            def _stream_tokens(self, req):
+                """``req``'s stream as NDJSON until its end: ``{"t":
+                token}`` a token, then ``{"done": {...}}``; a migration
+                sends ``{"m": base64 payload}`` and ``{"done": {"state":
+                "migrated"}}``.  A client that went away cancels the
+                request here."""
+                from ml_trainer_tpu_torch.serving import transfer
+
+                while True:
+                    try:
+                        item = req._stream.get(timeout=600.0)
+                    except queue.Empty:
+                        server.cancel(req)
+                        self._ndjson({"done": {
+                            "state": "error",
+                            "error": "serving engine unhealthy: stream "
+                                     "stalled past 600s"}})
+                        return
+                    if item == _DONE:
+                        done = {"state": req.state}
+                        if req.error is not None:
+                            done["error"] = req.error
+                        if req.retry_after is not None:
+                            done["retry_after"] = req.retry_after
+                        self._ndjson({"done": done})
+                        return
+                    if (isinstance(item, tuple) and len(item) == 2
+                            and item[0] == _KV_MIGRATE):
+                        b64 = base64.b64encode(transfer.to_bytes(item[1]))
+                        if self._write(_M_LINE[0], b64, _M_LINE[1]):
+                            self._ndjson({"done": {"state": "migrated"}})
+                        return
+                    if not self._ndjson({"t": int(item)}):
+                        server.cancel(req)
+                        return
+
+            def _refusal(self, e) -> dict:
+                """The first line of a refused stream or adoption."""
+                if isinstance(e, OverloadShed):
+                    return {"status": "shed", "error": str(e),
+                            "retry_after": e.retry_after}
+                if isinstance(e, AdmissionError):
+                    return {"status": "draining", "error": str(e)}
+                if isinstance(e, EngineUnhealthy):
+                    return {"status": "unhealthy", "error": str(e)}
+                return {"status": "closed", "error": str(e)}
+
+            def _post_stream(self):
+                """``POST /v1/stream``: the fleet's ``submit_request``.
+                The first line is the admission verdict; with
+                ``"migrate": true`` the request prefills here and its
+                export leaves as an ``m`` line."""
+                from ml_trainer_tpu_torch.serving.transfer import (
+                    request_from_wire,
+                )
+
+                try:
+                    body = self._body()
+                    req = request_from_wire(body)
+                except (KeyError, TypeError, ValueError) as e:
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                if body.get("migrate"):
+                    req.migration_sink = (
+                        lambda r, exp: r._stream.put((_KV_MIGRATE, exp)))
+                wire_id = body.get("id", req.id)
+                self._ndjson_start()
+                try:
+                    server.submit_request(req)
+                except RuntimeError as e:  # every refusal's base class
+                    self._ndjson(self._refusal(e))
+                    return
+                server._register_wire(wire_id, req)
+                try:
+                    self._ndjson({"status": "accepted",
+                                  "replica": server.name or None})
+                    self._stream_tokens(req)
+                finally:
+                    server._forget_wire(wire_id)
+
+            def _post_adopt(self):
+                """``POST /v1/adopt``: the fleet's ``adopt``.  The raw
+                body is the payload (the request's identity in the
+                ``X-Request-Meta`` header), CRC-verified here; the first
+                line is the import's verdict, then the tokens."""
+                from ml_trainer_tpu_torch.serving import transfer
+
+                try:
+                    meta = json.loads(self.headers.get("X-Request-Meta",
+                                                       "{}"))
+                    n = int(self.headers.get("Content-Length", 0))
+                    payload = self.rfile.read(n)
+                    req = transfer.request_from_wire(meta)
+                except (KeyError, TypeError, ValueError) as e:
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                self._ndjson_start()
+                try:
+                    export = transfer.from_bytes(payload, verify=True)
+                except transfer.MigrationCorrupt as e:
+                    self._ndjson({"status": "corrupt", "error": str(e)})
+                    return
+                resolved: queue.Queue = queue.Queue()
+                try:
+                    server.adopt(req, export,
+                                 resolver=lambda s, d: resolved.put((s, d)))
+                except RuntimeError as e:
+                    self._ndjson(self._refusal(e))
+                    return
+                wire_id = meta.get("id", req.id)
+                server._register_wire(wire_id, req)
+                try:
+                    try:
+                        status, detail = resolved.get(timeout=120.0)
+                    except queue.Empty:
+                        server.cancel(req)
+                        self._ndjson({"status": "error",
+                                      "error": "adoption timed out"})
+                        return
+                    if status != "adopted":
+                        line = {"status": status}
+                        if detail:
+                            line["error"] = detail
+                        self._ndjson(line)
+                        return
+                    self._ndjson({"status": "adopted"})
+                    self._stream_tokens(req)
+                finally:
+                    server._forget_wire(wire_id)
+
+            def _post_cancel(self):
+                try:
+                    wire_id = int(self._body()["id"])
+                except (KeyError, TypeError, ValueError) as e:
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                    return
+                with server._wire_lock:
+                    req = server._wire_streams.get(wire_id)
+                if req is not None:
+                    server.cancel(req)
+                self._send(200, {"ok": req is not None})
+
+            def _post_admin(self) -> bool:
+                """The fleet's control plane; False for an unknown
+                path."""
+                from ml_trainer_tpu_torch.resilience import faults
+
+                try:
+                    body = self._body()
+                except (TypeError, ValueError) as e:
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                    return True
+                path = self.path
+                try:
+                    if path == "/admin/role":
+                        role = body["role"]
+                        if role not in ("prefill", "decode", "both"):
+                            raise ValueError(f"bad role {role!r}")
+                        server.role = role
+                        self._send(200, {"ok": True, "role": role})
+                    elif path == "/admin/replica_index":
+                        server.replica_index = int(
+                            body["index"] if "index" in body
+                            else body["replica_index"])
+                        self._send(200, {"ok": True})
+                    elif path == "/admin/degradation":
+                        cfg = body.get("config")
+                        server.set_degradation(
+                            int(body.get("level", 0)),
+                            DegradationConfig(**cfg) if cfg else None)
+                        self._send(200, {"ok": True})
+                    elif path == "/admin/shed_queued":
+                        shed = server.shed_queued(
+                            int(body.get("below_priority", 0)),
+                            float(body.get("retry_after", 1.0)),
+                            cause=str(body.get("cause", "overload")))
+                        self._send(200, {"shed": shed})
+                    elif path == "/admin/fail":
+                        server._mark_unhealthy(
+                            str(body.get("reason", "failed by admin")))
+                        self._send(200, {"ok": True})
+                    elif path == "/admin/faults":
+                        # A chaos plan in this process (faults.py's
+                        # syntax); an empty spec uninstalls.
+                        spec = str(body.get("spec", ""))
+                        if spec:
+                            faults.install(faults.FaultPlan.parse(spec))
+                        else:
+                            faults.uninstall()
+                        self._send(200, {"ok": True, "spec": spec})
+                    elif path == "/admin/evacuate":
+                        # Each active slot's export rides its own open
+                        # stream as an "m" line.
+                        ok = server.evacuate(
+                            lambda req, exp: req._stream.put(
+                                (_KV_MIGRATE, exp)),
+                            timeout=float(body.get("timeout", 30.0)))
+                        self._send(200, {"ok": ok})
+                    elif path == "/admin/shutdown":
+                        self._send(200, {"ok": True})
+                        if server.transport == "http":
+                            # A fleet worker: the process exits once the
+                            # reply is on the wire and the server closed.
+                            threading.Thread(target=_exit_after_close,
+                                             args=(server,),
+                                             daemon=True).start()
+                        else:
+                            threading.Thread(target=server.close,
+                                             daemon=True).start()
+                    else:
+                        return False
+                except (KeyError, TypeError, ValueError,
+                        NotImplementedError) as e:
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                return True
+
             def do_GET(self):
                 if self.path == "/healthz":
                     payload = server.health()
                     # 503 while wedged, draining or closed, so that a load
                     # balancer stops sending here; the payload says why.
                     self._send(200 if payload["ok"] else 503, payload)
+                elif self.path == "/v1/spec":
+                    # What a RemoteServer mirrors, plus this process's
+                    # kernel launches and the decode graph's captures.
+                    from ml_trainer_tpu_torch.device import launch_counts
+
+                    eng = server.engine
+                    self._send(200, {
+                        "max_len": eng.max_len,
+                        "vocab_size": eng.vocab_size,
+                        "spec_k": eng.spec_k,
+                        "kv_page_size": eng.kv_page_size,
+                        "paged": eng.paged,
+                        "prefill_chunk": eng.prefill_chunk,
+                        "max_batch": eng.max_batch,
+                        "max_queue": server.scheduler.max_queue,
+                        "role": server.role,
+                        "pid": os.getpid(),
+                        "weights_fp": eng.weights_fp,
+                        "compiles": None,
+                        "device": str(eng.device),
+                        "graph_captures": eng.graph_captures,
+                        "launches": launch_counts(),
+                    })
                 elif self.path == "/metrics":
                     registry = default_registry()
                     server.metrics.publish(registry)
@@ -673,6 +1269,17 @@ class Server:
                     self._send(404, {"error": "not found"})
 
             def do_POST(self):
+                if self.path == "/v1/stream":
+                    self._post_stream()
+                    return
+                if self.path == "/v1/adopt":
+                    self._post_adopt()
+                    return
+                if self.path == "/v1/cancel":
+                    self._post_cancel()
+                    return
+                if self.path.startswith("/admin/") and self._post_admin():
+                    return
                 if self.path != "/v1/generate":
                     self._send(404, {"error": "not found"})
                     return

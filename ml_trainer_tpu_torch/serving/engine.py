@@ -87,6 +87,14 @@
   decode-step clock ``_step_seq`` and runs the ``decode_wedge`` fault's
   hook (``resilience/faults.py``) before the step's forward is issued.
 
+* **KV migration** (``serving/transfer.py``; the router's disaggregated
+  serving): ``export_slot`` reads a slot's pages and sampler state out,
+  ``import_slot`` writes them into a free slot in place (pools, tokens,
+  positions, the page table), so the decode graph serves the imported
+  slot without a recapture (``graph_captures`` stays 1).  ``weights_fp``
+  is the JAX engine's fingerprint of the same weights: an export
+  imports only where they match.
+
 Sampling follows ``generate.sample_rows``: greedy argmax, or per request
 a generator seeded from ``(rng, t)`` per token, so a served request
 reproduces the port's ``generate()`` for it.  A model without a
@@ -123,7 +131,32 @@ from ml_trainer_tpu_torch.speculative import (
     draft_scan,
     verify,
 )
-from ml_trainer_tpu_torch.step_graph import StepGraph, give_back_stream
+from ml_trainer_tpu_torch.step_graph import (
+    StepGraph,
+    give_back_stream,
+    synchronize,
+)
+
+
+def weights_fp(model) -> str:
+    """``checkpoint.weights_fingerprint`` over the model's parameters in
+    the flax names and layouts, which equals the JAX engine's
+    ``weights_fp`` for the same weights.  Kept on the model while its
+    parameters are the same tensors at the same versions (an in-place
+    update bumps a tensor's version), so the replicas of one model pay
+    for one host copy."""
+    from ml_trainer_tpu_torch.checkpoint import weights_fingerprint
+    from ml_trainer_tpu_torch.convert import variables_to_jax
+
+    key = tuple((id(p), p._version) for p in model.parameters())
+    cached = getattr(model, "_weights_fp", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        fp = weights_fingerprint(
+            {"params": variables_to_jax(model)["params"]})
+    model._weights_fp = (key, fp)
+    return fp
 
 
 class SlotDecodeEngine:
@@ -179,6 +212,10 @@ class SlotDecodeEngine:
                              f"got {prefix_scope!r}")
         self.device = check_model_device(model, device)
         self.model = model
+        # The identity of the weights served (the JAX engine's, over the
+        # flax tree): KV migrates only between engines that share it
+        # (``transfer.import_kv_slot`` raises ``WeightsMismatch``).
+        self.weights_fp = weights_fp(model)
         self.max_batch = max_batch
         self.max_len = int(model.max_len)
         self.vocab_size = int(model.vocab_size)
@@ -270,6 +307,9 @@ class SlotDecodeEngine:
             self._init_adapters(adapters)
         self._graphed = self._decode_graph and self.device.type == "cuda"
         self._graph: Optional[StepGraph] = None
+        # Decode-graph captures over the engine's life (one, whatever
+        # is imported or hot-loaded, unless ``close`` dropped the graph).
+        self.graph_captures = 0
         self._temps = np.zeros((max_batch,), np.float32)
         self._seeds = np.zeros((max_batch,), np.int64)
         self._steps = np.zeros((max_batch,), np.int64)
@@ -550,6 +590,24 @@ class SlotDecodeEngine:
         if freed:
             self._push_kv_metrics()
         return freed
+
+    # -- KV migration (serving/transfer.py) -------------------------------
+
+    def export_slot(self, slot: int):
+        """``slot``'s page chain and continuation state (the unit the
+        router ships to a decode replica); read-only."""
+        from ml_trainer_tpu_torch.serving.transfer import export_kv_slot
+
+        return export_kv_slot(self, slot)
+
+    def import_slot(self, req: Request, slot: int, export) -> str:
+        """Write an exported chain into ``slot`` and register ``req`` as
+        active: ``"active"``, ``"no_memory"`` (the caller requeues ``req``,
+        which resumes by a prefill of its committed tokens) or
+        ``"error"``."""
+        from ml_trainer_tpu_torch.serving.transfer import import_kv_slot
+
+        return import_kv_slot(self, req, slot, export)
 
     # -- serving ---------------------------------------------------------
 
@@ -926,6 +984,7 @@ class SlotDecodeEngine:
             return self._graph.warm_up(self._decode)
         if self._graph.capture_s is None:
             self._graph.capture(self._decode)
+            self.graph_captures += 1
         return self._graph.replay()
 
     def kernel_sources(self) -> List[str]:
@@ -942,7 +1001,7 @@ class SlotDecodeEngine:
         step would warm up and capture again), and hand its side stream
         on to the next engine (``step_graph.take_stream``)."""
         if self._graph is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # no replay in flight
+            synchronize(self.device)  # no replay in flight
             give_back_stream(self.device, self._graph.stream)
         self._graph = None
 

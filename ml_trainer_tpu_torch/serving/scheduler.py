@@ -141,6 +141,10 @@ class Request:
     # or active, at its next boundary.
     retry_after: Optional[float] = None
     cancel_requested: bool = False
+    # Disaggregated serving (``router.py``): a callable ``(request,
+    # export)`` the serving loop hands the slot's KV export to right
+    # after the prefill, instead of decoding here.
+    migration_sink: object = None
     admitted_at: Optional[float] = None
     error: Optional[str] = None
     first_token_at: Optional[float] = None
@@ -445,11 +449,11 @@ class TenantScheduler:
 
     def acquire_direct(self, req: Request) -> Optional[int]:
         """Claim a free slot for a request placed from outside, past the
-        queues (the router's KV adoptions: Queue A 5).  Its tenant's
-        ``max_active`` quota is not applied (the request was admitted
-        and charged where it came from), but its active count is, so
-        ``release`` stays balanced.  Returns the slot, or None when no
-        slot is free."""
+        queues (``Server.adopt``: a KV migration from another replica's
+        prefill).  Its tenant's ``max_active`` quota is not applied (the
+        request was admitted and charged where it came from), but its
+        active count is, so ``release`` stays balanced.  Returns the
+        slot, or None when no slot is free."""
         with self._lock:
             if not self._free_slots:
                 return None

@@ -22,7 +22,12 @@ caller undoes its own side effects (the host step count).
 
 The capture prohibits unsafe CUDA calls on its own thread only
 (``capture_error_mode="thread_local"``): the serving engine captures on
-its worker thread while other threads may synchronise or profile.
+its worker thread while other threads launch work on their own streams.
+A device-wide synchronise is refused while any stream of the device is
+capturing, and the replicas of an in-process router each capture on
+their own loop thread: so a capture (with the synchronise and the cache
+release before it) and ``synchronize`` below hold one process-wide lock
+(``_DEVICE_WIDE``).
 
 torch keeps a cuBLAS workspace for every (handle, stream) pair it has
 met, for the life of the process: on the H100 a server whose graph took
@@ -42,6 +47,18 @@ import torch
 
 from ml_trainer_tpu_torch.device import CountedGraph
 from ml_trainer_tpu_torch.parallel import comm_stats
+
+
+# Held by a capture and by every device-wide synchronise of the serving
+# path: no two captures, and no synchronise during one.
+_DEVICE_WIDE = threading.RLock()
+
+
+def synchronize(device) -> None:
+    """``torch.cuda.synchronize(device)``, never during another thread's
+    capture."""
+    with _DEVICE_WIDE:
+        torch.cuda.synchronize(device)
 
 
 # Side streams that closed graphs gave back, by device.
@@ -95,15 +112,16 @@ class StepGraph:
         """Capture ``fn`` on buffers shaped as ``args`` (their values are
         not read: the capture runs nothing)."""
         t0 = time.perf_counter()
-        self.inputs = [torch.empty_like(a) for a in args]
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()  # as torch.cuda.graph does, before measuring
-        before = (torch.cuda.memory_allocated(self.device),
-                  torch.cuda.memory_reserved(self.device))
-        with self.graph.capturing(), torch.cuda.graph(
-                self.graph.graph, stream=self.stream,
-                capture_error_mode="thread_local"):
-            self.out = fn(*self.inputs)
+        with _DEVICE_WIDE:
+            self.inputs = [torch.empty_like(a) for a in args]
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()  # as torch.cuda.graph does, first
+            before = (torch.cuda.memory_allocated(self.device),
+                      torch.cuda.memory_reserved(self.device))
+            with self.graph.capturing(), torch.cuda.graph(
+                    self.graph.graph, stream=self.stream,
+                    capture_error_mode="thread_local"):
+                self.out = fn(*self.inputs)
         self.capture_s = time.perf_counter() - t0
         self.capture_bytes = {
             "allocated": torch.cuda.memory_allocated(self.device) - before[0],

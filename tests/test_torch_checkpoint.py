@@ -371,9 +371,9 @@ def test_fault_plan_from_the_environment(monkeypatch):
 
 
 @pytest.mark.parametrize("spec,error,match", [
-    ("healthz_flap@step=5", NotImplementedError, "ROADMAP.md"),
+    ("host_hang@step=5", NotImplementedError, "ROADMAP.md"),
     ("host_kill@step=9,host=1", NotImplementedError, "ROADMAP.md"),
-    ("replica_kill@step=3,host=2", NotImplementedError, "ROADMAP.md"),
+    ("nan_grad@step=3,host=2", ValueError, "unknown fault key"),
     ("meteor_strike@step=1", ValueError, "unknown fault kind"),
     ("nan_grad@banana=1", ValueError, "unknown fault key"),
     ("nan_grad@step=1,secs=2", ValueError, "unknown fault key"),
@@ -388,7 +388,9 @@ def test_fault_plan_refuses_what_the_port_does_not_act_on(spec, error,
 def test_decode_wedge_parses_with_its_hold_bound():
     """``decode_wedge`` has its hook in the serving engine: it parses
     with ``secs`` (default 300, as in the JAX package), and its hold
-    returns at ``release_wedge``; the Queue A 5 kinds stay refused."""
+    returns at ``release_wedge``.  The serving fleet's kinds parse with
+    their ``host`` (and ``replica_slow`` its ``secs``) and fire only in
+    the named replica's hook; the elastic kinds stay refused."""
     plan = FaultPlan.parse("decode_wedge@step=8,secs=60;decode_wedge@step=2")
     assert [(f.step, f.secs) for f in plan.faults] == [(8, 60.0), (2, 300.0)]
     assert plan.fire("decode_wedge", step=7) is None
@@ -396,7 +398,15 @@ def test_decode_wedge_parses_with_its_hold_bound():
     assert fault is plan.faults[0]
     plan.release_wedge()
     plan.hold_wedge(fault)  # released: returns at once
-    for kind in ("replica_kill", "replica_slow", "healthz_flap",
-                 "migration_corrupt"):
+    fleet = FaultPlan.parse("replica_kill@step=3,host=2;replica_slow@step=1,"
+                            "host=0,secs=8;healthz_flap;migration_corrupt")
+    assert [f.spec() for f in fleet.faults] == [
+        "replica_kill@step=3,host=2", "replica_slow@step=1,host=0",
+        "healthz_flap@host=0", "migration_corrupt@host=0"]
+    assert fleet.faults[1].secs == 8.0
+    assert fleet.fire("replica_kill", step=3, host=1) is None
+    assert fleet.fire("replica_kill", step=3, host=2) is fleet.faults[0]
+    assert fleet.fire("healthz_flap", host=0) is fleet.faults[2]
+    for kind in ("host_kill", "host_hang"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             FaultPlan.parse(f"{kind}@step=1")

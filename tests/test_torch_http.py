@@ -48,10 +48,11 @@ from ml_trainer_tpu_torch.telemetry import registry as t_registry
 
 MAX_LEN = 64
 PS = 8  # page size: 8 pages a slot
-# The health keys of modules not ported yet: null, or 0 pending.
+# The health keys of modules not ported yet (null), and the adoption
+# queue of a server no router feeds (empty).
 UNPORTED_HEALTH = {"compile_events_post_warmup_total": None,
                    "trace_now_us": None, "mono_epoch": None,
-                   "weights_fp": None, "adoptions_pending": 0}
+                   "adoptions_pending": 0}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -242,6 +243,10 @@ def test_healthz_metrics_slo_shapes_match_jax(models):
     for key, value in UNPORTED_HEALTH.items():
         assert health[key] == value, key
     assert health["ok"] and health["role"] == "both"
+    # The same weights in both packages: the same fingerprint.
+    assert health["weights_fp"] == got["jax"]["/healthz"][1]["weights_fp"]
+    assert health["weights_fp"].startswith("w:")
+    assert health["transport"] == "inproc"
     assert health["kv_pages_total"] == 2 * (MAX_LEN // PS)
     prom = got["port"]["/metrics"][1]
     assert _names(prom) == _names(got["jax"]["/metrics"][1])

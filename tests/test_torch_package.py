@@ -96,7 +96,8 @@ NEW_MODULES = ["models/mlmodel.py", "models/resnet.py", "models/bert.py",
                "speculative.py", "generate.py", "serving/scheduler.py",
                "serving/metrics.py", "serving/slo.py", "serving/overload.py",
                "telemetry/__init__.py", "telemetry/registry.py",
-               "telemetry/export.py"]
+               "telemetry/export.py", "serving/transfer.py",
+               "serving/router.py", "serving/fleet.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
