@@ -57,6 +57,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
                                           # and the router: disaggregated,
                                           # colocated, a replica killed,
                                           # two worker processes over HTTP
+    python3 chip_smoke.py --only deploy   # kernel checks + deploy
+                                          # generations: a wedged canary
+                                          # rolled back, a shadow deploy,
+                                          # the autoscaler's repair, a
+                                          # canary promoted under open-loop
+                                          # traffic, a fleet worker deployed
 
 Phases, one line of output each (or a few):
 
@@ -524,6 +530,35 @@ Phases, one line of output each (or a few):
    migration (``router_kv_migrated_bytes_total``; the padded payload is
    the same whatever the prompt), export, adopt and import ms in process
    and adopt ms over HTTP, the phase's seconds.
+19. deploy (``DEPLOY``, run after router): GPT-2 124M fp32 from seeds 0
+   and 1, each written by ``Trainer.save_model`` (``model.pth`` and
+   ``model_manifest.json``), served at page 16, max_len 1024, 8 slots a
+   replica, ``paged_kernel``; 8 prompts of 130-300 tokens and an
+   open-loop ``poisson_schedule`` of 16 more (two tenants), 32 greedy
+   tokens each; one ``Server`` on each seed gives the reference tokens.
+   On ``Router.build(["both", "both"])`` over seed 0 (an uncounted
+   warm-up, its eager K1 and K6 calls held to float64), counted
+   together: (b) ``Router.deploy`` of seed 1 with its ``submit_request``
+   wedged 3 s: rolled back at the first poll that sees the canary's
+   burn, no stream dropped, stable tenants on seed 0's tokens; (c) a
+   shadow deploy rolled back on the token diff with the split never
+   raised; (d) ``rep1`` killed and the ``Autoscaler``'s next tick a
+   ``scale_up``, tokens unchanged; (a) with (e) the seed-1 deploy
+   (canary 0.25, stages 0.5 and 1.0) under ``run_open_loop`` traffic:
+   the canary tenant on seed 1's tokens, the other on seed 0's, then
+   ``done``, the old generation retired, ``weights_fp`` the manifest's,
+   every tenant on seed 1's tokens.  (f) A one-worker ``Fleet`` (its
+   process started at the phase's start from the seed-0 ``--ckpt``)
+   deployed through ``Fleet.deploy_factory`` onto the seed-1 checkpoint
+   (stages (1.0,)): the new worker's tokens are seed 1's, counted
+   through its ``/v1/spec``.  Gates: K1 12 a full prefill of 128 tokens
+   or more and K6 12 a decode step, exactly, on every engine and the
+   new worker; one decode-graph capture per decoding engine; tokens by
+   the near-tie rule; the card's allocated memory back within 1%.
+   Printed: the staging seconds (spawn, warm-up and capture), the
+   seconds from the burn crossing to the split's teardown, the
+   rollback's drain seconds, the open-loop report (TTFT p50/p99,
+   attainment and tokens/s by generation), the phase's seconds.
 
 The counters are set to 0 just before each serving run and each training
 run and read just after each; a kernel's ``launches`` in the JSON record
@@ -8763,13 +8798,608 @@ def router_phase(dev, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# Deploy generations (``--only deploy``): GPT-2 124M fp32 (12 blocks, 768
+# wide) from two seeds, each written by ``Trainer.save_model`` with its
+# manifest, served through ``Router`` at page 16, max_len 1024 and 8
+# slots a replica (K1 in every full prefill of 128 tokens or more, K6 in
+# every decode step), rolled from the seed-0 checkpoint to the seed-1 one
+# under live traffic.
+DEPLOY = dict(model="gpt2", prompts=8, lens=(130, 300), new_tokens=32,
+              page=16, max_batch=8, ttft_ms=2000.0, wedge_s=3.0, poll_s=0.1,
+              hold_s=3.0, open_requests=16, open_rate=8.0, open_span_s=2.0,
+              min_window=4, fleet_requests=4)
+DEPLOY_DIR = "build/chip_smoke_deploy"  # the two model dirs, the logs
+
+
+def _slice_tenant(prefix: str, lo: float, hi: float) -> str:
+    """The first name ``<prefix><i>`` whose ``Router.tenant_slice`` lies
+    in [lo, hi)."""
+    from ml_trainer_tpu_torch.serving import Router
+
+    i = 0
+    while not lo <= Router.tenant_slice(f"{prefix}{i}") < hi:
+        i += 1
+    return f"{prefix}{i}"
+
+
+@contextlib.contextmanager
+def _k1_prefills():
+    """Count the full prefills on K1's route (a bucket of 128 or more: a
+    prompt over 64 tokens) of every engine, by wrapping the engine
+    class's method for the duration (host code only)."""
+    from ml_trainer_tpu_torch.serving.engine import SlotDecodeEngine
+
+    real = SlotDecodeEngine._admit_full_prefill
+    rec = [0]
+
+    def counted(self, req, slot, prompt, *args, **kw):
+        if prompt.shape[0] > 64:
+            rec[0] += 1
+        return real(self, req, slot, prompt, *args, **kw)
+
+    SlotDecodeEngine._admit_full_prefill = counted
+    try:
+        yield rec
+    finally:
+        SlotDecodeEngine._admit_full_prefill = real
+
+
+def _await_state(dep, states, what: str, timeout: float = 600.0) -> None:
+    deadline = time.monotonic() + timeout
+    while dep.state not in states and time.monotonic() < deadline:
+        if dep.finished():
+            raise AssertionError(f"{what}: the deploy ended {dep.state} "
+                                 f"({dep.rollback_cause})")
+        time.sleep(0.01)
+    if dep.state not in states:
+        raise AssertionError(f"{what}: still {dep.state} after {timeout}s")
+
+
+def _event_t(dep, action: str, **match) -> float:
+    for row in dep.events:
+        if row["action"] == action and all(row.get(k) == v
+                                           for k, v in match.items()):
+            return row["t"]
+    raise AssertionError(f"no {action} {match} event: {dep.events}")
+
+
+def _staging_s(dep) -> dict:
+    """Seconds from the deploy's start to ``staged`` (spawn, warm-up and
+    the decode graph's capture of every new replica) on its clock."""
+    return dict(staged=round(_event_t(dep, "staged") - dep._started_at, 3),
+                warmed=[row["seconds"] for row in dep.events
+                        if row["action"] == "warmed"])
+
+
+def _gen_tokens(model, prompts, got, want_by_gen, gens, what) -> int:
+    """``got[i]`` against the reference of the generation that served it
+    (``gens[i]``), by the near-tie rule; returns the parted rows."""
+    parted = 0
+    for g in set(gens):
+        rows = [i for i, x in enumerate(gens) if x == g]
+        parted += near_tie(model[g], [prompts[i] for i in rows],
+                           [got[i] for i in rows],
+                           [want_by_gen[g][i] for i in rows], _slack(None),
+                           f"{what} generation {g}")
+    return parted
+
+
+def _deploy_rollback(router, ckpt, factory, prompts, want, models) -> dict:
+    """(b) the new generation's ``submit_request`` wedged for
+    DEPLOY["wedge_s"] (a canary TTFT far over the SLO); two canary
+    requests cross the burn (min_window_requests 2, high_polls 1), two
+    more are wedged when the rollback fires, four stable ones beside.
+    Gates: rolled back at the first poll that sees the crossing, the
+    split down, generation 1 gone, every stream done, each on the tokens
+    of the weights that served it, the stable ones on seed 0's."""
+    import ml_trainer_tpu_torch as mt
+
+    c, n = DEPLOY, DEPLOY["new_tokens"]
+    cfg = mt.serving.DeployConfig(
+        canary=0.25, stages=(1.0,), hold_s=600.0, burn_threshold=2.0,
+        high_polls=1, min_window_requests=2, poll_interval_s=c["poll_s"],
+        drain_timeout_s=60.0)
+    dep = router.deploy(ckpt, factory=factory, config=cfg)
+    _await_state(dep, ("canary",), "deploy rollback")
+    canary = [_slice_tenant(f"rb-canary{k}-", 0.0, 0.25) for k in range(4)]
+    stable = [_slice_tenant(f"rb-stable{k}-", 0.5, 1.0) for k in range(4)]
+    streams = [router.submit(prompts[i], n, tenant=t)
+               for i, t in enumerate(stable + canary[:2])]
+    time.sleep(1.0)
+    streams += [router.submit(prompts[i], n, tenant=t)
+                for i, t in zip((6, 7), canary[2:])]
+    verdict = dep.wait(timeout=300)
+    outs = [s.result(timeout=600) for s in streams]
+    reqs = [s.request for s in streams]
+    if verdict != "rolled_back" or "canary burn" not in dep.rollback_cause:
+        raise AssertionError(f"deploy rollback: {verdict} "
+                             f"({dep.rollback_cause})")
+    if not all(r.state == "done" and len(r.tokens) == n for r in reqs):
+        raise AssertionError("deploy rollback: a stream was dropped: "
+                             f"{[(r.state, len(r.tokens)) for r in reqs]}")
+    crossing = max(r.finished_at for r in reqs[4:6])
+    t_rb = _event_t(dep, "transition", to="rolling_back")
+    t_done = _event_t(dep, "transition", to="rolled_back")
+    highs = [row for row in dep.events if row["action"] == "burn_high"]
+    if len(highs) != 1 or t_rb - crossing > cfg.poll_interval_s + 0.5:
+        raise AssertionError(f"deploy rollback: {len(highs)} high polls, "
+                             f"{t_rb - crossing:.3f} s after the crossing")
+    if (router._deploy_generation is not None or router._deploy_fraction
+            or any(r.generation for r in router.replicas.values())):
+        raise AssertionError("deploy rollback: the split or the new "
+                             "generation survived")
+    gens = [1 if (mt.serving.Router._serving_replica(r) or "").startswith(
+        "deploy") else 0 for r in reqs]
+    if any(gens[:4]):
+        raise AssertionError("deploy rollback: a stable tenant was served "
+                             "by the canary")
+    parted = _gen_tokens(models, prompts, outs, want, gens,
+                         "deploy rollback")
+    return dict(staging_s=_staging_s(dep),
+                teardown_after_crossing_s=round(t_rb - crossing, 3),
+                drain_s=round(t_done - t_rb, 3), last_burn=dep.last_burn,
+                served_by_generation=gens, parted=parted,
+                redistributes=router.snapshot()["redistributes_total"])
+
+
+def _deploy_shadow(router, ckpt, factory, prompts, want, models) -> dict:
+    """(c) a shadow deploy of the seed-1 weights: two live stable
+    requests sampled, replayed on the new generation off the serving
+    path, the tokens differ, rollback; the split was never raised."""
+    import ml_trainer_tpu_torch as mt
+
+    n = DEPLOY["new_tokens"]
+    cfg = mt.serving.DeployConfig(
+        shadow=True, shadow_fraction=1.0, shadow_min_requests=2,
+        poll_interval_s=DEPLOY["poll_s"], drain_timeout_s=60.0)
+    dep = router.deploy(ckpt, factory=factory, config=cfg)
+    _await_state(dep, ("shadowing",), "deploy shadow")
+    tenants = [_slice_tenant(f"sh-live{k}-", 0.0, 1.0) for k in range(2)]
+    streams = [router.submit(prompts[i], n, tenant=t)
+               for i, t in zip((4, 5), tenants)]
+    outs = [s.result(timeout=600) for s in streams]
+    verdict = dep.wait(timeout=300)
+    report = dep.shadow_report()
+    if (verdict != "rolled_back" or "shadow diff" not in dep.rollback_cause
+            or not report["n_token_mismatch"]):
+        raise AssertionError(f"deploy shadow: {verdict} "
+                             f"({dep.rollback_cause}), {report}")
+    if (any(row["action"] == "stage" for row in dep.events)
+            or router._deploy_fraction != 0.0):
+        raise AssertionError("deploy shadow: the split was raised")
+    parted = near_tie(models[0], [prompts[4], prompts[5]], outs,
+                      [want[0][4], want[0][5]], _slack(None),
+                      "deploy shadow live")
+    return dict(staging_s=_staging_s(dep), parted=parted, **{
+        k: report[k] for k in ("n_replayed", "n_compared",
+                               "n_token_mismatch", "live_e2e_ms_p50",
+                               "shadow_e2e_ms_p50")})
+
+
+def _deploy_repair(router, factory, prompts, want, models) -> dict:
+    """(d) ``rep1`` killed; the autoscaler's next ``tick()`` is
+    ``scale_up`` (the repair rule: no hysteresis); the dead replica
+    leaves; the fleet's tokens are seed 0's still."""
+    import ml_trainer_tpu_torch as mt
+
+    n = DEPLOY["new_tokens"]
+    asc = mt.serving.Autoscaler(router, factory,
+                                mt.serving.AutoscalerConfig(min_replicas=2))
+    router.kill_replica("rep1")
+    action = asc.tick()
+    if action != "scale_up" or "auto1" not in router.replicas:
+        raise AssertionError(f"deploy repair: tick {action}, "
+                             f"{sorted(router.replicas)}")
+    router.remove_replica("rep1", timeout=1.0)
+    tenants = [_slice_tenant(f"rp{k}-", 0.0, 1.0) for k in range(4)]
+    streams = [router.submit(prompts[i], n, tenant=t)
+               for i, t in zip(range(4), tenants)]
+    outs = [s.result(timeout=600) for s in streams]
+    parted = near_tie(models[0], prompts[:4], outs, want[0][:4],
+                      _slack(None), "deploy repair")
+    return dict(action=action, actions=asc.summary()["counts"],
+                replicas=sorted(router.replicas), parted=parted)
+
+
+def _open_loop_report(router, report, canary: str, t0: float,
+                      t1: float) -> dict:
+    """(e)'s report: TTFT p50/p99, attainment and tokens/s by
+    generation (the canary tenant is generation 1's)."""
+    from ml_trainer_tpu_torch.serving import aggregate_timelines
+
+    out = {k: report[k] for k in ("n_scheduled", "n_completed", "n_errors",
+                                  "makespan_s", "offered_rps",
+                                  "tokens_per_sec", "client_e2e_p50_ms",
+                                  "client_e2e_p99_ms", "send_lag_p99_ms")}
+    tls = [tl for tl in router.slo.timelines(since=t0)
+           if tl["submitted_at"] < t1]
+    for gen, pick in ((1, lambda t: t == canary), (0, lambda t: t != canary)):
+        mine = [tl for tl in tls if pick(tl["tenant"])]
+        agg = aggregate_timelines(mine, router.slo.policy)
+        tokens = sum(r["tokens"] for r in report["per_request"]
+                     if r["ok"] and pick(r["tenant"]))
+        out[f"generation{gen}"] = dict(
+            requests=agg["n_requests"], ttft_ms=agg["ttft_ms"],
+            attainment=agg["attainment"],
+            tokens_per_s=round(tokens / report["makespan_s"], 1))
+    return out
+
+
+class _Recorded:
+    """``run_open_loop``'s in-process target: ``router.complete`` that
+    keeps each request (by its prompt), so its serving replica can be
+    read after the run."""
+
+    def __init__(self, router):
+        self.router = router
+        self.requests = {}
+
+    def complete(self, prompt, max_new_tokens, timeout=None, **kw):
+        stream = self.router.submit(prompt, max_new_tokens, **kw)
+        self.requests[id(prompt)] = stream.request
+        return stream.result(timeout=timeout)
+
+
+def _deploy_promote(router, ckpt, factory, prompts, want, models, sched,
+                    scale, canary, manifest) -> dict:
+    """(a) with (e): the seed-1 deploy (canary 0.25, stages 0.5 and 1.0);
+    during its canary stage ``run_open_loop`` drives the schedule (the
+    tenant ``canary`` inside the canary slice, one above 0.5); the canary
+    stage holds until the canary tenant's requests have all reported and
+    each later stage DEPLOY["hold_s"], so every arrival lands before the
+    split reaches 1.0.  Gates: the canary tenant served by generation 1
+    with seed 1's tokens, the other by generation 0 with seed 0's;
+    ``done``; the old generation retired; ``weights_fp`` the manifest's;
+    every tenant then on seed 1's tokens."""
+    import numpy as np
+
+    import ml_trainer_tpu_torch as mt
+
+    c, n = DEPLOY, DEPLOY["new_tokens"]
+    cfg = mt.serving.DeployConfig(
+        canary=0.25, stages=(0.5, 1.0), hold_s=c["hold_s"],
+        stage_min_requests=sum(s.tenant == canary for s in sched),
+        min_window_requests=c["min_window"], burn_threshold=2.0,
+        high_polls=2, poll_interval_s=c["poll_s"], drain_timeout_s=60.0)
+    dep = router.deploy(ckpt, factory=factory, config=cfg)
+    _await_state(dep, ("canary",), "deploy promote")
+    target = _Recorded(router)
+    t0 = time.monotonic()
+    report = mt.serving.run_open_loop(sched, server=target, timeout=600,
+                                      time_scale=scale, collect_tokens=True)
+    t1 = time.monotonic()
+    if report["n_completed"] != len(sched):
+        raise AssertionError(f"deploy open loop: {report['errors']}")
+    verdict = dep.wait(timeout=300)
+    if verdict != "done":
+        raise AssertionError(f"deploy promote: {verdict} "
+                             f"({dep.rollback_cause})")
+    reqs = [target.requests[id(s.prompt)] for s in sched]
+    gens = [1 if (mt.serving.Router._serving_replica(r) or "").startswith(
+        "deploy") else 0 for r in reqs]
+    if gens != [int(s.tenant == canary) for s in sched]:
+        raise AssertionError(f"deploy open loop: generations {gens}")
+    parted_open = _gen_tokens(
+        models, [s.prompt for s in sched],
+        [np.asarray(r["output"]) for r in report["per_request"]],
+        want["open"], gens, "deploy open loop")
+    if (set(router.replicas) != set(dep.new_replicas)
+            or router._serving_generation != 1
+            or dep.weights_fp != manifest["weights_fingerprint"]):
+        raise AssertionError(f"deploy promote: replicas "
+                             f"{sorted(router.replicas)}, fingerprint "
+                             f"{dep.weights_fp} vs {manifest}")
+    tenants = [_slice_tenant(f"post{k}-", k / len(prompts),
+                             (k + 1) / len(prompts))
+               for k in range(len(prompts))]
+    streams = [router.submit(p, n, tenant=t)
+               for p, t in zip(prompts, tenants)]
+    outs = [s.result(timeout=600) for s in streams]
+    parted = near_tie(models[1], prompts, outs, want[1], _slack(None),
+                      "deploy promoted")
+    stages = [(row["fraction"], round(row["t"] - dep._started_at, 3))
+              for row in dep.events if row["action"] == "stage"]
+    return dict(staging_s=_staging_s(dep), parted_open=parted_open,
+                parted_promoted=parted, stages_s=stages,
+                promoted_s=round(_event_t(dep, "promoted")
+                                 - dep._started_at, 3),
+                open_loop=_open_loop_report(router, report, canary, t0, t1),
+                weights_fp=dep.weights_fp)
+
+
+def _deploy_inprocess(dev, models, dirs, prompts, want, sched, scale,
+                      canary, manifest, checks) -> dict:
+    """The stable fleet ``Router.build(["both", "both"])`` over the
+    seed-0 model; an uncounted warm-up (its eager K1 and K6 calls held to
+    float64); then (b), (c), (d) and (a) with (e), counted together: K1
+    12 a full prefill of 128 tokens or more, K6 12 a decode step, on
+    every engine the runs made, exactly; one capture a decoding engine.
+    The seed-1 factory loads ``dirs[1]`` (one model for its replicas)."""
+    import ml_trainer_tpu_torch as mt
+
+    c = DEPLOY
+    servers, loaded = [], {}
+
+    def factory(seed, wedge=False):
+        def make(role):
+            if seed == SEED:
+                model = models[0]
+            else:
+                if "m1" not in loaded:
+                    fresh = mt.get_model(c["model"], device=dev,
+                                         max_len=models[0].max_len)
+                    loaded["m1"] = mt.load_model(fresh, dirs[1]).module
+                    loaded["m1"].eval()
+                model = loaded["m1"]
+            server = mt.Server(model, max_batch=c["max_batch"],
+                               kv_page_size=c["page"], paged_kernel=True,
+                               role=role, device=dev)
+            if wedge:
+                inner = server.submit_request
+
+                def wedged(req, _inner=inner):
+                    if req.tenant != "default":  # not the staging warm-up
+                        time.sleep(c["wedge_s"])
+                    _inner(req)
+
+                server.submit_request = wedged
+            servers.append(server)
+            return server
+
+        return make
+
+    policy = mt.serving.SloPolicy(ttft_ms=c["ttft_ms"], tpot_ms=1000.0,
+                                  target=0.9)
+    with mt.Router.build(models[0], roles=["both", "both"],
+                         max_batch=c["max_batch"], kv_page_size=c["page"],
+                         paged_kernel=True, device=dev,
+                         router_kwargs=dict(hedging=False, slo=policy,
+                                            health_interval=0.1)) as router:
+        servers += [r.server for r in router.replicas.values()]
+        with checked_calls(checks):
+            warm = [router.submit(p[:c["lens"][0]], 8, tenant="warm")
+                    for p in (prompts[1], prompts[-1])]
+            for s in warm:
+                s.result(timeout=600)
+        before = {id(s): s.metrics.snapshot()["decode_steps_total"]
+                  for s in servers}
+        times = {}
+        with _k1_prefills() as k1:
+            mt.reset_launch_counts()
+            t = time.perf_counter()
+            rec = dict(rollback=_deploy_rollback(
+                router, dirs[1], factory(SEED + 1, wedge=True), prompts,
+                want, models))
+            times["rollback"] = time.perf_counter() - t
+            rec["shadow"] = _deploy_shadow(router, dirs[1],
+                                           factory(SEED + 1), prompts, want,
+                                           models)
+            times["shadow"] = time.perf_counter() - t - sum(times.values())
+            rec["repair"] = _deploy_repair(router, factory(SEED), prompts,
+                                           want, models)
+            times["repair"] = time.perf_counter() - t - sum(times.values())
+            rec["promote"] = _deploy_promote(
+                router, dirs[1], factory(SEED + 1), prompts, want, models,
+                sched, scale, canary, manifest)
+            times["promote"] = time.perf_counter() - t - sum(times.values())
+            counts = mt.launch_counts()
+        steps = {id(s): s.metrics.snapshot()["decode_steps_total"]
+                 - before.get(id(s), 0) for s in servers}
+        depth = models[0].depth
+        want_counts = dict(dict.fromkeys(counts, 0),
+                           flash_fwd=depth * k1[0],
+                           paged_attention=depth * sum(steps.values()))
+        if counts != want_counts:
+            raise AssertionError(f"deploy: launches {counts}, expected "
+                                 f"{want_counts}")
+        captures = [s.engine.graph_captures for s in servers]
+        decoded = [s.metrics.snapshot()["decode_steps_total"] > 1
+                   for s in servers]
+        if captures != [int(d) for d in decoded]:
+            raise AssertionError(f"deploy: decode graph captures {captures} "
+                                 f"(decoded {decoded})")
+        rec.update(launches=counts, full_prefills_k1=k1[0],
+                   decode_steps=sum(steps.values()), engines=len(servers),
+                   graph_captures=captures,
+                   seconds={k: round(v, 1) for k, v in times.items()},
+                   alerts=[e for e in router.alerts.history()
+                           if e["rule"].startswith("deploy_")])
+    return rec
+
+
+def _deploy_fleet(dev, model1, fleet, launched, dirs, prompts, want,
+                  manifest) -> dict:
+    """(f) the one-worker fleet (started at the phase's start from the
+    seed-0 ``--ckpt``) behind ``make_router()``, deployed onto the seed-1
+    checkpoint through ``Fleet.deploy_factory`` (stages (1.0,)): the new
+    worker serves DEPLOY["fleet_requests"] prompts with seed 1's tokens,
+    counted through its ``/v1/spec``: K1 12 a prefix miss, K6 12 a
+    decode step, one capture; its fingerprint the manifest's."""
+    import ml_trainer_tpu_torch as mt
+
+    c, n = DEPLOY, DEPLOY["new_tokens"]
+    router = None
+    try:
+        for launch in launched:
+            fleet.wait_ready(*launch)
+        router = fleet.make_router(hedging=False, health_interval=0.1)
+        t0 = time.perf_counter()
+        dep = router.deploy(f"{dirs[1]}/model.pth", canary=0.25,
+                            config=mt.serving.DeployConfig(
+                                stages=(1.0,), hold_s=0.0,
+                                min_window_requests=10 ** 4,
+                                poll_interval_s=c["poll_s"],
+                                drain_timeout_s=60.0))
+        verdict = dep.wait(timeout=600)
+        deploy_s = time.perf_counter() - t0
+        if verdict != "done" or len(router.replicas) != 1:
+            raise AssertionError(f"deploy fleet: {verdict} "
+                                 f"({dep.rollback_cause}), "
+                                 f"{sorted(router.replicas)}")
+        (remote,) = [r.server for r in router.replicas.values()]
+        if (remote.engine.weights_fp != manifest["weights_fingerprint"]
+                or dep.weights_fp != manifest["weights_fingerprint"]):
+            raise AssertionError("deploy fleet: the new worker serves "
+                                 "other weights")
+
+        def state():
+            m = remote._get("/metrics.json")
+            return dict(spec=remote.spec(), misses=m["prefix_misses"],
+                        steps=m["decode_steps_total"])
+
+        k = c["fleet_requests"]
+        before = state()
+        t1 = time.perf_counter()
+        streams = [router.submit(p, n, tenant=f"fleet{i}")
+                   for i, p in enumerate(prompts[:k])]
+        outs = [s.result(timeout=600) for s in streams]
+        wall = time.perf_counter() - t1
+        after = state()
+        got = {kn: after["spec"]["launches"][kn]
+               - before["spec"]["launches"][kn]
+               for kn in after["spec"]["launches"]}
+        want_counts = dict(
+            dict.fromkeys(got, 0),
+            flash_fwd=model1.depth * (after["misses"] - before["misses"]),
+            paged_attention=model1.depth * (after["steps"]
+                                            - before["steps"]))
+        if got != want_counts or after["spec"]["graph_captures"] != 1:
+            raise AssertionError(f"deploy fleet: launches {got}, expected "
+                                 f"{want_counts}, captures "
+                                 f"{after['spec']['graph_captures']}")
+        parted = near_tie(model1, prompts[:k], outs, want[1][:k],
+                          _slack(None), "deploy fleet")
+        rec = dict(deploy_s=round(deploy_s, 1), staging_s=_staging_s(dep),
+                   launches=got, tokens_per_s=k * n / wall, parted=parted,
+                   worker_pid=remote.pid)
+    finally:
+        if router is not None:
+            router.close()
+        fleet.stop()
+        _stop_launched(launched)
+    return rec
+
+
+def deploy_phase(dev, smi: str) -> dict:
+    """The ``deploy`` phase: the two seeded models written by
+    ``Trainer.save_model``, one ``Server`` on each for the reference
+    tokens, the in-process runs (``_deploy_inprocess``: a wedged canary
+    rolled back, a shadow rolled back, the autoscaler's repair, a canary
+    promoted under open-loop traffic), then the fleet's deploy.  Gates
+    as each run's docstring says, and the card's allocated memory back
+    within 1% after the routers closed.  Returns the counted launches."""
+    import numpy as np
+    import torch
+
+    import ml_trainer_tpu_torch as mt
+    from ml_trainer_tpu_torch.checkpoint import load_model_manifest
+
+    c, n = DEPLOY, DEPLOY["new_tokens"]
+    t0 = time.perf_counter()
+    models = [_seeded_model(c["model"], seed=s, device=dev).eval()
+              for s in (SEED, SEED + 1)]
+    dirs = [f"{DEPLOY_DIR}/seed{s}" for s in (SEED, SEED + 1)]
+    manifests = []
+    for model, d in zip(models, dirs):
+        mt.Trainer(model, device=dev).save_model(d)
+        manifests.append(load_model_manifest(d))
+        if manifests[-1]["weights_fingerprint"] != \
+                mt.serving.engine.weights_fp(model):
+            raise AssertionError(f"deploy: {d}'s manifest is not the "
+                                 "engine's fingerprint")
+    fleet = mt.serving.Fleet(
+        ["both"], model_name=c["model"], max_len=models[0].max_len,
+        max_batch=c["max_batch"], kv_page_size=c["page"], paged_kernel=True,
+        ckpt=f"{dirs[0]}/model.pth", log_dir=f"{DEPLOY_DIR}/logs")
+    name = fleet._next_name("both")
+    launched = [(name, *fleet.launch(name, "both"))]
+    t1 = time.perf_counter()
+    try:
+        rng = np.random.default_rng(SEED + 50)
+        vocab = models[0].vocab_size
+        lo, hi = c["lens"]
+        prompts = [rng.integers(0, vocab, int(m)).astype(np.int32)
+                   for m in rng.choice(np.arange(lo, hi + 1), c["prompts"],
+                                       replace=False)]
+        canary = _slice_tenant("open-canary", 0.0, 0.25)
+        stable = _slice_tenant("open-stable", 0.5, 1.0)
+        load = mt.serving.TenantLoad(prompt_len=c["lens"],
+                                     output_len=(n, n))
+        sched = mt.serving.poisson_schedule(
+            c["open_rate"], c["open_requests"], vocab,
+            tenants={canary: load, stable: load}, seed=SEED + 60)
+        scale = min(1.0, c["open_span_s"] / sched[-1].arrival_s)
+        want = {}
+        for g, model in enumerate(models):
+            with mt.Server(model, max_batch=c["max_batch"],
+                           kv_page_size=c["page"], paged_kernel=True,
+                           device=dev) as server:
+                streams = [server.submit(p, n)
+                           for p in prompts + [s.prompt for s in sched]]
+                outs = [s.result(timeout=600) for s in streams]
+            want[g] = outs[:len(prompts)]
+            want.setdefault("open", {})[g] = outs[len(prompts):]
+        del server, streams
+        mem0 = _allocated_without_workspaces(dev)
+        t2 = time.perf_counter()
+        checks: dict = {}
+        rec = _deploy_inprocess(dev, models, dirs, prompts, want, sched,
+                                scale, canary, manifests[1], checks)
+        t3 = time.perf_counter()
+    except BaseException:
+        _stop_launched(launched)
+        raise
+    rec["fleet"] = _deploy_fleet(dev, models[1], fleet, launched, dirs,
+                                 prompts, want, manifests[1])
+    t4 = time.perf_counter()
+    for kname in ("flash_fwd", "paged_attention"):
+        if not checks.get(kname, {}).get("calls"):
+            raise AssertionError(f"the per-call check saw no {kname} call")
+    mem1 = _allocated_without_workspaces(dev)
+    rb, pr = rec["rollback"], rec["promote"]
+    log(f"deploy rollback on {smi}: " + json.dumps(rb))
+    log(f"deploy shadow on {smi}: " + json.dumps(rec["shadow"]))
+    log(f"deploy repair on {smi}: " + json.dumps(rec["repair"]))
+    log(f"deploy promote on {smi}: " + json.dumps(
+        {k: v for k, v in pr.items() if k != "open_loop"}))
+    log(f"deploy open loop during the canary on {smi}: "
+        + json.dumps(pr["open_loop"]))
+    log(f"deploy fleet on {smi}: " + json.dumps(rec["fleet"]))
+    log(f"deploy per-call checks on {smi}: " + json.dumps(checks))
+    log(f"deploy on {smi}: staging s (spawn, warm-up, capture) rollback "
+        f"{rb['staging_s']['staged']}, shadow "
+        f"{rec['shadow']['staging_s']['staged']}, promote "
+        f"{pr['staging_s']['staged']}, fleet "
+        f"{rec['fleet']['staging_s']['staged']}; burn crossing to "
+        f"teardown {rb['teardown_after_crossing_s']} s; rollback drain "
+        f"{rb['drain_s']} s; launches {json.dumps(rec['launches'])} "
+        f"({rec['full_prefills_k1']} K1 prefills, {rec['decode_steps']} "
+        f"decode steps, {rec['engines']} engines, captures "
+        f"{rec['graph_captures']}); memory {mem0} -> {mem1}")
+    log(f"deploy seconds: checkpoints {t1 - t0:.1f}, references "
+        f"{t2 - t1:.1f}, in process {t3 - t2:.1f} "
+        f"({json.dumps(rec['seconds'])}), fleet {t4 - t3:.1f}, phase "
+        f"{t4 - t0:.1f}")
+    if abs(mem1 - mem0) > 0.01 * mem0:
+        raise AssertionError(f"deploy: memory {mem0} -> {mem1}; the "
+                             f"largest live tensors: {_live_cuda()}")
+    launches = dict(rec["launches"])
+    for kname, count in rec["fleet"]["launches"].items():
+        launches[kname] = launches.get(kname, 0) + count
+    log(f"deploy launches on {smi}: " + json.dumps(launches))
+    del models
+    torch.cuda.empty_cache()
+    _discard(DEPLOY_DIR)
+    return dict(launches=launches)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only",
                         choices=["kernels", "serve", "train", "dp", "models",
                                  "graphs", "resume", "data", "llama", "cli",
                                  "lora", "examples", "dist", "decode",
-                                 "front", "router"],
+                                 "front", "router", "deploy"],
                         default=None)
     # The dist phase's own processes (started by the phase, not by hand).
     parser.add_argument("--dist-worker", choices=["nccl1", "gloo2"],
@@ -8859,6 +9489,11 @@ def main(argv=None) -> int:
         for kname, n in rec["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
     mark = lap("router", mark)
+    if args.only in (None, "deploy"):
+        rec = deploy_phase(dev, smi)
+        for kname, n in rec["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
+    mark = lap("deploy", mark)
     if args.only in (None, "train"):
         training = train(dev)
         log(f"training on {smi}: " + json.dumps(training))

@@ -27,8 +27,13 @@ and ``Server`` takes ``spec_k`` and ``prefill_chunk`` (chunked prefill).
 ``Server`` serves over HTTP (``http_port``, ``serve_http``) through a
 weighted multi-tenant scheduler (``TenantConfig``), with SLO accounting
 (``SloPolicy``), the overload ladder (``set_degradation``,
-``DegradationConfig``) and a decode watchdog; ``telemetry`` holds the
-metrics registry that ``GET /metrics`` exposes.
+``DegradationConfig``) and a decode watchdog; ``Router`` spreads it over
+replicas (KV migrating prefill -> decode) and rolls them onto new weights
+under traffic (``Router.deploy``: canary, shadow, rollback), beside the
+``serving.Autoscaler`` and the open-loop load generator
+(``serving.run_open_loop``); ``telemetry`` holds the metrics registry
+that ``GET /metrics`` exposes, the flight recorder, the Watchtower store
+and the alert engine.
 ``Trainer(lora=LoraConfig(...))`` trains a LoRA adapter on a frozen
 GPT-2 base; ``export_lora`` writes it in the JAX package's artifact
 format (``lora``) and ``Server(adapters=AdapterConfig(...))`` serves it

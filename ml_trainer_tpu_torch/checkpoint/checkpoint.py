@@ -60,6 +60,7 @@ logger = get_logger("ml_trainer_tpu_torch.checkpoint")
 
 CHECKPOINT_PREFIX = "checkpoint_"
 MANIFEST = "manifest.json"
+MODEL_MANIFEST = "model_manifest.json"  # beside model.pth
 CORRUPT_SUFFIX = ".corrupt"
 FORMAT = 2
 _CKPT_RE = re.compile(rf"^{CHECKPOINT_PREFIX}(\d+)$")
@@ -186,6 +187,42 @@ def weights_fingerprint(variables: Any) -> str:
     for path, shape, dtype, crc in _fingerprint_rows(_flatten(variables)):
         h.update(f"{path}|{shape}|{dtype}|{crc:#010x}\n".encode())
     return f"w:{h.hexdigest()[:16]}"
+
+
+def write_model_manifest(model_dir: str, variables: Any,
+                         data: Optional[bytes] = None) -> dict:
+    """``model_manifest.json`` beside ``model.pth``: the weights
+    fingerprint and structure digest of ``variables`` (the flax names
+    and layouts, ``convert.variables_to_jax``), so they equal the JAX
+    package's manifest for the same weights and the serving engine's
+    ``weights_fp``, plus the CRC32 and size of ``data`` (the written
+    file's bytes) when given.  The CRC differs from the JAX package's
+    for the same weights: its file is ``model.msgpack``, this one
+    ``model.pth``.  Returns the manifest."""
+    os.makedirs(model_dir, exist_ok=True)
+    manifest = {
+        "format": 1,
+        "weights_fingerprint": weights_fingerprint(variables),
+        "structure_digest": weights_structure_digest(variables),
+    }
+    if data is not None:
+        manifest["model_crc32"] = _crc32(data)
+        manifest["model_bytes"] = len(data)
+    _atomic_write(os.path.join(model_dir, MODEL_MANIFEST),
+                  json.dumps(manifest, indent=1).encode())
+    return manifest
+
+
+def load_model_manifest(path: str) -> Optional[dict]:
+    """The export manifest of a model directory (or of the directory of
+    ``model.pth``), or None when there is none."""
+    if not os.path.isdir(path):
+        path = os.path.dirname(path) or "."
+    try:
+        with open(os.path.join(path, MODEL_MANIFEST)) as fp:
+            return json.load(fp)
+    except (OSError, ValueError):
+        return None
 
 
 # ---------------------------------------------------------------- write

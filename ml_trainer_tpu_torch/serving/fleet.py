@@ -173,6 +173,14 @@ class RemoteServer:
         except Exception:  # noqa: BLE001
             pass
 
+    def stderr_tail(self, max_bytes: int = 2048) -> Optional[str]:
+        """The last ``max_bytes`` of the worker's log (stdout and stderr
+        together): the post-mortem of a crash after readiness, which the
+        autoscaler's replace-dead event attaches; None without one."""
+        if not self.log_path:
+            return None
+        return _tail(self.log_path, int(max_bytes)) or None
+
     def health(self) -> dict:
         try:
             return self._get("/healthz", timeout=2.0)
@@ -435,7 +443,8 @@ class Fleet:
         self._role_seq[role] = n + 1
         return f"{role}{n}"
 
-    def _command(self, name: str, role: str, port: int) -> List[str]:
+    def _command(self, name: str, role: str, port: int,
+                 ckpt: Optional[str] = None) -> List[str]:
         cmd = [sys.executable, "-m", "ml_trainer_tpu_torch.serving.fleet",
                "--worker", "--name", name, "--role", role,
                "--host", self.host, "--port", str(port),
@@ -445,8 +454,9 @@ class Fleet:
                "--kv-page-size", str(self.kv_page_size),
                "--kv-pages", str(self.kv_pages), "--seed", str(self.seed),
                "--prefill-chunk", str(self.prefill_chunk)]
-        if self.ckpt:
-            cmd += ["--ckpt", self.ckpt]
+        ckpt = ckpt or self.ckpt
+        if ckpt:
+            cmd += ["--ckpt", ckpt]
         if self.device:
             cmd += ["--device", self.device]
         if self.paged_kernel:
@@ -455,8 +465,9 @@ class Fleet:
             cmd.append("--no-prefix-cache")
         return cmd
 
-    def launch(self, name: str, role: str):
-        """Start one replica process; returns ``(proc, url, log_path)``
+    def launch(self, name: str, role: str, ckpt: Optional[str] = None):
+        """Start one replica process (its weights from ``ckpt`` when
+        given, else the fleet's); returns ``(proc, url, log_path)``
         without waiting (``wait_ready`` waits)."""
         from ml_trainer_tpu_torch.resilience.faults import ENV_VAR
 
@@ -471,7 +482,8 @@ class Fleet:
             [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                       if p])
         with open(log_path, "w") as log_file:
-            proc = subprocess.Popen(self._command(name, role, port), env=env,
+            proc = subprocess.Popen(self._command(name, role, port, ckpt),
+                                    env=env,
                                     stdout=log_file,
                                     stderr=subprocess.STDOUT)
         return proc, f"http://{self.host}:{port}", log_path
@@ -504,9 +516,13 @@ class Fleet:
             f"fleet worker '{name}' not ready after {self.spawn_timeout}s "
             f"({last_err}); log {log_path}:\n{_tail(log_path)}")
 
-    def spawn(self, name: str, role: str) -> RemoteServer:
-        """One replica process, ready."""
-        return self.wait_ready(name, *self.launch(name, role))
+    def spawn(self, name: str, role: str,
+              ckpt: Optional[str] = None) -> RemoteServer:
+        """One replica process, ready.  With ``ckpt`` it loads its
+        weights from that ``.pth`` (or the directory holding
+        ``model.pth``) in place of the fleet's: the deploy path spawns
+        new-generation replicas so."""
+        return self.wait_ready(name, *self.launch(name, role, ckpt))
 
     def start(self) -> "Fleet":
         """Every replica of ``roles``, the processes started together."""
@@ -529,9 +545,12 @@ class Fleet:
         return self.spawn(self._next_name(role), role)
 
     def deploy_factory(self, ckpt: str):
-        raise NotImplementedError(
-            "Fleet.deploy_factory (deploy generations) is not ported yet; "
-            "see ROADMAP.md Queue A 5, second half")
+        """A ``server_factory`` bound to a checkpoint: ``Router.deploy``'s
+        new-generation replicas, each a process loading ``ckpt``."""
+        def spawn(role: str) -> RemoteServer:
+            return self.spawn(self._next_name(role), role, ckpt=ckpt)
+
+        return spawn
 
     def kill(self, name: str) -> None:
         """``SIGKILL`` one replica process (chaos)."""
@@ -559,10 +578,14 @@ class Fleet:
         from ml_trainer_tpu_torch.serving.router import Router
 
         router_kwargs.setdefault("own_servers", True)
-        return Router(
+        router = Router(
             replicas=dict(self.replicas),
             replica_urls={n: r.url for n, r in self.replicas.items()},
             **router_kwargs)
+        # Router.deploy spawns its new generation through
+        # ``deploy_factory``.
+        router.fleet = self
+        return router
 
 
 def _tail(path: str, max_bytes: int = 4096) -> str:

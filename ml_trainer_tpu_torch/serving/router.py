@@ -31,11 +31,22 @@ KV between replicas and keeps every stream alive across replica deaths:
   (``unhealthy_after``), hedged prefills for deterministic requests and
   a fleet-wide ``DegradationLadder`` harden the client path.
 
-Left out (ROADMAP.md): the telemetry half (metrics federation, fleet
-traces, incident bundles, alert rules, the watchtower, ``/trace`` and
-``/dash``: Queue A 7) and the deploy generations (``deploy``,
-``tenant_slice``, ``set_deploy_split``, ``promote_generation``: Queue A
-5's second half); each raises ``NotImplementedError``.
+* **Generations.**  Every replica belongs to a deploy generation (a
+  weights wave).  ``deploy`` (``serving/deploy.py``) adds a new
+  generation and points the tenant-hash slice ``[0, fraction)``
+  (``tenant_slice``, ``set_deploy_split``) at it; ``promote_generation``
+  makes it the serving one.  An attempt places, hedges and adopts
+  within one generation: KV never crosses weights.
+* **Watchtower.**  The health poll samples the process registry into
+  ``router.watchtower`` (a ``TimeSeriesStore``) and evaluates
+  ``router.alerts`` (an ``AlertEngine``: ``alert_rules``,
+  ``add_alert_rule``) on it; the autoscaler's and the deploy canary's
+  burn watches are rules on the same engine.
+
+Left out (ROADMAP.md Queue A 7): the rest of the telemetry half (metrics
+federation and the scrape of the workers' expositions, fleet traces,
+incident bundles, ``/trace`` and ``/dash``); each raises
+``NotImplementedError``.
 
 The router's gauges (``publish``): ``router_requests_total{role=,
 replica=}``, ``router_kv_migrated_bytes_total``,
@@ -48,6 +59,7 @@ router's own request-level SLO accounting.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import hashlib
 import json
 import queue as _queue
@@ -82,6 +94,9 @@ from ml_trainer_tpu_torch.serving.scheduler import (
 )
 from ml_trainer_tpu_torch.serving.slo import SloPolicy, SloTracker
 from ml_trainer_tpu_torch.serving.transfer import MigrationCorrupt
+from ml_trainer_tpu_torch.telemetry.alerts import AlertEngine, AlertRule
+from ml_trainer_tpu_torch.telemetry.flight import get_recorder
+from ml_trainer_tpu_torch.telemetry.watchtower import TimeSeriesStore
 
 
 def _not_ported(what: str, queue: str) -> NotImplementedError:
@@ -91,15 +106,21 @@ def _not_ported(what: str, queue: str) -> NotImplementedError:
 
 class Replica:
     """One replica behind the router: its server (a ``Server`` or a
-    ``fleet.RemoteServer``) and its routing state (role, last health
-    payload, liveness, breaker)."""
+    ``fleet.RemoteServer``) and its routing state (role, deploy
+    generation, last health payload, liveness, breaker)."""
 
     def __init__(self, name: str, server, url: Optional[str] = None,
-                 breaker: Optional[CircuitBreaker] = None):
+                 breaker: Optional[CircuitBreaker] = None,
+                 generation: int = 0):
         self.name = name
         self.server = server
         self.url = url
         self.role = server.role
+        # The weights wave it belongs to: one stream never mixes
+        # generations, and the deploy split selects the pool by it.
+        self.generation = int(generation)
+        self.weights_fp = getattr(getattr(server, "engine", None),
+                                  "weights_fp", None)
         self.healthy = True
         self.last_health: dict = {}
         # Placements since the last health refresh: without it every tie
@@ -252,7 +273,13 @@ class Router:
     has waited ``hedge_factor`` x the rolling ``hedge_quantile`` of
     first-result latency (at least ``hedge_min_s``); only deterministic
     requests (greedy, or sampled with a seed) hedge.  ``degradation``
-    configures ``router.ladder``, applied to every replica."""
+    configures ``router.ladder``, applied to every replica.
+    ``alert_rules``: declarative rules for ``router.alerts``, evaluated
+    on every health poll over ``router.watchtower``."""
+
+    # How often the health poll samples the process registry into the
+    # watchtower (the JAX router's default ``metrics_scrape_interval``).
+    WATCHTOWER_INTERVAL_S = 1.0
 
     def __init__(self, replicas: Dict[str, Server], *,
                  replica_urls: Optional[Dict[str, str]] = None,
@@ -274,13 +301,12 @@ class Router:
                  metrics_scrape_interval: Optional[float] = None,
                  incident_dir: Optional[str] = None,
                  incident_min_interval_s: Optional[float] = None,
-                 alert_rules=None):
+                 alert_rules: Optional[Sequence[AlertRule]] = None):
         for arg, value in (("metrics_scrape_interval",
                             metrics_scrape_interval),
                            ("incident_dir", incident_dir),
                            ("incident_min_interval_s",
-                            incident_min_interval_s),
-                           ("alert_rules", alert_rules)):
+                            incident_min_interval_s)):
             if value is not None:
                 raise _not_ported(f"Router({arg}=...), the fleet telemetry",
                                   "7")
@@ -318,6 +344,16 @@ class Router:
         self._lock = threading.Lock()
         self._sessions: Dict[str, str] = {}
         self._inflight = 0
+        # Deploy state (``serving/deploy.py``): the generation serving
+        # default traffic, the deployment's target generation and its
+        # tenant-hash fraction, the finished-request tap (shadow replay)
+        # and the fleet launcher when one built this router.
+        self._serving_generation = 0
+        self._deploy_generation: Optional[int] = None
+        self._deploy_fraction = 0.0
+        self._request_tap = None
+        self._deployment = None
+        self.fleet = None
         self._stopping = False
         self._stop_event = threading.Event()
         self._httpd = None
@@ -335,6 +371,12 @@ class Router:
         self.ladder = DegradationLadder(
             lambda: [r.server for r in self._replicas.values()],
             config=degradation, name="router")
+        # The fleet's time series and its alert engine.  No incident
+        # trigger: a ``page`` rule fires and records (Queue A 7 brings
+        # the incident bundles).
+        self.watchtower = TimeSeriesStore()
+        self.alerts = AlertEngine(alert_rules or (), store=self.watchtower)
+        self._wt_sampled_at = -float("inf")
         self._reindex_replicas()
         self._rebuild_ring()
         self._busy_polls = 0
@@ -509,11 +551,13 @@ class Router:
 
     # -- fleet management -------------------------------------------------
 
-    def add_replica(self, name: str, server, url: Optional[str] = None
-                    ) -> None:
+    def add_replica(self, name: str, server, url: Optional[str] = None,
+                    generation: Optional[int] = None) -> None:
         """Grow the fleet by one replica (thread-safe).  It takes the
         fleet's degradation rung and joins the ring and the pools; its
-        geometry must match."""
+        geometry must match.  ``generation`` defaults to the serving
+        one, so the autoscaler's additions during a deploy grow the
+        stable fleet; the deploy passes its target generation."""
         if name in self._replicas:
             raise ValueError(f"replica '{name}' already exists")
         if server.role not in ("prefill", "decode", "both"):
@@ -524,7 +568,10 @@ class Router:
         self._validate_geometry(name, server)
         if url is None:
             url = getattr(server, "url", None)  # a RemoteServer's
-        rep = Replica(name, server, url, breaker=self._new_breaker())
+        if generation is None:
+            generation = self._serving_generation
+        rep = Replica(name, server, url, breaker=self._new_breaker(),
+                      generation=generation)
         server.set_degradation(self.ladder.level, self.ladder.config)
         rep.last_health = rep.fetch_health()
         with self._lock:
@@ -532,6 +579,10 @@ class Router:
         self._reindex_replicas()
         self._rebuild_ring()
         self.metrics.set_replica_health(name, True)
+        get_recorder().record(
+            "fleet_change", action="add_replica", replica=name,
+            role=server.role, fleet=len(self._replicas),
+            generation=generation)
 
     def remove_replica(self, name: str, timeout: float = 30.0,
                        close: Optional[bool] = None) -> bool:
@@ -563,6 +614,9 @@ class Router:
         if close if close is not None else self._own_servers:
             rep.server.close()
         self.metrics.set_replica_health(name, False)
+        get_recorder().record(
+            "fleet_change", action="remove_replica", replica=name,
+            drained=drained, fleet=len(self._replicas))
         return drained
 
     def reassign_role(self, name: str, role: str,
@@ -594,7 +648,47 @@ class Router:
             self._sessions = {s: n for s, n in self._sessions.items()
                               if n != name}
         self._rebuild_ring()
+        get_recorder().record("fleet_change", action="reassign_role",
+                              replica=name, role=role)
         return True
+
+    def deploy(self, ckpt: str, canary: Optional[float] = None,
+               shadow: bool = False, *, factory=None, config=None):
+        """Roll the fleet onto new weights under live traffic
+        (``serving/deploy.py``): new-generation replicas from ``ckpt``,
+        the tenant-hash slice ``[0, canary)`` pointed at them, the
+        slice's SLO burn watched, then a ramp to 100% and the old
+        generation retired, or a rollback through the drain path with
+        no stream dropped.  ``canary`` replaces ``config``'s when given
+        (the JAX router's default of 0.05 replaces it always; the port
+        keeps ``config.canary``, whose default is that 0.05).
+        ``shadow=True`` first replays sampled live requests on the new
+        replicas off the serving path.  ``factory`` (role -> server)
+        defaults to the attached fleet's ``deploy_factory(ckpt)``.
+        Returns the started ``Deployment``."""
+        from ml_trainer_tpu_torch.serving.deploy import (
+            DeployConfig,
+            Deployment,
+        )
+
+        active = self._deployment
+        if active is not None and not active.finished():
+            raise RuntimeError(
+                f"a deployment is already {active.state}; wait for it or "
+                "close() it before starting another")
+        if factory is None:
+            if self.fleet is None:
+                raise ValueError(
+                    "Router.deploy needs a server factory: attach a Fleet "
+                    "(Fleet.make_router) or pass factory=")
+            factory = self.fleet.deploy_factory(ckpt)
+        cfg = config if config is not None else DeployConfig()
+        if canary is not None:
+            cfg = dataclasses.replace(cfg, canary=float(canary))
+        if shadow:
+            cfg = dataclasses.replace(cfg, shadow=True)
+        self._deployment = Deployment(self, ckpt, factory, config=cfg)
+        return self._deployment.start()
 
     def _adopt_evacuated(self, req: Request, export, source: Replica
                          ) -> None:
@@ -602,7 +696,7 @@ class Router:
         candidate (a fresh, verified serialization each); when none can
         take it the request fails with a retryable ``draining`` error and
         its pump redistributes it."""
-        for rep in self._decode_candidates():
+        for rep in self._decode_candidates(generation=source.generation):
             if rep is source or not rep.try_place():
                 continue
             payload = transfer.to_bytes(export)
@@ -620,23 +714,63 @@ class Router:
                    "replica draining for role reassignment: no candidate "
                    "could adopt the evacuated KV; request redistributed")
 
+    # -- the deploy traffic split (serving/deploy.py) ---------------------
+
+    @staticmethod
+    def tenant_slice(tenant: str) -> float:
+        """A tenant's fixed coordinate in [0, 1): a deploy at fraction
+        ``f`` sends exactly the tenants with ``tenant_slice(t) < f`` to
+        the new generation, the same ones on every poll and in every
+        process (the JAX router's hash)."""
+        h = hashlib.sha1(b"deploy|" + tenant.encode()).hexdigest()[:8]
+        return int(h, 16) / float(1 << 32)
+
+    def set_deploy_split(self, generation: Optional[int],
+                         fraction: float) -> None:
+        """Point the slice ``[0, fraction)`` at ``generation`` (None
+        tears the split down: all traffic on the serving generation)."""
+        with self._lock:
+            self._deploy_generation = generation
+            self._deploy_fraction = float(fraction)
+
+    def promote_generation(self, generation: int) -> None:
+        """Make ``generation`` the serving one: default traffic and the
+        autoscaler's additions land there from now on."""
+        with self._lock:
+            self._serving_generation = int(generation)
+            self._deploy_generation = None
+            self._deploy_fraction = 0.0
+
+    def _target_generation(self, tenant: str) -> int:
+        """The generation that serves ``tenant`` now."""
+        gen, frac = self._deploy_generation, self._deploy_fraction
+        if gen is not None and self.tenant_slice(tenant) < frac:
+            return gen
+        return self._serving_generation
+
+    @staticmethod
+    def _gen_pool(pool: Dict[str, Replica], generation: int
+                  ) -> Dict[str, Replica]:
+        """``pool`` cut to one generation; the whole pool when none of
+        it is of that generation (serving somewhere beats refusing: the
+        deploy watches the burn, it never relies on placement
+        failing)."""
+        sub = {n: r for n, r in pool.items() if r.generation == generation}
+        return sub or pool
+
+    # -- alerts -----------------------------------------------------------
+
+    def add_alert_rule(self, rule: AlertRule) -> AlertRule:
+        """One more rule on the fleet's engine (evaluated from the next
+        health poll)."""
+        return self.alerts.add_rule(rule)
+
+    @property
+    def alert_rules(self) -> List[AlertRule]:
+        """The engine's rules, in the order they were added."""
+        return list(self.alerts.rules.values())
+
     # -- not ported -------------------------------------------------------
-
-    def deploy(self, *args, **kwargs):
-        raise _not_ported("Router.deploy (deploy generations)",
-                          "5, second half")
-
-    def tenant_slice(self, *args, **kwargs):
-        raise _not_ported("Router.tenant_slice (deploy generations)",
-                          "5, second half")
-
-    def set_deploy_split(self, *args, **kwargs):
-        raise _not_ported("Router.set_deploy_split (deploy generations)",
-                          "5, second half")
-
-    def promote_generation(self, *args, **kwargs):
-        raise _not_ported("Router.promote_generation (deploy generations)",
-                          "5, second half")
 
     def scrape_metrics(self, *args, **kwargs):
         raise _not_ported("Router.scrape_metrics (metrics federation)", "7")
@@ -657,13 +791,6 @@ class Router:
     def save_incident_bundle(self, *args, **kwargs):
         raise _not_ported("Router.save_incident_bundle (incident bundles)",
                           "7")
-
-    def add_alert_rule(self, *args, **kwargs):
-        raise _not_ported("Router.add_alert_rule (alerts)", "7")
-
-    @property
-    def alert_rules(self):
-        raise _not_ported("Router.alert_rules (alerts)", "7")
 
     # -- health, snapshot, close ------------------------------------------
 
@@ -695,11 +822,16 @@ class Router:
         with self._lock:
             snap["inflight"] = self._inflight
             snap["sessions"] = len(self._sessions)
+            snap["serving_generation"] = self._serving_generation
+            snap["deploy_generation"] = self._deploy_generation
+            snap["deploy_fraction"] = self._deploy_fraction
         return snap
 
     def close(self) -> None:
         self._stopping = True
         self._stop_event.set()
+        if self._deployment is not None:
+            self._deployment.close()
         if self._own_servers:
             for rep in self._replicas.values():
                 rep.server.close()
@@ -758,6 +890,9 @@ class Router:
         alive = self._alive()
         if not alive:
             raise EngineUnhealthy("no healthy replica available")
+        # The deploy split first: the whole attempt (prefill, decode,
+        # hedges, adoption candidates) stays in one generation.
+        alive = self._gen_pool(alive, self._target_generation(creq.tenant))
         key = self._affinity_key(creq.tenant, creq.prompt, creq.adapter)
         if self.mode == "colocated":
             pool = {n: r for n, r in alive.items()
@@ -788,8 +923,12 @@ class Router:
         decode.pending += 1
         return prefill, decode
 
-    def _decode_candidates(self) -> List[Replica]:
+    def _decode_candidates(self, generation: Optional[int] = None
+                           ) -> List[Replica]:
         alive = self._alive()
+        if generation is not None:
+            alive = {n: r for n, r in alive.items()
+                     if r.generation == generation}
         pool = [r for r in alive.values()
                 if r.role in ("decode", "both")] or list(alive.values())
         return sorted(pool, key=Replica.load_score)
@@ -807,6 +946,12 @@ class Router:
         finally:
             with self._lock:
                 self._inflight -= 1
+            tap = self._request_tap
+            if tap is not None:
+                try:  # the deploy's shadow sampling never fails a stream
+                    tap(creq)
+                except Exception:  # noqa: BLE001
+                    pass
 
     def _remaining_deadline(self, creq: Request) -> Optional[float]:
         if creq.deadline is None:
@@ -1046,7 +1191,8 @@ class Router:
         idle capacity (a saturated fleet is the ladder's job).  Returns
         ``(shadow, (prefill, decode))`` or ``(None, None)``."""
         pool = [r for r in self._alive().values()
-                if r.role in ("prefill", "both") and r is not primary_prefill]
+                if r.role in ("prefill", "both") and r is not primary_prefill
+                and r.generation == primary_prefill.generation]
         if not pool:
             return None, None
         best = min(pool, key=Replica.load_score)
@@ -1090,9 +1236,12 @@ class Router:
         """Hand the export to a decode replica: the placed one first,
         then any healthy candidate.  Each gets a fresh serialization (the
         bytes the metrics count), verified before a page is written; a
-        corrupt payload goes to the next candidate."""
-        candidates = [decode_rep] + [r for r in self._decode_candidates()
-                                     if r is not decode_rep]
+        corrupt payload goes to the next candidate.  The candidates are
+        of the exporting attempt's generation: other weights would refuse
+        the KV (``WeightsMismatch``)."""
+        candidates = [decode_rep] + [
+            r for r in self._decode_candidates(
+                generation=decode_rep.generation) if r is not decode_rep]
         for rep in candidates:
             if not rep.try_place():
                 continue
@@ -1158,7 +1307,28 @@ class Router:
                         continue
                 rep.healthy = ok
                 self.metrics.set_replica_health(rep.name, ok)
+            self._watchtower_tick()
             self._stop_event.wait(self._health_interval)
+
+    def _watchtower_tick(self) -> None:
+        """One sweep on the health poll: the router's gauges published
+        and the process registry sampled into ``self.watchtower`` every
+        ``WATCHTOWER_INTERVAL_S``, then the alert rules evaluated.  The
+        workers' expositions join the store with ``scrape_metrics``
+        (Queue A 7).  Never raises: the poller outlives any sweep."""
+        from ml_trainer_tpu_torch.telemetry.registry import default_registry
+
+        try:
+            now = time.time()
+            mono = time.monotonic()
+            if mono - self._wt_sampled_at >= self.WATCHTOWER_INTERVAL_S:
+                self._wt_sampled_at = mono
+                registry = default_registry()
+                self.publish(registry)
+                self.watchtower.sample_registry(registry, t=now, force=True)
+            self.alerts.evaluate(now=now)
+        except Exception:  # noqa: BLE001 - observability never kills it
+            pass
 
     def _fire_chaos_kill(self) -> None:
         """``replica_kill``: at the matching busy poll, kill the replica

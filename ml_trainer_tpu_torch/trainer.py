@@ -162,6 +162,7 @@ from ml_trainer_tpu_torch.checkpoint import (
     save_checkpoint,
     save_checkpoint_sharded,
     wait_for_checkpoints,
+    write_model_manifest,
 )
 from ml_trainer_tpu_torch.checkpoint.checkpoint import CHECKPOINT_PREFIX
 from ml_trainer_tpu_torch.config import TrainerConfig, validate_kwargs
@@ -2057,7 +2058,10 @@ class Trainer:
         reference's layout, the file ``export_torch`` writes (MLModel's
         ``fc1`` columns in C*H*W order), so the reference and the JAX
         package read it; a nested family as the port's ``state_dict``.
-        ``load_model`` reads both (``utils/utils.py``)."""
+        ``load_model`` reads both (``utils/utils.py``).  Beside it,
+        ``model_manifest.json`` (``checkpoint.write_model_manifest``):
+        the weights fingerprint of the JAX package's manifest for the
+        same weights and the file's CRC32."""
         from ml_trainer_tpu_torch.checkpoint.torch_export import (
             save_torch_checkpoint,
         )
@@ -2073,12 +2077,18 @@ class Trainer:
         state = {k: (served or {}).get(k, v).detach().cpu() for k, v in
                  self.model.state_dict().items()}
         tmp = os.path.join(model_dir, MODEL_FILE + ".tmp")
+        variables = variables_to_jax(self.model, served)
         if is_reference_layout(state):
-            save_torch_checkpoint(tmp, variables_to_jax(self.model, served),
+            save_torch_checkpoint(tmp, variables,
                                   spatial_inputs=spatial_inputs_of(state))
         else:
             torch.save(state, tmp)
+        with open(tmp, "rb") as fp:
+            data = fp.read()
         os.replace(tmp, os.path.join(model_dir, MODEL_FILE))
+        # The weights fingerprint a serving deploy keys KV portability on
+        # (``serving/deploy.py``), beside the file it describes.
+        write_model_manifest(model_dir, variables, data=data)
 
     def export_lora(self, path: str, name: Optional[str] = None) -> dict:
         """Write the trained adapter as one ``.npz`` artifact, the unit

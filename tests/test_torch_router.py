@@ -319,18 +319,15 @@ def test_router_validates_requests(models):
 def test_the_surface_left_out_names_the_roadmap(models):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 7"):
         _build(models, ["both"], router_kwargs={"incident_dir": "/x"})
+    for arg in ("metrics_scrape_interval", "incident_min_interval_s"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A 7"):
+            _build(models, ["both"], router_kwargs={arg: 1.0})
     with _build(models, ["both"]) as router:
-        for call in (lambda: router.deploy("ckpt"),
-                     lambda: router.set_deploy_split(1, 0.5),
-                     lambda: router.promote_generation(1),
-                     lambda: router.tenant_slice("t")):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md Queue A 5, second half"):
-                call()
         for call in (router.fleet_trace, router.scrape_metrics,
                      router.federated_metrics_text,
+                     lambda: router.save_fleet_trace("x"),
                      lambda: router.trigger_incident("x"),
-                     lambda: router.alert_rules,
+                     lambda: router.save_incident_bundle("x"),
                      lambda: router.submit(_prompt(1, 4), 2, trace={})):
             with pytest.raises(NotImplementedError,
                                match="ROADMAP.md Queue A 7"):

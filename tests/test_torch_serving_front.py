@@ -19,6 +19,7 @@ port's, and the outcomes must be equal.
   make the same transitions under a fake clock.
 """
 
+import threading
 import time
 
 import numpy as np
@@ -303,9 +304,15 @@ def _record_sequence(m, rng):
 
 @pytest.fixture
 def fake_clock(monkeypatch):
+    """``time.monotonic`` stepping 0.25 s a call on the test's thread; a
+    thread left by an earlier test in the worker keeps the real clock
+    (its calls would otherwise step the test's clock between reads)."""
     t = [1000.0]
+    real, me = time.monotonic, threading.get_ident()
 
     def clock():
+        if threading.get_ident() != me:
+            return real()
         t[0] += 0.25
         return t[0]
 
